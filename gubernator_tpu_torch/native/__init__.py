@@ -1,0 +1,257 @@
+"""ctypes loader for the port's C++ host runtime (host_runtime.cpp).
+
+The runtime is compiled with g++ at first use into the port's build
+directory (utils/build.py), never beside the JAX package's sources.
+Unlike the JAX package there is no pure-Python twin: the columnar path
+needs the runtime, so a failed build raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import threading
+from typing import Tuple
+
+import numpy as np
+
+from ..utils.build import build_library
+
+_HERE = os.path.dirname(os.path.abspath(__file__))
+SOURCE = os.path.join(_HERE, "host_runtime.cpp")
+CXX_CMD = ["g++", "-O2", "-std=c++17", "-shared", "-fPIC"]
+
+_lib = None
+_lib_lock = threading.Lock()
+
+
+def build(log: "list | None" = None) -> str:
+    """Compile the runtime if its library is absent; returns the path."""
+    return build_library("host_runtime", [SOURCE], CXX_CMD, log=log)
+
+
+def _load() -> ctypes.CDLL:
+    lib = ctypes.CDLL(build())
+    c = ctypes
+    p = c.c_void_p
+    lib.gt_table_new.restype = p
+    lib.gt_table_new.argtypes = [c.c_int64]
+    lib.gt_table_free.argtypes = [p]
+    lib.gt_table_len.restype = c.c_int64
+    lib.gt_table_len.argtypes = [p]
+    lib.gt_table_get_slot.restype = c.c_int32
+    lib.gt_table_get_slot.argtypes = [p, c.c_char_p, c.c_int64]
+    lib.gt_table_get_expire.argtypes = [p, p, c.c_int64, p]
+    lib.gt_table_commit_keys.argtypes = [p, p, p, p, p, p, c.c_int64]
+    lib.gt_fnv1_batch.argtypes = [p, p, c.c_int64, c.c_int32, p]
+    lib.gt_mesh_begin.restype = p
+    lib.gt_mesh_begin.argtypes = [
+        p, c.c_int64,  # tables[S], S
+        p, p, c.c_int64, c.c_int64,  # keys, offsets, n, now
+        p,  # counts[S] out
+    ]
+    lib.gt_mesh_plan_grouped.restype = c.c_int64
+    lib.gt_mesh_plan_grouped.argtypes = [
+        p,  # mesh plan
+        p, p,  # algo, behavior
+        p, p, p,  # hits, limit, duration
+        p, p,  # greg_expire, greg_duration
+        c.c_int32, c.c_int64,  # reset mask, P
+        p, p, p,  # slot, rid, exists
+        p, p, p,  # occ, write, pos
+    ]
+    lib.gt_mesh_finish_narrow.argtypes = [p, p, c.c_int64, p, p, p]
+    lib.gt_mesh_finish_wide.argtypes = [p, p, p, p, p]
+    lib.gt_mesh_free.argtypes = [p]
+    return lib
+
+
+def get_lib() -> ctypes.CDLL:
+    """The loaded runtime (built on first call); raises on failure."""
+    global _lib
+    if _lib is None:
+        with _lib_lock:
+            if _lib is None:
+                _lib = _load()
+    return _lib
+
+
+def pack_keys(keys) -> Tuple[np.ndarray, np.ndarray]:
+    """Concatenate utf-8 keys into (bytes buffer, offsets[n+1])."""
+    bs = [k.encode("utf-8") if isinstance(k, str) else k for k in keys]
+    offsets = np.zeros(len(bs) + 1, dtype=np.int64)
+    np.cumsum([len(b) for b in bs], out=offsets[1:])
+    return np.frombuffer(b"".join(bs), dtype=np.uint8), offsets
+
+
+class PackedKeys:
+    """Hash keys kept in PACKED form (one utf-8 buffer + offsets[n+1]),
+    so a large batch reaches the planner without one Python string per
+    lane."""
+
+    __slots__ = ("buf", "offsets")
+
+    def __init__(self, buf: np.ndarray, offsets: np.ndarray):
+        self.buf = buf
+        self.offsets = offsets
+
+    def __len__(self) -> int:
+        return len(self.offsets) - 1
+
+
+def as_packed(keys) -> Tuple[np.ndarray, np.ndarray]:
+    """(buf, offsets) for either a PackedKeys or a list of strings."""
+    if isinstance(keys, PackedKeys):
+        return keys.buf, keys.offsets
+    return pack_keys(keys)
+
+
+def fnv1_batch(keys, variant_1a: bool = True) -> np.ndarray:
+    """FNV-1a (default) or FNV-1 64-bit hashes of many keys (uint64)."""
+    lib = get_lib()
+    out = np.empty(max(len(keys), 1), dtype=np.uint64)
+    buf, offsets = as_packed(keys)
+    lib.gt_fnv1_batch(
+        buf.ctypes.data, offsets.ctypes.data, len(keys),
+        1 if variant_1a else 0, out.ctypes.data,
+    )
+    return out[: len(keys)]
+
+
+class NativeSlotTable:
+    """Key -> slot table of one shard: strict expiry (cache.go:151),
+    same-slot recycling on expiry (cache.go:138-163), LRU eviction at
+    capacity (cache.go:115-130)."""
+
+    def __init__(self, capacity: int):
+        if capacity <= 0:
+            raise ValueError("capacity must be positive")
+        self._lib = get_lib()
+        self.capacity = capacity
+        self._ptr = self._lib.gt_table_new(capacity)
+
+    def __del__(self):
+        ptr = getattr(self, "_ptr", None)
+        if ptr:
+            self._lib.gt_table_free(ptr)
+            self._ptr = None
+
+    def __len__(self) -> int:
+        return int(self._lib.gt_table_len(self._ptr))
+
+    def get_slot(self, key: str) -> "int | None":
+        b = key.encode("utf-8")
+        s = self._lib.gt_table_get_slot(self._ptr, b, len(b))
+        return None if s < 0 else int(s)
+
+    def get_expire_bulk(self, slots) -> np.ndarray:
+        slots = np.ascontiguousarray(slots, dtype=np.int32)
+        out = np.empty(max(len(slots), 1), dtype=np.int64)
+        self._lib.gt_table_get_expire(
+            self._ptr, slots.ctypes.data, len(slots), out.ctypes.data
+        )
+        return out[: len(slots)]
+
+    def commit(self, slots, new_expire_ms, removed, keys) -> None:
+        """Key-guarded commit (gt_table_commit_keys): an unmapped slot
+        is mapped to its lane's key; a slot owned by another key is
+        left alone."""
+        slots = np.ascontiguousarray(slots, dtype=np.int32)
+        expire = np.ascontiguousarray(new_expire_ms, dtype=np.int64)
+        rm = np.ascontiguousarray(removed, dtype=np.uint8)
+        buf, offsets = pack_keys(keys)
+        self._lib.gt_table_commit_keys(
+            self._ptr, slots.ctypes.data, expire.ctypes.data, rm.ctypes.data,
+            buf.ctypes.data if len(buf) else None, offsets.ctypes.data,
+            len(slots),
+        )
+
+
+class NativeMeshPlanner:
+    """Whole-mesh columnar planning in single C++ calls: shard-bucket
+    (fnv1a % S), per-shard grouped round planning into padded [S, P]
+    arrays, and post-launch decode + slot-table commit + original-order
+    response scatter (gt_mesh_*).
+
+    Lifecycle (plan under the store's `_plan_lock`; finish from the
+    FIFO resolver — the per-table C++ mutex makes a finish safe against
+    the NEXT batch's concurrent plan):
+        mp = NativeMeshPlanner(tables, keys, now_ms)   # begin: counts
+        n_rounds = mp.plan_grouped(cols, reset_mask, P)
+        ... kernel launch ...
+        status, remaining, reset = mp.finish_narrow(packed_np, now_ms)
+    """
+
+    __slots__ = ("_lib", "_tables", "_ptr", "n", "counts", "padded",
+                 "pos", "slot", "rid", "exists", "occ", "write",
+                 "_keepalive")
+
+    def __init__(self, tables, keys, now_ms: int):
+        self._lib = tables[0]._lib
+        self._tables = tables  # keep tables (and their C ptrs) alive
+        S = len(tables)
+        buf, offsets = as_packed(keys)
+        self.n = len(offsets) - 1
+        self.counts = np.zeros(S, dtype=np.int64)
+        ptrs = (ctypes.c_void_p * S)(*[t._ptr for t in tables])
+        self._keepalive = (buf, offsets, ptrs)
+        self._ptr = self._lib.gt_mesh_begin(
+            ptrs, S, buf.ctypes.data if self.n else None,
+            offsets.ctypes.data, self.n, now_ms, self.counts.ctypes.data,
+        )
+
+    def __del__(self):
+        ptr = getattr(self, "_ptr", None)
+        if ptr:
+            self._lib.gt_mesh_free(ptr)
+            self._ptr = None
+
+    def plan_grouped(self, cols, reset_mask: int, padded: int) -> int:
+        """Plan every shard into padded [S, P] row-major arrays; returns
+        n_rounds.  Padding lanes keep slot=-1 / zeros."""
+        S = len(self.counts)
+        self.padded = padded
+        self.slot = np.full((S, padded), -1, dtype=np.int32)
+        self.rid = np.zeros((S, padded), dtype=np.int32)
+        self.exists = np.zeros((S, padded), dtype=np.uint8)
+        self.occ = np.zeros((S, padded), dtype=np.int32)
+        self.write = np.zeros((S, padded), dtype=np.uint8)
+        self.pos = np.zeros(max(self.n, 1), dtype=np.int64)
+        n_rounds = self._lib.gt_mesh_plan_grouped(
+            self._ptr,
+            cols.algo.ctypes.data, cols.behavior.ctypes.data,
+            cols.hits.ctypes.data, cols.limit.ctypes.data,
+            cols.duration.ctypes.data,
+            cols.greg_expire.ctypes.data, cols.greg_duration.ctypes.data,
+            reset_mask, padded,
+            self.slot.ctypes.data, self.rid.ctypes.data,
+            self.exists.ctypes.data, self.occ.ctypes.data,
+            self.write.ctypes.data, self.pos.ctypes.data,
+        )
+        return int(n_rounds)
+
+    def finish_narrow(self, packed_np, now_ms: int):
+        """Decode + commit a narrow i32[S, 4, P] result; returns
+        (status i32[n], remaining i64[n], reset_time i64[n]) in
+        ORIGINAL lane order."""
+        packed_np = np.ascontiguousarray(packed_np, dtype=np.int32)
+        status = np.empty(max(self.n, 1), dtype=np.int32)
+        remaining = np.empty(max(self.n, 1), dtype=np.int64)
+        reset = np.empty(max(self.n, 1), dtype=np.int64)
+        self._lib.gt_mesh_finish_narrow(
+            self._ptr, packed_np.ctypes.data, now_ms,
+            status.ctypes.data, remaining.ctypes.data, reset.ctypes.data,
+        )
+        return status[: self.n], remaining[: self.n], reset[: self.n]
+
+    def finish_wide(self, packed_np):
+        """Decode + commit a wide i64[S, 4, P] result (absolute values)."""
+        packed_np = np.ascontiguousarray(packed_np, dtype=np.int64)
+        status = np.empty(max(self.n, 1), dtype=np.int32)
+        remaining = np.empty(max(self.n, 1), dtype=np.int64)
+        reset = np.empty(max(self.n, 1), dtype=np.int64)
+        self._lib.gt_mesh_finish_wide(
+            self._ptr, packed_np.ctypes.data,
+            status.ctypes.data, remaining.ctypes.data, reset.ctypes.data,
+        )
+        return status[: self.n], remaining[: self.n], reset[: self.n]

@@ -17,10 +17,16 @@ setup(
     ),
     long_description=open("README.md").read(),
     long_description_content_type="text/markdown",
-    packages=find_packages(include=["gubernator_tpu", "gubernator_tpu.*"]),
+    packages=find_packages(include=[
+        "gubernator_tpu", "gubernator_tpu.*",
+        "gubernator_tpu_torch", "gubernator_tpu_torch.*",
+    ]),
     package_data={
         "gubernator_tpu.native": ["host_runtime.cpp"],
         "gubernator_tpu.proto": ["*.proto"],
+        # The PyTorch/CUDA port builds these at first use (nvcc, g++).
+        "gubernator_tpu_torch": ["csrc/*.cu", "csrc/*.cuh"],
+        "gubernator_tpu_torch.native": ["host_runtime.cpp"],
     },
     python_requires=">=3.10",
     install_requires=[

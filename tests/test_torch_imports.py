@@ -1,0 +1,105 @@
+"""The port stands alone: it imports neither JAX nor the JAX package,
+and its entry points never fall back to the CPU on their own."""
+
+import ast
+import os
+import pkgutil
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+import gubernator_tpu_torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(ROOT, "gubernator_tpu_torch")
+
+
+def _modules():
+    return sorted(
+        m.name for m in pkgutil.walk_packages([PKG], prefix="gubernator_tpu_torch.")
+    )
+
+
+def test_every_module_imports_with_jax_absent():
+    code = (
+        "import sys, importlib\n"
+        "sys.modules['jax'] = None\n"  # any `import jax` now raises
+        "import gubernator_tpu_torch\n"
+        f"for m in {_modules()!r}:\n"
+        "    importlib.import_module(m)\n"
+        "assert not any(k == 'jax' or k.startswith('jax.') for k, v in sys.modules.items() if v is not None)\n"
+        "assert not any(k == 'gubernator_tpu' or k.startswith('gubernator_tpu.') for k in sys.modules)\n"
+        "print('ok')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def _imported_roots(path):
+    tree = ast.parse(open(path).read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module.split(".")[0]
+
+
+def test_no_jax_or_reference_imports_in_sources():
+    files = [os.path.join(ROOT, "chip_smoke.py")]
+    for dirpath, _, names in os.walk(PKG):
+        files += [os.path.join(dirpath, n) for n in names if n.endswith(".py")]
+    assert len(files) > 10
+    for f in files:
+        roots = set(_imported_roots(f))
+        assert "jax" not in roots and "jaxlib" not in roots, f
+        assert "gubernator_tpu" not in roots, f
+
+
+def test_store_without_device_raises_without_a_gpu():
+    import torch
+
+    from gubernator_tpu_torch.parallel.mesh import MeshBucketStore
+    from gubernator_tpu_torch.service import ServiceConfig, V1Service
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        MeshBucketStore(capacity_per_shard=8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        V1Service(ServiceConfig(cache_size=64))
+
+
+def test_kernel_wrapper_refuses_cpu_tensors():
+    """The kernel wrappers themselves take CUDA tensors only: a CPU
+    tensor reaches the plain version through the dispatch wrapper,
+    never the kernel binding."""
+    import torch
+
+    from gubernator_tpu_torch.ops import _kernels
+
+    hot = torch.zeros((8, 4, 8), dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        _kernels.bucket_rounds_dict(hot, hot.clone(), torch.zeros((8, 3 * 64 + 3072), dtype=torch.int32),
+                                    1, 0, False)
+    assert _kernels.LAUNCHES == {"bucket_rounds_dict": 0, "bucket_rounds_cols": 0}
+
+
+def test_native_fnv1a_matches_python_hash():
+    from gubernator_tpu_torch import native
+    from gubernator_tpu_torch.utils import hashing
+
+    keys = [f"name_key{i}" for i in range(200)] + ["", "ü-ñ"]
+    got = native.fnv1_batch(keys)
+    want = np.array([hashing.hash_string_64(k) for k in keys], np.uint64)
+    np.testing.assert_array_equal(got, want)
+
+
+def test_package_exports_types():
+    assert gubernator_tpu_torch.Algorithm.LEAKY_BUCKET == 1
+    assert gubernator_tpu_torch.__version__

@@ -1,0 +1,35 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the
+card: seeded cases (chip_smoke.make_case) through each kernel, narrow
+and wide, must give the plain version's outputs and state bytes exactly
+(tolerance 0: all integer).  Skipped without a CUDA device; on a
+machine with one, run `python -m pytest -m cuda tests/test_torch_kernels.py`.
+`python3 chip_smoke.py` runs the same comparison at full size."""
+
+import pytest
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda_device():
+    import torch
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("kind", ["dict", "cols"])
+@pytest.mark.parametrize("wide", [False, True], ids=["narrow", "wide"])
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_kernel_matches_plain(cuda_device, kind, wide, seed):
+    import torch
+
+    from chip_smoke import make_case, run_kernel
+
+    hot, cold, args, n_rounds = make_case(seed, 512, 256, 1 + seed, wide, kind,
+                                          12 if kind == "dict" else 300)
+    got = run_kernel(torch, cuda_device, kind, hot, cold, args, n_rounds, wide, plain=False)
+    want = run_kernel(torch, cuda_device, kind, hot, cold, args, n_rounds, wide, plain=True)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.tobytes() == w.tobytes()
