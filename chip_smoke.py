@@ -7,15 +7,19 @@ Run from the root of a checkout:
 Phases (any failure exits non-zero and prints no `ok` line):
 
 1. device   — the card's name and power limit (nvidia-smi);
-2. build    — nvcc builds the bucket-rounds kernels and g++ the host
-              runtime, from this checkout's sources, in parallel;
-3. kernels  — each kernel (dict wire K1, per-lane columns K2), narrow
-              and wide, against its plain PyTorch version on the same
-              card and inputs: small seeded cases plus one batch at the
-              main path's size; outputs and state bytes must be
+2. build    — nvcc builds the kernel libraries (one process per source)
+              and g++ the host runtime, from this checkout's sources, in
+              parallel;
+3. kernels  — each kernel against its plain PyTorch version on the same
+              card and inputs: K1 (dict wire) and K2 (per-lane columns),
+              narrow and wide, and the GLOBAL kernels K3 (answer
+              rounds), K4 (sync), K5 (replica commit) and K6 (replica
+              clear); small seeded cases plus one at the paths' full
+              size; outputs, state and replica-column bytes must be
               identical (tolerance 0: all integer);
-4. service  — a V1Service on the card answers token, leaky, validation
-              and duplicate-key requests exactly as one on the CPU;
+4. service  — a V1Service on the card answers token, leaky, validation,
+              duplicate-key and GLOBAL requests (with a GLOBAL sync on
+              both) exactly as one on the CPU;
 5. main     — the columnar path at full size: the "leaky bucket, 1M
               unique keys, Zipf" deployment (BASELINE.json configs[1],
               bench_full.py config 2) on an 8-shard store of 2,097,152
@@ -24,8 +28,17 @@ Phases (any failure exits non-zero and prints no `ok` line):
               256 configs (K2); every answer and the final state must
               equal the same traffic through a store on the plain
               versions (CPU);
-6. numbers  — kernel time per launch at the main path's shapes, the
-              plain version's, and the memory bound, as one JSON line.
+6. global   — the GLOBAL path at full size (bench_full.py config 7:
+              8 x 65,536 slots, 65,536 gslots, 50,000 GLOBAL keys; the
+              hot-key skew of config 4): a ramp of 2,048-lane batches
+              and a full sync, skewed batches with a sync after every
+              4th, a replica commit that recycles gslots, a batch for
+              remote owners; every answer, sync result, state row and
+              replica column must equal a store on the plain versions
+              (CPU), and the hot keys' counters must converge exactly;
+7. numbers  — kernel time per launch at the paths' shapes, the plain
+              version's, the library call's where one computes the same
+              function, and the memory bound, as one JSON line.
 
 The last line is `{"ok": true, "device": {...}}`.  Exits 2 without a
 CUDA device.
@@ -45,6 +58,13 @@ BATCH = 131_072
 N_KEYS = 1_000_000
 NOW = 1_700_000_000_000
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
+# The GLOBAL path (bench_full.py config 7 and the skew of config 4)
+C_GLOBAL = 65_536  # slots per shard
+G_FULL = 65_536  # gslots
+GLOBAL_KEYS = 50_000
+GLOBAL_BATCH = 2_048
+HOT_KEYS = 64
+PEER_KEYS = 16_384  # a replica commit that overflows the gslot table
 
 
 def log(*a):
@@ -80,6 +100,7 @@ def build_phase():
             errors.append(e)
 
     t0 = time.perf_counter()
+    # _kernels.build starts one nvcc per source itself
     threads = [threading.Thread(target=run, args=("kernels", _kernels.build)),
                threading.Thread(target=run, args=("host_runtime", native.build))]
     for t in threads:
@@ -268,23 +289,164 @@ def kernel_phase(torch, dev="cuda", full=(C_FULL, 32_768)):
 
 
 # ---------------------------------------------------------------------
+# phase 3, GLOBAL kernels: seeded cases (numpy) and runs
+# ---------------------------------------------------------------------
+GLOBAL_KERNELS = {
+    "answer": ("global_answer_rounds", "gubernator_tpu/parallel/mesh.py:116"),
+    "sync": ("global_sync", "gubernator_tpu/parallel/mesh.py:308"),
+    "replica": ("set_replica", "gubernator_tpu/parallel/mesh.py:251"),
+    "clear": ("clear_gslots", "gubernator_tpu/parallel/mesh.py:258"),
+}
+
+
+def random_gcols(rng, G):
+    """Replica columns: live entries (a fifth of them expiring within
+    a ms of NOW, exactly at NOW included), dead ones, and pending hits
+    of either sign."""
+    expire = np.where(rng.random((S, G)) < 0.2, NOW + rng.integers(-1, 2, (S, G)),
+                      NOW + rng.integers(-2, 3_600_000, (S, G)))
+    return [
+        rng.integers(0, 2, (S, G)).astype(np.int32),
+        rng.integers(0, 200, (S, G)).astype(np.int64),
+        rng.integers(0, 200, (S, G)).astype(np.int64),
+        NOW + rng.integers(-1000, 3_600_000, (S, G)),
+        np.where(rng.random((S, G)) < 0.5, expire, 0),
+        rng.integers(-3, 9, (S, G)).astype(np.int64),
+    ]
+
+
+def global_case(kind, seed, C, G, P=0, n_rounds=1):
+    """Inputs of one GLOBAL kernel: (hot, cold, gcols, args)."""
+    rng = np.random.default_rng(seed)
+    hot, cold = random_state(rng, C, False)
+    gc = random_gcols(rng, G)
+    if kind == "answer":
+        used = P * 3 // 4
+        slot = np.full((S, P), -1, np.int64)
+        rid = np.zeros((S, P), np.int64)
+        gslot = np.full((S, P), -1, np.int64)
+        for s in range(S):
+            rid[s, :used] = rng.integers(0, n_rounds, used)
+            for r in range(n_rounds):
+                sel = np.nonzero(rid[s, :used] == r)[0]
+                slot[s, sel] = rng.choice(C, sel.size, replace=False)
+            gslot[s, :used] = np.where(rng.random(used) < 0.6,
+                                       rng.integers(0, G, used), -1)
+        gslot[0, :4] = 5  # duplicate gslots in one shard's batch
+        slot = np.where((gslot >= 0) & (rng.random((S, P)) < 0.3), -1, slot)  # replica hints
+        cfgs = random_configs(rng, 12, False)
+        cfg = rng.integers(0, 12, (S, P))
+        vals = [c[cfg] for c in cfgs]
+        vals[1] |= 2  # GLOBAL
+        vals[2] = np.where(rng.random((S, P)) < 0.1, -2, vals[2])  # negative hits
+        vals[5] = np.where(vals[6] != 0, NOW + vals[5], 0)  # absolute greg_expire
+        write = slot >= 0
+        lanes = np.stack([slot, (rng.random((S, P)) < 0.8) | (write << 1), vals[0],
+                          vals[1], np.zeros((S, P), np.int64), rid], axis=1).astype(np.int32)
+        values = np.stack(vals[2:7], axis=1).astype(np.int64)
+        return hot, cold, gc, (lanes, values, gslot.astype(np.int32), n_rounds)
+    if kind == "sync":
+        cfgs = random_configs(rng, G, False)
+        owner_shard = rng.integers(-1, S, G)  # -1: a remote owner
+        owner_slot = np.where(rng.random(G) < 0.95,
+                              rng.permutation(max(C, G))[:G] % C, -1)
+        cfg = np.stack([owner_slot, owner_shard, cfgs[0], cfgs[1], cfgs[3], cfgs[4],
+                        np.where(cfgs[6] != 0, NOW + cfgs[5], 0), cfgs[6]]).astype(np.int64)
+        return hot, cold, gc, (cfg, rng.random((S, G)) < 0.2)
+    if kind == "replica":
+        M = P
+        g = rng.permutation(G)[:M].astype(np.int64)
+        g[rng.random(M) < 0.1] = -1  # padding
+        g[-1] = G + 1  # out of range: dropped
+        upd = np.stack([g, rng.integers(0, 2, M), rng.integers(0, 200, M),
+                        rng.integers(0, 200, M), NOW + rng.integers(0, 3_600_000, M)])
+        return hot, cold, gc, (upd.astype(np.int64),)
+    idx = np.full(P, G, np.int64)  # pow2 padding with G
+    idx[: P * 7 // 8] = rng.integers(0, G, P * 7 // 8)  # duplicates are harmless
+    return hot, cold, gc, (idx,)
+
+
+def run_global(torch, dev, kind, case, plain):
+    """One GLOBAL kernel (or its plain version) on copies of a case;
+    returns every output and every updated tensor as numpy."""
+    from gubernator_tpu_torch.ops import _kernels, global_ops
+
+    hot, cold, gc, args = case
+    h, c = torch.tensor(hot, device=dev), torch.tensor(cold, device=dev)
+    g = global_ops.global_columns_from_numpy(gc, dev)
+    if kind == "answer":
+        lanes, values, gslot, nr = args
+        fn = global_ops.answer_rounds_plain if plain else global_ops.answer_rounds
+        out = [fn(h, c, g, torch.tensor(lanes, device=dev), torch.tensor(values, device=dev),
+                  torch.tensor(gslot, device=dev), nr, NOW)]
+    elif kind == "sync":
+        cfg, dirty = args
+        fn = global_ops.global_sync_plain if plain else global_ops.global_sync
+        out = [fn(h, c, g, torch.tensor(cfg, device=dev), torch.tensor(dirty, device=dev), NOW)]
+    else:
+        fns = {"replica": (global_ops.set_replica_plain, _kernels.set_replica),
+               "clear": (global_ops.clear_gslots_plain, _kernels.clear_gslots)}
+        fns[kind][0 if plain else 1](g, torch.tensor(args[0], device=dev))
+        out = []
+    return [t.cpu().numpy() for t in (*out, h, c, *g)]
+
+
+def global_kernel_phase(torch, dev="cuda", full=(C_GLOBAL, G_FULL, GLOBAL_BATCH)):
+    """K3-K6 against their plain versions: seeded small cases and one at
+    the GLOBAL path's full size (S=8, 65,536 slots and gslots, 2,048
+    lanes per shard, a 16,384-gslot replica commit, a 1,024-index clear)."""
+    from gubernator_tpu_torch.ops import _kernels
+
+    Cf, Gf, Pf = full
+    shapes = {
+        "answer": [(seed, 256, 64, 128, 1 + seed % 3) for seed in range(4)]
+        + [(100, Cf, Gf, Pf, 1), (101, Cf, Gf, Pf, 3)],
+        "sync": [(seed, 256, 64, 0, 1) for seed in range(4)] + [(100, Cf, Gf, 0, 1)],
+        "replica": [(seed, 256, 64, 32, 1) for seed in range(4)]
+        + [(100, Cf, Gf, min(Gf, PEER_KEYS), 1)],
+        "clear": [(seed, 256, 64, 32, 1) for seed in range(4)] + [(100, Cf, Gf, 1024, 1)],
+    }
+    errs = {}
+    n = 0
+    for kind, cases in shapes.items():
+        errs[kind] = 0
+        for seed, C, G, P, nr in cases:
+            case = global_case(kind, seed, C, G, P, nr)
+            got = run_global(torch, dev, kind, case, plain=False)
+            want = run_global(torch, dev, kind, case, plain=True)
+            err = max_abs_err(got, want)
+            if err != 0 or any(a.tobytes() != b.tobytes() for a, b in zip(got, want)):
+                raise AssertionError(f"{kind} seed={seed} C={C} G={G} P={P}: kernel != "
+                                     f"plain (max abs err {err})")
+            errs[kind] = max(errs[kind], err)
+            n += 1
+    log(f"[kernels] {n} GLOBAL cases, kernel == plain bit for bit "
+        f"(launches {dict(_kernels.LAUNCHES)})")
+    return errs
+
+
+# ---------------------------------------------------------------------
 # phase 4: service on the card against the service on the CPU
 # ---------------------------------------------------------------------
 def service_phase(devices=("cuda", "cpu")):
     from gubernator_tpu_torch.service import IngressColumns, ServiceConfig, V1Service
     from gubernator_tpu_torch.types import (
-        Algorithm, GetRateLimitsRequest, RateLimitRequest, Status)
+        Algorithm, Behavior, GetRateLimitsRequest, RateLimitRequest, Status)
     from gubernator_tpu_torch.utils.clock import Clock
 
     svcs = []
     for device in devices:
         clock = Clock()
         clock.freeze(NOW)
-        svcs.append((V1Service(ServiceConfig(cache_size=4096, clock=clock, device=device)), clock))
+        # GLOBAL syncs run only where this phase calls run_once
+        svcs.append((V1Service(ServiceConfig(cache_size=4096, clock=clock, device=device,
+                                             global_sync_wait_s=3600.0)), clock))
 
-    def req(key, hits=1, limit=5, algo=Algorithm.TOKEN_BUCKET, name="smoke"):
+    def req(key, hits=1, limit=5, algo=Algorithm.TOKEN_BUCKET, name="smoke", behavior=0):
         return RateLimitRequest(name=name, unique_key=key, hits=hits, limit=limit,
-                                duration=10_000, algorithm=algo)
+                                duration=10_000, algorithm=algo, behavior=behavior)
+
+    GL, NB = int(Behavior.GLOBAL), int(Behavior.NO_BATCHING)
 
     steps = [[req("tok")] for _ in range(6)]  # drained to OVER_LIMIT
     steps.append([req(f"leaky{i}", hits=2, limit=4, algo=Algorithm.LEAKY_BUCKET)
@@ -303,6 +465,23 @@ def service_phase(devices=("cuda", "cpu")):
             limit=np.full(6, 5, np.int64), duration=np.full(6, 10_000, np.int64))
         r = svc.get_rate_limits_columns(cols)
         got.append([r.response_at(i) for i in range(6)])
+        # GLOBAL lanes beside plain ones, through both entry points, with
+        # a GLOBAL sync after each step
+        for step in range(3):
+            reqs = [req(f"g{i % 3}", hits=1 + i % 2, limit=9, behavior=GL if i % 4 else 0,
+                        algo=i % 2) for i in range(8)]
+            got.append(svc.get_rate_limits(GetRateLimitsRequest(requests=reqs)).responses)
+            cols = IngressColumns(
+                names=["gc"] * 6, unique_keys=["x", "y", "x", "z", "x", "y"],
+                algorithm=np.zeros(6, np.int32),
+                behavior=np.array([GL, 0, GL | NB, GL, GL, NB], np.int32),
+                hits=np.full(6, 1 + step, np.int64), limit=np.full(6, 8, np.int64),
+                duration=np.full(6, 10_000, np.int64))
+            r = svc.get_rate_limits_columns(cols)
+            got.append([r.response_at(i) for i in range(6)])
+            got.append([svc.global_mgr.run_once()]
+                       + [c.cpu().numpy().tobytes() for c in svc.store.gcols])
+            clock.advance(200)
         svc.close()
         answers.append(got)
     gpu, cpu = answers
@@ -311,7 +490,11 @@ def service_phase(devices=("cuda", "cpu")):
     assert gpu[5][0].status == Status.OVER_LIMIT, gpu[5]
     assert gpu[7][1].error == "field 'unique_key' cannot be empty", gpu[7]
     assert gpu[8][3].status == Status.OVER_LIMIT, gpu[8]  # third "a" of the batch
-    log("[service] card == CPU on token drain, leaky, validation and duplicate keys")
+    assert gpu[-1][0] is True, "the GLOBAL sync broadcast nothing"
+    assert not any(x.error for step in gpu[9:] if not isinstance(step[0], bool)
+                   for x in step), gpu[9:]
+    log("[service] card == CPU on token drain, leaky, validation, duplicate keys "
+        "and GLOBAL lanes with syncs")
 
 
 # ---------------------------------------------------------------------
@@ -413,7 +596,7 @@ def main_phase(torch, dev="cuda"):
     timed_s = time.perf_counter() - t0
     answers += got
     answers += drive(store, extra)[0]
-    launches = dict(_kernels.LAUNCHES)
+    launches = {k: _kernels.LAUNCHES[k] for k in ("bucket_rounds_dict", "bucket_rounds_cols")}
     peak = torch.cuda.max_memory_allocated() if dev == "cuda" else 0
     lats = np.array(lat) * 1e3
     log(f"[main] launches on the main path: {launches}")
@@ -443,7 +626,235 @@ def main_phase(torch, dev="cuda"):
 
 
 # ---------------------------------------------------------------------
-# phase 6: kernel numbers at the main path's shapes
+# phase 6: the GLOBAL path at full size
+# ---------------------------------------------------------------------
+def apply_steps(torch, store, reqs, now, **kw):
+    """MeshBucketStore.apply one step at a time with the card synchronized
+    between steps: (responses, step seconds, the kernel's inputs)."""
+    from gubernator_tpu_torch.models.shard import _readback
+    from gubernator_tpu_torch.types import RateLimitResponse
+
+    store._drain_then_lock()
+    try:
+        t = [time.perf_counter()]
+        prep = store._prepare_apply(reqs, now, **kw)
+        t.append(time.perf_counter())
+        staged = store._stage_answer(prep)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        packed = store._launch_answer(prep, *staged, now)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        packed_np = _readback(packed)()
+        t.append(time.perf_counter())
+        store._decode_commit_respond(packed_np, prep)
+        t.append(time.perf_counter())
+    finally:
+        store._unlock_drained()
+    resps = [r if r is not None else RateLimitResponse() for r in prep.responses]
+    return resps, np.diff(t), (prep, staged, packed_np)
+
+
+def sync_steps(torch, store, now):
+    """MeshBucketStore.sync_globals one step at a time (as apply_steps)."""
+    from gubernator_tpu_torch.models.shard import _readback
+
+    store._drain_then_lock()
+    try:
+        t = [time.perf_counter()]
+        prep = store._prepare_sync(now)
+        t.append(time.perf_counter())
+        staged = store._stage_sync(prep)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        packed = store._launch_sync(*staged, now)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        packed_np = _readback(packed)()
+        t.append(time.perf_counter())
+        res = store._finish_sync(prep, packed_np)
+        t.append(time.perf_counter())
+    finally:
+        store._unlock_drained()
+    return res, np.diff(t), (staged, packed_np)
+
+
+def global_phase(torch, dev="cuda"):
+    """bench_full.py config 7 at full size, with config 4's hot-key skew,
+    on the card store and on a store on the plain versions (CPU)."""
+    from gubernator_tpu_torch.ops import _kernels
+    from gubernator_tpu_torch.parallel.global_mgr import GlobalsColumns
+    from gubernator_tpu_torch.parallel.mesh import MeshBucketStore, shard_of_key
+    from gubernator_tpu_torch.types import Algorithm, Behavior, RateLimitRequest
+
+    t_phase = time.perf_counter()
+    card, ref = (MeshBucketStore(capacity_per_shard=C_GLOBAL, n_shards=S, device=d,
+                                 g_capacity=G_FULL) for d in (dev, "cpu"))
+
+    def check(what, a, b):
+        if a != b:
+            raise AssertionError(f"GLOBAL path, {what}: card store != plain store")
+
+    def same_state(what):
+        for x, y in ((card.state.hot, ref.state.hot), (card.state.cold, ref.state.cold),
+                     *zip(card.gcols, ref.gcols)):
+            if not torch.equal(x.cpu(), y):
+                raise AssertionError(f"GLOBAL path, {what}: state differs from the plain store")
+
+    def fields(resps):
+        return [(r.status, r.limit, r.remaining, r.reset_time, r.error) for r in resps]
+
+    def sync_fields(res):
+        out = [res.did_work]
+        for cols in (res.broadcast_cols, res.remote_hit_cols):
+            out.append(None if cols is None else
+                       [np.asarray(getattr(cols, f)).tobytes() for f in vars(cols)])
+        return out
+
+    lat = []
+
+    def apply(what, reqs, now, **kw):
+        t = time.perf_counter()
+        a = card.apply(reqs, now, **kw)
+        lat.append(time.perf_counter() - t)
+        check(what, fields(a), fields(ref.apply(reqs, now, **kw)))
+        same_state(what)
+        return a
+
+    def sync(what, now):
+        a = card.sync_globals(now)
+        check(what, sync_fields(a), sync_fields(ref.sync_globals(now)))
+        same_state(what)
+        return a
+
+    def c7(lo, hi, hits=1):
+        return [RateLimitRequest(name="c7", unique_key=f"g{k}", hits=hits, limit=1_000_000,
+                                 duration=3_600_000, algorithm=Algorithm.TOKEN_BUCKET,
+                                 behavior=Behavior.GLOBAL) for k in range(lo, hi)]
+
+    _kernels.reset_launch_counts()
+    now = NOW
+    # ramp: 50,000 GLOBAL keys arriving at rotating shards, then a full sync
+    for i, lo in enumerate(range(0, GLOBAL_KEYS, GLOBAL_BATCH)):
+        apply(f"ramp batch {i}", c7(lo, min(lo + GLOBAL_BATCH, GLOBAL_KEYS)), now + i,
+              home_shard=i % S)
+    ramp_lat = np.array(lat) * 1e3
+    now += 1000
+    res = sync("ramp sync", now)
+    ramp_sync_s = card.last_sync_cost_s
+    log(f"[global] ramp: {len(ramp_lat)} batches of {GLOBAL_BATCH} lanes, apply latency "
+        f"p50 {np.percentile(ramp_lat, 50):.2f} ms, p99 {np.percentile(ramp_lat, 99):.2f} ms; "
+        f"full sync at {len(card.gtable)} active gslots: last_sync_cost_s "
+        f"{ramp_sync_s:.4f} s, {res.broadcast_count} broadcasts")
+
+    # skew: 64 hot keys (bench_full.py config 4), a sync after every 4th batch
+    rng = np.random.RandomState(4)
+    hot = [RateLimitRequest(name="c4", unique_key=f"hot{k}", hits=1, limit=10_000_000,
+                            duration=3_600_000, algorithm=Algorithm.TOKEN_BUCKET,
+                            behavior=Behavior.GLOBAL) for k in range(HOT_KEYS)]
+    sent = np.zeros(HOT_KEYS, np.int64)
+
+    def hot_batch():
+        ids = rng.randint(0, HOT_KEYS, size=GLOBAL_BATCH)
+        np.add.at(sent, ids, 1)
+        return [hot[i] for i in ids]
+
+    now += 1000
+    apply("skew warm batch", hot_batch(), now)
+    sync("skew warm sync", now)
+    lat.clear()
+    breakdown = None
+    for i in range(8):
+        now += 10
+        reqs = hot_batch()
+        if i == 7:  # one batch step by step, on the card clock
+            step_now = now
+            t = time.perf_counter()
+            a, steps, answer_inputs = apply_steps(torch, card, reqs, now, home_shard=i % S)
+            lat.append(time.perf_counter() - t)
+            check("skew batch 7", fields(a), fields(ref.apply(reqs, now, home_shard=i % S)))
+            same_state("skew batch 7")
+            breakdown = steps
+        else:
+            apply(f"skew batch {i}", reqs, now, home_shard=i % S)
+        if i % 4 == 3 and i != 7:
+            sync(f"skew sync {i}", now)
+    skew_lat = np.array(lat) * 1e3
+    res, sync_breakdown, sync_inputs = sync_steps(torch, card, now)
+    check("skew final sync", sync_fields(res), sync_fields(ref.sync_globals(now)))
+    same_state("skew final sync")
+    log(f"[global] skew: 8 batches of {GLOBAL_BATCH} lanes over {HOT_KEYS} hot keys, "
+        f"apply latency p50 {np.percentile(skew_lat, 50):.2f} ms; final sync "
+        f"{res.broadcast_count} broadcasts")
+    log(f"[breakdown] GLOBAL batch, host clock: prepare+plan {breakdown[0] * 1e3:.2f} ms, "
+        f"upload {breakdown[1] * 1e3:.2f} ms, kernel+sync {breakdown[2] * 1e3:.3f} ms, "
+        f"readback {breakdown[3] * 1e3:.2f} ms, decode+commit {breakdown[4] * 1e3:.2f} ms")
+    log(f"[breakdown] GLOBAL sync at {len(card.gtable)} active gslots, host clock: "
+        f"resolve+pack {sync_breakdown[0] * 1e3:.2f} ms, upload "
+        f"{sync_breakdown[1] * 1e3:.2f} ms, kernel+sync {sync_breakdown[2] * 1e3:.3f} ms, "
+        f"readback {sync_breakdown[3] * 1e3:.2f} ms, decode+commit "
+        f"{sync_breakdown[4] * 1e3:.2f} ms")
+
+    # replica commit from a peer: more keys than free gslots, so the
+    # assignment recycles the least recently used ones (K6, then K5)
+    prng = np.random.default_rng(9)
+    peer = GlobalsColumns(
+        keys=[f"peer_p{k}" for k in range(PEER_KEYS)],
+        algorithm=prng.integers(0, 2, PEER_KEYS).astype(np.int32),
+        status=prng.integers(0, 2, PEER_KEYS).astype(np.int32),
+        limit=np.full(PEER_KEYS, 500, np.int64),
+        remaining=prng.integers(0, 500, PEER_KEYS).astype(np.int64),
+        reset_time=now + prng.integers(1, 3_600_000, PEER_KEYS))
+    held = set(card.gtable._key_to_gslot.values())
+    for st in (card, ref):
+        st.set_replica_batch(peer, now)
+    same_state("replica commit")
+    check("replica commit gtable", card.gtable._key_to_gslot, ref.gtable._key_to_gslot)
+    # the kernels' inputs of this commit, for the numbers phase
+    gsl = np.array([card.gtable._key_to_gslot[k] for k in peer.keys], np.int64)
+    upd = np.stack([gsl, peer.status, peer.limit, peer.remaining, peer.reset_time])
+    ev = sorted(set(gsl.tolist()) & held)
+    idx = np.full(1 << max(3, (len(ev) - 1).bit_length()), G_FULL, np.int64)
+    idx[:len(ev)] = ev
+    if card.replica_commit_dispatches != 2 or not ev:
+        raise AssertionError("the replica commit recycled no gslot")
+
+    # remote owners: the newest ramp keys owned by another daemon
+    now += 10
+    lo = GLOBAL_KEYS - GLOBAL_BATCH
+    apply("remote batch", c7(lo, GLOBAL_KEYS, hits=2), now, remote_global=True)
+    res = sync("remote sync", now)
+    rh = res.remote_hit_cols
+    if rh is None or sorted(rh.hash_key_at(i) for i in range(len(rh))) != sorted(
+            f"c7_g{k}" for k in range(lo, GLOBAL_KEYS)) or not (rh.hits == 2).all():
+        raise AssertionError("remote owners: the sync's hit totals are wrong")
+
+    # convergence: each hot key's owner holds limit - (all hits sent to it)
+    now += 10
+    probe = [RateLimitRequest(**{**vars(r), "hits": 0}) for r in hot]
+    got = apply("convergence probe", probe, now)
+    want = [10_000_000 - int(sent[k]) for k in range(HOT_KEYS)]
+    if [r.remaining for r in got] != want:
+        raise AssertionError(f"hot keys did not converge: {[r.remaining for r in got]} "
+                             f"!= {want}")
+    owners = {shard_of_key(f"c4_hot{k}", S) for k in range(HOT_KEYS)}
+    launches = {k: _kernels.LAUNCHES[k] for k in
+                ("global_answer_rounds", "global_sync", "set_replica", "clear_gslots")}
+    log(f"[global] launches on the GLOBAL path: {launches}")
+    for kname, count in launches.items():
+        if count <= 0:
+            raise AssertionError(f"kernel {kname} was not launched on the GLOBAL path")
+    log(f"[global] answers, sync results, state and replica columns == plain store (CPU) "
+        f"at every step; {HOT_KEYS} hot keys (owners on {len(owners)} shards) converged "
+        f"exactly to limit - {int(sent.sum())} hits; {len(rh)} remote-owner totals "
+        f"exact; phase took {time.perf_counter() - t_phase:.1f} s")
+    summary = dict(apply_p50_ms=float(np.percentile(np.concatenate([ramp_lat, skew_lat]), 50)),
+                   last_sync_cost_s=ramp_sync_s, now=step_now)
+    return card, launches, (answer_inputs, sync_inputs, (upd.astype(np.int64), idx)), summary
+
+
+# ---------------------------------------------------------------------
+# phase 7: kernel numbers at the paths' shapes
 # ---------------------------------------------------------------------
 def time_launches(torch, fn, iters):
     fn()  # warm
@@ -455,6 +866,40 @@ def time_launches(torch, fn, iters):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+# device kernels (csrc/*.cu) behind each wrapper, for the profiler
+DEVICE_KERNELS = {
+    "bucket_rounds_dict": ("round_compute", "round_commit"),
+    "bucket_rounds_cols": ("round_compute", "round_commit"),
+    "global_answer_rounds": ("answer_compute", "answer_commit"),
+    "global_sync": ("sync_kernel",),
+    "set_replica": ("set_replica_kernel",),
+    "clear_gslots": ("clear_kernel",),
+}
+
+
+def device_ms(torch, kname, fn, iters=20):
+    """Device time per wrapper call from torch.profiler: the summed
+    duration of the wrapper's kernels (DEVICE_KERNELS), which leaves out
+    the host's launch gaps that the event timing of back-to-back calls
+    includes.  None when the trace holds no such kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = [getattr(e, "device_time_total", 0) for e in prof.key_averages()
+          if any(k in e.key for k in DEVICE_KERNELS[kname])]
+    if not us or not sum(us):
+        log(f"[profile] {kname}: no device time in the trace (not measured)")
+        return None
+    ms = sum(us) / iters / 1e3
+    log(f"[profile] {kname}: device {ms:.4f} ms per call")
+    return ms
 
 
 def numbers_phase(torch, store, batches, launches, errs):
@@ -494,42 +939,156 @@ def numbers_phase(torch, store, batches, launches, errs):
         assert staged.kernel.__name__ == kname, (staged.kernel.__name__, kname)
         changed_cold = int((cold != cold0).any(dim=2).sum())
         ms = time_launches(torch, lambda: staged.kernel(hot, cold, *staged.args), 20)
+        device_ms(torch, kname, lambda: staged.kernel(hot, cold, *staged.args))
         plain = (buckets.bucket_rounds_dict_plain if kind == "dict"
                  else buckets.bucket_rounds_cols_plain)
         plain_ms = time_launches(torch, lambda: plain(hot, cold, *staged.args), 3)
-        # bytes the function must move: inputs once, outputs once, a
-        # hot+cold row gathered per valid lane, a hot row scattered per
-        # writing lane, a cold row per changed config
+        # bytes the function must move: the valid lanes' inputs once and
+        # outputs once (the padding that fills each shard to P answers no
+        # request and is not counted), a hot+cold row gathered per valid
+        # lane, a hot row scattered per writing lane, a cold row per
+        # changed config
         args = staged.args
         if kind == "dict":
             wire = args[0]
             P = (wire.shape[1] - buckets.DICT_WIRE_TABLE_WORDS) // 3
             slot = wire[:, :P]
             write = ((wire[:, P:2 * P] >> 17) & 1) == 1
-            in_bytes = wire.numel() * 4
+            lane_bytes, table_bytes = 3 * 4, wire.shape[0] * buckets.DICT_WIRE_TABLE_WORDS * 4
         else:
             lanes, values = args[0], args[1]
             slot = lanes[:, 0]
             write = ((lanes[:, 1] >> 1) & 1) == 1
-            in_bytes = lanes.numel() * 4 + values.numel() * values.element_size()
+            lane_bytes, table_bytes = 6 * 4 + 5 * values.element_size(), 0
         valid = slot >= 0
         n_valid = int(valid.sum())
         n_write = int((valid & write).sum())
-        nbytes = (in_bytes + out.numel() * out.element_size() + 64 * n_valid
-                  + 32 * n_write + 32 * changed_cold)
+        nbytes = (n_valid * (lane_bytes + 4 * out.element_size()) + table_bytes
+                  + 64 * n_valid + 32 * n_write + 32 * changed_cold)
         bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
         rows.append({
             "name": kname, "route": "cuda",
             "source": "gubernator_tpu_torch/csrc/bucket_rounds.cu",
             "replaces": replaces, "launches": launches[kname],
-            "max_abs_err": errs[kind], "ms": round(ms, 4), "plain_ms": round(plain_ms, 4),
-            "bound_ms": round(bound_ms, 5), "bound_by": "bytes", "library_ms": None,
+            "max_abs_err": errs[kind], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None,
         })
         log(f"[numbers] {kname} ({name} batch, S={slot.shape[0]} P={slot.shape[1]}, "
             f"{'wide' if staged.wide else 'narrow'}, rounds {args[-3]}): "
-            f"{ms:.4f} ms/launch, plain {plain_ms:.2f} ms, bound {bound_ms:.5f} ms "
+            f"{ms:.4f} ms/launch, plain {plain_ms:.2f} ms, bound {bound_ms:.6g} ms "
             f"({nbytes} bytes: {n_valid} lanes, {n_write} writers, "
             f"{changed_cold} cold rows)")
+    return rows
+
+
+def global_numbers_phase(torch, card, launches, errs, inputs, now):
+    """Time K3-K6 and their plain versions on the GLOBAL path's inputs
+    (the step-by-step batch and sync, the replica commit) against copies
+    of the card store's state; K5 and K6 also against the PyTorch calls
+    that compute the same function."""
+    from gubernator_tpu_torch.ops import _kernels, global_ops
+
+    (prep, staged, answer_np), (sync_staged, sync_np), (upd_np, idx_np) = inputs
+    S_, G = card.gcols.ghits.shape
+    rows = []
+
+    def copies():
+        return (card.state.hot.clone(), card.state.cold.clone(),
+                global_ops.GlobalColumns(*[c.clone() for c in card.gcols]))
+
+    def row(kind, ms, plain_ms, nbytes, library_ms=None, note=""):
+        kname, replaces = GLOBAL_KERNELS[kind]
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        rows.append({
+            "name": kname, "route": "cuda",
+            "source": "gubernator_tpu_torch/csrc/global_ops.cu",
+            "replaces": replaces, "launches": launches[kname],
+            "max_abs_err": errs[kind], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": "bytes",
+            "library_ms": library_ms,
+        })
+        lib = "" if library_ms is None else f", library {library_ms:.4f} ms"
+        log(f"[numbers] {kname}: {ms:.4f} ms/launch, plain {plain_ms:.3f} ms{lib}, "
+            f"bound {bound_ms:.6g} ms ({nbytes} bytes{note})")
+
+    # K3 on the step-by-step skew batch
+    lanes, values, gslot = staged
+    nr = prep.n_rounds
+    hot, cold, g = copies()
+    cold0 = cold.clone()
+    global_ops.answer_rounds(hot, cold, g, lanes, values, gslot, nr, now)
+    changed_cold = int((cold != cold0).any(dim=2).sum())
+    ms = time_launches(torch, lambda: global_ops.answer_rounds(
+        hot, cold, g, lanes, values, gslot, nr, now), 20)
+    device_ms(torch, "global_answer_rounds", lambda: global_ops.answer_rounds(
+        hot, cold, g, lanes, values, gslot, nr, now))
+    plain_ms = time_launches(torch, lambda: global_ops.answer_rounds_plain(
+        hot, cold, g, lanes, values, gslot, nr, now), 3)
+    cached = ((answer_np[:, 0] >> 2) & 1) == 1
+    slot, write, gs = prep.lanes[:, 0], (prep.lanes[:, 1] & 2) != 0, prep.gslot
+    evaluated = (slot >= 0) & ~cached
+    live = (slot >= 0) | (gs >= 0)  # lanes that answer a request; the rest pads shards to P
+    P = slot.shape[1]
+    # per GLOBAL lane rep_expire and the ghits add, per replica answer its
+    # rep_* words, per bucket lane its rows, per writer its new rows
+    traffic = (24 * int((gs >= 0).sum()) + 28 * int(cached.sum()) + 64 * int(evaluated.sum())
+               + 32 * int((evaluated & write).sum()) + 32 * changed_cold)
+    # the bound counts the live lanes' 6 lane, 5 value and gslot words
+    # in and 5 output words out; the padded arrays the kernel reads are
+    # given beside it
+    nbytes = int(live.sum()) * (6 * 4 + 5 * 8 + 4 + 5 * 8) + traffic
+    padded = (prep.lanes.nbytes + prep.values.nbytes + prep.gslot.nbytes + S_ * 5 * P * 8
+              + traffic)
+    row("answer", ms, plain_ms, nbytes,
+        note=f": {int(live.sum())} live lanes of S*P={S_ * P}, {nr} rounds, "
+             f"{int(cached.sum())} replica answers, {int(evaluated.sum())} bucket lanes; "
+             f"with the padded arrays {padded} bytes, "
+             f"{padded / HBM_BYTES_PER_S * 1e3:.6g} ms")
+
+    # K4 on the step-by-step sync
+    cfg, dirty = sync_staged
+    hot, cold, g = copies()
+    ms = time_launches(torch, lambda: global_ops.global_sync(hot, cold, g, cfg, dirty, now), 20)
+    device_ms(torch, "global_sync", lambda: global_ops.global_sync(hot, cold, g, cfg, dirty, now))
+    plain_ms = time_launches(torch, lambda: global_ops.global_sync_plain(
+        hot, cold, g, cfg, dirty, now), 3)
+    applied = int(((sync_np[0, 0] >> 1) & 1).sum())
+    nbytes = (2 * S_ * G * 8 + S_ * G * 36 + applied * S_ * 36 + 8 * G * 8 + G
+              + S_ * 8 * G * 8 + applied * (64 + 32))
+    row("sync", ms, plain_ms, nbytes, note=f": G={G}, {applied} gslots applied")
+
+    # K5 and K6 on the replica commit's inputs
+    hot, cold, g = copies()
+    upd = torch.tensor(upd_np, device=card.device)
+    valid = (upd_np[0] >= 0) & (upd_np[0] < G)
+    gi = torch.tensor(upd_np[0][valid], device=card.device)
+    vals = [torch.tensor(v[valid], device=card.device) for v in upd_np[1:]]
+    vals[0] = vals[0].to(torch.int32)
+    sidx = torch.arange(S_, device=card.device)[:, None]
+
+    def library_replica():
+        for col, v in zip(g[:5], (*vals, vals[3])):
+            col.index_put_((sidx, gi[None, :]), v[None, :].expand(S_, -1))
+
+    ms = time_launches(torch, lambda: _kernels.set_replica(g, upd), 20)
+    device_ms(torch, "set_replica", lambda: _kernels.set_replica(g, upd))
+    plain_ms = time_launches(torch, lambda: global_ops.set_replica_plain(g, upd), 3)
+    lib_ms = time_launches(torch, library_replica, 20)
+    row("replica", ms, plain_ms, upd_np.nbytes + int(valid.sum()) * S_ * 36, lib_ms,
+        note=f": M={upd_np.shape[1]}")
+    idx = torch.tensor(idx_np, device=card.device)
+    ivalid = torch.tensor(idx_np[idx_np < G], device=card.device)
+
+    def library_clear():
+        for col in g:
+            col.index_fill_(1, ivalid, 0)
+
+    ms = time_launches(torch, lambda: _kernels.clear_gslots(g, idx), 20)
+    device_ms(torch, "clear_gslots", lambda: _kernels.clear_gslots(g, idx))
+    plain_ms = time_launches(torch, lambda: global_ops.clear_gslots_plain(g, idx), 3)
+    lib_ms = time_launches(torch, library_clear, 20)
+    row("clear", ms, plain_ms, idx_np.nbytes + int((idx_np < G).sum()) * S_ * 44, lib_ms,
+        note=f": K={idx_np.size}")
     return rows
 
 
@@ -543,9 +1102,12 @@ def main():
     _, name = device_phase(torch)
     build_phase()
     errs = kernel_phase(torch)
+    gerrs = global_kernel_phase(torch)
     service_phase()
     store, batches, launches = main_phase(torch)
+    gstore, glaunches, ginputs, gsum = global_phase(torch)
     rows = numbers_phase(torch, store, batches, launches, errs)
+    rows += global_numbers_phase(torch, gstore, glaunches, gerrs, ginputs, gsum["now"])
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

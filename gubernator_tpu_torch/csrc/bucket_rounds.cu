@@ -54,8 +54,8 @@ round_compute(const int32_t* __restrict__ hot, const int32_t* __restrict__ cold,
               int64_t now, int32_t* __restrict__ stage, void* __restrict__ out) {
   const int64_t p = int64_t(blockIdx.x) * kThreads + threadIdx.x;
   if (p < P)
-    compute_lane<Source, WIDE>(hot, cold, C, src, blockIdx.y, p, P, round,
-                               n_rounds, now, stage, out);
+    compute_lane(hot, cold, C, src, BucketOut<WIDE>{out, P, now}, blockIdx.y, p, P,
+                 round, n_rounds, now, stage);
 }
 
 __global__ void __launch_bounds__(kThreads)

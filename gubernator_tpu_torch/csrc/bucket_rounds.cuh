@@ -1,5 +1,6 @@
-// Per-lane token/leaky bucket evaluation shared by the bucket-rounds
-// kernels (bucket_rounds.cu).
+// Per-lane token/leaky bucket evaluation and the round steps shared by
+// the bucket-rounds kernels (bucket_rounds.cu) and the GLOBAL-plane
+// kernels (global_ops.cu).
 //
 // A line-by-line transcription of the JAX package's
 // ops/buckets.py::_apply_compute (one lane instead of a vector of
@@ -329,65 +330,128 @@ struct ColsSource {
   }
 };
 
+// Output of the bucket-rounds kernels (K1, K2): out [S, 4, P] narrow
+// i32 or wide i64 (row0, remaining, reset_time, new_expire).  Every
+// lane that reaches a slot is evaluated.
 template <bool WIDE>
-__device__ __forceinline__ void store_out(void* out, int64_t s, int64_t p, int64_t P,
-                                          int64_t now, int64_t row0, int64_t rem,
-                                          int64_t reset, int64_t nexp, int64_t pre) {
-  if (WIDE) {
-    int64_t* o = static_cast<int64_t*>(out) + s * 4 * P + p;
-    o[0] = row0;
-    o[P] = rem;
-    o[2 * P] = reset;
-    o[3 * P] = nexp;
-  } else {
-    int32_t* o = static_cast<int32_t*>(out) + s * 4 * P + p;
-    o[0] = int32_t(row0);
-    o[P] = int32_t(imin(imax(rem, 0), kI32Max));
-    o[2 * P] = narrow_time(reset, now, pre);
-    o[3 * P] = narrow_time(nexp, now, pre);
-  }
-}
+struct BucketOut {
+  void* out;
+  int64_t P, now;
+  static constexpr bool kFirstLook = false;
 
-// Compute step of round `round` for lane p of shard s: every lane of the round evaluates
-// against the pre-round rows and stages its new rows.  A lane of
-// another round stages nothing; in round 0, lanes that no round will
-// evaluate (padding, slot -1) write the all-zero response.
-template <class Source, bool WIDE>
-__device__ __forceinline__ void compute_lane(
-    const int32_t* __restrict__ hot, const int32_t* __restrict__ cold, int64_t C,
-    const Source& src, int64_t s, int64_t p, int64_t P, int32_t round,
-    int32_t n_rounds, int64_t now, int32_t* __restrict__ stage,
-    void* __restrict__ out) {
-  int32_t* st = stage + (s * P + p) * kStageWords;
-  int32_t slot, rid;
-  src.head(s, p, slot, rid);
-  if (rid != round || slot < 0) {
-    st[kStageFlag] = 0;
-    const bool never_runs = rid < 0 || rid >= n_rounds;
-    if (rid == round || (never_runs && round == 0))
-      store_out<WIDE>(out, s, p, P, now, 0, 0, 0, 0, 0);
-    return;
+  __device__ bool first_look(int64_t, int64_t, const Lane&) const { return false; }
+
+  __device__ void put(int64_t s, int64_t p, int64_t row0, int64_t rem, int64_t reset,
+                      int64_t nexp, int64_t pre) const {
+    if (WIDE) {
+      int64_t* o = static_cast<int64_t*>(out) + s * 4 * P + p;
+      o[0] = row0;
+      o[P] = rem;
+      o[2 * P] = reset;
+      o[3 * P] = nexp;
+    } else {
+      int32_t* o = static_cast<int32_t*>(out) + s * 4 * P + p;
+      o[0] = int32_t(row0);
+      o[P] = int32_t(imin(imax(rem, 0), kI32Max));
+      o[2 * P] = narrow_time(reset, now, pre);
+      o[3 * P] = narrow_time(nexp, now, pre);
+    }
   }
-  Lane q;
-  src.lane(s, p, now, q);
+  __device__ void zero(int64_t s, int64_t p) const { put(s, p, 0, 0, 0, 0, 0); }
+  __device__ void evaluated(int64_t s, int64_t p, const Lane&, const Eval& e) const {
+    put(s, p, e.row0, e.remaining, e.reset_time, e.new_expire, e.pre_expire);
+  }
+};
+
+// Gather the rows of `slot` in shard s (an out-of-range slot reads row
+// C - 1, as JAX's clamped gather) and evaluate lane q against them.
+__device__ __forceinline__ void gather_eval(const int32_t* __restrict__ hot,
+                                            const int32_t* __restrict__ cold, int64_t C,
+                                            int64_t s, int64_t slot, const Lane& q,
+                                            int64_t now, Eval& e) {
   const int64_t row = s * C + (slot < C ? slot : C - 1);
   const int4* hp = reinterpret_cast<const int4*>(hot + row * 8);
   const int4 h0 = hp[0], h1 = hp[1];
   const int4 c0 = reinterpret_cast<const int4*>(cold + row * 8)[0];
   const int32_t hg[8] = {h0.x, h0.y, h0.z, h0.w, h1.x, h1.y, h1.z, h1.w};
   const int32_t cg[4] = {c0.x, c0.y, c0.z, c0.w};
-  Eval e;
   eval_lane(hg, cg, q, now, e);
-  store_out<WIDE>(out, s, p, P, now, e.row0, e.remaining, e.reset_time,
-                  e.new_expire, e.pre_expire);
-  const bool in_table = slot < C;  // an out-of-range slot drops its write
-  const int32_t flag = (e.write_hot && in_table ? 1 : 0) |
-                       (e.write_cold && in_table ? 2 : 0);
+}
+
+// Which rows an evaluated lane writes (bit0 hot, bit1 cold); a lane
+// whose slot is out of range drops its write.
+__device__ __forceinline__ int32_t write_flag(const Eval& e, int64_t slot, int64_t C) {
+  const bool in_table = slot < C;
+  return (e.write_hot && in_table ? 1 : 0) | (e.write_cold && in_table ? 2 : 0);
+}
+
+// The new rows of an evaluated lane as 16-byte words: the hot row (2),
+// the cold row's limit and duration (1).
+__device__ __forceinline__ void row_words(const Eval& e, int4 w[3]) {
+  w[0] = make_int4(e.hot[0], e.hot[1], e.hot[2], e.hot[3]);
+  w[1] = make_int4(e.hot[4], e.hot[5], e.hot[6], e.hot[7]);
+  w[2] = make_int4(lo32(e.limit), hi32(e.limit), lo32(e.duration), hi32(e.duration));
+}
+
+// Store the rows `flag` names at table row `row` (the cold row's spare
+// words zeroed).
+__device__ __forceinline__ void store_rows(int32_t* __restrict__ hot,
+                                           int32_t* __restrict__ cold, int64_t row,
+                                           int32_t flag, const int4* w) {
+  if (flag & 1) {
+    int4* hp = reinterpret_cast<int4*>(hot + row * 8);
+    hp[0] = w[0];
+    hp[1] = w[1];
+  }
+  if (flag & 2) {
+    int4* cp = reinterpret_cast<int4*>(cold + row * 8);
+    cp[0] = w[2];
+    cp[1] = make_int4(0, 0, 0, 0);
+  }
+}
+
+// Compute step of round `round` for lane p of shard s: every lane of
+// the round evaluates against the pre-round rows, writes its output
+// through `sink` and stages its new rows.  A lane of another round
+// stages nothing; in round 0, lanes that no round will evaluate
+// (padding) write the all-zero output, as does a lane of the round with
+// slot -1.  A Sink with kFirstLook sees each lane of the round before
+// its slot is read, and answers it itself (no evaluation, no write)
+// when first_look returns true.
+template <class Source, class Sink>
+__device__ __forceinline__ void compute_lane(
+    const int32_t* __restrict__ hot, const int32_t* __restrict__ cold, int64_t C,
+    const Source& src, const Sink& sink, int64_t s, int64_t p, int64_t P,
+    int32_t round, int32_t n_rounds, int64_t now, int32_t* __restrict__ stage) {
+  int32_t* st = stage + (s * P + p) * kStageWords;
+  int32_t slot, rid;
+  src.head(s, p, slot, rid);
+  Lane q;
+  if (Sink::kFirstLook && rid == round) {
+    src.lane(s, p, now, q);
+    if (sink.first_look(s, p, q)) {
+      st[kStageFlag] = 0;
+      return;
+    }
+  }
+  if (rid != round || slot < 0) {
+    st[kStageFlag] = 0;
+    const bool never_runs = rid < 0 || rid >= n_rounds;
+    if (rid == round || (never_runs && round == 0)) sink.zero(s, p);
+    return;
+  }
+  if (!Sink::kFirstLook) src.lane(s, p, now, q);
+  Eval e;
+  gather_eval(hot, cold, C, s, slot, q, now, e);
+  sink.evaluated(s, p, q, e);
+  const int32_t flag = write_flag(e, slot, C);
   if (flag) {
+    int4 w[3];
+    row_words(e, w);
     int4* sp = reinterpret_cast<int4*>(st);
-    sp[0] = make_int4(e.hot[0], e.hot[1], e.hot[2], e.hot[3]);
-    sp[1] = make_int4(e.hot[4], e.hot[5], e.hot[6], e.hot[7]);
-    sp[2] = make_int4(lo32(e.limit), hi32(e.limit), lo32(e.duration), hi32(e.duration));
+    sp[0] = w[0];
+    sp[1] = w[1];
+    sp[2] = w[2];
     sp[3] = make_int4(flag, slot, 0, 0);
   } else {
     st[kStageFlag] = 0;
@@ -402,19 +466,7 @@ __device__ __forceinline__ void commit_lane(int32_t* __restrict__ hot,
                                             const int32_t* __restrict__ stage) {
   const int4* sp = reinterpret_cast<const int4*>(stage + (s * P + p) * kStageWords);
   const int4 tail = sp[3];
-  const int32_t flag = tail.x;
-  if (!flag) return;
-  const int64_t row = s * C + tail.y;
-  if (flag & 1) {
-    int4* hp = reinterpret_cast<int4*>(hot + row * 8);
-    hp[0] = sp[0];
-    hp[1] = sp[1];
-  }
-  if (flag & 2) {
-    int4* cp = reinterpret_cast<int4*>(cold + row * 8);
-    cp[0] = sp[2];
-    cp[1] = make_int4(0, 0, 0, 0);
-  }
+  if (tail.x) store_rows(hot, cold, s * C + tail.y, tail.x, sp);
 }
 
 }  // namespace gt

@@ -1,9 +1,10 @@
-"""Host side of the columnar path: request columns, padding, Gregorian
+"""Host side of the bucket stores: request columns, padding, Gregorian
 precompute, the narrow-output decode and the overlapped dispatch
-pipeline shared by the bucket stores.
+pipeline of the columnar path, and the request preparation and round
+planner of the dataclass path (`MeshBucketStore.apply`).
 
 The port of the JAX package's models/shard.py (the parts the mesh
-store's columnar path runs).  Where the JAX package threads donated
+store's columnar and dataclass paths run).  Where the JAX package threads donated
 device buffers through jitted calls, the port launches kernels on one
 CUDA stream that update the state tensors in place: the wire goes up
 from a pinned host buffer with a non-blocking copy, the packed result
@@ -17,12 +18,13 @@ import datetime as _dt
 import threading
 from collections import deque
 from dataclasses import dataclass
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..ops import buckets
+from ..types import Behavior, RateLimitRequest, RateLimitResponse, has_behavior
 from ..utils import gregorian
 
 # Batches pad to a small set of bucket sizes (64, 256, 1024, then powers
@@ -42,6 +44,28 @@ def pad_size(n: int) -> int:
     if n <= p:
         return p
     return ((n + _PAD_MAX - 1) // _PAD_MAX) * _PAD_MAX
+
+
+@dataclass
+class _Prepared:
+    """A request resolved host-side, ready for kernel dispatch.
+
+    gslot / cached_hint are used by the GLOBAL path (parallel/mesh.py):
+    cached_hint lanes answer from the replica columns, touch no local
+    bucket state, and scatter-add their hits — so they bypass the
+    round-uniqueness rules entirely.
+    """
+
+    pos: int
+    slot: int
+    exists: bool
+    req: RateLimitRequest
+    key: str
+    greg_expire: int = 0
+    greg_duration: int = 0
+    resolved: bool = False
+    gslot: int = -1
+    cached_hint: bool = False
 
 
 class GregResolver:
@@ -71,6 +95,159 @@ class GregResolver:
                 cached = e
             self._cache[duration] = cached
         return cached
+
+
+def prepare_requests(
+    requests: Sequence[RateLimitRequest],
+    now_ms: int,
+    responses: List[Optional[RateLimitResponse]],
+) -> List[_Prepared]:
+    """Precompute per-request host-side values (hash key, Gregorian
+    expiry/duration).  Requests with invalid Gregorian durations get
+    error responses directly (reference returns the error per-request)."""
+    greg = GregResolver(now_ms)
+    prepared: List[_Prepared] = []
+
+    for pos, req in enumerate(requests):
+        p = _Prepared(pos=pos, slot=-1, exists=False, req=req, key=req.hash_key())
+        if has_behavior(req.behavior, Behavior.DURATION_IS_GREGORIAN):
+            cached = greg.resolve(req.duration)
+            if isinstance(cached, gregorian.GregorianError):
+                responses[pos] = RateLimitResponse(error=str(cached))
+                continue
+            p.greg_expire, p.greg_duration = cached
+        prepared.append(p)
+    return prepared
+
+
+def plan_grouped_python(table, prepared: Sequence[_Prepared], now_ms: int):
+    """Full-plan twin of the C++ gt_batch_plan_grouped driven one key
+    at a time through a slot table's lookup_or_assign: uniform duplicate groups (same key, identical config, no
+    RESET_REMAINING) collapse into round 0 with per-lane occurrence
+    indices and a single scattering (write) lane; everything else takes
+    the round scheme from round 1 with the same chaining/deferral rules
+    as RoundPlanner.  Mutates each _Prepared's slot/exists; returns
+    (round_id, occ, write, n_rounds) arrays aligned to `prepared`.
+
+    Used by the mesh store's dataclass path: ALL rounds of ALL shards
+    run in one answer-kernel call (ops/global_ops.py answer_rounds).
+    """
+    n = len(prepared)
+    round_id = np.zeros(n, dtype=np.int32)
+    occ = np.zeros(n, dtype=np.int32)
+    write = np.zeros(n, dtype=bool)
+
+    groups: "Dict[str, List[int]]" = {}
+    for j, p in enumerate(prepared):
+        if p.cached_hint:
+            # Replica-cache lane: no local state touched; hits
+            # accumulate by scatter-add, so no round/uniqueness rules.
+            p.slot, p.exists, p.resolved = -1, False, True
+            continue
+        groups.setdefault(p.key, []).append(j)
+
+    used0: set = set()
+    slow: List[int] = []
+    # Last key to write each slot in scheduled device order: round-0
+    # groups seed it; slow lanes consult it for BOTH exists-chaining
+    # and slot-takeover detection.
+    slot_owner: Dict[int, str] = {}
+    for key, lanes in groups.items():
+        f = prepared[lanes[0]]
+        uniform = not has_behavior(f.req.behavior, Behavior.RESET_REMAINING)
+        for j in lanes[1:]:
+            if not uniform:
+                break
+            q = prepared[j]
+            uniform = (
+                q.req.algorithm == f.req.algorithm
+                and q.req.behavior == f.req.behavior
+                and q.req.hits == f.req.hits
+                and q.req.limit == f.req.limit
+                and q.req.duration == f.req.duration
+                and q.greg_expire == f.greg_expire
+                and q.greg_duration == f.greg_duration
+            )
+        ev_before = table.evictions
+        slot, exists = table.lookup_or_assign(key, now_ms)
+        evicted = table.evictions != ev_before
+        for j in lanes:
+            prepared[j].slot = slot
+            prepared[j].exists = exists
+            prepared[j].resolved = True
+        # An eviction may have stolen a slot from a key with earlier
+        # lanes in this batch; the slow path's deferral orders it.
+        if uniform and not evicted and slot not in used0:
+            used0.add(slot)
+            slot_owner[slot] = key
+            for o, j in enumerate(lanes):
+                occ[j] = o
+                write[j] = o + 1 == len(lanes)
+        else:
+            slow.extend(lanes)
+
+    if not slow:
+        return round_id, occ, write, 1
+
+    slow.sort()
+    rnd = 1
+    pending = slow
+    while pending:
+        seen: set = set()
+        used: set = set()
+        deferred: List[int] = []
+        for j in pending:
+            p = prepared[j]
+            if p.key in seen:
+                deferred.append(j)
+                continue
+            owner = slot_owner.get(p.slot)
+            if owner is not None and owner != p.key:
+                # The captured slot was taken over by ANOTHER key's
+                # create (mid-batch eviction) scheduled before this
+                # lane.  Running here — with either exists value —
+                # would corrupt the new owner's device state.
+                # Re-resolve: the table no longer maps this key, so it
+                # gets a fresh slot (or evicts a different one).
+                p.slot, p.exists = table.lookup_or_assign(p.key, now_ms)
+            if p.slot in used:  # eviction collision: defer as-is
+                deferred.append(j)
+                seen.add(p.key)
+                continue
+            round_id[j] = rnd
+            write[j] = True
+            if slot_owner.get(p.slot) == p.key:
+                p.exists = True  # chained: device state authoritative
+            slot_owner[p.slot] = p.key
+            seen.add(p.key)
+            used.add(p.slot)
+        pending = deferred
+        rnd += 1
+    return round_id, occ, write, rnd
+
+
+def build_round_arrays(chunk: Sequence[_Prepared], padded: int) -> Tuple[np.ndarray, ...]:
+    """Columnize one round of prepared requests into kernel input arrays."""
+    slot = np.full(padded, -1, dtype=np.int32)
+    exists = np.zeros(padded, dtype=bool)
+    algo = np.zeros(padded, dtype=np.int32)
+    behavior = np.zeros(padded, dtype=np.int32)
+    hits = np.zeros(padded, dtype=np.int64)
+    limit = np.zeros(padded, dtype=np.int64)
+    duration = np.zeros(padded, dtype=np.int64)
+    greg_expire = np.zeros(padded, dtype=np.int64)
+    greg_duration = np.zeros(padded, dtype=np.int64)
+    for i, p in enumerate(chunk):
+        slot[i] = p.slot
+        exists[i] = p.exists
+        algo[i] = int(p.req.algorithm)
+        behavior[i] = int(p.req.behavior)
+        hits[i] = p.req.hits
+        limit[i] = p.req.limit
+        duration[i] = p.req.duration
+        greg_expire[i] = p.greg_expire
+        greg_duration[i] = p.greg_duration
+    return slot, exists, algo, behavior, hits, limit, duration, greg_expire, greg_duration
 
 
 class _Columns:

@@ -39,6 +39,14 @@ def _load() -> ctypes.CDLL:
     lib.gt_table_free.argtypes = [p]
     lib.gt_table_len.restype = c.c_int64
     lib.gt_table_len.argtypes = [p]
+    lib.gt_table_evictions.restype = c.c_int64
+    lib.gt_table_evictions.argtypes = [p]
+    lib.gt_table_generation.restype = c.c_uint64
+    lib.gt_table_generation.argtypes = [p]
+    lib.gt_table_lookup_or_assign.argtypes = [
+        p, c.c_char_p, c.c_int64, c.c_int64,
+        c.POINTER(c.c_int32), c.POINTER(c.c_uint8),
+    ]
     lib.gt_table_get_slot.restype = c.c_int32
     lib.gt_table_get_slot.argtypes = [p, c.c_char_p, c.c_int64]
     lib.gt_table_get_expire.argtypes = [p, p, c.c_int64, p]
@@ -139,10 +147,35 @@ class NativeSlotTable:
     def __len__(self) -> int:
         return int(self._lib.gt_table_len(self._ptr))
 
+    # -- counters (eviction, mapping generation) ---------------------
+    @property
+    def generation(self) -> int:
+        """Key->slot mapping-change counter (Table::map_generation);
+        unchanged across two reads == no mapping changed between them."""
+        return int(self._lib.gt_table_generation(self._ptr))
+
+    @property
+    def evictions(self) -> int:
+        """LRU evictions so far (plan_grouped_python reads it around
+        every lookup)."""
+        return int(self._lib.gt_table_evictions(self._ptr))
+
+    # ------------------------------------------------------------------
     def get_slot(self, key: str) -> "int | None":
         b = key.encode("utf-8")
         s = self._lib.gt_table_get_slot(self._ptr, b, len(b))
         return None if s < 0 else int(s)
+
+    def lookup_or_assign(self, key: str, now_ms: int) -> Tuple[int, bool]:
+        """(slot, exists) for `key`, assigning a free or LRU-evicted slot
+        to a new key; exists is False for a new or expired entry."""
+        b = key.encode("utf-8")
+        slot = ctypes.c_int32()
+        exists = ctypes.c_uint8()
+        self._lib.gt_table_lookup_or_assign(
+            self._ptr, b, len(b), now_ms, ctypes.byref(slot), ctypes.byref(exists)
+        )
+        return int(slot.value), bool(exists.value)
 
     def get_expire_bulk(self, slots) -> np.ndarray:
         slots = np.ascontiguousarray(slots, dtype=np.int32)

@@ -2,9 +2,10 @@
 // grouped round planner and the whole-mesh plan/decode/commit.
 //
 // A trimmed copy of the JAX package's native/host_runtime.cpp: the slot
-// table (LRU eviction, strict expiry, pending-write refcounts), the
-// grouped planner (gt_batch_*), FNV-1/FNV-1a batch hashing and the mesh
-// planner (gt_mesh_*).  The two-tier back table, the JSON/frame parsers,
+// table (LRU eviction, strict expiry, pending-write refcounts, the
+// single-key lookup, eviction count and mapping generation that the
+// dataclass path and the GLOBAL sync read), the grouped planner (gt_batch_*), FNV-1/FNV-1a batch
+// hashing and the mesh planner (gt_mesh_*).  The two-tier back table, the JSON/frame parsers,
 // the HTTP edge and the ingress queue are not part of the port yet.
 // Behaviour on everything kept is the reference's line for line, so a
 // port store and a JAX store given the same requests plan the same
@@ -70,7 +71,13 @@ struct Table {
   int32_t lru_head = -1, lru_tail = -1;
   std::vector<int32_t> free_slots;  // stack, top = back
   std::unordered_map<std::string, int32_t> key_to_slot;
-  int64_t evictions = 0;  // read by the grouped planner
+  int64_t evictions = 0;  // read by the grouped planners
+  // Bumped on every key->slot MAPPING change (assign, remap, evict,
+  // remove).  NOT bumped by in-place expiry reuse (same key, same slot)
+  // or value/expire writes.  Lets the GLOBAL sync skip owner-slot
+  // re-verification for shards whose mapping is provably unchanged
+  // since the last sync (O(active-gslots) -> O(changed)).
+  uint64_t map_generation = 0;
 
 
   explicit Table(int64_t cap)
@@ -115,6 +122,7 @@ struct Table {
     expire_ms[s] = 0;
     lru_unlink(s);
     free_slots.push_back(s);
+    ++map_generation;
   }
 
 
@@ -126,6 +134,7 @@ struct Table {
     slot_mapped[s] = 0;
     expire_ms[s] = 0;
     ++evictions;
+    ++map_generation;
   }
 
   // Re-map an unmapped slot to `key` (the remove-then-recreate chain:
@@ -147,6 +156,7 @@ struct Table {
       }
     }
     lru_push_back(s);
+    ++map_generation;
     return true;
   }
 
@@ -192,6 +202,7 @@ struct Table {
     slot_key[s].assign(key, len);
     slot_mapped[s] = 1;
     lru_push_back(s);
+    ++map_generation;
     expire_ms[s] = 0;
     return {s, false};
   }
@@ -246,6 +257,32 @@ int32_t gt_table_get_slot(void* tv, const char* key, int64_t len) {
   GT_LOCK(t);
   auto it = t->key_to_slot.find(std::string(key, (size_t)len));
   return it == t->key_to_slot.end() ? -1 : it->second;
+}
+
+// Evictions so far: plan_grouped_python reads it around every lookup to
+// detect an eviction.
+int64_t gt_table_evictions(void* tv) {
+  GT_LOCK((Table*)tv);
+  return ((Table*)tv)->evictions;
+}
+
+// Mapping-change generation (see Table::map_generation): equal reads
+// across two points in time guarantee no key->slot mapping changed
+// between them.
+uint64_t gt_table_generation(void* tv) {
+  GT_LOCK((Table*)tv);
+  return ((Table*)tv)->map_generation;
+}
+
+// Single-key resolve (the dataclass path's planner drives lookups one
+// at a time).
+void gt_table_lookup_or_assign(void* tv, const char* key, int64_t len,
+                               int64_t now_ms, int32_t* out_slot,
+                               uint8_t* out_exists) {
+  GT_LOCK((Table*)tv);
+  auto [s, e] = ((Table*)tv)->lookup_or_assign(key, (size_t)len, now_ms);
+  *out_slot = s;
+  *out_exists = e ? 1 : 0;
 }
 
 // Bulk expiry read for the narrow-wire keep-sentinel decode: lanes

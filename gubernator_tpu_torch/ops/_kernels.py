@@ -1,8 +1,10 @@
-"""Build, bind and launch the bucket-rounds CUDA kernels.
+"""Build, bind and launch the port's CUDA kernels.
 
-csrc/bucket_rounds.cu is compiled with nvcc for sm_90a into a shared
-library with a plain C interface the first time a kernel is launched
-(or `build()` is called), and bound through ctypes.  Each wrapper checks
+csrc/bucket_rounds.cu (K1, K2) and csrc/global_ops.cu (K3-K6) are
+compiled with nvcc for sm_90a, one nvcc process per source started
+together, into one shared library with a plain C interface the first
+time a kernel is launched (or `build()` is called), and bound through
+ctypes.  Each wrapper checks
 device, dtype, shape and contiguity, allocates its output and scratch
 with torch.empty, launches on PyTorch's current stream, raises when the
 launch returns a CUDA error, and counts its launches in LAUNCHES.
@@ -24,16 +26,21 @@ from ..utils.build import build_library
 from .buckets import DICT_WIRE_TABLE_WORDS
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
-SOURCES = [os.path.join(_CSRC, "bucket_rounds.cu")]
+SOURCES = [os.path.join(_CSRC, "bucket_rounds.cu"), os.path.join(_CSRC, "global_ops.cu")]
 HEADERS = [os.path.join(_CSRC, "bucket_rounds.cuh")]
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-I", _CSRC,
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-I", _CSRC,
 ]
+LINK_FLAGS = ["-shared"]
 
 # Launches per kernel since the last reset_launch_counts(): one per
 # wrapper call that reached the kernel.
-LAUNCHES = {"bucket_rounds_dict": 0, "bucket_rounds_cols": 0}
+LAUNCHES = {
+    "bucket_rounds_dict": 0, "bucket_rounds_cols": 0,
+    "global_answer_rounds": 0, "global_sync": 0, "set_replica": 0,
+    "clear_gslots": 0,
+}
 _STAGE_WORDS = 16  # per-lane scratch record (bucket_rounds.cuh kStageWords)
 
 _lib = None
@@ -55,8 +62,22 @@ def nvcc_path() -> str:
 def build(log: "list | None" = None) -> str:
     """Compile the kernels if their library is absent; returns its path.
     `log` receives nvcc's output (ptxas register and spill report)."""
-    return build_library("bucket_rounds", SOURCES, [nvcc_path(), *NVCC_FLAGS],
-                         deps=HEADERS, log=log)
+    nvcc = nvcc_path()
+    return build_library("kernels", SOURCES, [nvcc, *NVCC_FLAGS], deps=HEADERS,
+                         log=log, link=[nvcc, *LINK_FLAGS])
+
+
+_P, _I32, _I64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
+_SIGNATURES = {
+    "gt_bucket_rounds_dict": [_P, _P, _I64, _I64, _P, _I64, _I32, _I64, _I32, _P, _P, _P],
+    "gt_bucket_rounds_cols": [_P, _P, _I64, _I64, _P, _P, _I64, _I32, _I64, _I32, _P, _P, _P],
+    "gt_global_answer_rounds": [_P, _P, _I64, _I64, _P, _P, _P, _I64, _P, _P, _P, _P,
+                                _P, _P, _I64, _I32, _I64, _P, _P, _P],
+    "gt_global_sync": [_P, _P, _I64, _I64, _P, _P, _P, _P, _P, _P, _I64, _P, _P, _I64,
+                       _P, _P],
+    "gt_set_replica": [_P, _P, _P, _P, _P, _P, _I64, _I64, _P, _I64, _P],
+    "gt_clear_gslots": [_P, _P, _P, _P, _P, _P, _I64, _I64, _P, _I64, _P],
+}
 
 
 def _get_lib() -> ctypes.CDLL:
@@ -65,15 +86,9 @@ def _get_lib() -> ctypes.CDLL:
         with _lib_lock:
             if _lib is None:
                 lib = ctypes.CDLL(build())
-                p, i32, i64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
-                lib.gt_bucket_rounds_dict.restype = ctypes.c_int
-                lib.gt_bucket_rounds_dict.argtypes = [
-                    p, p, i64, i64, p, i64, i32, i64, i32, p, p, p,
-                ]
-                lib.gt_bucket_rounds_cols.restype = ctypes.c_int
-                lib.gt_bucket_rounds_cols.argtypes = [
-                    p, p, i64, i64, p, p, i64, i32, i64, i32, p, p, p,
-                ]
+                for fn, argtypes in _SIGNATURES.items():
+                    getattr(lib, fn).restype = ctypes.c_int
+                    getattr(lib, fn).argtypes = argtypes
                 _lib = lib
     return _lib
 
@@ -91,9 +106,15 @@ def _check(name: str, t: torch.Tensor, dtype, shape, device) -> None:
         raise ValueError(f"{name} must be contiguous and 16-byte aligned")
 
 
+def _require_card(what: str, device) -> None:
+    """The kernels take CUDA tensors only (a CPU tensor takes the plain
+    version in the dispatching wrapper)."""
+    if device.type != "cuda":
+        raise ValueError(f"{what} must be on a CUDA device, got {device}")
+
+
 def _state(hot, cold):
-    if hot.device.type != "cuda":
-        raise ValueError(f"kernel state must be on a CUDA device, got {hot.device}")
+    _require_card("kernel state", hot.device)
     if hot.dim() != 3 or hot.shape[2] != 8:
         raise ValueError(f"state must be [S, C, 8], got {tuple(hot.shape)}")
     S, C, _ = hot.shape
@@ -108,6 +129,12 @@ def _out(out, S, P, wide, device):
         return torch.empty((S, 4, P), dtype=dtype, device=device)
     _check("out", out, dtype, (S, 4, P), device)
     return out
+
+
+def _stream(device) -> int:
+    """PyTorch's current stream on `device`, as the kernels' stream."""
+    with torch.cuda.device(device):
+        return torch.cuda.current_stream().cuda_stream
 
 
 def _finish(name: str, rc: int) -> None:
@@ -130,13 +157,11 @@ def bucket_rounds_dict(hot, cold, wire, n_rounds: int, now_ms: int, wide: bool,
         raise ValueError("n_rounds must be >= 1")
     out = _out(out, S, P, wide, hot.device)
     stage = torch.empty((S, P, _STAGE_WORDS), dtype=torch.int32, device=hot.device)
-    with torch.cuda.device(hot.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = _get_lib().gt_bucket_rounds_dict(
-            hot.data_ptr(), cold.data_ptr(), S, C, wire.data_ptr(), P,
-            int(n_rounds), int(now_ms), 1 if wide else 0, stage.data_ptr(),
-            out.data_ptr(), stream,
-        )
+    rc = _get_lib().gt_bucket_rounds_dict(
+        hot.data_ptr(), cold.data_ptr(), S, C, wire.data_ptr(), P,
+        int(n_rounds), int(now_ms), 1 if wide else 0, stage.data_ptr(),
+        out.data_ptr(), _stream(hot.device),
+    )
     _finish("bucket_rounds_dict", rc)
     return out
 
@@ -156,12 +181,99 @@ def bucket_rounds_cols(hot, cold, lanes, values, n_rounds: int, now_ms: int,
         raise ValueError("n_rounds must be >= 1")
     out = _out(None, S, P, wide, hot.device)
     stage = torch.empty((S, P, _STAGE_WORDS), dtype=torch.int32, device=hot.device)
-    with torch.cuda.device(hot.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = _get_lib().gt_bucket_rounds_cols(
-            hot.data_ptr(), cold.data_ptr(), S, C, lanes.data_ptr(),
-            values.data_ptr(), P, int(n_rounds), int(now_ms), 1 if wide else 0,
-            stage.data_ptr(), out.data_ptr(), stream,
-        )
+    rc = _get_lib().gt_bucket_rounds_cols(
+        hot.data_ptr(), cold.data_ptr(), S, C, lanes.data_ptr(),
+        values.data_ptr(), P, int(n_rounds), int(now_ms), 1 if wide else 0,
+        stage.data_ptr(), out.data_ptr(), _stream(hot.device),
+    )
     _finish("bucket_rounds_cols", rc)
     return out
+
+
+# ---------------------------------------------------------------------
+# GLOBAL-plane kernels (csrc/global_ops.cu)
+# ---------------------------------------------------------------------
+def _gcols(gcols, device):
+    """Check the replica columns; returns (S, G, their pointers)."""
+    if gcols.rep_status.dim() != 2:
+        raise ValueError(f"replica columns must be [S, G], got {tuple(gcols.rep_status.shape)}")
+    S, G = gcols.rep_status.shape
+    _check("rep_status", gcols.rep_status, torch.int32, (S, G), device)
+    for name in ("rep_limit", "rep_remaining", "rep_reset", "rep_expire", "ghits"):
+        _check(name, getattr(gcols, name), torch.int64, (S, G), device)
+    return S, G, [t.data_ptr() for t in gcols]
+
+
+def global_answer_rounds(hot, cold, gcols, lanes, values, gslot, n_rounds: int,
+                         now_ms: int):
+    """K3: all rounds of one dataclass-path batch (see ops/global_ops.py
+    answer_rounds)."""
+    S, C = _state(hot, cold)
+    if lanes.dim() != 3 or lanes.shape[1] != 6:
+        raise ValueError(f"lanes must be [S, 6, P], got {tuple(lanes.shape)}")
+    P = lanes.shape[2]
+    dev = hot.device
+    _check("lanes", lanes, torch.int32, (S, 6, P), dev)
+    _check("values", values, torch.int64, (S, 5, P), dev)
+    _check("gslot", gslot, torch.int32, (S, P), dev)
+    gS, G, gptrs = _gcols(gcols, dev)
+    if gS != S:
+        raise ValueError(f"replica columns have {gS} shards, state {S}")
+    if n_rounds < 1:
+        raise ValueError("n_rounds must be >= 1")
+    out = torch.empty((S, 5, P), dtype=torch.int64, device=dev)
+    stage = torch.empty((S, P, _STAGE_WORDS), dtype=torch.int32, device=dev)
+    rc = _get_lib().gt_global_answer_rounds(
+        hot.data_ptr(), cold.data_ptr(), S, C, lanes.data_ptr(), values.data_ptr(),
+        gslot.data_ptr(), P, *gptrs, G, int(n_rounds), int(now_ms),
+        stage.data_ptr(), out.data_ptr(), _stream(dev),
+    )
+    _finish("global_answer_rounds", rc)
+    return out
+
+
+def global_sync(hot, cold, gcols, cfg, dirty, now_ms: int):
+    """K4: one GLOBAL sync (see ops/global_ops.py global_sync)."""
+    S, C = _state(hot, cold)
+    dev = hot.device
+    gS, G, gptrs = _gcols(gcols, dev)
+    if gS != S:
+        raise ValueError(f"replica columns have {gS} shards, state {S}")
+    _check("cfg", cfg, torch.int64, (8, G), dev)
+    _check("dirty", dirty, torch.bool, (S, G), dev)
+    out = torch.empty((S, 8, G), dtype=torch.int64, device=dev)
+    rc = _get_lib().gt_global_sync(
+        hot.data_ptr(), cold.data_ptr(), S, C, *gptrs, G, cfg.data_ptr(),
+        dirty.data_ptr(), int(now_ms), out.data_ptr(), _stream(dev),
+    )
+    _finish("global_sync", rc)
+    return out
+
+
+def set_replica(gcols, upd):
+    """K5: replica commit of upd i64[5, M] (see ops/global_ops.py
+    set_replica)."""
+    dev = gcols.rep_status.device
+    _require_card("replica columns", dev)
+    S, G, gptrs = _gcols(gcols, dev)
+    if upd.dim() != 2 or upd.shape[0] != 5:
+        raise ValueError(f"upd must be [5, M], got {tuple(upd.shape)}")
+    M = upd.shape[1]
+    _check("upd", upd, torch.int64, (5, M), dev)
+    rc = _get_lib().gt_set_replica(*gptrs, S, G, upd.data_ptr(), M,
+                                               _stream(dev))
+    _finish("set_replica", rc)
+
+
+def clear_gslots(gcols, idx):
+    """K6: zero the replica columns at idx i64[K] (see ops/global_ops.py
+    clear_gslots)."""
+    dev = gcols.rep_status.device
+    _require_card("replica columns", dev)
+    S, G, gptrs = _gcols(gcols, dev)
+    if idx.dim() != 1:
+        raise ValueError(f"idx must be [K], got {tuple(idx.shape)}")
+    _check("idx", idx, torch.int64, (idx.shape[0],), dev)
+    rc = _get_lib().gt_clear_gslots(*gptrs, S, G, idx.data_ptr(),
+                                                idx.shape[0], _stream(dev))
+    _finish("clear_gslots", rc)

@@ -278,8 +278,13 @@ def _leak_amounts(el_c, lim_nn, rn):
     return lw, frac
 
 
-class _Req(NamedTuple):
-    """One round's requests, [S, P] each (int64 values, bool flags)."""
+class RequestBatch(NamedTuple):
+    """One batch of resolved requests for every shard, [S, P] each
+    (int64 values, bool flags; the JAX package's RequestBatch with a
+    leading shard axis).  `slot` -1 marks an inactive or padding lane:
+    it reads nothing, writes nothing and answers zeros.  `occ` and
+    `write` come from the grouped planner (occurrence index within a
+    uniform duplicate group, and whether the lane stores its row)."""
 
     slot: torch.Tensor  # i64, -1 = inactive / padding
     exists: torch.Tensor
@@ -294,7 +299,7 @@ class _Req(NamedTuple):
     write: torch.Tensor
 
 
-def _apply_compute(hot_g, cold_g, req: _Req, now):
+def _apply_compute(hot_g, cold_g, req: RequestBatch, now):
     """One batch evaluation without the commit (the JAX package's
     buckets._apply_compute): returns the packed response rows
     (row0, remaining, reset_time, new_expire, pre_expire) and the new
@@ -458,28 +463,69 @@ def _apply_compute(hot_g, cold_g, req: _Req, now):
     return out, new_hot, new_cold, writes, cold_changed
 
 
-def _rounds_plain(state: BucketState, req: _Req, round_id, n_rounds: int, now):
+def _apply_batch_packed(state: BucketState, req: RequestBatch, now):
+    """One batch against every shard's table, in place: gather each
+    lane's rows, evaluate, scatter the write lanes' rows (the cold row
+    only where its config changed).  Returns the packed i64[S, 5, P]
+    (row0 = status | removed << 1, remaining, reset_time, new_expire,
+    pre_expire)."""
+    S, P = req.slot.shape
+    C = state.hot.shape[1]
+    sidx = torch.arange(S, device=req.slot.device)[:, None].expand(S, P)
+    s = torch.clamp(req.slot, 0, C - 1)
+    out, new_hot, new_cold, writes, cold_changed = _apply_compute(
+        state.hot[sidx, s], state.cold[sidx, s], req, now
+    )
+    # Write slots are unique within a batch, so the scatter order does
+    # not matter.
+    state.hot[sidx[writes], req.slot[writes]] = new_hot[writes]
+    state.cold[sidx[cold_changed], req.slot[cold_changed]] = new_cold[cold_changed]
+    return out
+
+
+class BatchOutput(NamedTuple):
+    """Per-lane responses of `apply_batch`, [S, P] each (the JAX
+    package's BatchOutput)."""
+
+    status: torch.Tensor  # i64
+    limit: torch.Tensor  # i64, the request's limit (0 on inactive lanes)
+    remaining: torch.Tensor
+    reset_time: torch.Tensor
+    new_expire: torch.Tensor  # the slot's expire_at after this lane
+    removed: torch.Tensor  # bool: token RESET_REMAINING freed the slot
+    pre_expire: torch.Tensor  # the slot's stored expiry as gathered
+
+
+def apply_batch(state: BucketState, req: RequestBatch, now) -> BatchOutput:
+    """The JAX package's apply_batch vmapped over S, in place: slots are
+    unique within the batch (duplicate keys are the planner's rounds or
+    `occ` groups).  The JAX form's `cold_cond` only chooses how its
+    cold-row scatter is compiled; either way the cold row is written
+    only where a lane's config changed, as here."""
+    out = _apply_batch_packed(state, req, now)
+    return BatchOutput(
+        status=out[:, 0] & 1,
+        limit=torch.where(req.slot >= 0, req.limit, 0),
+        remaining=out[:, 1],
+        reset_time=out[:, 2],
+        new_expire=out[:, 3],
+        removed=((out[:, 0] >> 1) & 1) == 1,
+        pre_expire=out[:, 4],
+    )
+
+
+def _rounds_plain(state: BucketState, req: RequestBatch, round_id, n_rounds: int, now):
     """Rounds loop over all shards (apply_rounds / apply_rounds32 vmapped
     over S): round r's lanes read the state rounds < r left, then its
     write lanes store their rows.  Returns packed i64[S, 5, P] (row 4 is
     each lane's pre-round stored expiry)."""
     S, P = req.slot.shape
-    C = state.hot.shape[1]
-    sidx = torch.arange(S, device=req.slot.device)[:, None].expand(S, P)
     packed = torch.zeros((S, 5, P), dtype=_I64, device=req.slot.device)
     for r in range(n_rounds):
         active = round_id == r
-        slot = torch.where(active, req.slot, -1)
-        s = torch.clamp(slot, 0, C - 1)
-        hot_g = state.hot[sidx, s]
-        cold_g = state.cold[sidx, s]
-        out, new_hot, new_cold, writes, cold_changed = _apply_compute(
-            hot_g, cold_g, req._replace(slot=slot), now
+        out = _apply_batch_packed(
+            state, req._replace(slot=torch.where(active, req.slot, -1)), now
         )
-        # Write slots are unique within a round, so the scatter order
-        # does not matter.
-        state.hot[sidx[writes], slot[writes]] = new_hot[writes]
-        state.cold[sidx[cold_changed], slot[cold_changed]] = new_cold[cold_changed]
         packed = torch.where(active[:, None, :], out, packed)
     return packed
 
@@ -540,7 +586,7 @@ def bucket_rounds_dict_plain(hot, cold, wire, n_rounds: int, now_ms: int,
         greg_expire = torch.where(greg_dur != 0, now + delta, 0)
     else:
         greg_expire = now + delta
-    req = _Req(
+    req = RequestBatch(
         slot=w[:, :P], exists=(fl & 1) != 0, algorithm=row(0),
         behavior=row(1), hits=hits, limit=limit, duration=duration,
         greg_expire=greg_expire, greg_duration=greg_dur,
@@ -564,7 +610,7 @@ def bucket_rounds_cols_plain(hot, cold, lanes, values, n_rounds: int,
     v = values.to(_I64)
     now = int(now_ms)
     greg_expire = v[:, 3] if wide else now + v[:, 3]
-    req = _Req(
+    req = RequestBatch(
         slot=ln[:, 0], exists=(ln[:, 1] & 1) != 0, algorithm=ln[:, 2],
         behavior=ln[:, 3], hits=v[:, 0], limit=v[:, 1], duration=v[:, 2],
         greg_expire=greg_expire, greg_duration=v[:, 4], occ=ln[:, 4],

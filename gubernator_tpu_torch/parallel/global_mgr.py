@@ -1,0 +1,298 @@
+"""Host-side bookkeeping for GLOBAL keys: the process-wide gslot table.
+
+Every GLOBAL key gets one dense id (gslot) shared by all shards, so the
+device-side replica columns and hit accumulators (ops/global_ops.py) are
+uniformly indexed across the mesh.  The host mirrors per-key config
+(the stand-in for the full RateLimitReq the reference forwards in
+GetPeerRateLimits, global.go:129-145) and the owner's slot mapping.
+
+The per-key config mirror is COLUMNAR: parallel name/unique_key
+template arrays plus the numeric config columns replace the old
+per-gslot RateLimitRequest dataclass cache, so the sync decode tail can
+emit wire-ready column batches (GlobalsColumns / HitColumns) straight
+from array indexing — no per-key object materialization on the GLOBAL
+hot path.
+
+The PyTorch port's copy of the JAX package's parallel/global_mgr.py,
+plus `GlobalKeyTable.load` for carrying a table's state across stores.
+"""
+
+from __future__ import annotations
+
+from collections import OrderedDict
+from dataclasses import dataclass
+from typing import Dict, List, Optional
+
+import numpy as np
+
+from ..types import (
+    Behavior,
+    RateLimitRequest,
+    RateLimitResponse,
+    UpdatePeerGlobal,
+    set_behavior,
+)
+
+
+@dataclass
+class GlobalsColumns:
+    """One GLOBAL broadcast batch in column form — the host-tier
+    currency of the columnar replication plane (UpdatePeerGlobals).
+    Lane i of every column is one key's authoritative status."""
+
+    keys: List[str]
+    algorithm: np.ndarray  # i32[n]
+    status: np.ndarray  # i32[n]
+    limit: np.ndarray  # i64[n]
+    remaining: np.ndarray  # i64[n]
+    reset_time: np.ndarray  # i64[n]
+
+    def __len__(self) -> int:
+        return len(self.keys)
+
+    def update_at(self, i: int) -> UpdatePeerGlobal:
+        """Materialize one lane as a dataclass (compat / classic legs)."""
+        return UpdatePeerGlobal(
+            key=self.keys[i],
+            algorithm=int(self.algorithm[i]),
+            status=RateLimitResponse(
+                status=int(self.status[i]),
+                limit=int(self.limit[i]),
+                remaining=int(self.remaining[i]),
+                reset_time=int(self.reset_time[i]),
+            ),
+        )
+
+    def to_updates(self) -> List[UpdatePeerGlobal]:
+        return [self.update_at(i) for i in range(len(self.keys))]
+
+    def slice(self, lo: int, hi: int) -> "GlobalsColumns":
+        """Lane slice (the sender's chunking to the receive-side lane
+        cap)."""
+        return GlobalsColumns(
+            keys=self.keys[lo:hi],
+            algorithm=self.algorithm[lo:hi],
+            status=self.status[lo:hi],
+            limit=self.limit[lo:hi],
+            remaining=self.remaining[lo:hi],
+            reset_time=self.reset_time[lo:hi],
+        )
+
+    @classmethod
+    def from_updates(cls, updates) -> "GlobalsColumns":
+        n = len(updates)
+        return cls(
+            keys=[u.key for u in updates],
+            algorithm=np.fromiter(
+                (u.algorithm for u in updates), np.int32, count=n
+            ),
+            status=np.fromiter(
+                (u.status.status for u in updates), np.int32, count=n
+            ),
+            limit=np.fromiter(
+                (u.status.limit for u in updates), np.int64, count=n
+            ),
+            remaining=np.fromiter(
+                (u.status.remaining for u in updates), np.int64, count=n
+            ),
+            reset_time=np.fromiter(
+                (u.status.reset_time for u in updates), np.int64, count=n
+            ),
+        )
+
+
+@dataclass
+class HitColumns:
+    """Aggregated remote-owner hits in column form (the sendHits
+    payload, global.go:120-160): the wire template columns of each
+    key's last-seen request plus the device-accumulated hit total.
+    Rides the columnar GetPeerRateLimits path (wire.PeerColumns layout
+    = fields [:7] of this, in order)."""
+
+    names: List[str]
+    unique_keys: List[str]
+    algorithm: np.ndarray  # i32[n]
+    behavior: np.ndarray  # i32[n], GLOBAL bit set (the wire behavior)
+    hits: np.ndarray  # i64[n]
+    limit: np.ndarray  # i64[n]
+    duration: np.ndarray  # i64[n]
+
+    def __len__(self) -> int:
+        return len(self.names)
+
+    def hash_key_at(self, i: int) -> str:
+        return f"{self.names[i]}_{self.unique_keys[i]}"
+
+    def request_at(self, i: int) -> RateLimitRequest:
+        return RateLimitRequest(
+            name=self.names[i],
+            unique_key=self.unique_keys[i],
+            hits=int(self.hits[i]),
+            limit=int(self.limit[i]),
+            duration=int(self.duration[i]),
+            algorithm=int(self.algorithm[i]),
+            behavior=int(self.behavior[i]),
+        )
+
+    def to_requests(self) -> List[RateLimitRequest]:
+        return [self.request_at(i) for i in range(len(self.names))]
+
+    def subset(self, idx) -> "HitColumns":
+        """Lane subset (index array) — the per-owner grouping split."""
+        idx_a = np.asarray(idx, dtype=np.int64)
+        return HitColumns(
+            names=[self.names[int(i)] for i in idx_a],
+            unique_keys=[self.unique_keys[int(i)] for i in idx_a],
+            algorithm=self.algorithm[idx_a],
+            behavior=self.behavior[idx_a],
+            hits=self.hits[idx_a],
+            limit=self.limit[idx_a],
+            duration=self.duration[idx_a],
+        )
+
+    def peer_columns(self):
+        """This batch as a wire.PeerColumns tuple (the columnar
+        forwarded-batch currency PeerClient sends)."""
+        return (
+            self.names, self.unique_keys, self.algorithm, self.behavior,
+            self.hits, self.limit, self.duration,
+        )
+
+
+class GlobalKeyTable:
+    def __init__(self, capacity: int):
+        self.capacity = capacity
+        self._key_to_gslot: Dict[str, int] = {}
+        self._gslot_to_key: List[Optional[str]] = [None] * capacity
+        self._free: List[int] = list(range(capacity - 1, -1, -1))
+        self._lru: "OrderedDict[int, None]" = OrderedDict()
+
+        self.owner_shard = np.full(capacity, -1, dtype=np.int32)
+        self.owner_slot = np.full(capacity, -1, dtype=np.int32)
+        self.algorithm = np.zeros(capacity, dtype=np.int32)
+        self.behavior = np.zeros(capacity, dtype=np.int32)  # GLOBAL bit stripped
+        self.limit = np.zeros(capacity, dtype=np.int64)
+        self.duration = np.zeros(capacity, dtype=np.int64)
+        self.greg_expire = np.zeros(capacity, dtype=np.int64)
+        self.greg_duration = np.zeros(capacity, dtype=np.int64)
+        # Host mirror of the broadcast expiry (== device rep_expire rows).
+        self.rep_expire = np.zeros(capacity, dtype=np.int64)
+        # Wire template columns of the last-seen request per gslot — the
+        # payload template for forwarding aggregated hits to a remote
+        # owner (sendHits sends full RateLimitReqs, global.go:129-145).
+        # A None name marks a gslot that never saw a request here (e.g.
+        # assigned by a received broadcast): nothing to forward.
+        self.names: List[Optional[str]] = [None] * capacity
+        self.unique_keys: List[Optional[str]] = [None] * capacity
+
+    def __len__(self) -> int:
+        return len(self._key_to_gslot)
+
+    def key_of(self, gslot: int) -> Optional[str]:
+        return self._gslot_to_key[gslot]
+
+    def get(self, key: str) -> Optional[int]:
+        g = self._key_to_gslot.get(key)
+        if g is not None:
+            self._lru.move_to_end(g)
+        return g
+
+    def lookup_or_assign(self, key: str, owner_shard: int):
+        """Returns (gslot, evicted_gslot_or_None).  The caller must clear
+        the evicted gslot's device rows before reusing it."""
+        g = self._key_to_gslot.get(key)
+        if g is not None:
+            self._lru.move_to_end(g)
+            # Ownership can flip local <-> remote when the daemon ring
+            # rebalances; always track the latest claim, resetting the
+            # owner-slot mapping on a change.
+            if self.owner_shard[g] != owner_shard:
+                self.owner_shard[g] = owner_shard
+                self.owner_slot[g] = -1
+            return g, None
+        evicted = None
+        if self._free:
+            g = self._free.pop()
+        else:
+            g, _ = self._lru.popitem(last=False)
+            old = self._gslot_to_key[g]
+            if old is not None:
+                del self._key_to_gslot[old]
+            evicted = g
+        self._key_to_gslot[key] = g
+        self._gslot_to_key[g] = key
+        self._lru[g] = None
+        self._lru.move_to_end(g)
+        self.owner_shard[g] = owner_shard
+        self.owner_slot[g] = -1
+        self.rep_expire[g] = 0
+        # A recycled gslot must not forward the previous key's template.
+        self.names[g] = None
+        self.unique_keys[g] = None
+        return g, evicted
+
+    def update_config(self, g: int, req, greg_expire: int, greg_duration: int) -> None:
+        """Last-writer-wins config mirror.  (The reference keeps the
+        FIRST queued request's config per window and sums hits,
+        global.go:83-91; configs for one key are identical in practice.)"""
+        self.algorithm[g] = int(req.algorithm)
+        self.behavior[g] = set_behavior(req.behavior, Behavior.GLOBAL, False)
+        self.limit[g] = req.limit
+        self.duration[g] = req.duration
+        self.greg_expire[g] = greg_expire
+        self.greg_duration[g] = greg_duration
+        self.names[g] = req.name
+        self.unique_keys[g] = req.unique_key
+
+    def hit_columns(self, gslots: np.ndarray, totals: np.ndarray) -> HitColumns:
+        """Wire-ready hit-forward columns for `gslots` (templated lanes
+        only — callers pre-filter with `templated`), hits from the
+        device accumulator `totals` (indexed by gslot)."""
+        g = np.asarray(gslots, dtype=np.int64)
+        return HitColumns(
+            names=[self.names[int(i)] for i in g],
+            unique_keys=[self.unique_keys[int(i)] for i in g],
+            algorithm=self.algorithm[g].astype(np.int32),
+            behavior=(
+                self.behavior[g] | np.int32(int(Behavior.GLOBAL))
+            ).astype(np.int32),
+            hits=np.asarray(totals[g], dtype=np.int64),
+            limit=self.limit[g].copy(),
+            duration=self.duration[g].copy(),
+        )
+
+    def templated(self, gslots: np.ndarray) -> np.ndarray:
+        """Mask of gslots with a request template (names[g] set)."""
+        return np.fromiter(
+            (self.names[int(g)] is not None for g in gslots),
+            dtype=bool, count=len(gslots),
+        )
+
+    def active_gslots(self) -> List[int]:
+        return list(self._key_to_gslot.values())
+
+    _COLUMNS = ("owner_shard", "owner_slot", "algorithm", "behavior", "limit",
+                "duration", "greg_expire", "greg_duration", "rep_expire")
+
+    def load(self, key_to_gslot, free, lru, columns) -> None:
+        """Replace this table's contents with another table's (the GLOBAL
+        state carry-over, parallel/mesh.py load_global_state):
+        `key_to_gslot` maps each key to its gslot in assignment order
+        (which orders `active_gslots`, hence a sync's columns), `free`
+        is the free list in pop order (last popped first), `lru` the
+        assigned gslots least recently used first, and `columns` the
+        per-gslot arrays named in _COLUMNS plus the `names` /
+        `unique_keys` template lists."""
+        self._key_to_gslot = {k: int(g) for k, g in key_to_gslot.items()}
+        self._gslot_to_key = [None] * self.capacity
+        for k, g in self._key_to_gslot.items():
+            self._gslot_to_key[g] = k
+        self._free = [int(g) for g in free]
+        self._lru = OrderedDict((int(g), None) for g in lru)
+        if set(self._lru) != set(self._key_to_gslot.values()):
+            raise ValueError("lru must list exactly the assigned gslots")
+        for name in self._COLUMNS:
+            dst = getattr(self, name)
+            dst[:] = np.asarray(columns[name], dtype=dst.dtype)
+        self.names = list(columns["names"])
+        self.unique_keys = list(columns["unique_keys"])

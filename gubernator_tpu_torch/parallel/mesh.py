@@ -1,23 +1,40 @@
 """Sharded bucket store on one device: key ownership = shard.
 
-The port of the JAX package's parallel/mesh.py MeshBucketStore, columnar
-path only.  Where the JAX store lays S shards over a device mesh, this
-store keeps them as the leading dimension of the state tensors on one
-device: hot/cold int32 [S, C, 8].  Keys map to shards by the static
-shardmap `fnv1a(key) % S`; each shard plans its rounds in its own C++
-slot table, and one kernel launch (ops/buckets.py bucket_rounds_dict,
-or bucket_rounds_cols for the per-lane-column fallback) applies every
-shard's lanes.
+The port of the JAX package's parallel/mesh.py MeshBucketStore.  Where
+the JAX store lays S shards over a device mesh, this store keeps them as
+the leading dimension of the state tensors on one device: hot/cold
+int32 [S, C, 8], and the GLOBAL replica columns [S, G].  Keys map to
+shards by the static shardmap `fnv1a(key) % S`.
 
-Not ported yet: GLOBAL lanes and their sync, the dataclass `apply`
-path, the two-tier table, the Store SPI, snapshots and resharding.
+Two request paths:
+
+* the columnar path (`apply_columns[_async]`): each shard plans its
+  rounds in its own C++ slot table and one kernel launch
+  (ops/buckets.py bucket_rounds_dict, or bucket_rounds_cols for the
+  per-lane-column fallback) applies every shard's lanes;
+* the dataclass path (`apply`), which also serves Behavior.GLOBAL: a
+  GLOBAL lane at a non-owner shard answers from that shard's replica
+  columns while they are live, else from its own bucket, and adds its
+  hits to the shard's accumulator; `sync_globals` sums the accumulators
+  at each key's owner, applies them there and broadcasts the owner's
+  answer into every shard's replica columns (ops/global_ops.py);
+  `set_replica_batch` commits another daemon's broadcast.
+
+The JAX store serialises its sync collective across stores with a
+process-wide lock (`_SYNC_COLLECTIVE_LOCK`) because two interleaved
+rendezvous on a shared virtual CPU mesh can deadlock; one device has no
+rendezvous, so the port has no such lock.
+
+Not ported yet: the two-tier table, the Store SPI (`RoundPlanner`,
+`_run_round`), `measure_sync_cost_s`, snapshots and resharding.
 """
 
 from __future__ import annotations
 
 import threading
+import time
 from dataclasses import dataclass
-from typing import Optional
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -26,14 +43,25 @@ from .. import native
 from ..models.shard import (
     ColumnarPipeline,
     ColumnsHandle,
+    _readback,
     _Staged,
+    build_round_arrays,
     make_columns,
     narrow_ok,
     pad_size,
+    plan_grouped_python,
+    prepare_requests,
 )
-from ..ops import buckets
-from ..types import Behavior
+from ..ops import buckets, global_ops
+from ..types import (
+    Behavior,
+    RateLimitRequest,
+    RateLimitResponse,
+    UpdatePeerGlobal,
+    has_behavior,
+)
 from ..utils import hashing
+from .global_mgr import GlobalKeyTable, GlobalsColumns, HitColumns
 
 
 def shard_of_key(key: str, n_shards: int) -> int:
@@ -60,6 +88,46 @@ def resolve_device(device=None) -> torch.device:
     return device
 
 
+def _pad_pow2(n: int, floor: int = 8) -> int:
+    """Pow2 size buckets (>= floor) for variable-length index arrays, so
+    the replica commits see the JAX store's padded shapes."""
+    m = floor
+    while m < n:
+        m <<= 1
+    return m
+
+
+def _locked(fn):
+    """Run a mutator under the store lock (launches and state swaps
+    serialise on it)."""
+
+    def wrapper(self, *args, **kwargs):
+        with self._lock:
+            return fn(self, *args, **kwargs)
+
+    wrapper.__name__ = fn.__name__
+    wrapper.__doc__ = fn.__doc__
+    return wrapper
+
+
+def _drained_locked(fn):
+    """Run a mutator with the pipeline drained and the plan and store
+    locks held (ColumnarPipeline._drain_then_lock): it must observe every
+    in-flight columnar batch's commits, and no new batch may plan
+    against the state it mutates."""
+
+    def wrapper(self, *args, **kwargs):
+        self._drain_then_lock()
+        try:
+            return fn(self, *args, **kwargs)
+        finally:
+            self._unlock_drained()
+
+    wrapper.__name__ = fn.__name__
+    wrapper.__doc__ = fn.__doc__
+    return wrapper
+
+
 @dataclass
 class _MeshPrep:
     """Output of the prepare stage: the mesh plan plus the commit
@@ -76,14 +144,74 @@ class _MeshPrep:
     commit: object
 
 
+@dataclass
+class SyncResult:
+    """Host-tier work produced by one GLOBAL sync, in column form:
+    `broadcast_cols` are the authoritative statuses of keys a local shard
+    owns (the UpdatePeerGlobals fan-out), `remote_hit_cols` the summed
+    hits of keys a remote daemon owns (the GetPeerRateLimits forward).
+    The dataclass views materialize lazily."""
+
+    broadcast_cols: Optional[GlobalsColumns] = None
+    remote_hit_cols: Optional[HitColumns] = None
+    # False only for the empty early return (no active gslots, nothing
+    # dirty): such passes ran no kernel, so observers tuning windows
+    # from sync cost must ignore them.
+    did_work: bool = True
+
+    @property
+    def broadcasts(self) -> List[UpdatePeerGlobal]:
+        if self.broadcast_cols is None:
+            return []
+        return self.broadcast_cols.to_updates()
+
+    @property
+    def remote_hits(self) -> List[RateLimitRequest]:
+        if self.remote_hit_cols is None:
+            return []
+        return self.remote_hit_cols.to_requests()
+
+    @property
+    def broadcast_count(self) -> int:
+        return 0 if self.broadcast_cols is None else len(self.broadcast_cols)
+
+
+@dataclass
+class _AnswerPrep:
+    """A dataclass-path batch between planning and the answer kernel."""
+
+    responses: list
+    by_shard: list
+    n_rounds: int
+    lanes: np.ndarray  # i32[S, 6, P]
+    values: np.ndarray  # i64[S, 5, P]
+    gslot: np.ndarray  # i32[S, P]
+
+
+@dataclass
+class _SyncPrep:
+    """A sync between owner-slot resolution and the sync kernel."""
+
+    active: list
+    cfg: np.ndarray  # i64[8, G], SyncConfig.pack()
+
+
 class MeshBucketStore(ColumnarPipeline):
-    """Bucket tables for S shards on one device."""
+    """Bucket tables for S shards on one device.
+
+    `apply(..., home_shard=s)` models the reference's ingress topology:
+    the request arrived at peer s, which may not own the key.  GLOBAL
+    requests at a non-owner answer locally (replica cache or as-if-owner
+    fallback, gubernator.go:231-255) and sync their hits at the next
+    `sync_globals()`.  Non-GLOBAL requests always route to the owner.
+    """
 
     def __init__(self, capacity_per_shard: int = 50_000, n_shards: int = 8,
-                 device=None):
+                 device=None, g_capacity: int = 4096):
         self.device = resolve_device(device)
         self.n_shards = n_shards
         self.capacity_per_shard = capacity_per_shard
+        self.g_capacity = g_capacity
         # Guards the state tensors: launches (and wholesale state loads)
         # serialise on it, the role of the reference's cache mutex held
         # per batch.
@@ -92,9 +220,342 @@ class MeshBucketStore(ColumnarPipeline):
         self.tables = [native.NativeSlotTable(capacity_per_shard)
                        for _ in range(n_shards)]
         self.state = buckets.init_state(n_shards, capacity_per_shard, self.device)
+        self.gtable = GlobalKeyTable(g_capacity)
+        self.dirty = np.zeros((n_shards, g_capacity), dtype=bool)
+        self.gcols = global_ops.init_global_columns(n_shards, g_capacity, self.device)
+        # Kernel launches made by replica-batch commits (one per
+        # broadcast, plus one clear when it recycled gslots).
+        self.replica_commit_dispatches = 0
+        # In-lock seconds of the last sync that did work (GlobalManager
+        # sizes its window from it).
+        self.last_sync_cost_s: Optional[float] = None
+        self._sync_gen: Optional[list] = None
 
     def size(self) -> int:
         return sum(len(t) for t in self.tables)
+
+    # ------------------------------------------------------------------
+    # Dataclass path (GLOBAL lanes included)
+    # ------------------------------------------------------------------
+    @_drained_locked
+    def apply(
+        self,
+        requests: Sequence[RateLimitRequest],
+        now_ms: int,
+        home_shard: Optional[int] = None,
+        remote_global: bool = False,
+    ) -> List[RateLimitResponse]:
+        """Evaluate a batch across all shards; responses in request order.
+
+        remote_global=True marks every GLOBAL request's authoritative
+        owner as a REMOTE daemon: the key is answered locally from its
+        replica entry or fallback bucket, hits accumulate on the device,
+        and sync_globals() surfaces the totals for the host to forward.
+        One kernel call runs every round of every shard."""
+        prep = self._prepare_apply(requests, now_ms, home_shard, remote_global)
+        if prep.n_rounds:
+            packed = self._launch_answer(prep, *self._stage_answer(prep), now_ms)
+            self._decode_commit_respond(_readback(packed)(), prep)
+        return [r if r is not None else RateLimitResponse() for r in prep.responses]
+
+    def _prepare_apply(self, requests, now_ms: int, home_shard=None,
+                       remote_global: bool = False) -> _AnswerPrep:
+        """Host half of `apply` (store lock held): validate, route each
+        lane to a shard, register GLOBAL keys, plan every shard's rounds
+        and build the kernel's input arrays.  n_rounds 0 = nothing to
+        launch (every request failed validation)."""
+        responses: List[Optional[RateLimitResponse]] = [None] * len(requests)
+        prepared = prepare_requests(requests, now_ms, responses)
+        S = self.n_shards
+        by_shard: List[list] = [[] for _ in range(S)]
+        for p in prepared:
+            owner = shard_of_key(p.key, S)
+            target = owner
+            if has_behavior(p.req.behavior, Behavior.GLOBAL):
+                owner_mark = -1 if remote_global else owner
+                g, evicted = self.gtable.lookup_or_assign(p.key, owner_mark)
+                if evicted is not None:
+                    global_ops.clear_gslots(self.gcols, [evicted])
+                self.gtable.update_config(g, p.req, p.greg_expire, p.greg_duration)
+                non_owner = remote_global or (home_shard is not None and home_shard != owner)
+                if non_owner:
+                    # Non-owner: answer locally, sync hits later
+                    # (gubernator.go:231-255).
+                    p.gslot = g
+                    target = owner if remote_global else home_shard
+                    if self.gtable.rep_expire[g] >= now_ms:
+                        p.cached_hint = True
+                else:
+                    # The owner applies directly and owes a broadcast
+                    # (getRateLimit's QueueUpdate, gubernator.go:339-341).
+                    self.dirty[owner, g] = True
+            by_shard[target].append(p)
+
+        empty = np.zeros((S, 0))
+        if not any(by_shard):
+            return _AnswerPrep(responses, by_shard, 0, empty, empty, empty)
+        plans = []
+        n_rounds = 1
+        for s in range(S):
+            rid, occ, wr, nr = plan_grouped_python(self.tables[s], by_shard[s], now_ms)
+            plans.append((rid, occ, wr))
+            n_rounds = max(n_rounds, nr)
+        padded = pad_size(max(len(c) for c in by_shard))
+        lanes = np.zeros((S, 6, padded), np.int32)
+        lanes[:, 0] = -1
+        values = np.zeros((S, 5, padded), np.int64)
+        gslot = np.full((S, padded), -1, np.int32)
+        for s, chunk in enumerate(by_shard):
+            m = len(chunk)
+            if not m:
+                continue
+            (slot, exists, algo, behavior, hits, limit, duration, greg_expire,
+             greg_duration) = build_round_arrays(chunk, m)
+            rid, occ, wr = plans[s]
+            lanes[s, :, :m] = (slot, exists | (wr << 1), algo, behavior, occ, rid)
+            values[s, :, :m] = (hits, limit, duration, greg_expire, greg_duration)
+            gslot[s, :m] = [p.gslot for p in chunk]
+        return _AnswerPrep(responses, by_shard, n_rounds, lanes, values, gslot)
+
+    def _stage_answer(self, prep: _AnswerPrep):
+        """Upload the answer kernel's inputs."""
+        return self._upload(prep.lanes), self._upload(prep.values), self._upload(prep.gslot)
+
+    def _launch_answer(self, prep: _AnswerPrep, lanes, values, gslot, now_ms: int):
+        """The answer kernel over every round of every shard; returns the
+        packed i64[S, 5, P] (readback still to do)."""
+        self.device_dispatches += 1
+        return global_ops.answer_rounds(
+            self.state.hot, self.state.cold, self.gcols, lanes, values, gslot,
+            prep.n_rounds, now_ms)
+
+    def _decode_commit_respond(self, packed_np: np.ndarray, prep: _AnswerPrep) -> None:
+        """Decode the packed [S, 5, P] answers, fill the responses and
+        commit the write lanes' new expiries into the slot tables (a
+        replica-answered lane touched no bucket and commits nothing)."""
+        row0 = packed_np[:, 0]
+        out_status = (row0 & 1).astype(np.int32)
+        out_removed = ((row0 >> 1) & 1).astype(bool)
+        cached_np = ((row0 >> 2) & 1).astype(bool)
+        out_limit = packed_np[:, 1]
+        out_rem = packed_np[:, 2]
+        out_reset = packed_np[:, 3]
+        out_exp = packed_np[:, 4]
+        write = (prep.lanes[:, 1] & 2) != 0
+        for s, chunk in enumerate(prep.by_shard):
+            if not chunk:
+                continue
+            commit_slots, commit_exp, commit_rm, commit_keys = [], [], [], []
+            for i, p in enumerate(chunk):
+                if write[s, i] and not cached_np[s, i] and p.slot >= 0:
+                    commit_slots.append(p.slot)
+                    commit_exp.append(out_exp[s, i])
+                    commit_rm.append(out_removed[s, i])
+                    commit_keys.append(p.key)
+                prep.responses[p.pos] = RateLimitResponse(
+                    status=int(out_status[s, i]),
+                    limit=int(out_limit[s, i]) if cached_np[s, i] else int(p.req.limit),
+                    remaining=int(out_rem[s, i]),
+                    reset_time=int(out_reset[s, i]),
+                )
+            self.tables[s].commit(commit_slots, commit_exp, commit_rm, commit_keys)
+
+    # ------------------------------------------------------------------
+    # GLOBAL replication
+    # ------------------------------------------------------------------
+    def set_replica(self, update: UpdatePeerGlobal, now_ms: int) -> None:
+        """Receive side of UpdatePeerGlobals (gubernator.go:259-272) for
+        one update: a 1-lane `set_replica_batch`."""
+        self.set_replica_batch(GlobalsColumns.from_updates([update]), now_ms)
+
+    @_locked
+    def set_replica_batch(self, cols: GlobalsColumns, now_ms: int) -> None:
+        """Batched receive side of UpdatePeerGlobals: store the owner
+        daemon's statuses in every shard's replica columns, expiring at
+        ResetTime, with one kernel launch (plus one clear when assigning
+        the keys recycled gslots)."""
+        n = len(cols)
+        if n == 0:
+            return
+        gslots = np.empty(n, dtype=np.int64)
+        evicted: List[int] = []
+        for i, k in enumerate(cols.keys):
+            g, ev = self.gtable.lookup_or_assign(k, -1)
+            if ev is not None:
+                evicted.append(ev)
+            gslots[i] = g
+        # Keep only lanes whose key STILL maps to its gslot (a later
+        # assignment in this batch may have recycled it), and for
+        # duplicate keys the LAST lane.
+        keep = np.fromiter(
+            (self.gtable._key_to_gslot.get(k) == int(g)  # noqa: SLF001
+             for k, g in zip(cols.keys, gslots)),
+            dtype=bool, count=n,
+        )
+        idx = np.nonzero(keep)[0]
+        if idx.size > 1:
+            _, last_rev = np.unique(gslots[idx][::-1], return_index=True)
+            idx = idx[(idx.size - 1) - last_rev]
+        if evicted:
+            # Zero recycled rows BEFORE the scatter: a gslot evicted and
+            # reassigned within this batch gets its new values next.
+            ev = sorted(set(evicted))
+            ev_a = np.full(_pad_pow2(len(ev)), self.g_capacity, np.int64)
+            ev_a[: len(ev)] = ev
+            global_ops.clear_gslots(self.gcols, ev_a)
+            self.replica_commit_dispatches += 1
+        if not idx.size:
+            return
+        m = idx.size
+        pad = _pad_pow2(m)
+        gsel = np.full(pad, -1, np.int64)
+        gsel[:m] = gslots[idx]
+
+        def col(a, dtype):
+            out = np.zeros(pad, dtype)
+            out[:m] = np.asarray(a, dtype=dtype)[idx]
+            return out
+
+        reset = col(cols.reset_time, np.int64)
+        global_ops.set_replica(
+            self.gcols, gsel, col(cols.status, np.int32), col(cols.limit, np.int64),
+            col(cols.remaining, np.int64), reset)
+        self.replica_commit_dispatches += 1
+        # Host mirror: rep_expire gates the replica-cache hint; the
+        # algorithm keeps the broadcast's authoritative value.
+        self.gtable.rep_expire[gsel[:m]] = reset[:m]
+        self.gtable.algorithm[gsel[:m]] = np.asarray(cols.algorithm, dtype=np.int32)[idx]
+
+    @_drained_locked
+    def sync_globals(self, now_ms: int) -> SyncResult:
+        """Run one GLOBAL sync: sum every shard's accumulated hits, apply
+        them at each key's owner shard, broadcast the owner's answer into
+        every shard's replica columns (one kernel launch, one readback).
+
+        The SyncResult carries what the host tier fans out: the
+        authoritative statuses of locally owned keys and the summed hits
+        of keys a remote daemon owns.  Sets `last_sync_cost_s` to the
+        time spent inside the lock (resolution, kernel, readback,
+        decode/commit), not the drain wait before it."""
+        t0 = time.perf_counter()
+        prep = self._prepare_sync(now_ms)
+        if prep is None:
+            return SyncResult(did_work=False)
+        packed = self._launch_sync(*self._stage_sync(prep), now_ms)
+        res = self._finish_sync(prep, _readback(packed)())
+        self.last_sync_cost_s = time.perf_counter() - t0
+        return res
+
+    def _prepare_sync(self, now_ms: int) -> Optional[_SyncPrep]:
+        """Resolve every active gslot's owner slot and pack the sync
+        config; None when nothing is active or dirty."""
+        active = self.gtable.active_gslots()
+        if not active and not self.dirty.any():
+            return None
+        # Owner-slot fast path: a shard whose table reports an unchanged
+        # mapping generation since the end of the last sync cannot have
+        # moved, evicted or removed any key, so its resolved gslots
+        # (owner_slot >= 0) are still valid; only unresolved gslots and
+        # shards with mapping churn pay the per-key verification.
+        gens = [t.generation for t in self.tables]
+        last = self._sync_gen
+        shard_clean = [last is not None and last[o] == g for o, g in enumerate(gens)]
+        # Assigning one key can evict another's slot, so iterate to a
+        # fixed point (bounded), then drop still-unstable entries.
+        gt = self.gtable
+        for _ in range(3):
+            changed = False
+            for g in active:
+                o = int(gt.owner_shard[g])
+                if o < 0:
+                    continue  # a remote daemon owns it: no local slot
+                if shard_clean[o] and gt.owner_slot[g] >= 0:
+                    continue
+                key = gt.key_of(g)
+                slot = self.tables[o].get_slot(key)
+                if slot is None:
+                    slot, _ = self.tables[o].lookup_or_assign(key, now_ms)
+                    changed = True
+                    shard_clean[o] = False  # the assignment may have evicted
+                gt.owner_slot[g] = slot
+            if not changed:
+                break
+        for g in active:
+            o = int(gt.owner_shard[g])
+            if o < 0 or (shard_clean[o] and gt.owner_slot[g] >= 0):
+                continue
+            if self.tables[o].get_slot(gt.key_of(g)) != int(gt.owner_slot[g]):
+                gt.owner_slot[g] = -1
+        cfg = global_ops.SyncConfig(
+            owner_slot=gt.owner_slot, owner_shard=gt.owner_shard,
+            algorithm=gt.algorithm, behavior=gt.behavior, limit=gt.limit,
+            duration=gt.duration, greg_expire=gt.greg_expire,
+            greg_duration=gt.greg_duration,
+        ).pack()
+        return _SyncPrep(active=active, cfg=cfg)
+
+    def _stage_sync(self, prep: _SyncPrep):
+        """Upload the sync kernel's inputs."""
+        return self._upload(prep.cfg), self._upload(self.dirty)
+
+    def _launch_sync(self, cfg, dirty, now_ms: int):
+        """The sync kernel; returns the packed i64[S, 8, G]."""
+        self.device_dispatches += 1
+        return global_ops.global_sync(self.state.hot, self.state.cold, self.gcols,
+                                      cfg, dirty, now_ms)
+
+    def _finish_sync(self, prep: _SyncPrep, packed_np: np.ndarray) -> SyncResult:
+        """Decode the packed sync result: commit the owners' applies into
+        their slot tables and build the host-tier columns."""
+        gt = self.gtable
+        out_rm = (packed_np[:, 0] & 1).astype(bool)
+        out_exp = packed_np[:, 1]
+        # broadcast results are identical in every shard: read shard 0
+        applied_np = ((packed_np[0, 0] >> 1) & 1).astype(bool)
+        totals_np = packed_np[0, 2]
+        rep_status = packed_np[0, 3]
+        rep_limit = packed_np[0, 4]
+        rep_remaining = packed_np[0, 5]
+        rep_reset = packed_np[0, 6]
+        gt.rep_expire[:] = packed_np[0, 7]
+
+        result = SyncResult()
+        act = np.fromiter(prep.active, dtype=np.int64, count=len(prep.active))
+        owner_np = gt.owner_shard[act]
+        # Remote daemons' keys with summed hits (sendHits,
+        # global.go:120-160), as wire-ready columns.
+        rsel = act[(owner_np < 0) & (totals_np[act] > 0)]
+        if rsel.size:
+            rsel = rsel[gt.templated(rsel)]
+        if rsel.size:
+            result.remote_hit_cols = gt.hit_columns(rsel, totals_np)
+        local = act[owner_np >= 0]
+        sel = local[applied_np[local] & (gt.owner_slot[local] >= 0)]
+        sel_shard = gt.owner_shard[sel]
+        for o in np.unique(sel_shard):
+            o = int(o)
+            idx = sel[sel_shard == o]
+            self.tables[o].commit(
+                gt.owner_slot[idx], out_exp[o, idx], out_rm[o, idx],
+                [gt.key_of(int(g)) for g in idx],
+            )
+            # Commit-removals unmapped their keys: invalidate now so the
+            # generation snapshot below cannot let a clean shard skip
+            # re-resolving them next pass.
+            gt.owner_slot[idx[out_rm[o, idx]]] = -1
+        if sel.size:
+            result.broadcast_cols = GlobalsColumns(
+                keys=[gt.key_of(int(g)) for g in sel],
+                algorithm=gt.algorithm[sel].astype(np.int32),
+                status=rep_status[sel].astype(np.int32),
+                limit=np.asarray(rep_limit[sel], dtype=np.int64),
+                remaining=np.asarray(rep_remaining[sel], dtype=np.int64),
+                reset_time=np.asarray(rep_reset[sel], dtype=np.int64),
+            )
+        # Snapshot AFTER our own commits (which may bump generations).
+        self._sync_gen = [t.generation for t in self.tables]
+        self.dirty[:] = False
+        return result
 
     # ------------------------------------------------------------------
     def apply_columns(
@@ -123,7 +584,7 @@ class MeshBucketStore(ColumnarPipeline):
             greg_expire, greg_duration,
         )
         if (cols.behavior & int(Behavior.GLOBAL)).any():
-            raise ValueError("GLOBAL lanes are not supported by the port yet")
+            raise ValueError("GLOBAL lanes must take the dataclass path (apply)")
         return self._submit_pipelined(keys, cols, now_ms, force_wire)
 
     def _prepare_columns(self, keys, cols, now_ms: int,
@@ -248,5 +709,34 @@ class MeshBucketStore(ColumnarPipeline):
                 n = len(keys)
                 table.commit(slots, expire, np.zeros(n, np.uint8), keys)
             self.state = state
+            self._sync_gen = None  # fresh slot tables: verify every owner slot
+        finally:
+            self._unlock_drained()
+
+    def load_global_state(self, gcols, gtable, dirty) -> None:
+        """Replace this store's GLOBAL state with another store's:
+        `gcols` the six replica columns as [S, G] arrays in
+        GlobalColumns order (for example the JAX store's
+        `[np.asarray(c) for c in store.gcols]`), `gtable` the key table's
+        state as keyword arguments of GlobalKeyTable.load, `dirty` the
+        bool [S, G] owner-dirty marks.  With load_state_numpy for the
+        buckets, both stores then answer the next GLOBAL batch and sync
+        identically."""
+        cols = global_ops.global_columns_from_numpy(gcols, self.device)
+        if cols.rep_status.shape != self.gcols.rep_status.shape:
+            raise ValueError(
+                f"replica columns {tuple(cols.rep_status.shape)} != "
+                f"{tuple(self.gcols.rep_status.shape)}")
+        dirty = np.array(dirty, dtype=bool)
+        if dirty.shape != self.dirty.shape:
+            raise ValueError(f"dirty must be {self.dirty.shape}, got {dirty.shape}")
+        self._drain_then_lock()
+        try:
+            table = GlobalKeyTable(self.g_capacity)
+            table.load(**gtable)
+            self.gtable = table
+            self.gcols = cols
+            self.dirty = dirty
+            self._sync_gen = None  # fresh slot tables: verify every owner slot
         finally:
             self._unlock_drained()

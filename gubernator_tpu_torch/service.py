@@ -2,16 +2,19 @@
 gubernator.go), on the port's columnar path.
 
 The port of the JAX package's service.py for a single node with no
-peers: every valid lane is owned locally and evaluated through
-`MeshBucketStore.apply_columns`, both for the dataclass entry point
-(`get_rate_limits`) and the column one (`get_rate_limits_columns`).
-Responses are the JAX V1Service's (tests/test_torch_service.py holds
-them to it).  GLOBAL lanes answer with a per-lane error until the GLOBAL
-plane is ported.
+peers: every valid lane is owned locally.  Plain lanes are evaluated
+through `MeshBucketStore.apply_columns`; GLOBAL lanes take the store's
+dataclass path (`MeshBucketStore.apply`) as the JAX service routes them
+for a daemon that owns every key, and a GlobalManager syncs them on an
+interval.  Responses are the JAX V1Service's
+(tests/test_torch_service.py holds them to it).
 """
 
 from __future__ import annotations
 
+import logging
+import time
+from collections import deque
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
 
@@ -30,10 +33,12 @@ from .types import (
 )
 from .utils import gregorian
 from .utils.clock import DEFAULT_CLOCK, Clock
+from .utils.interval import Interval
+
+log = logging.getLogger(__name__)
 
 HEALTHY = "healthy"
 N_SHARDS = 8  # the JAX service's shard count on an 8-device mesh
-ERR_GLOBAL_NOT_PORTED = "behavior GLOBAL is not supported by the PyTorch port yet"
 ERR_EMPTY_KEY = "field 'unique_key' cannot be empty"
 ERR_EMPTY_NAME = "field 'namespace' cannot be empty"
 
@@ -55,6 +60,8 @@ class ServiceConfig:
 
     store: Optional[MeshBucketStore] = None  # built from the sizes when None
     cache_size: int = 50_000  # total slots, split evenly over 8 shards
+    # GLOBAL sync interval; None = sized from the measured sync cost.
+    global_sync_wait_s: Optional[float] = None
     clock: Clock = field(default_factory=lambda: DEFAULT_CLOCK)
     # Device of the store built from the sizes: None = the current CUDA
     # device (raises without one); "cpu" runs the plain versions.
@@ -133,8 +140,12 @@ class V1Service:
         self.store = conf.store or MeshBucketStore(
             capacity_per_shard=max(conf.cache_size // N_SHARDS, 1),
             device=conf.device,
+            # GLOBAL keys share the reference's cache: a GLOBAL key table
+            # of the cache size, clamped to [4096, 65536].
+            g_capacity=min(max(4096, conf.cache_size), 65536),
         )
         self._closed = False
+        self.global_mgr = GlobalManager(self)
 
     # ------------------------------------------------------------------
     def get_rate_limits(self, req: GetRateLimitsRequest) -> GetRateLimitsResponse:
@@ -155,7 +166,7 @@ class V1Service:
         )
         # Every valid lane evaluates in one batch (the JAX service's
         # whole-batch store call), NO_BATCHING or not.
-        return self._evaluate(cols, split_no_batching=False).to_response()
+        return self._evaluate(cols, dataclass_call=True).to_response()
 
     def get_rate_limits_columns(
         self, cols: IngressColumns, max_lanes: int = MAX_BATCH_SIZE
@@ -171,9 +182,9 @@ class V1Service:
             )
         # NO_BATCHING lanes dispatch before the batched ones, as the
         # JAX service's direct dispatch overtakes its coalescing window.
-        return self._evaluate(cols, split_no_batching=True)
+        return self._evaluate(cols, dataclass_call=False)
 
-    def _evaluate(self, cols: IngressColumns, split_no_batching: bool) -> ColumnarResult:
+    def _evaluate(self, cols: IngressColumns, dataclass_call: bool) -> ColumnarResult:
         n = len(cols)
         result = ColumnarResult.empty(n)
         if n == 0:
@@ -190,17 +201,23 @@ class V1Service:
             elif not cols.names[i]:
                 result.overrides[i] = RateLimitResponse(error=ERR_EMPTY_NAME)
                 fast[i] = False
-            elif beh[i] & int(Behavior.GLOBAL):
-                result.overrides[i] = RateLimitResponse(error=ERR_GLOBAL_NOT_PORTED)
-                fast[i] = False
             else:
                 hash_keys[i] = f"{cols.names[i]}_{cols.unique_keys[i]}"
+        # GLOBAL lanes take the store's dataclass path (replica answers,
+        # hit accumulation).  The JAX service's dataclass entry point
+        # sends every locally owned lane of a multi-lane request there,
+        # so a dataclass call holding a GLOBAL lane does too; its column
+        # entry point sends only the GLOBAL lanes, after launching the
+        # others.
+        slow = fast & ((beh & int(Behavior.GLOBAL)) != 0)
+        if slow.any() and dataclass_call:
+            slow = fast.copy()
+        fast &= ~slow
+        slow_idx = np.nonzero(slow)[0]
         greg_expire, greg_duration = self._resolve_gregorian(cols, beh, fast, result)
         fast_idx = np.nonzero(fast)[0]
-        if not fast_idx.size:
-            return result
-        groups = [fast_idx]
-        if split_no_batching:
+        groups = [fast_idx] if fast_idx.size else []
+        if not dataclass_call and fast_idx.size:
             nb = (beh[fast_idx] & int(Behavior.NO_BATCHING)) != 0
             groups = [g for g in (fast_idx[nb], fast_idx[~nb]) if g.size]
         now = self.clock.now_ms()
@@ -213,6 +230,11 @@ class V1Service:
                 None if greg_expire is None else greg_expire[idx],
                 None if greg_duration is None else greg_duration[idx],
             )))
+        if slow_idx.size:
+            # apply() drains the launched columnar batches first.
+            resps = self.store.apply([cols.request_at(int(i)) for i in slow_idx], now)
+            for i, r in zip(slow_idx, resps):
+                result.overrides[int(i)] = r
         for idx, handle in handles:
             try:
                 out = handle.result()
@@ -256,8 +278,91 @@ class V1Service:
         return HealthCheckResponse(status=HEALTHY, peer_count=1, version=__version__)
 
     def close(self) -> None:
-        """Resolve every in-flight batch."""
+        """Stop the GLOBAL sync and resolve every in-flight batch."""
         if self._closed:
             return
         self._closed = True
+        self.global_mgr.stop()
         self.store._drain_all()
+
+
+class GlobalManager:
+    """The host tier of the GLOBAL plane (global.go:32-243): every
+    GlobalSyncWait, run the store's sync (ops/global_ops.py global_sync
+    on the device).
+
+    The port's service has no peers yet, so the legs that need them are
+    not here: the broadcast fan-out (a one-node daemon sends its
+    broadcasts to no peer, as the JAX service's fan-out skips itself),
+    the remote-hit forward and its requeue carry.  A sync that returns
+    hits for a remote owner raises NotImplementedError: no path of the
+    port's service can make one (it never marks an owner remote)."""
+
+    # Auto-sizing policy: one sync pass should cost <= 10% of its
+    # window, clamped to [5 ms, 1 s]; the estimator is the minimum over
+    # the last SYNC_COST_SAMPLES work ticks (a sync's true cost is its
+    # least-contended run; an average lets one outlier pin the window).
+    SYNC_OVERHEAD_TARGET = 0.1
+    SYNC_WAIT_MIN_S = 0.005
+    SYNC_WAIT_MAX_S = 1.0
+    SYNC_WAIT_FALLBACK_S = 0.1
+    SYNC_COST_SAMPLES = 8
+
+    @classmethod
+    def window_for_cost(cls, cost_s: float) -> float:
+        """The sync window this policy derives from a measured per-sync
+        cost."""
+        return min(
+            max(cost_s / cls.SYNC_OVERHEAD_TARGET, cls.SYNC_WAIT_MIN_S),
+            cls.SYNC_WAIT_MAX_S,
+        )
+
+    def __init__(self, service: V1Service):
+        self.service = service
+        self._stopped = False
+        configured = service.conf.global_sync_wait_s
+        self._auto = configured is None
+        self.sync_wait_s = (
+            self.SYNC_WAIT_FALLBACK_S if configured is None else configured
+        )
+        self.measured_sync_cost_s: Optional[float] = None
+        self._sync_cost_samples: "deque[float]" = deque(maxlen=self.SYNC_COST_SAMPLES)
+        self._last_sync_cost_s: Optional[float] = None
+        self._interval = Interval(self.sync_wait_s, self._tick)
+        self._interval.next()
+
+    def _tick(self) -> None:
+        try:
+            did_work = self.run_once()
+            if did_work and self._auto and self._last_sync_cost_s is not None:
+                self._observe_sync_cost(self._last_sync_cost_s)
+        except Exception:  # noqa: BLE001 — logged; the next tick retries
+            log.exception("GLOBAL sync failed")
+        finally:
+            if not self._stopped:
+                self._interval.next()
+
+    def _observe_sync_cost(self, cost_s: float) -> None:
+        self._sync_cost_samples.append(cost_s)
+        self.measured_sync_cost_s = min(self._sync_cost_samples)
+        self.sync_wait_s = self.window_for_cost(self.measured_sync_cost_s)
+        self._interval.duration_s = self.sync_wait_s
+
+    def run_once(self) -> bool:
+        """One sync pass; returns whether it produced host-tier work (the
+        auto-tuner's signal that GLOBAL is in real use).  Only the store
+        sync's in-lock cost counts as sync cost."""
+        svc = self.service
+        t0 = time.perf_counter()
+        res = svc.store.sync_globals(svc.clock.now_ms())
+        cost = svc.store.last_sync_cost_s
+        self._last_sync_cost_s = cost if cost is not None else time.perf_counter() - t0
+        if res.remote_hit_cols is not None and len(res.remote_hit_cols):
+            raise NotImplementedError(
+                "forwarding GLOBAL hits to a remote owner needs the peer "
+                "transport (ROADMAP: GlobalManager peer legs)")
+        return bool(res.broadcast_cols or res.remote_hit_cols)
+
+    def stop(self) -> None:
+        self._stopped = True
+        self._interval.stop()

@@ -32,15 +32,40 @@ def library_path(name: str, sources: Sequence[str], cmd: Sequence[str]) -> str:
     return os.path.join(BUILD_DIR, f"{name}_{h.hexdigest()[:16]}.so")
 
 
+def _run_all(name: str, cmds: Sequence[Sequence[str]], timeout_s: float) -> list:
+    """Run `cmds` as concurrent processes; returns their output (stdout
+    and stderr merged) in order.  Raises RuntimeError with the output of
+    the first that failed; kills every process on a timeout."""
+    procs = []
+    try:
+        for cmd in cmds:
+            procs.append(subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                          stderr=subprocess.STDOUT, text=True))
+        outs = [p.communicate(timeout=timeout_s)[0] for p in procs]
+    except (OSError, subprocess.SubprocessError) as e:
+        for p in procs:
+            p.kill()
+            p.wait()
+        raise RuntimeError(f"{name}: build failed to run: {e}") from e
+    for p, out in zip(procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"{name}: build failed ({p.returncode}):\n{out}")
+    return outs
+
+
 def build_library(name: str, sources: Sequence[str], cmd: Sequence[str],
                   deps: Sequence[str] = (), timeout_s: float = 600.0,
-                  log: "list | None" = None) -> str:
+                  log: "list | None" = None,
+                  link: "Sequence[str] | None" = None) -> str:
     """Compile `sources` (plus headers `deps`, hashed but not passed)
     with `cmd + sources + ['-o', out]` unless an up-to-date library
-    exists; returns its path.  The compiler's output of a build that
-    ran is appended to `log` when given.  Raises RuntimeError with the
-    compiler's output when the build fails."""
-    path = library_path(name, list(sources) + list(deps), cmd)
+    exists; returns its path.  With `link`, every source is compiled to
+    an object of its own by `cmd + ['-c', source, '-o', obj]`, one
+    compiler process per source, all started together, and the objects
+    are linked by `link + objects + ['-o', out]`.  The compilers' output
+    of a build that ran is appended to `log` when given.  Raises
+    RuntimeError with the compiler's output when the build fails."""
+    path = library_path(name, list(sources) + list(deps), [*cmd, *(link or ())])
     if os.path.exists(path):
         return path
     os.makedirs(BUILD_DIR, exist_ok=True)
@@ -49,19 +74,21 @@ def build_library(name: str, sources: Sequence[str], cmd: Sequence[str],
         if os.path.exists(path):  # built by the holder we waited for
             return path
         tmp = f"{path}.{os.getpid()}.tmp"
+        if link is None:
+            steps = [[[*cmd, *sources, "-o", tmp]]]
+            objects = []
+        else:
+            objects = [f"{tmp}.{i}.o" for i in range(len(sources))]
+            steps = [[[*cmd, "-c", src, "-o", obj] for src, obj in zip(sources, objects)],
+                     [[*link, *objects, "-o", tmp]]]
         try:
-            proc = subprocess.run(
-                [*cmd, *sources, "-o", tmp],
-                capture_output=True, text=True, timeout=timeout_s,
-            )
-        except (OSError, subprocess.SubprocessError) as e:
-            raise RuntimeError(f"{name}: build failed to run: {e}") from e
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"{name}: build failed ({proc.returncode}):\n"
-                f"{proc.stdout}\n{proc.stderr}"
-            )
+            for step in steps:
+                outs = _run_all(name, step, timeout_s)
+                if log is not None:
+                    log.extend(outs)
+        finally:
+            for obj in objects:
+                if os.path.exists(obj):
+                    os.remove(obj)
         os.replace(tmp, path)
-        if log is not None:
-            log.append(proc.stdout + proc.stderr)
     return path

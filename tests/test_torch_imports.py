@@ -50,6 +50,15 @@ def _imported_roots(path):
             yield node.module.split(".")[0]
 
 
+def test_global_plane_modules_are_covered():
+    """The GLOBAL plane's modules are among those the two checks above
+    import with JAX absent and scan for imports."""
+    mods = set(_modules())
+    for m in ("ops.global_ops", "parallel.global_mgr", "utils.interval",
+              "parallel.mesh", "service", "ops._kernels"):
+        assert f"gubernator_tpu_torch.{m}" in mods, m
+
+
 def test_no_jax_or_reference_imports_in_sources():
     files = [os.path.join(ROOT, "chip_smoke.py")]
     for dirpath, _, names in os.walk(PKG):
@@ -83,11 +92,29 @@ def test_kernel_wrapper_refuses_cpu_tensors():
 
     from gubernator_tpu_torch.ops import _kernels
 
+    from gubernator_tpu_torch.ops import global_ops
+
     hot = torch.zeros((8, 4, 8), dtype=torch.int32)
     with pytest.raises(ValueError, match="CUDA"):
         _kernels.bucket_rounds_dict(hot, hot.clone(), torch.zeros((8, 3 * 64 + 3072), dtype=torch.int32),
                                     1, 0, False)
-    assert _kernels.LAUNCHES == {"bucket_rounds_dict": 0, "bucket_rounds_cols": 0}
+    gcols = global_ops.init_global_columns(8, 16, "cpu")
+    lanes = torch.zeros((8, 6, 64), dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        _kernels.global_answer_rounds(hot, hot.clone(), gcols, lanes,
+                                      torch.zeros((8, 5, 64), dtype=torch.int64),
+                                      torch.zeros((8, 64), dtype=torch.int32), 1, 0)
+    with pytest.raises(ValueError, match="CUDA"):
+        _kernels.global_sync(hot, hot.clone(), gcols, torch.zeros((8, 16), dtype=torch.int64),
+                             torch.zeros((8, 16), dtype=torch.bool), 0)
+    with pytest.raises(ValueError, match="CUDA"):
+        _kernels.set_replica(gcols, torch.zeros((5, 8), dtype=torch.int64))
+    with pytest.raises(ValueError, match="CUDA"):
+        _kernels.clear_gslots(gcols, torch.zeros(8, dtype=torch.int64))
+    assert set(_kernels.LAUNCHES) == {
+        "bucket_rounds_dict", "bucket_rounds_cols", "global_answer_rounds",
+        "global_sync", "set_replica", "clear_gslots"}
+    assert not any(_kernels.LAUNCHES.values())
 
 
 def test_native_fnv1a_matches_python_hash():

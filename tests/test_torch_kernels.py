@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
-card: seeded cases (chip_smoke.make_case) through each kernel, narrow
-and wide, must give the plain version's outputs and state bytes exactly
-(tolerance 0: all integer).  Skipped without a CUDA device; on a
+card: seeded cases (chip_smoke.make_case, chip_smoke.global_case) through
+each kernel (K1 and K2 narrow and wide; K3-K6 of the GLOBAL plane) must
+give the plain version's outputs, state and replica-column bytes
+exactly (tolerance 0: all integer).  Skipped without a CUDA device; on a
 machine with one, run `python -m pytest -m cuda tests/test_torch_kernels.py`.
 `python3 chip_smoke.py` runs the same comparison at full size."""
 
@@ -31,5 +32,19 @@ def test_kernel_matches_plain(cuda_device, kind, wide, seed):
                                           12 if kind == "dict" else 300)
     got = run_kernel(torch, cuda_device, kind, hot, cold, args, n_rounds, wide, plain=False)
     want = run_kernel(torch, cuda_device, kind, hot, cold, args, n_rounds, wide, plain=True)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.tobytes() == w.tobytes()
+
+
+@pytest.mark.parametrize("kind", ["answer", "sync", "replica", "clear"])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_global_kernel_matches_plain(cuda_device, kind, seed):
+    import torch
+
+    from chip_smoke import global_case, run_global
+
+    case = global_case(kind, seed, 256, 64, 128 if kind == "answer" else 32, 1 + 2 * seed)
+    got = run_global(torch, cuda_device, kind, case, plain=False)
+    want = run_global(torch, cuda_device, kind, case, plain=True)
     for g, w in zip(got, want):
         assert g.dtype == w.dtype and g.tobytes() == w.tobytes()

@@ -174,7 +174,11 @@ def test_load_state_numpy_carries_a_jax_store_over():
 
 
 def test_global_lanes_are_rejected():
-    store = MeshBucketStore(capacity_per_shard=8, device="cpu")
-    with pytest.raises(ValueError, match="GLOBAL"):
-        store.apply_columns(["a", "b"], np.zeros(2), np.full(2, 2), np.ones(2),
-                            np.full(2, 5), np.full(2, 1000), NOW)
+    """Both stores refuse GLOBAL lanes on the columnar path, with the
+    same message: they take the dataclass path (`apply`)."""
+    msg = r"GLOBAL lanes must take the dataclass path \(apply\)"
+    for store in (MeshBucketStore(capacity_per_shard=8, device="cpu"),
+                  JaxStore(capacity_per_shard=8)):
+        with pytest.raises(ValueError, match=msg):
+            store.apply_columns(["a", "b"], np.zeros(2), np.full(2, 2), np.ones(2),
+                                np.full(2, 5), np.full(2, 1000), NOW)

@@ -11,13 +11,13 @@ same requests go through `get_rate_limits` and
 import numpy as np
 import pytest
 
+from gubernator_tpu.config import BehaviorConfig
 from gubernator_tpu.service import IngressColumns as JaxColumns
 from gubernator_tpu.service import ServiceConfig as JaxConfig
 from gubernator_tpu.service import V1Service as JaxService
 from gubernator_tpu.types import PeerInfo
 from gubernator_tpu.utils.clock import Clock as JaxClock
 from gubernator_tpu_torch.service import (
-    ERR_GLOBAL_NOT_PORTED,
     ApiError,
     IngressColumns,
     ServiceConfig,
@@ -39,12 +39,15 @@ NOW = 1_573_430_400_000
 def services():
     jclock = JaxClock()
     jclock.freeze(NOW)
+    # GLOBAL syncs run only when a test calls run_once on both.
     jsvc = JaxService(JaxConfig(cache_size=4096, clock=jclock,
+                                behaviors=BehaviorConfig(global_sync_wait_s=3600.0),
                                 advertise_address="127.0.0.1:9999"))
     jsvc.set_peers([PeerInfo(grpc_address="127.0.0.1:9999", is_owner=True)])
     tclock = Clock()
     tclock.freeze(NOW)
-    tsvc = V1Service(ServiceConfig(cache_size=4096, clock=tclock, device="cpu"))
+    tsvc = V1Service(ServiceConfig(cache_size=4096, clock=tclock, device="cpu",
+                                   global_sync_wait_s=3600.0))
     yield jsvc, tsvc, jclock, tclock
     jsvc.close()
     tsvc.close()
@@ -163,20 +166,33 @@ def test_mixed_batch_columns_and_requests(services):
 
 
 def test_global_lane_gets_not_ported_error(services):
-    tsvc = services[1]
-    cols = IngressColumns(
-        names=["g"] * 3, unique_keys=["a", "b", "c"],
-        algorithm=np.zeros(3, np.int32),
-        behavior=np.array([0, Behavior.GLOBAL, 0], np.int32),
-        hits=np.ones(3, np.int64), limit=np.full(3, 5, np.int64),
-        duration=np.full(3, 1000, np.int64),
-    )
-    r = tsvc.get_rate_limits_columns(cols)
-    assert r.response_at(1).error == ERR_GLOBAL_NOT_PORTED
-    assert r.response_at(0).remaining == 4 and r.response_at(2).remaining == 4
-    resp = tsvc.get_rate_limits(GetRateLimitsRequest(
-        requests=[req("z", behavior=Behavior.GLOBAL)]))
-    assert resp.responses[0].error == ERR_GLOBAL_NOT_PORTED
+    """GLOBAL lanes, which the port once refused with a not-ported
+    error, now answer as the JAX service's do: mixed batches with
+    duplicate GLOBAL and plain lanes through both entry points, a
+    GLOBAL sync (run_once) on both services after every step, and the
+    replica columns and sync results compared too."""
+    jsvc, tsvc = services[0], services[1]
+    G, NB = int(Behavior.GLOBAL), int(Behavior.NO_BATCHING)
+    rng = np.random.default_rng(11)
+    for step in range(4):
+        n = 12
+        keys = [f"g{k}" for k in rng.integers(0, 5, n)]
+        beh = rng.choice([0, G, G, G | NB, NB], n)
+        hits = rng.integers(0, 4, n)
+        algo = rng.integers(0, 2, n)
+        r = both_columns(services, ["gl"] * n, keys, algo, beh, hits, 6, 4000)
+        assert all(not x.error for x in r)
+        reqs = [req(keys[i], hits=int(hits[i]), limit=6, duration=4000,
+                    algo=int(algo[i]), behavior=int(beh[i]), name="gl")
+                for i in range(n)]
+        both_requests(services, reqs)
+        both_requests(services, [req("solo", behavior=G, limit=3)])
+        assert jsvc.global_mgr.run_once() == tsvc.global_mgr.run_once()
+        for a, b in zip(jsvc.store.gcols, tsvc.store.gcols):
+            np.testing.assert_array_equal(np.asarray(a), b.numpy())
+        advance(services, 700)
+    r = both_requests(services, [req("solo", behavior=G, limit=3, hits=0)])
+    assert r[0].remaining == 0 and not r[0].error
 
 
 def test_batch_cap_and_health(services):
