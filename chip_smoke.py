@@ -14,9 +14,10 @@ Phases (any failure exits non-zero and prints no `ok` line):
               card and inputs: K1 (dict wire) and K2 (per-lane columns),
               narrow and wide, and the GLOBAL kernels K3 (answer
               rounds), K4 (sync), K5 (replica commit) and K6 (replica
-              clear); small seeded cases plus one at the paths' full
-              size; outputs, state and replica-column bytes must be
-              identical (tolerance 0: all integer);
+              clear), and the row gather (K7) and row scatter (K8);
+              small seeded cases plus one at the paths' full size;
+              outputs, state and replica-column bytes must be identical
+              (tolerance 0: all integer);
 4. service  — a V1Service on the card answers token, leaky, validation,
               duplicate-key and GLOBAL requests (with a GLOBAL sync on
               both) exactly as one on the CPU;
@@ -36,7 +37,18 @@ Phases (any failure exits non-zero and prints no `ok` line):
               remote owners; every answer, sync result, state row and
               replica column must equal a store on the plain versions
               (CPU), and the hot keys' counters must converge exactly;
-7. numbers  — kernel time per launch at the paths' shapes, the plain
+7. persist  — the persistence path at the main path's deployment size
+              (S = 8 x 262,144 slots), on the card and on the plain
+              versions (CPU) side by side: a 1,000,000-lane snapshot
+              restored at boot (one K7 and one K8), four 131,072-lane
+              batches, a dump on both (byte-identical files, one K7), the
+              file restored into stores with traffic of their own (the
+              merge's live branch), a Loader of 50,000 items through boot,
+              two batches and close(), and a Store SPI over a 50,000-key
+              cache (8 batches of 2,048 lanes with algorithm switches and
+              RESET_REMAINING); state, algo_mirror, slot tables, answers,
+              files, store calls and items must be identical;
+8. numbers  — kernel time per launch at the paths' shapes, the plain
               version's, the library call's where one computes the same
               function, and the memory bound, as one JSON line.
 
@@ -421,6 +433,82 @@ def global_kernel_phase(torch, dev="cuda", full=(C_GLOBAL, G_FULL, GLOBAL_BATCH)
             errs[kind] = max(errs[kind], err)
             n += 1
     log(f"[kernels] {n} GLOBAL cases, kernel == plain bit for bit "
+        f"(launches {dict(_kernels.LAUNCHES)})")
+    return errs
+
+
+# ---------------------------------------------------------------------
+# phase 3, row kernels: seeded cases (numpy) and runs
+# ---------------------------------------------------------------------
+ROW_KERNELS = {
+    "gather": ("gather_rows", "gubernator_tpu/parallel/mesh.py:279"),
+    "write": ("write_rows", "gubernator_tpu/parallel/mesh.py:288"),
+}
+INT64_EXTREMES = np.array([0, 1, -1, 2**31 - 1, -2**31, 2**31, 2**32 - 1, 2**32, 2**62,
+                           2**63 - 1, -2**63], np.int64)
+
+
+def rows_case(seed, C, M):
+    """Inputs of K7 and K8: (hot, cold, lanes i32[2, M], c32 i32[2, M],
+    c64 i64[5, M], keep).  8% of the lanes are padding (slot -1) and 2%
+    out of range; (shard, slot) pairs repeat; the columns hold int64
+    extremes, and algo/status values beyond their bits.  K8 takes the
+    lanes `keep`: the padding and, of each repeated pair, the last lane
+    (the host's dedup, ops/buckets.py last_lane_per_slot)."""
+    from gubernator_tpu_torch.ops import buckets
+
+    rng = np.random.default_rng(seed)
+    hot, cold = random_state(rng, C, True)
+    shard = rng.integers(0, S, M)
+    pick = rng.random(M)
+    slot = np.where(pick < 0.08, -1, np.where(pick < 0.1, C + rng.integers(0, 3, M),
+                                              rng.integers(0, C, M)))
+    c64 = np.where(rng.random((5, M)) < 0.3, rng.choice(INT64_EXTREMES, (5, M)),
+                   NOW + rng.integers(-2**40, 2**40, (5, M)))
+    c32 = rng.integers(-2, 6, (2, M)).astype(np.int32)
+    keep = np.union1d(buckets.last_lane_per_slot(shard, slot), np.nonzero(slot < 0)[0])
+    return (hot, cold, np.stack([shard, slot]).astype(np.int32), c32,
+            c64.astype(np.int64), keep)
+
+
+def run_rows(torch, dev, kind, case, plain):
+    """K7 or K8 (or its plain version) on copies of a case; returns the
+    outputs and the state as numpy."""
+    from gubernator_tpu_torch.ops import _kernels, buckets
+
+    hot, cold, lanes, c32, c64, keep = case
+    h, c = torch.tensor(hot, device=dev), torch.tensor(cold, device=dev)
+    if kind == "gather":
+        fn = buckets.read_rows_plain if plain else _kernels.gather_rows
+        out = list(fn(h, c, torch.tensor(lanes, device=dev)))
+    else:
+        fn = buckets.write_rows_plain if plain else _kernels.write_rows
+        fn(h, c, *[torch.tensor(np.ascontiguousarray(a[:, keep]), device=dev)
+                   for a in (lanes, c32, c64)])
+        out = []
+    return [t.cpu().numpy() for t in (*out, h, c)]
+
+
+def rows_kernel_phase(torch, dev="cuda", full=(C_FULL, N_KEYS)):
+    """K7 and K8 against their plain versions: seeded small cases (many
+    repeated pairs) and one at the persistence path's size (S=8 x
+    262,144 slots, 1,000,000 lanes)."""
+    from gubernator_tpu_torch.ops import _kernels
+
+    errs, n = {}, 0
+    for kind in ROW_KERNELS:
+        errs[kind] = 0
+        for seed, C, M in [(seed, 64, 300) for seed in range(4)] + [(100, *full)]:
+            case = rows_case(seed, C, M)
+            got = run_rows(torch, dev, kind, case, plain=False)
+            want = run_rows(torch, dev, kind, case, plain=True)
+            err = max_abs_err(got, want)
+            if err != 0 or any(a.tobytes() != b.tobytes() for a, b in zip(got, want)):
+                raise AssertionError(f"{kind} rows seed={seed} C={C} M={M}: kernel != plain "
+                                     f"(max abs err {err})")
+            errs[kind] = max(errs[kind], err)
+            n += 1
+    log(f"[kernels] {n} row cases, kernel == plain bit for bit "
         f"(launches {dict(_kernels.LAUNCHES)})")
     return errs
 
@@ -854,7 +942,394 @@ def global_phase(torch, dev="cuda"):
 
 
 # ---------------------------------------------------------------------
-# phase 7: kernel numbers at the paths' shapes
+# phase 7: the persistence path at full size
+# ---------------------------------------------------------------------
+def snapshot_traffic(rng):
+    """1,000,000 snapshot lanes of the main path's deployment: keys as
+    its traffic names them, leaky, limit 1,000,000 per 3,600,000 ms,
+    seeded remaining and stamp, 5% already expired, 1% duplicate keys."""
+    from gubernator_tpu_torch.reshard import TransferColumns
+
+    n = N_KEYS
+    ids = np.arange(n)
+    dup = rng.random(n) < 0.01
+    ids[dup] = rng.integers(0, n, int(dup.sum()))
+    stamp = NOW - rng.integers(0, 3_600_000, n)
+    expire = stamp + 3_600_000
+    dead = rng.random(n) < 0.05
+    expire[dead] = NOW - 1 - rng.integers(0, 3_600_000, int(dead.sum()))
+    return TransferColumns(
+        keys=[f"c2_{k}" for k in ids], algorithm=np.ones(n, np.int32),
+        status=np.zeros(n, np.int32), limit=np.full(n, 1_000_000, np.int64),
+        remaining=rng.integers(0, (1_000_000 << 20) + 1, n),
+        duration=np.full(n, 3_600_000, np.int64), stamp=stamp, expire_at=expire)
+
+
+def ingress(names, ids, algorithm=None, behavior=None, limit=1_000_000):
+    """IngressColumns of one batch: unique keys str(id)."""
+    from gubernator_tpu_torch.service import IngressColumns
+
+    n = len(ids)
+    return IngressColumns(
+        names=[names] * n, unique_keys=[str(k) for k in ids],
+        algorithm=np.ones(n, np.int32) if algorithm is None else algorithm,
+        behavior=np.zeros(n, np.int32) if behavior is None else behavior,
+        hits=np.ones(n, np.int64), limit=np.full(n, limit, np.int64),
+        duration=np.full(n, 3_600_000, np.int64))
+
+
+def result_bytes(res):
+    """A ColumnarResult as comparable bytes."""
+    return ([a.tobytes() for a in (res.status, res.limit, res.remaining, res.reset_time)]
+            + sorted((i, r.error, r.status, r.remaining) for i, r in res.overrides.items()))
+
+
+def same_stores(torch, what, a, b):
+    """State, algo_mirror and slot tables (keys in order, slots,
+    expiries) of two port stores identical."""
+    for x, y in ((a.state.hot, b.state.hot), (a.state.cold, b.state.cold)):
+        if not torch.equal(x.cpu(), y.cpu()):
+            raise AssertionError(f"persistence path, {what}: state differs from the plain store")
+    if a.algo_mirror.tobytes() != b.algo_mirror.tobytes():
+        raise AssertionError(f"persistence path, {what}: algo_mirror differs")
+    every = np.arange(a.capacity_per_shard, dtype=np.int32)
+    for ta, tb in zip(a.tables, b.tables):
+        (ka, sa), (kb, sb) = ta.entries(), tb.entries()
+        if ka != kb or sa.tobytes() != sb.tobytes() or \
+                ta.get_expire_bulk(every).tobytes() != tb.get_expire_bulk(every).tobytes():
+            raise AssertionError(f"persistence path, {what}: slot tables differ")
+
+
+class RowCalls:
+    """Keeps the tensors of the last row gather and row scatter a card
+    store makes (the numbers phase times the kernels on them)."""
+
+    def __init__(self):
+        from gubernator_tpu_torch.ops import buckets
+
+        self.buckets, self.real = buckets, (buckets.gather_rows, buckets.write_rows)
+        self.gather = self.write = None
+
+    def __enter__(self):
+        real_g, real_w = self.real
+
+        def gather(hot, cold, lanes):
+            if hot.device.type == "cuda":
+                self.gather = (hot, cold, lanes)
+            return real_g(hot, cold, lanes)
+
+        def write(hot, cold, lanes, c32, c64):
+            if hot.device.type == "cuda":
+                self.write = (hot, cold, lanes, c32, c64)
+            return real_w(hot, cold, lanes, c32, c64)
+
+        self.buckets.gather_rows, self.buckets.write_rows = gather, write
+        return self
+
+    def __exit__(self, *exc):
+        self.buckets.gather_rows, self.buckets.write_rows = self.real
+        return False
+
+
+class StepTimes:
+    """Host-clock seconds spent in named functions while active, the card
+    synchronized before and after each call so that its work lands in
+    the step that launched it.  `targets` are (label, module or class,
+    attribute name)."""
+
+    def __init__(self, torch, targets):
+        self.torch, self.targets = torch, targets
+        self.seconds = dict.fromkeys((label for label, _, _ in targets), 0.0)
+
+    def __enter__(self):
+        self.saved = [(owner, attr, getattr(owner, attr)) for _, owner, attr in self.targets]
+        for (label, owner, attr), (_, _, real) in zip(self.targets, self.saved):
+            setattr(owner, attr, self._timed(label, real))
+        return self
+
+    def _timed(self, label, real):
+        sync = self.torch.cuda.synchronize
+
+        def timed(*args, **kwargs):
+            sync()
+            t0 = time.perf_counter()
+            try:
+                return real(*args, **kwargs)
+            finally:
+                sync()
+                self.seconds[label] += time.perf_counter() - t0
+
+        return timed
+
+    def __exit__(self, *exc):
+        for owner, attr, real in self.saved:
+            setattr(owner, attr, real)
+        return False
+
+    def line(self, total):
+        parts = ", ".join(f"{k} {v * 1e3:.1f} ms" for k, v in self.seconds.items())
+        return f"{parts}; total {total * 1e3:.1f} ms"
+
+
+def persist_phase(torch, dev="cuda"):
+    """The persistence path at the main path's deployment size (BASELINE
+    configs[1]: S = 8 x 262,144 slots), on the card and on the plain
+    versions (CPU) side by side: a 1,000,000-lane snapshot restored,
+    traffic, a dump, a restore into a store with traffic of its own, a
+    Loader of 50,000 items and a Store SPI over a 50,000-key cache."""
+    import tempfile
+
+    from gubernator_tpu_torch import native, snapshot
+    from gubernator_tpu_torch import store as spi
+    from gubernator_tpu_torch.ops import _kernels, buckets
+    from gubernator_tpu_torch.parallel import mesh
+    from gubernator_tpu_torch.parallel.mesh import MeshBucketStore
+    from gubernator_tpu_torch.service import ServiceConfig, V1Service
+    from gubernator_tpu_torch.utils.clock import Clock
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory()
+    devs = {"card": dev, "cpu": "cpu"}  # side -> device
+
+    def service(d, cache, **kw):
+        clock = Clock()
+        clock.freeze(NOW)
+        return V1Service(ServiceConfig(cache_size=cache, clock=clock, device=d,
+                                       global_sync_wait_s=3600.0, **kw))
+
+    def counts():
+        return {k: _kernels.LAUNCHES[k] for k in
+                ("gather_rows", "write_rows", "global_answer_rounds")}
+
+    def delta(before):
+        return {k: v - before[k] for k, v in counts().items()}
+
+    _kernels.reset_launch_counts()
+    rng = np.random.default_rng(7)
+    # (a) the file
+    cols = snapshot_traffic(rng)
+    path = f"{tmp.name}/boot.snap"
+    t0 = time.perf_counter()
+    file_bytes = snapshot.write_snapshot(path, cols, NOW - 1000)
+    write_s = time.perf_counter() - t0
+    # (b) boot restore on the card and on the CPU
+    paths = {d: f"{tmp.name}/{d}.snap" for d in devs}
+    svcs, restore_launches = {}, None
+    rows = RowCalls()
+    restore_steps = StepTimes(torch, [
+        ("file read+decode", snapshot, "read_snapshot"),
+        ("slot assignment (C++)", native, "mesh_lookup_or_assign"),
+        ("row gather (upload, K7, readback)", MeshBucketStore, "_read_rows"),
+        ("of which K7", buckets, "gather_rows"),
+        ("merge", mesh, "merge_transfer_rows"),
+        ("row scatter (upload, K8)", MeshBucketStore, "_write_rows"),
+        ("of which K8", buckets, "write_rows"),
+        ("table expiry (C++)", native, "mesh_set_expire"),
+    ])
+    for d in devs:
+        with open(path, "rb") as f, open(paths[d], "wb") as g:
+            g.write(f.read())
+        before = counts()
+        if d == "card":
+            with rows, restore_steps:
+                svcs[d] = service(devs[d], S * C_FULL, snapshot_path=paths[d])
+            restore_launches = delta(before)
+        else:
+            svcs[d] = service(devs[d], S * C_FULL, snapshot_path=paths[d])
+        if svcs[d].snapshots.restore_result != "ok":
+            raise AssertionError(f"persistence path: restore on {d} did not succeed")
+    card, cpu = svcs["card"], svcs["cpu"]
+    restored = card.snapshots.restored_lanes
+    same_stores(torch, "boot restore", card.store, cpu.store)
+    if restore_launches["gather_rows"] != 1 or restore_launches["write_rows"] != 1:
+        raise AssertionError(f"persistence path: restore launched {restore_launches}")
+    log(f"[persist] restore of {len(cols)} lanes ({restored} committed, {file_bytes} bytes): "
+        f"last_restore_seconds card {card.snapshots.last_restore_seconds:.3f} s, CPU "
+        f"{cpu.snapshots.last_restore_seconds:.3f} s; K7/K8 launches {restore_launches}")
+    log(f"[breakdown] restore on the card, host clock: "
+        f"{restore_steps.line(card.snapshots.last_restore_seconds)} (the rest: key dedup, "
+        f"algo_mirror)")
+    # (c) main-path batches over the restored keys
+    zrng = np.random.RandomState(3)
+    for i in range(4):
+        batch = ingress("c2", zipf_ids(zrng, N_KEYS, BATCH))
+        got = [svcs[d].get_rate_limits_columns(batch, max_lanes=BATCH) for d in devs]
+        if result_bytes(got[0]) != result_bytes(got[1]):
+            raise AssertionError(f"persistence path: batch {i} after the restore differs")
+        for d in devs:
+            svcs[d].clock.advance(10)
+    same_stores(torch, "traffic after the restore", card.store, cpu.store)
+    # (d) dump on both: byte-identical files
+    dump_steps = StepTimes(torch, [
+        ("snapshot_columns", MeshBucketStore, "snapshot_columns"),
+        ("of which slot lookup (C++)", native, "mesh_get_slots"),
+        ("of which row gather (upload, K7, readback)", MeshBucketStore, "_read_rows"),
+        ("of which K7", buckets, "gather_rows"),
+        ("write_snapshot", snapshot, "write_snapshot"),
+        ("of which encode", snapshot, "encode_snapshot"),
+    ])
+    for d in devs:
+        before = counts()
+        if d == "card":
+            with dump_steps:
+                saved_ok = svcs[d].snapshots.save_now("smoke")
+            dump_launches = delta(before)
+        else:
+            saved_ok = svcs[d].snapshots.save_now("smoke")
+        if not saved_ok:
+            raise AssertionError(f"persistence path: save on {d} failed")
+    raw = {d: open(paths[d], "rb").read() for d in devs}
+    if raw["card"] != raw["cpu"]:
+        raise AssertionError("persistence path: the card's snapshot != the CPU's")
+    if dump_launches["gather_rows"] != 1 or dump_launches["write_rows"]:
+        raise AssertionError(f"persistence path: dump launched {dump_launches}")
+    log(f"[persist] dump: {len(raw['card'])} bytes, card == CPU byte for byte; save seconds "
+        f"card {card.snapshots.last_save_seconds:.3f}, CPU {cpu.snapshots.last_save_seconds:.3f};"
+        f" K7 launches {dump_launches['gather_rows']}")
+    log(f"[breakdown] dump on the card, host clock: "
+        f"{dump_steps.line(card.snapshots.last_save_seconds)} (snapshot_columns' rest: key "
+        f"enumeration, columns; write_snapshot's rest: file write, fsync, rename)")
+    # (e) that file into stores that took traffic of their own: the
+    # merge's live branch
+    dumped, _ = snapshot.read_snapshot(paths["card"])
+    third = {d: MeshBucketStore(capacity_per_shard=C_FULL, n_shards=S, device=devs[d])
+             for d in devs}
+    trng = np.random.RandomState(5)
+    for i in range(2):
+        ids = zipf_ids(trng, N_KEYS, BATCH)
+        keys = [f"c2_{k}" for k in ids]
+        got = [third[d].apply_columns(keys, np.ones(BATCH, np.int32),
+                                      np.zeros(BATCH, np.int32), np.full(BATCH, 3, np.int64),
+                                      np.full(BATCH, 1_000_000, np.int64),
+                                      np.full(BATCH, 3_600_000, np.int64), NOW + 100 + i)
+               for d in devs]
+        if any(not np.array_equal(got[0][f], got[1][f]) for f in got[0]):
+            raise AssertionError(f"persistence path: third store batch {i} differs")
+    resident = int((native.mesh_get_slots(third["card"].tables, dumped.keys)[1] >= 0).sum())
+    before = counts()
+    t0 = time.perf_counter()
+    merged = third["card"].commit_transfer(dumped, NOW + 200)
+    merge_s = time.perf_counter() - t0
+    merge_launches = delta(before)
+    if third["cpu"].commit_transfer(dumped, NOW + 200) != merged:
+        raise AssertionError("persistence path: merge-restore counts differ")
+    same_stores(torch, "restore into a live store", third["card"], third["cpu"])
+    if merge_launches["gather_rows"] != 1 or merge_launches["write_rows"] != 1:
+        raise AssertionError(f"persistence path: merge-restore launched {merge_launches}")
+    log(f"[persist] restore into a store with traffic: {merged} lanes, {resident} met a "
+        f"resident row, {merge_s:.3f} s on the card store; card == CPU")
+    # (f) Loader: 50,000 mixed items at boot, 2 batches, close()
+    lrng = np.random.default_rng(11)
+    n_items = 50_000
+    algo = lrng.integers(0, 2, n_items)
+    rem = lrng.integers(0, 1001, n_items)
+    frac = lrng.integers(0, 1 << 20, n_items) / (1 << 20)
+    stamp = NOW - lrng.integers(0, 3_600_000, n_items)
+    expire = NOW + lrng.integers(-60_000, 3_600_000, n_items)
+
+    def items(mod):
+        out = []
+        for i in range(n_items):
+            if algo[i]:
+                v = mod.LeakyBucketItem(limit=1000, duration=3_600_000,
+                                        remaining=float(rem[i] + frac[i]),
+                                        updated_at=int(stamp[i]))
+            else:
+                v = mod.TokenBucketItem(limit=1000, duration=3_600_000, remaining=int(rem[i]),
+                                        created_at=int(stamp[i]), status=int(rem[i] == 0))
+            out.append(mod.CacheItem(algorithm=int(algo[i]), key=f"ld_{i}", value=v,
+                                     expire_at=int(expire[i])))
+        return out
+
+    loaders, lsvcs = {}, {}
+    for d in devs:
+        loaders[d] = spi.MockLoader()
+        loaders[d].cache_items = items(spi)
+        lsvcs[d] = service(devs[d], S * C_FULL, loader=loaders[d])
+    same_stores(torch, "loader boot", lsvcs["card"].store, lsvcs["cpu"].store)
+    brng = np.random.RandomState(13)
+    for i in range(2):
+        ids = zipf_ids(brng, n_items, BATCH)
+        batch = ingress("ld", ids, algorithm=algo[ids].astype(np.int32), limit=1000)
+        got = [lsvcs[d].get_rate_limits_columns(batch, max_lanes=BATCH) for d in devs]
+        if result_bytes(got[0]) != result_bytes(got[1]):
+            raise AssertionError(f"persistence path: loader batch {i} differs")
+    for d in devs:
+        lsvcs[d].close()
+    saved = [loaders[d].cache_items[n_items:] for d in devs]
+    if saved[0] != saved[1] or len(saved[0]) < n_items * 0.9:
+        raise AssertionError("persistence path: the loaders saved different items")
+    log(f"[persist] loader: {n_items} items loaded, 2 batches, {len(saved[0])} items saved; "
+        f"card == CPU")
+    # (g) Store SPI: a dict-backed store over a 50,000-key cache
+    srng = np.random.default_rng(17)
+    n_pre, n_keys, cache, lanes = 25_000, 40_000, 50_000, 2_048
+    pre_algo = srng.integers(0, 2, n_pre)
+    stores, ssvcs = {}, {}
+    for d in devs:
+        stores[d] = spi.MockStore()
+        for i in range(n_pre):
+            if pre_algo[i]:
+                v = spi.LeakyBucketItem(limit=100, duration=3_600_000, remaining=50.5,
+                                        updated_at=NOW - i)
+            else:
+                v = spi.TokenBucketItem(limit=100, duration=3_600_000, remaining=50,
+                                        created_at=NOW - i)
+            stores[d].cache_items[f"st_{i}"] = spi.CacheItem(
+                algorithm=int(pre_algo[i]), key=f"st_{i}", value=v, expire_at=NOW + 3_600_000)
+        ssvcs[d] = service(devs[d], cache, persist_store=stores[d])
+    spi_launches = dict.fromkeys(counts(), 0)
+    spi_s = {d: 0.0 for d in devs}
+    for i in range(8):
+        ids = srng.integers(0, n_keys, lanes)
+        algos = np.where(ids < n_pre, pre_algo[np.minimum(ids, n_pre - 1)], ids % 2)
+        switch = srng.random(lanes) < 0.05
+        batch = ingress("st", ids, algorithm=np.where(switch, 1 - algos, algos).astype(np.int32),
+                        behavior=np.where(srng.random(lanes) < 0.02, 8, 0).astype(np.int32),
+                        limit=100)
+        got = []
+        for d in devs:
+            before = counts()
+            t1 = time.perf_counter()
+            got.append(ssvcs[d].get_rate_limits_columns(batch, max_lanes=lanes))
+            spi_s[d] += time.perf_counter() - t1
+            if d == "card":
+                for k, v in delta(before).items():
+                    spi_launches[k] += v
+        if result_bytes(got[0]) != result_bytes(got[1]):
+            raise AssertionError(f"persistence path: Store SPI batch {i} differs")
+        for d in devs:
+            ssvcs[d].clock.advance(10)
+
+    def item_tuples(st):
+        return {k: (it.algorithm, it.expire_at, type(it.value).__name__,
+                    tuple(vars(it.value).values())) for k, it in st.cache_items.items()}
+
+    if stores["card"].called != stores["cpu"].called or \
+            item_tuples(stores["card"]) != item_tuples(stores["cpu"]):
+        raise AssertionError("persistence path: the Store SPI's calls or items differ")
+    same_stores(torch, "Store SPI", ssvcs["card"].store, ssvcs["cpu"].store)
+    log(f"[persist] Store SPI: 8 batches of {lanes} lanes, calls {stores['card'].called}, "
+        f"{len(stores['card'].cache_items)} items; card == CPU; launches {spi_launches} "
+        f"(write_rows = single-lane injects); batch seconds card {spi_s['card'] / 8:.3f}, "
+        f"CPU {spi_s['cpu'] / 8:.3f}")
+    for st in (ssvcs["card"], ssvcs["cpu"], cpu, card):
+        st.close()
+    launches = counts()
+    log(f"[persist] launches on the persistence path: {launches}")
+    for kname, count in launches.items():
+        if count <= 0:
+            raise AssertionError(f"kernel {kname} was not launched on the persistence path")
+    log(f"[persist] lanes {len(cols)}, file bytes {file_bytes}, write {write_s:.3f} s, "
+        f"restore {card.snapshots.last_restore_seconds:.3f} s, save "
+        f"{card.snapshots.last_save_seconds:.3f} s, K8 single-lane launches "
+        f"{spi_launches['write_rows']}; phase took {time.perf_counter() - t_phase:.1f} s")
+    tmp.cleanup()
+    return rows, {"gather_rows": launches["gather_rows"], "write_rows": launches["write_rows"]}
+
+
+# ---------------------------------------------------------------------
+# phase 8: kernel numbers at the paths' shapes
 # ---------------------------------------------------------------------
 def time_launches(torch, fn, iters):
     fn()  # warm
@@ -876,6 +1351,8 @@ DEVICE_KERNELS = {
     "global_sync": ("sync_kernel",),
     "set_replica": ("set_replica_kernel",),
     "clear_gslots": ("clear_kernel",),
+    "gather_rows": ("gather_rows_kernel",),
+    "write_rows": ("write_rows_kernel",),
 }
 
 
@@ -1092,6 +1569,60 @@ def global_numbers_phase(torch, card, launches, errs, inputs, now):
     return rows
 
 
+def rows_numbers_phase(torch, rows, launches, errs):
+    """Time K7 and K8, their plain versions and the PyTorch calls that
+    move the same rows, on the inputs of the card's boot restore
+    (1,000,000 lanes on S=8 x 262,144 slots): K7 on the card store's
+    state, K8 on a copy of it."""
+    from gubernator_tpu_torch.ops import _kernels, buckets
+
+    out = []
+
+    def row(kind, ms, plain_ms, lib_ms, n_live, M):
+        kname, replaces = ROW_KERNELS[kind]
+        # per live lane: 8 bytes of lane words, a 32-byte hot and a
+        # 32-byte cold row, 48 bytes of columns (2 x 4 + 5 x 8)
+        nbytes = n_live * (8 + 64 + 48)
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        out.append({
+            "name": kname, "route": "cuda", "source": "gubernator_tpu_torch/csrc/rows.cu",
+            "replaces": replaces, "launches": launches[kname], "max_abs_err": errs[kind],
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
+            "library_ms": lib_ms,
+        })
+        log(f"[numbers] {kname}: {ms:.4f} ms/launch, plain {plain_ms:.3f} ms, library "
+            f"{lib_ms:.4f} ms, bound {bound_ms:.6g} ms ({nbytes} bytes: {n_live} live lanes "
+            f"of M={M})")
+
+    hot, cold, lanes = rows.gather
+    C = hot.shape[1]
+    live = (lanes[1] >= 0) & (lanes[1] < C)
+    sh, sl = lanes[0][live].long(), lanes[1][live].long()
+    ms = time_launches(torch, lambda: _kernels.gather_rows(hot, cold, lanes), 20)
+    device_ms(torch, "gather_rows", lambda: _kernels.gather_rows(hot, cold, lanes))
+    plain_ms = time_launches(torch, lambda: buckets.read_rows_plain(hot, cold, lanes), 3)
+    lib_ms = time_launches(torch, lambda: (hot[sh, sl], cold[sh, sl]), 20)
+    row("gather", ms, plain_ms, lib_ms, int(live.sum()), lanes.shape[1])
+
+    whot, wcold, wl, c32, c64 = rows.write
+    h, c = whot.clone(), wcold.clone()
+    live = (wl[1] >= 0) & (wl[1] < C)
+    wsh, wsl = wl[0][live].long(), wl[1][live].long()
+    split = buckets.rows_to_split(buckets.cols_to_rows(c32, c64))
+    sh_hot, sh_cold = split.hot[live], split.cold[live]
+
+    def library_write():
+        h.index_put_((wsh, wsl), sh_hot)
+        c.index_put_((wsh, wsl), sh_cold)
+
+    ms = time_launches(torch, lambda: _kernels.write_rows(h, c, wl, c32, c64), 20)
+    device_ms(torch, "write_rows", lambda: _kernels.write_rows(h, c, wl, c32, c64))
+    plain_ms = time_launches(torch, lambda: buckets.write_rows_plain(h, c, wl, c32, c64), 3)
+    lib_ms = time_launches(torch, library_write, 20)
+    row("write", ms, plain_ms, lib_ms, int(live.sum()), wl.shape[1])
+    return out
+
+
 def main():
     import torch
 
@@ -1103,11 +1634,14 @@ def main():
     build_phase()
     errs = kernel_phase(torch)
     gerrs = global_kernel_phase(torch)
+    rerrs = rows_kernel_phase(torch)
     service_phase()
     store, batches, launches = main_phase(torch)
     gstore, glaunches, ginputs, gsum = global_phase(torch)
+    row_calls, plaunches = persist_phase(torch)
     rows = numbers_phase(torch, store, batches, launches, errs)
     rows += global_numbers_phase(torch, gstore, glaunches, gerrs, ginputs, gsum["now"])
+    rows += rows_numbers_phase(torch, row_calls, plaunches, rerrs)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

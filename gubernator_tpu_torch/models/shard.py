@@ -1,7 +1,8 @@
 """Host side of the bucket stores: request columns, padding, Gregorian
 precompute, the narrow-output decode and the overlapped dispatch
-pipeline of the columnar path, and the request preparation and round
-planner of the dataclass path (`MeshBucketStore.apply`).
+pipeline of the columnar path, the request preparation and round
+planner of the dataclass path (`MeshBucketStore.apply`), and the Store
+SPI's round planner, resolver and item <-> row conversions.
 
 The port of the JAX package's models/shard.py (the parts the mesh
 store's columnar and dataclass paths run).  Where the JAX package threads donated
@@ -24,7 +25,13 @@ import numpy as np
 import torch
 
 from ..ops import buckets
-from ..types import Behavior, RateLimitRequest, RateLimitResponse, has_behavior
+from ..types import (
+    Algorithm,
+    Behavior,
+    RateLimitRequest,
+    RateLimitResponse,
+    has_behavior,
+)
 from ..utils import gregorian
 
 # Batches pad to a small set of bucket sizes (64, 256, 1024, then powers
@@ -248,6 +255,162 @@ def build_round_arrays(chunk: Sequence[_Prepared], padded: int) -> Tuple[np.ndar
         greg_expire[i] = p.greg_expire
         greg_duration[i] = p.greg_duration
     return slot, exists, algo, behavior, hits, limit, duration, greg_expire, greg_duration
+
+
+class RoundPlanner:
+    """Splits a prepared request stream into kernel rounds (the Store
+    SPI path of MeshBucketStore.apply, one planner per shard).
+
+    A round must have unique keys AND unique slots (the scatter is
+    race-free only then).  Duplicates are skipped-and-deferred to a later
+    round so the k-th request for a key observes the (k-1)-th's committed
+    state — the vectorized equivalent of the reference's mutex
+    serialization (gubernator.go:336-337).  Cross-key order is NOT
+    preserved (matching the reference's arbitrary goroutine fan-out
+    order, gubernator.go:131-218).  A slot collision can only happen when
+    LRU eviction under capacity pressure reuses a slot already scheduled
+    in the current round; the colliding request keeps its captured
+    (slot, exists) and runs next round, preserving sequential
+    evict-then-create semantics.
+    """
+
+    def __init__(self, table, prepared: Sequence[_Prepared], now_ms: int,
+                 resolver=None):
+        self.table = table
+        self.queue = deque(prepared)
+        self.now_ms = now_ms
+        # Pluggable (slot, exists) resolution — the Store SPI path wraps
+        # the table lookup with store.get / remove side effects.
+        self.resolver = resolver or (lambda p: table.lookup_or_assign(p.key, now_ms))
+
+    def next_chunk(self) -> List[_Prepared]:
+        cur: List[_Prepared] = []
+        seen_keys: set = set()
+        used_slots: set = set()
+        deferred: deque = deque()
+        while self.queue:
+            p = self.queue.popleft()
+            if p.cached_hint:
+                # Replica-cache lane: no local state touched, hit
+                # accumulation is scatter-add (duplicate-safe) — exempt
+                # from key/slot uniqueness.
+                p.slot, p.exists, p.resolved = -1, False, True
+                cur.append(p)
+                continue
+            if p.key in seen_keys:
+                deferred.append(p)  # k-th occurrence waits for commit
+                continue
+            if not p.resolved:
+                p.slot, p.exists = self.resolver(p)
+                p.resolved = True
+            if p.slot in used_slots:
+                # Eviction collision: defer as-is; same-key successors
+                # must stay behind it.
+                deferred.append(p)
+                seen_keys.add(p.key)
+                continue
+            cur.append(p)
+            seen_keys.add(p.key)
+            used_slots.add(p.slot)
+        self.queue = deferred
+        return cur
+
+
+def make_store_resolver(table, algo_mirror, store, inject_fn, now_ms: int):
+    """Slot resolution wrapped with the reference's Store call pattern:
+    cache miss -> store.get -> inject (algorithms.go:26-33); cached item
+    with switched algorithm -> store.remove + re-get
+    (algorithms.go:54-62,196-204).  `algo_mirror` is the shard's host
+    copy of each slot's algorithm."""
+
+    def resolve(p):
+        slot, exists = table.lookup_or_assign(p.key, now_ms)
+        req = p.req
+        if exists and algo_mirror[slot] != int(req.algorithm):
+            # Algorithm switch: reference removes from cache AND store,
+            # then re-reads the store on the retry pass.
+            store.remove(p.key)
+            item, ok = store.get(req)
+            if ok and item is not None and int(item.algorithm) == int(req.algorithm):
+                inject_fn(slot, item)
+                return slot, True
+            return slot, False
+        if not exists:
+            item, ok = store.get(req)
+            if ok and item is not None and int(item.algorithm) != int(req.algorithm):
+                # c.Add + failed type-cast -> remove both + re-get.
+                store.remove(p.key)
+                item, ok = store.get(req)
+            if ok and item is not None:
+                inject_fn(slot, item)
+                # An already-expired store item is recreated by the
+                # kernel's expiry check rather than resurrected (as in
+                # the JAX package; the reference trusts store items
+                # without re-checking ExpireAt for one request).
+                return slot, True
+        return slot, exists
+
+    return resolve
+
+
+def item_to_rows(item) -> "buckets.BucketRows":
+    """One SPI CacheItem as a one-lane BucketRows (numpy)."""
+    from ..store import LeakyBucketItem
+
+    v = item.value
+    if isinstance(v, LeakyBucketItem):
+        return buckets.BucketRows(
+            algo=np.array([int(Algorithm.LEAKY_BUCKET)], np.int32),
+            limit=np.array([v.limit], np.int64),
+            remaining=np.array([int(v.remaining * buckets.LEAKY_SCALE)], np.int64),
+            duration=np.array([v.duration], np.int64),
+            stamp=np.array([v.updated_at], np.int64),
+            expire_at=np.array([item.expire_at], np.int64),
+            status=np.array([0], np.int32),
+        )
+    return buckets.BucketRows(
+        algo=np.array([int(Algorithm.TOKEN_BUCKET)], np.int32),
+        limit=np.array([v.limit], np.int64),
+        remaining=np.array([v.remaining], np.int64),
+        duration=np.array([v.duration], np.int64),
+        stamp=np.array([v.created_at], np.int64),
+        expire_at=np.array([item.expire_at], np.int64),
+        status=np.array([int(v.status)], np.int32),
+    )
+
+
+def _rows_to_items(keys, rows):
+    """Gathered rows as SPI CacheItems (store.go:11-24)."""
+    from ..store import CacheItem, LeakyBucketItem, TokenBucketItem
+
+    algo = np.asarray(rows.algo)
+    limit = np.asarray(rows.limit)
+    remaining = np.asarray(rows.remaining)
+    duration = np.asarray(rows.duration)
+    stamp = np.asarray(rows.stamp)
+    expire = np.asarray(rows.expire_at)
+    status = np.asarray(rows.status)
+    items = []
+    for i, key in enumerate(keys):
+        if algo[i] == int(Algorithm.LEAKY_BUCKET):
+            value = LeakyBucketItem(
+                limit=int(limit[i]),
+                duration=int(duration[i]),
+                remaining=remaining[i] / buckets.LEAKY_SCALE,
+                updated_at=int(stamp[i]),
+            )
+        else:
+            value = TokenBucketItem(
+                limit=int(limit[i]),
+                duration=int(duration[i]),
+                remaining=int(remaining[i]),
+                created_at=int(stamp[i]),
+                status=int(status[i]),
+            )
+        items.append(
+            CacheItem(algorithm=int(algo[i]), key=key, value=value, expire_at=int(expire[i]))
+        )
+    return items
 
 
 class _Columns:

@@ -11,7 +11,7 @@ from __future__ import annotations
 import ctypes
 import os
 import threading
-from typing import Tuple
+from typing import List, Tuple
 
 import numpy as np
 
@@ -51,6 +51,13 @@ def _load() -> ctypes.CDLL:
     lib.gt_table_get_slot.argtypes = [p, c.c_char_p, c.c_int64]
     lib.gt_table_get_expire.argtypes = [p, p, c.c_int64, p]
     lib.gt_table_commit_keys.argtypes = [p, p, p, p, p, p, c.c_int64]
+    lib.gt_table_set_expire.argtypes = [p, c.c_int32, c.c_int64]
+    lib.gt_table_keys_size.argtypes = [p, c.POINTER(c.c_int64), c.POINTER(c.c_int64)]
+    lib.gt_table_keys.argtypes = [p, p, p, c.c_char_p]
+    lib.gt_mesh_get_slots.argtypes = [p, c.c_int64, p, p, c.c_int64, p, p]
+    lib.gt_mesh_lookup_or_assign.argtypes = [p, c.c_int64, p, p, c.c_int64, c.c_int64,
+                                             p, p, p]
+    lib.gt_mesh_set_expire.argtypes = [p, p, p, p, c.c_int64]
     lib.gt_fnv1_batch.argtypes = [p, p, c.c_int64, c.c_int32, p]
     lib.gt_mesh_begin.restype = p
     lib.gt_mesh_begin.argtypes = [
@@ -185,6 +192,28 @@ class NativeSlotTable:
         )
         return out[: len(slots)]
 
+    def set_expire(self, slot: int, expire_ms: int) -> None:
+        self._lib.gt_table_set_expire(self._ptr, slot, expire_ms)
+
+    def entries(self) -> Tuple[List[str], np.ndarray]:
+        """(keys, slots i32) of every mapped key, in the hash map's
+        iteration order (the order a snapshot's lanes follow)."""
+        count = ctypes.c_int64()
+        total = ctypes.c_int64()
+        self._lib.gt_table_keys_size(self._ptr, ctypes.byref(count), ctypes.byref(total))
+        n, nb = int(count.value), int(total.value)
+        if n == 0:
+            return [], np.empty(0, np.int32)
+        slots = np.empty(n, dtype=np.int32)
+        offsets = np.empty(n + 1, dtype=np.int64)
+        buf = ctypes.create_string_buffer(max(nb, 1))
+        self._lib.gt_table_keys(self._ptr, slots.ctypes.data, offsets.ctypes.data, buf)
+        raw = buf.raw[:nb]
+        return [raw[offsets[i]:offsets[i + 1]].decode("utf-8") for i in range(n)], slots
+
+    def keys(self) -> List[str]:
+        return self.entries()[0]
+
     def commit(self, slots, new_expire_ms, removed, keys) -> None:
         """Key-guarded commit (gt_table_commit_keys): an unmapped slot
         is mapped to its lane's key; a slot owned by another key is
@@ -198,6 +227,49 @@ class NativeSlotTable:
             buf.ctypes.data if len(buf) else None, offsets.ctypes.data,
             len(slots),
         )
+
+
+def _table_ptrs(tables):
+    return (ctypes.c_void_p * len(tables))(*[t._ptr for t in tables])
+
+
+def mesh_get_slots(tables, keys) -> Tuple[np.ndarray, np.ndarray]:
+    """(shard i32[n], slot i32[n]) of each key: its shard by the static
+    shardmap and its slot there, -1 when the key is not mapped."""
+    buf, offsets = as_packed(keys)
+    n = len(offsets) - 1
+    shard = np.empty(max(n, 1), np.int32)
+    slot = np.empty(max(n, 1), np.int32)
+    tables[0]._lib.gt_mesh_get_slots(
+        _table_ptrs(tables), len(tables), buf.ctypes.data if n else None,
+        offsets.ctypes.data, n, shard.ctypes.data, slot.ctypes.data)
+    return shard[:n], slot[:n]
+
+
+def mesh_lookup_or_assign(tables, keys, now_ms: int):
+    """(shard i32[n], slot i32[n], exists bool[n]): each key's shard and
+    `lookup_or_assign` there, key by key in order."""
+    buf, offsets = as_packed(keys)
+    n = len(offsets) - 1
+    shard = np.empty(max(n, 1), np.int32)
+    slot = np.empty(max(n, 1), np.int32)
+    exists = np.empty(max(n, 1), np.uint8)
+    tables[0]._lib.gt_mesh_lookup_or_assign(
+        _table_ptrs(tables), len(tables), buf.ctypes.data if n else None,
+        offsets.ctypes.data, n, now_ms, shard.ctypes.data, slot.ctypes.data,
+        exists.ctypes.data)
+    return shard[:n], slot[:n], exists[:n].astype(bool)
+
+
+def mesh_set_expire(tables, shard, slot, expire) -> None:
+    """Set the table expiry of (shard[i], slot[i]) to expire[i], in
+    order."""
+    shard = np.ascontiguousarray(shard, np.int32)
+    slot = np.ascontiguousarray(slot, np.int32)
+    expire = np.ascontiguousarray(expire, np.int64)
+    tables[0]._lib.gt_mesh_set_expire(
+        _table_ptrs(tables), shard.ctypes.data, slot.ctypes.data,
+        expire.ctypes.data, len(shard))
 
 
 class NativeMeshPlanner:

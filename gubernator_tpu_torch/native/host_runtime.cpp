@@ -4,9 +4,13 @@
 // A trimmed copy of the JAX package's native/host_runtime.cpp: the slot
 // table (LRU eviction, strict expiry, pending-write refcounts, the
 // single-key lookup, eviction count and mapping generation that the
-// dataclass path and the GLOBAL sync read), the grouped planner (gt_batch_*), FNV-1/FNV-1a batch
-// hashing and the mesh planner (gt_mesh_*).  The two-tier back table, the JSON/frame parsers,
-// the HTTP edge and the ingress queue are not part of the port yet.
+// dataclass path and the GLOBAL sync read, the expiry write and the key
+// enumeration of the persistence plane), the grouped planner
+// (gt_batch_*), FNV-1/FNV-1a batch hashing and the mesh planner
+// (gt_mesh_*), plus bulk forms of the transfer plane's per-key loops
+// (gt_mesh_get_slots, gt_mesh_lookup_or_assign, gt_mesh_set_expire).
+// The two-tier back table, the JSON/frame parsers, the HTTP edge and
+// the ingress queue are not part of the port yet.
 // Behaviour on everything kept is the reference's line for line, so a
 // port store and a JAX store given the same requests plan the same
 // slots, rounds and occurrence indices.
@@ -318,6 +322,90 @@ void gt_table_commit_keys(void* tv, const int32_t* slots,
       continue;  // slot remapped mid-batch; this lane is stale
     if (removed[i]) t->unmap_slot(s);
     else t->expire_ms[s] = expire[i];
+  }
+}
+
+void gt_table_set_expire(void* tv, int32_t slot, int64_t expire) {
+  GT_LOCK((Table*)tv);
+  ((Table*)tv)->expire_ms[slot] = expire;
+}
+
+// Snapshot protocol: first call gt_table_keys_size for total bytes, then
+// gt_table_keys to fill (slots, offsets[count+1], bytes).  The order is
+// the hash map's iteration order, which a snapshot's bytes follow.
+void gt_table_keys_size(void* tv, int64_t* count, int64_t* total_bytes) {
+  Table* t = (Table*)tv;
+  GT_LOCK(t);
+  *count = (int64_t)t->key_to_slot.size();
+  int64_t bytes = 0;
+  for (auto& kv : t->key_to_slot) bytes += (int64_t)kv.first.size();
+  *total_bytes = bytes;
+}
+
+void gt_table_keys(void* tv, int32_t* slots, int64_t* offsets, char* bytes) {
+  Table* t = (Table*)tv;
+  GT_LOCK(t);
+  int64_t i = 0, off = 0;
+  for (auto& kv : t->key_to_slot) {
+    slots[i] = kv.second;
+    offsets[i] = off;
+    std::memcpy(bytes + off, kv.first.data(), kv.first.size());
+    off += (int64_t)kv.first.size();
+    ++i;
+  }
+  offsets[i] = off;
+}
+
+// Bulk forms of the per-key loops of the JAX store's transfer plane
+// (parallel/mesh.py _gather_transfer_locked, commit_transfer), one call
+// per batch instead of one per key.  Each walks the keys in the given
+// order, routes key i to shard fnv1a64(key) % S (shard_of_key), and
+// does what the per-key loop does there, in the same order: LRU
+// eviction depends on it.
+//
+// gt_mesh_get_slots: shard[i] and the key's slot there, -1 if absent.
+void gt_mesh_get_slots(void** tables, int64_t S, const char* keys,
+                       const int64_t* offsets, int64_t n, int32_t* shard,
+                       int32_t* slot) {
+  for (int64_t i = 0; i < n; ++i) {
+    const char* p = keys + offsets[i];
+    const size_t len = (size_t)(offsets[i + 1] - offsets[i]);
+    const int32_t s = (int32_t)(fnv1a64(p, p + len) % (uint64_t)S);
+    Table* t = (Table*)tables[s];
+    GT_LOCK(t);
+    auto it = t->key_to_slot.find(std::string(p, len));
+    shard[i] = s;
+    slot[i] = it == t->key_to_slot.end() ? -1 : it->second;
+  }
+}
+
+// gt_mesh_lookup_or_assign: shard[i] and lookup_or_assign's (slot,
+// exists) there.
+void gt_mesh_lookup_or_assign(void** tables, int64_t S, const char* keys,
+                              const int64_t* offsets, int64_t n,
+                              int64_t now_ms, int32_t* shard, int32_t* slot,
+                              uint8_t* exists) {
+  for (int64_t i = 0; i < n; ++i) {
+    const char* p = keys + offsets[i];
+    const size_t len = (size_t)(offsets[i + 1] - offsets[i]);
+    const int32_t s = (int32_t)(fnv1a64(p, p + len) % (uint64_t)S);
+    Table* t = (Table*)tables[s];
+    GT_LOCK(t);
+    auto [sl, e] = t->lookup_or_assign(p, len, now_ms);
+    shard[i] = s;
+    slot[i] = sl;
+    exists[i] = e ? 1 : 0;
+  }
+}
+
+// gt_mesh_set_expire: expire_ms of (shard[i], slot[i]) = expire[i], in
+// lane order (a later lane for the same slot wins).
+void gt_mesh_set_expire(void** tables, const int32_t* shard,
+                        const int32_t* slot, const int64_t* expire, int64_t n) {
+  for (int64_t i = 0; i < n; ++i) {
+    Table* t = (Table*)tables[shard[i]];
+    GT_LOCK(t);
+    t->expire_ms[slot[i]] = expire[i];
   }
 }
 

@@ -1,8 +1,8 @@
 """Build, bind and launch the port's CUDA kernels.
 
-csrc/bucket_rounds.cu (K1, K2) and csrc/global_ops.cu (K3-K6) are
-compiled with nvcc for sm_90a, one nvcc process per source started
-together, into one shared library with a plain C interface the first
+csrc/bucket_rounds.cu (K1, K2), csrc/global_ops.cu (K3-K6) and
+csrc/rows.cu (K7, K8) are compiled with nvcc for sm_90a, one nvcc
+process per source started together, into one shared library with a plain C interface the first
 time a kernel is launched (or `build()` is called), and bound through
 ctypes.  Each wrapper checks
 device, dtype, shape and contiguity, allocates its output and scratch
@@ -26,7 +26,8 @@ from ..utils.build import build_library
 from .buckets import DICT_WIRE_TABLE_WORDS
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
-SOURCES = [os.path.join(_CSRC, "bucket_rounds.cu"), os.path.join(_CSRC, "global_ops.cu")]
+SOURCES = [os.path.join(_CSRC, name)
+           for name in ("bucket_rounds.cu", "global_ops.cu", "rows.cu")]
 HEADERS = [os.path.join(_CSRC, "bucket_rounds.cuh")]
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -39,7 +40,7 @@ LINK_FLAGS = ["-shared"]
 LAUNCHES = {
     "bucket_rounds_dict": 0, "bucket_rounds_cols": 0,
     "global_answer_rounds": 0, "global_sync": 0, "set_replica": 0,
-    "clear_gslots": 0,
+    "clear_gslots": 0, "gather_rows": 0, "write_rows": 0,
 }
 _STAGE_WORDS = 16  # per-lane scratch record (bucket_rounds.cuh kStageWords)
 
@@ -77,6 +78,8 @@ _SIGNATURES = {
                        _P, _P],
     "gt_set_replica": [_P, _P, _P, _P, _P, _P, _I64, _I64, _P, _I64, _P],
     "gt_clear_gslots": [_P, _P, _P, _P, _P, _P, _I64, _I64, _P, _I64, _P],
+    "gt_gather_rows": [_P, _P, _I64, _I64, _P, _I64, _P, _P, _P],
+    "gt_write_rows": [_P, _P, _I64, _I64, _P, _I64, _P, _P, _P],
 }
 
 
@@ -277,3 +280,43 @@ def clear_gslots(gcols, idx):
     rc = _get_lib().gt_clear_gslots(*gptrs, S, G, idx.data_ptr(),
                                                 idx.shape[0], _stream(dev))
     _finish("clear_gslots", rc)
+
+
+# ---------------------------------------------------------------------
+# Row kernels of the persistence plane (csrc/rows.cu)
+# ---------------------------------------------------------------------
+def _lanes(lanes, device):
+    if lanes.dim() != 2 or lanes.shape[0] != 2:
+        raise ValueError(f"lanes must be [2, M], got {tuple(lanes.shape)}")
+    _check("lanes", lanes, torch.int32, (2, lanes.shape[1]), device)
+    return lanes.shape[1]
+
+
+def gather_rows(hot, cold, lanes):
+    """K7: the full rows at lanes i32[2, M]; returns (c32 i32[2, M],
+    c64 i64[5, M]) (see ops/buckets.py read_rows_plain)."""
+    S, C = _state(hot, cold)
+    M = _lanes(lanes, hot.device)
+    c32 = torch.empty((2, M), dtype=torch.int32, device=hot.device)
+    c64 = torch.empty((5, M), dtype=torch.int64, device=hot.device)
+    if M:
+        rc = _get_lib().gt_gather_rows(hot.data_ptr(), cold.data_ptr(), S, C,
+                                       lanes.data_ptr(), M, c32.data_ptr(),
+                                       c64.data_ptr(), _stream(hot.device))
+        _finish("gather_rows", rc)
+    return c32, c64
+
+
+def write_rows(hot, cold, lanes, c32, c64) -> None:
+    """K8: write the rows of (c32, c64) at lanes i32[2, M] in place; the
+    in-range lanes must name distinct rows (see ops/buckets.py
+    write_rows_plain)."""
+    S, C = _state(hot, cold)
+    M = _lanes(lanes, hot.device)
+    _check("c32", c32, torch.int32, (2, M), hot.device)
+    _check("c64", c64, torch.int64, (5, M), hot.device)
+    if M:
+        rc = _get_lib().gt_write_rows(hot.data_ptr(), cold.data_ptr(), S, C,
+                                      lanes.data_ptr(), M, c32.data_ptr(),
+                                      c64.data_ptr(), _stream(hot.device))
+        _finish("write_rows", rc)

@@ -10,13 +10,15 @@ it); see its module docstring for the reference citations.
 
 Two implementations of each device function live here:
 
-* the CUDA kernels (csrc/bucket_rounds.cu, bound in ops/_kernels.py),
-  which the wrappers `bucket_rounds_dict` / `bucket_rounds_cols` launch
-  for CUDA tensors;
+* the CUDA kernels (csrc/bucket_rounds.cu and csrc/rows.cu, bound in
+  ops/_kernels.py), which the wrappers `bucket_rounds_dict` /
+  `bucket_rounds_cols` and the row gather / scatter `gather_rows` /
+  `write_rows` launch for CUDA tensors;
 * their plain PyTorch versions (`bucket_rounds_dict_plain`,
-  `bucket_rounds_cols_plain`), a straight transcription of the JAX
-  programs, which the wrappers take for CPU tensors and which the chip
-  smoke test holds the kernels against on the card.
+  `bucket_rounds_cols_plain`, `read_rows_plain`, `write_rows_plain`), a
+  straight transcription of the JAX programs, which the wrappers take
+  for CPU tensors and which the chip smoke test holds the kernels
+  against on the card.
 
 State is updated in place (the kernels write their rows into `hot` and
 `cold`; the plain versions scatter into them), which replaces the JAX
@@ -103,6 +105,54 @@ def state_from_numpy(hot, cold, device) -> BucketState:
 def state_to_numpy(state: BucketState):
     """(hot, cold) int32 numpy copies of a state."""
     return state.hot.cpu().numpy().copy(), state.cold.cpu().numpy().copy()
+
+
+class BucketRows(NamedTuple):
+    """Logical (composed int64) bucket rows, one lane per entry: the
+    host exchange format of the Store and Loader SPIs, snapshots and
+    row injection (the JAX package's BucketRows).  Fields are numpy
+    arrays or tensors of one shape; algo and status are int32, the rest
+    int64 (leaky remaining scaled by LEAKY_SCALE)."""
+
+    algo: object
+    limit: object
+    remaining: object
+    duration: object
+    stamp: object
+    expire_at: object
+    status: object
+
+
+# The row kernels' column layout: c32 i32[2, M] = (algo, status),
+# c64 i64[5, M] = (limit, remaining, duration, stamp, expire_at).
+ROW_COLS32 = ("algo", "status")
+ROW_COLS64 = ("limit", "remaining", "duration", "stamp", "expire_at")
+
+
+def rows_to_cols(rows: BucketRows):
+    """Host BucketRows -> the row kernels' (c32, c64) numpy columns."""
+    c32 = np.stack([np.asarray(getattr(rows, f), np.int32) for f in ROW_COLS32])
+    c64 = np.stack([np.asarray(getattr(rows, f), np.int64) for f in ROW_COLS64])
+    return c32, c64
+
+
+def cols_to_rows(c32, c64) -> BucketRows:
+    """The row kernels' (c32, c64) columns -> BucketRows (views)."""
+    return BucketRows(**dict(zip(ROW_COLS32, c32)), **dict(zip(ROW_COLS64, c64)))
+
+
+def last_lane_per_slot(shard, slot) -> np.ndarray:
+    """Ascending indices of the lanes a row scatter keeps so that, of
+    two lanes for one (shard, slot), the later wins; lanes with a
+    negative slot (padding) are left out.  A restore with more keys for
+    a shard than its capacity evicts keys of its own batch, and the
+    table then maps their slot to the later key."""
+    shard = np.asarray(shard, np.int64)
+    slot = np.asarray(slot, np.int64)
+    live = np.nonzero(slot >= 0)[0]
+    key = (shard[live] << 32) | slot[live]
+    _, first_rev = np.unique(key[::-1], return_index=True)
+    return np.sort(live[(live.size - 1) - first_rev])
 
 
 # ---------------------------------------------------------------------
@@ -658,3 +708,105 @@ def bucket_rounds_cols(hot, cold, lanes, values, n_rounds: int, now_ms: int,
                                            now_ms, wide)
     return bucket_rounds_cols_plain(hot, cold, lanes, values, n_rounds,
                                     now_ms, wide)
+
+
+# ---------------------------------------------------------------------
+# Row gather / scatter (the persistence plane: snapshots, restores, the
+# Store and Loader SPIs).  Lanes are i32[2, ...] = (shard, slot); a lane
+# whose shard or slot is out of range reads zeros and writes nothing.
+# ---------------------------------------------------------------------
+def rows_to_split(rows: BucketRows) -> BucketState:
+    """Logical rows -> hot/cold i32[..., 8] rows (the JAX package's
+    rows_to_split): the whole row, spare words zero."""
+    def t(v):
+        return torch.as_tensor(v).to(_I64)
+
+    algo, status = t(rows.algo), t(rows.status)
+    remaining, stamp, expire = t(rows.remaining), t(rows.stamp), t(rows.expire_at)
+    limit, duration = t(rows.limit), t(rows.duration)
+    flags = ((algo & 3) | ((status & 1) << 2)).to(_I32)
+    z = torch.zeros_like(flags)
+    hot = torch.stack((
+        flags, _lo32(remaining), _hi32(remaining), _lo32(stamp), _hi32(stamp),
+        _lo32(expire), _hi32(expire), z,
+    ), dim=-1)
+    cold = torch.stack((
+        _lo32(limit), _hi32(limit), _lo32(duration), _hi32(duration), z, z, z, z,
+    ), dim=-1)
+    return BucketState(hot=hot, cold=cold)
+
+
+def _lane_index(hot, lanes):
+    S, C = hot.shape[0], hot.shape[1]
+    shard, slot = lanes[0].to(_I64), lanes[1].to(_I64)
+    live = (shard >= 0) & (shard < S) & (slot >= 0) & (slot < C)
+    return live, torch.where(live, shard, 0), torch.where(live, slot, 0)
+
+
+def read_rows_plain(hot, cold, lanes):
+    """Plain version of the row gather K7 (the JAX package's read_rows,
+    through _gather_rows_mesh_jit for [S, P] slots): the full rows at
+    `lanes` i32[2, ...] composed into c32 i32[2, ...] (algo, status) and
+    c64 i64[5, ...] (limit, remaining, duration, stamp, expire_at).
+    Out-of-range lanes read zeros (JAX's gather would wrap a -1 slot to
+    the last row; no caller reads a padding lane)."""
+    live, s, c = _lane_index(hot, lanes)
+    h, k = hot[s, c], cold[s, c]
+    flags = h[..., _H_FLAGS].to(_I64)
+    c32 = torch.stack((flags & 3, (flags >> 2) & 1))
+    c64 = torch.stack((
+        _compose64(k[..., _C_LIM_LO], k[..., _C_LIM_HI]),
+        _compose64(h[..., _H_REM_LO], h[..., _H_REM_HI]),
+        _compose64(k[..., _C_DUR_LO], k[..., _C_DUR_HI]),
+        _compose64(h[..., _H_STAMP_LO], h[..., _H_STAMP_HI]),
+        _compose64(h[..., _H_EXP_LO], h[..., _H_EXP_HI]),
+    ))
+    return torch.where(live, c32, 0).to(_I32), torch.where(live, c64, 0)
+
+
+def write_rows_plain(hot, cold, lanes, c32, c64) -> None:
+    """Plain version of the row scatter K8 (the JAX package's write_rows
+    and rows_to_split, through _write_rows_mesh_jit / _write_row_jit):
+    split each lane's logical row and write its whole hot and cold rows
+    in place; out-of-range lanes are dropped.  The in-range lanes must
+    name distinct (shard, slot) pairs (last_lane_per_slot makes them
+    so): two writes of one row would race on the card."""
+    live, s, c = _lane_index(hot, lanes)
+    C = hot.shape[1]
+    key = (s * C + c)[live]
+    if torch.unique(key).numel() != key.numel():
+        raise ValueError("write_rows: a (shard, slot) appears more than once")
+    split = rows_to_split(cols_to_rows(c32, c64))
+    hot[s[live], c[live]] = split.hot[live]
+    cold[s[live], c[live]] = split.cold[live]
+
+
+def _flat_lanes(lanes):
+    if lanes.dim() < 2 or lanes.shape[0] != 2:
+        raise ValueError(f"lanes must be [2, ...], got {tuple(lanes.shape)}")
+    return lanes.reshape(2, -1).contiguous()
+
+
+def gather_rows(hot, cold, lanes):
+    """The full rows at `lanes` i32[2, ...] (shard, slot): (c32, c64) of
+    shapes [2, ...] and [5, ...] (see read_rows_plain)."""
+    if _route(hot) == "cuda":
+        from . import _kernels
+
+        dims = lanes.shape[1:]
+        c32, c64 = _kernels.gather_rows(hot, cold, _flat_lanes(lanes))
+        return c32.reshape(2, *dims), c64.reshape(5, *dims)
+    return read_rows_plain(hot, cold, lanes)
+
+
+def write_rows(hot, cold, lanes, c32, c64) -> None:
+    """Write whole rows at `lanes` i32[2, ...] from (c32, c64), in place
+    (see write_rows_plain)."""
+    if _route(hot) == "cuda":
+        from . import _kernels
+
+        _kernels.write_rows(hot, cold, _flat_lanes(lanes),
+                            c32.reshape(2, -1).contiguous(),
+                            c64.reshape(5, -1).contiguous())
+        return
+    write_rows_plain(hot, cold, lanes, c32, c64)

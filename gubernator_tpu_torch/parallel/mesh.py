@@ -20,13 +20,26 @@ Two request paths:
   answer into every shard's replica columns (ops/global_ops.py);
   `set_replica_batch` commits another daemon's broadcast.
 
+With a Store SPI object (`store=`), `apply` runs one round per kernel
+launch instead, so the store's callbacks can run between rounds: a
+miss asks `store.get` and injects the item's row (ops/buckets.py
+write_rows, one lane), and after each round `store.remove` /
+`store.on_change` see the lanes' rows (ops/buckets.py gather_rows).
+The columnar path is then unavailable (`supports_columns` is False).
+
+The persistence plane: `snapshot_columns` gathers every resident key's
+row with one row-gather launch (snapshot.py dumps it), and
+`commit_transfer` restores a batch of rows (a snapshot file, a
+Loader's items) with one row gather, the host's monotone merge
+(reshard.py) and one row scatter; `snapshot_items` feeds Loader.save.
+
 The JAX store serialises its sync collective across stores with a
 process-wide lock (`_SYNC_COLLECTIVE_LOCK`) because two interleaved
 rendezvous on a shared virtual CPU mesh can deadlock; one device has no
 rendezvous, so the port has no such lock.
 
-Not ported yet: the two-tier table, the Store SPI (`RoundPlanner`,
-`_run_round`), `measure_sync_cost_s`, snapshots and resharding.
+Not ported yet: the two-tier table, `measure_sync_cost_s`, `load_item`
+and resharding (`drain_keys`, `forget_keys`, `resident_*`).
 """
 
 from __future__ import annotations
@@ -34,7 +47,7 @@ from __future__ import annotations
 import threading
 import time
 from dataclasses import dataclass
-from typing import List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -43,16 +56,21 @@ from .. import native
 from ..models.shard import (
     ColumnarPipeline,
     ColumnsHandle,
+    RoundPlanner,
     _readback,
+    _rows_to_items,
     _Staged,
     build_round_arrays,
+    item_to_rows,
     make_columns,
+    make_store_resolver,
     narrow_ok,
     pad_size,
     plan_grouped_python,
     prepare_requests,
 )
 from ..ops import buckets, global_ops
+from ..reshard import TransferColumns, merge_transfer_rows
 from ..types import (
     Behavior,
     RateLimitRequest,
@@ -207,8 +225,9 @@ class MeshBucketStore(ColumnarPipeline):
     """
 
     def __init__(self, capacity_per_shard: int = 50_000, n_shards: int = 8,
-                 device=None, g_capacity: int = 4096):
+                 device=None, g_capacity: int = 4096, store=None):
         self.device = resolve_device(device)
+        self.store = store  # Store SPI (store.py), or None
         self.n_shards = n_shards
         self.capacity_per_shard = capacity_per_shard
         self.g_capacity = g_capacity
@@ -220,12 +239,19 @@ class MeshBucketStore(ColumnarPipeline):
         self.tables = [native.NativeSlotTable(capacity_per_shard)
                        for _ in range(n_shards)]
         self.state = buckets.init_state(n_shards, capacity_per_shard, self.device)
+        # Each slot's algorithm on the host: the Store resolver detects
+        # algorithm switches with it.
+        self.algo_mirror = np.zeros((n_shards, capacity_per_shard), dtype=np.int32)
         self.gtable = GlobalKeyTable(g_capacity)
         self.dirty = np.zeros((n_shards, g_capacity), dtype=bool)
         self.gcols = global_ops.init_global_columns(n_shards, g_capacity, self.device)
         # Kernel launches made by replica-batch commits (one per
         # broadcast, plus one clear when it recycled gslots).
         self.replica_commit_dispatches = 0
+        # Kernel launches of the persistence plane: one row gather per
+        # snapshot_columns, gather + scatter per commit_transfer.
+        self.transfer_drain_dispatches = 0
+        self.transfer_commit_dispatches = 0
         # In-lock seconds of the last sync that did work (GlobalManager
         # sizes its window from it).
         self.last_sync_cost_s: Optional[float] = None
@@ -233,6 +259,12 @@ class MeshBucketStore(ColumnarPipeline):
 
     def size(self) -> int:
         return sum(len(t) for t in self.tables)
+
+    @property
+    def supports_columns(self) -> bool:
+        """Whether the columnar path is usable: not with a Store SPI,
+        whose callbacks run between the rounds of the dataclass path."""
+        return self.store is None
 
     # ------------------------------------------------------------------
     # Dataclass path (GLOBAL lanes included)
@@ -251,19 +283,42 @@ class MeshBucketStore(ColumnarPipeline):
         owner as a REMOTE daemon: the key is answered locally from its
         replica entry or fallback bucket, hits accumulate on the device,
         and sync_globals() surfaces the totals for the host to forward.
-        One kernel call runs every round of every shard."""
-        prep = self._prepare_apply(requests, now_ms, home_shard, remote_global)
-        if prep.n_rounds:
-            packed = self._launch_answer(prep, *self._stage_answer(prep), now_ms)
-            self._decode_commit_respond(_readback(packed)(), prep)
-        return [r if r is not None else RateLimitResponse() for r in prep.responses]
+        One kernel call runs every round of every shard; with a Store
+        SPI, one kernel call per round (`_run_round`)."""
+        responses, by_shard = self._route_requests(requests, now_ms, home_shard, remote_global)
+        if self.store is None:
+            prep = self._plan_answer(responses, by_shard, now_ms)
+            if prep.n_rounds:
+                packed = self._launch_answer(prep, *self._stage_answer(prep), now_ms)
+                self._decode_commit_respond(_readback(packed)(), prep)
+        else:
+            # The Store SPI needs host callbacks between rounds (get and
+            # inject while planning, remove / on_change after), so it
+            # keeps the interleaved loop.
+            planners = [
+                RoundPlanner(self.tables[s], by_shard[s], now_ms,
+                             resolver=self._store_resolver(s, now_ms))
+                for s in range(self.n_shards)
+            ]
+            while True:
+                chunks = [pl.next_chunk() for pl in planners]
+                if not any(chunks):
+                    break
+                self._run_round(chunks, now_ms, responses)
+        return [r if r is not None else RateLimitResponse() for r in responses]
 
     def _prepare_apply(self, requests, now_ms: int, home_shard=None,
                        remote_global: bool = False) -> _AnswerPrep:
-        """Host half of `apply` (store lock held): validate, route each
-        lane to a shard, register GLOBAL keys, plan every shard's rounds
-        and build the kernel's input arrays.  n_rounds 0 = nothing to
+        """Host half of `apply` without a Store SPI (store lock held):
+        route, then plan every shard's rounds.  n_rounds 0 = nothing to
         launch (every request failed validation)."""
+        routed = self._route_requests(requests, now_ms, home_shard, remote_global)
+        return self._plan_answer(*routed, now_ms)
+
+    def _route_requests(self, requests, now_ms: int, home_shard=None,
+                        remote_global: bool = False):
+        """Validate, route each lane to a shard and register GLOBAL keys;
+        returns (responses, by_shard)."""
         responses: List[Optional[RateLimitResponse]] = [None] * len(requests)
         prepared = prepare_requests(requests, now_ms, responses)
         S = self.n_shards
@@ -290,7 +345,12 @@ class MeshBucketStore(ColumnarPipeline):
                     # (getRateLimit's QueueUpdate, gubernator.go:339-341).
                     self.dirty[owner, g] = True
             by_shard[target].append(p)
+        return responses, by_shard
 
+    def _plan_answer(self, responses, by_shard, now_ms: int) -> _AnswerPrep:
+        """Plan every shard's rounds and build the answer kernel's input
+        arrays."""
+        S = self.n_shards
         empty = np.zeros((S, 0))
         if not any(by_shard):
             return _AnswerPrep(responses, by_shard, 0, empty, empty, empty)
@@ -352,6 +412,7 @@ class MeshBucketStore(ColumnarPipeline):
                     commit_exp.append(out_exp[s, i])
                     commit_rm.append(out_removed[s, i])
                     commit_keys.append(p.key)
+                    self.algo_mirror[s, p.slot] = int(p.req.algorithm)
                 prep.responses[p.pos] = RateLimitResponse(
                     status=int(out_status[s, i]),
                     limit=int(out_limit[s, i]) if cached_np[s, i] else int(p.req.limit),
@@ -359,6 +420,189 @@ class MeshBucketStore(ColumnarPipeline):
                     reset_time=int(out_reset[s, i]),
                 )
             self.tables[s].commit(commit_slots, commit_exp, commit_rm, commit_keys)
+
+    # ------------------------------------------------------------------
+    # Store SPI (persistence): one round per launch, callbacks between
+    # ------------------------------------------------------------------
+    def _run_round(self, chunks, now_ms: int, responses) -> None:
+        """One round of every shard's chunk: one answer-kernel launch
+        with n_rounds 1 (the JAX store's _answer_jit form: every lane
+        writes, occurrence 0), the decode and commit, then the store
+        callbacks."""
+        S = self.n_shards
+        padded = pad_size(max(max(len(c) for c in chunks), 1))
+        lanes = np.zeros((S, 6, padded), np.int32)
+        lanes[:, 0] = -1
+        values = np.zeros((S, 5, padded), np.int64)
+        gslot = np.full((S, padded), -1, np.int32)
+        for s, chunk in enumerate(chunks):
+            m = len(chunk)
+            if not m:
+                continue
+            (slot, exists, algo, behavior, hits, limit, duration, greg_expire,
+             greg_duration) = build_round_arrays(chunk, m)
+            lanes[s, :4, :m] = (slot, exists | 2, algo, behavior)  # occ 0, round 0
+            values[s, :, :m] = (hits, limit, duration, greg_expire, greg_duration)
+            gslot[s, :m] = [p.gslot for p in chunk]
+        prep = _AnswerPrep(responses, chunks, 1, lanes, values, gslot)
+        packed_np = _readback(self._launch_answer(prep, *self._stage_answer(prep), now_ms))()
+        self._decode_commit_respond(packed_np, prep)
+        row0 = packed_np[:, 0]
+        self._fire_store_callbacks(chunks, ((row0 >> 2) & 1) == 1, ((row0 >> 1) & 1) == 1)
+
+    def _store_resolver(self, s: int, now_ms: int):
+        return make_store_resolver(
+            self.tables[s], self.algo_mirror[s], self.store,
+            lambda slot, item: self._inject(s, slot, item), now_ms,
+        )
+
+    def _inject(self, s: int, slot: int, item) -> None:
+        """Write a store item's row at (s, slot): one row-scatter launch
+        with one lane, in stream order before the round's answer launch."""
+        rows = item_to_rows(item)
+        self.algo_mirror[s, slot] = int(rows.algo[0])
+        self._write_rows(np.array([[s], [slot]], np.int32), *buckets.rows_to_cols(rows))
+        self.tables[s].set_expire(slot, item.expire_at)
+
+    def _fire_store_callbacks(self, chunks, cached, removed) -> None:
+        """store.remove for removed lanes, store.on_change with the
+        lane's row after the round for the others (the deferred
+        s.OnChange, algorithms.go:64-68), shard-major in chunk order.
+        Replica-cache answers never touch the store.  One row gather
+        serves every shard."""
+        live = [[] for _ in chunks]
+        for s, chunk in enumerate(chunks):
+            live[s] = [(i, p) for i, p in enumerate(chunk)
+                       if not cached[s, i] and p.slot >= 0 and not removed[s, i]]
+        lanes = [(s, p.slot) for s in range(len(chunks)) for _, p in live[s]]
+        rows = self._read_rows(np.array(lanes, np.int32).T) if lanes else None
+        at = 0
+        for s, chunk in enumerate(chunks):
+            for i, p in enumerate(chunk):
+                if not cached[s, i] and p.slot >= 0 and removed[s, i]:
+                    self.store.remove(p.key)
+            if not live[s]:
+                continue
+            n = len(live[s])
+            items = _rows_to_items([p.key for _, p in live[s]],
+                                   buckets.BucketRows(*(f[at:at + n] for f in rows)))
+            at += n
+            for (_, p), item in zip(live[s], items):
+                self.store.on_change(p.req, item)
+
+    # ------------------------------------------------------------------
+    # Row gather / scatter (the persistence plane)
+    # ------------------------------------------------------------------
+    def _read_rows(self, lanes: np.ndarray) -> buckets.BucketRows:
+        """The rows at host lanes i32[2, M] (shard, slot), one row-gather
+        launch, as host BucketRows."""
+        c32, c64 = buckets.gather_rows(
+            self.state.hot, self.state.cold,
+            self._upload(np.ascontiguousarray(lanes, np.int32)))
+        f32, f64 = _readback(c32), _readback(c64)
+        return buckets.cols_to_rows(f32(), f64())
+
+    def _write_rows(self, lanes: np.ndarray, c32: np.ndarray, c64: np.ndarray) -> None:
+        """Write rows at host lanes i32[2, M] (distinct), one row-scatter
+        launch."""
+        buckets.write_rows(
+            self.state.hot, self.state.cold,
+            self._upload(np.ascontiguousarray(lanes, np.int32)),
+            self._upload(np.ascontiguousarray(c32, np.int32)),
+            self._upload(np.ascontiguousarray(c64, np.int64)))
+
+    @_drained_locked
+    def snapshot_items(self):
+        """Loader.Save path (gubernator.go:93-111): every resident key as
+        a CacheItem, shard by shard, with one row gather.  (The JAX store
+        also reads its two-tier back table, which the port has not.)"""
+        keys: List[str] = []
+        lanes = []
+        for s, t in enumerate(self.tables):
+            k, slots = t.entries()
+            keys.extend(k)
+            lanes.append(np.stack([np.full(len(k), s, np.int32), slots]))
+        if not keys:
+            return []
+        return _rows_to_items(keys, self._read_rows(np.concatenate(lanes, axis=1)))
+
+    @_drained_locked
+    def snapshot_columns(self, now_ms: int) -> TransferColumns:
+        """Durability dump (snapshot.py): every resident key's full row,
+        gathered with one row-gather launch.  The tables keep their keys;
+        owner-side GLOBAL buckets are included (they restore as ordinary
+        rows).  Warmup keys stay out of the file."""
+        keys = [k for t in self.tables for k in t.keys()
+                if not k.startswith("__warmup__")]
+        return self._gather_transfer_locked(keys, now_ms)
+
+    def _gather_transfer_locked(self, keys, now_ms: int) -> TransferColumns:
+        """The rows of `keys` at their owner shards (keys no longer
+        mapped are skipped), shard-major and in key order within a shard
+        as the JAX store lays them out, minus rows already expired."""
+        shard, slot = native.mesh_get_slots(self.tables, keys)
+        found = np.nonzero(slot >= 0)[0]
+        if not found.size:
+            return TransferColumns.empty()
+        order = found[np.argsort(shard[found], kind="stable")]
+        rows = self._read_rows(np.stack([shard[order], slot[order]]))
+        self.transfer_drain_dispatches += 1
+        self.device_dispatches += 1
+        live = np.nonzero(rows.expire_at >= now_ms)[0]
+        return TransferColumns(
+            keys=[keys[i] for i in order[live].tolist()],
+            algorithm=rows.algo[live].astype(np.int32),
+            status=rows.status[live].astype(np.int32),
+            limit=rows.limit[live].astype(np.int64),
+            remaining=rows.remaining[live].astype(np.int64),
+            duration=rows.duration[live].astype(np.int64),
+            stamp=rows.stamp[live].astype(np.int64),
+            expire_at=rows.expire_at[live].astype(np.int64),
+        )
+
+    @_drained_locked
+    def commit_transfer(self, cols: TransferColumns, now_ms: int) -> int:
+        """Commit a batch of full rows (a snapshot restore, a Loader's
+        items): assign slots for the whole batch in the host tables,
+        gather the current rows (one launch), merge monotonically on the
+        host (reshard.merge_transfer_rows: an idempotent min/max, so a
+        re-delivered or late batch cannot double-count), and scatter the
+        merged rows back (one launch).  Returns the lanes committed."""
+        n = len(cols)
+        if n == 0:
+            return 0
+        # Dead rows (already expired) are not worth a slot.
+        fresh = np.nonzero(np.asarray(cols.expire_at) >= now_ms)[0].tolist()
+        # Duplicate keys keep the LAST lane, at the first one's place
+        # (dict semantics, as the JAX store orders them).
+        seen: Dict[str, int] = dict(zip([cols.keys[j] for j in fresh], fresh))
+        if not seen:
+            return 0
+        idx = np.fromiter(seen.values(), dtype=np.int64, count=len(seen))
+        m = idx.size
+        shard_ix, slot_ix, exists_ix = native.mesh_lookup_or_assign(
+            self.tables, list(seen), now_ms)
+        lanes = np.stack([shard_ix, slot_ix])
+        cur = self._read_rows(lanes)
+        merged = merge_transfer_rows(
+            {"algo": cur.algo, "status": cur.status, "limit": cur.limit,
+             "remaining": cur.remaining, "stamp": cur.stamp,
+             "expire_at": cur.expire_at},
+            cols, idx, now_ms, exists_ix,
+        )
+        c32, c64 = buckets.rows_to_cols(buckets.BucketRows(**merged))
+        # A batch with more keys for a shard than its capacity evicts
+        # keys of its own: the table maps their slot to the later key,
+        # so the later lane is the one written.
+        keep = buckets.last_lane_per_slot(shard_ix, slot_ix)
+        self._write_rows(lanes[:, keep], c32[:, keep], c64[:, keep])
+        self.transfer_commit_dispatches += 2
+        self.device_dispatches += 2
+        # Host mirrors: the algorithm (switch detection) and the table
+        # expiry (planning, eviction), lane by lane.
+        self.algo_mirror[shard_ix, slot_ix] = merged["algo"]
+        native.mesh_set_expire(self.tables, shard_ix, slot_ix, merged["expire_at"])
+        return int(m)
 
     # ------------------------------------------------------------------
     # GLOBAL replication
@@ -583,6 +827,8 @@ class MeshBucketStore(ColumnarPipeline):
             algorithm, behavior, hits, limit, duration, len(keys),
             greg_expire, greg_duration,
         )
+        if self.store is not None:
+            raise RuntimeError("apply_columns is not available with a Store SPI")
         if (cols.behavior & int(Behavior.GLOBAL)).any():
             raise ValueError("GLOBAL lanes must take the dataclass path (apply)")
         return self._submit_pipelined(keys, cols, now_ms, force_wire)
@@ -599,6 +845,9 @@ class MeshBucketStore(ColumnarPipeline):
         n_rounds = mp.plan_grouped(cols, int(Behavior.RESET_REMAINING), padded)
         narrow = narrow_ok(cols, now_ms) and force_wire != "wide"
 
+        # The JAX store also writes each lane's algorithm into its
+        # algo_mirror here; only the Store SPI reads the mirror, and a
+        # store with one has no columnar path.
         def commit(packed_np):
             if narrow:
                 return mp.finish_narrow(packed_np, now_ms)
@@ -688,12 +937,14 @@ class MeshBucketStore(ColumnarPipeline):
         return run
 
     # ------------------------------------------------------------------
-    def load_state_numpy(self, hot, cold, entries) -> None:
+    def load_state_numpy(self, hot, cold, entries, algo_mirror=None) -> None:
         """Replace this store's state with another store's: `hot` and
         `cold` are [S, C, 8] arrays (for example the JAX store's
         `np.asarray(store.state.hot)`), `entries` holds each shard's
-        (keys, slots, expire) key map, committed into fresh tables.
-        Afterwards both stores answer the next batch identically."""
+        (keys, slots, expire) key map, committed into fresh tables, and
+        `algo_mirror` the i32 [S, C] slot algorithms (zeros when not
+        given).  Afterwards both stores answer the next batch
+        identically."""
         if len(entries) != self.n_shards:
             raise ValueError(f"need {self.n_shards} shard entries, got {len(entries)}")
         state = buckets.state_from_numpy(hot, cold, self.device)
@@ -701,6 +952,9 @@ class MeshBucketStore(ColumnarPipeline):
             raise ValueError(
                 f"state shape {tuple(state.hot.shape)} != {tuple(self.state.hot.shape)}"
             )
+        mirror = np.zeros_like(self.algo_mirror)
+        if algo_mirror is not None:
+            mirror[:] = algo_mirror
         self._drain_then_lock()
         try:
             self.tables = [native.NativeSlotTable(self.capacity_per_shard)
@@ -709,6 +963,7 @@ class MeshBucketStore(ColumnarPipeline):
                 n = len(keys)
                 table.commit(slots, expire, np.zeros(n, np.uint8), keys)
             self.state = state
+            self.algo_mirror = mirror
             self._sync_gen = None  # fresh slot tables: verify every owner slot
         finally:
             self._unlock_drained()

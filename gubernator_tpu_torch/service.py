@@ -6,8 +6,13 @@ peers: every valid lane is owned locally.  Plain lanes are evaluated
 through `MeshBucketStore.apply_columns`; GLOBAL lanes take the store's
 dataclass path (`MeshBucketStore.apply`) as the JAX service routes them
 for a daemon that owns every key, and a GlobalManager syncs them on an
-interval.  Responses are the JAX V1Service's
-(tests/test_torch_service.py holds them to it).
+interval.  With a Store SPI (`persist_store`) every lane takes the
+dataclass path, as the store's callbacks need.  Persistence: a Loader
+(`loader`) is loaded at boot and saved at close; a snapshot file
+(`snapshot_path`) is restored at boot and written at close and on an
+interval (snapshot.py).  Responses are the JAX V1Service's
+(tests/test_torch_service.py and tests/test_torch_persist.py hold them
+to it).
 """
 
 from __future__ import annotations
@@ -20,6 +25,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
+from . import snapshot as snapshot_mod
 from .config import MAX_BATCH_SIZE
 from .models.shard import GregResolver
 from .parallel.mesh import MeshBucketStore
@@ -66,6 +72,15 @@ class ServiceConfig:
     # Device of the store built from the sizes: None = the current CUDA
     # device (raises without one); "cpu" runs the plain versions.
     device: object = None
+    persist_store: object = None  # Store SPI (store.py)
+    loader: object = None  # Loader SPI (store.py)
+    # Durability plane (snapshot.py): the snapshot file ("" = disabled,
+    # every restart a full reset), restored at boot with one merge-commit
+    # and written on close() and every snapshot_interval_s seconds (0 =
+    # on close() only).  The JAX service reads the interval from its
+    # BehaviorConfig, which the port has not yet.
+    snapshot_path: str = ""
+    snapshot_interval_s: float = 0.0
 
 
 @dataclass
@@ -143,8 +158,23 @@ class V1Service:
             # GLOBAL keys share the reference's cache: a GLOBAL key table
             # of the cache size, clamped to [4096, 65536].
             g_capacity=min(max(4096, conf.cache_size), 65536),
+            store=conf.persist_store,
         )
         self._closed = False
+        if conf.loader is not None:
+            # Loader SPI over the columnar commit (store.go:49-58 call
+            # pattern): the whole load() stream merges in one row gather
+            # and one row scatter.
+            items = list(conf.loader.load())
+            if items:
+                self.store.commit_transfer(snapshot_mod.items_to_columns(items),
+                                           self.clock.now_ms())
+        # Restore the last snapshot before serving (a corrupt file is a
+        # loud cold start), then run the save cadence.
+        self.snapshots = snapshot_mod.SnapshotManager(
+            self, path=conf.snapshot_path, interval_s=conf.snapshot_interval_s)
+        self.snapshots.restore()
+        self.snapshots.start()
         self.global_mgr = GlobalManager(self)
 
     # ------------------------------------------------------------------
@@ -209,8 +239,10 @@ class V1Service:
         # so a dataclass call holding a GLOBAL lane does too; its column
         # entry point sends only the GLOBAL lanes, after launching the
         # others.
+        # A store with a Store SPI has no columnar path: every lane goes
+        # to apply, as the JAX service routes it.
         slow = fast & ((beh & int(Behavior.GLOBAL)) != 0)
-        if slow.any() and dataclass_call:
+        if (slow.any() and dataclass_call) or not self.store.supports_columns:
             slow = fast.copy()
         fast &= ~slow
         slow_idx = np.nonzero(slow)[0]
@@ -278,12 +310,18 @@ class V1Service:
         return HealthCheckResponse(status=HEALTHY, peer_count=1, version=__version__)
 
     def close(self) -> None:
-        """Stop the GLOBAL sync and resolve every in-flight batch."""
+        """Stop the GLOBAL sync, resolve every in-flight batch, then (in
+        the JAX service's order) stop the snapshot cadence, write the
+        shutdown snapshot and hand the Loader every item."""
         if self._closed:
             return
         self._closed = True
         self.global_mgr.stop()
         self.store._drain_all()
+        self.snapshots.stop()
+        self.snapshots.save_now("close")
+        if self.conf.loader is not None:
+            self.conf.loader.save(self.store.snapshot_items())
 
 
 class GlobalManager:

@@ -51,11 +51,12 @@ def _imported_roots(path):
 
 
 def test_global_plane_modules_are_covered():
-    """The GLOBAL plane's modules are among those the two checks above
-    import with JAX absent and scan for imports."""
+    """The GLOBAL and persistence planes' modules are among those the
+    two checks above import with JAX absent and scan for imports."""
     mods = set(_modules())
     for m in ("ops.global_ops", "parallel.global_mgr", "utils.interval",
-              "parallel.mesh", "service", "ops._kernels"):
+              "parallel.mesh", "service", "ops._kernels", "store", "reshard",
+              "snapshot"):
         assert f"gubernator_tpu_torch.{m}" in mods, m
 
 
@@ -111,9 +112,15 @@ def test_kernel_wrapper_refuses_cpu_tensors():
         _kernels.set_replica(gcols, torch.zeros((5, 8), dtype=torch.int64))
     with pytest.raises(ValueError, match="CUDA"):
         _kernels.clear_gslots(gcols, torch.zeros(8, dtype=torch.int64))
+    lanes = torch.zeros((2, 8), dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        _kernels.gather_rows(hot, hot.clone(), lanes)
+    with pytest.raises(ValueError, match="CUDA"):
+        _kernels.write_rows(hot, hot.clone(), lanes, lanes.clone(),
+                            torch.zeros((5, 8), dtype=torch.int64))
     assert set(_kernels.LAUNCHES) == {
         "bucket_rounds_dict", "bucket_rounds_cols", "global_answer_rounds",
-        "global_sync", "set_replica", "clear_gslots"}
+        "global_sync", "set_replica", "clear_gslots", "gather_rows", "write_rows"}
     assert not any(_kernels.LAUNCHES.values())
 
 

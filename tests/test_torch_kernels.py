@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
-card: seeded cases (chip_smoke.make_case, chip_smoke.global_case) through
-each kernel (K1 and K2 narrow and wide; K3-K6 of the GLOBAL plane) must
+card: seeded cases (chip_smoke.make_case, chip_smoke.global_case,
+chip_smoke.rows_case) through each kernel (K1 and K2 narrow and wide;
+K3-K6 of the GLOBAL plane; the row gather K7 and row scatter K8) must
 give the plain version's outputs, state and replica-column bytes
 exactly (tolerance 0: all integer).  Skipped without a CUDA device; on a
 machine with one, run `python -m pytest -m cuda tests/test_torch_kernels.py`.
@@ -46,5 +47,19 @@ def test_global_kernel_matches_plain(cuda_device, kind, seed):
     case = global_case(kind, seed, 256, 64, 128 if kind == "answer" else 32, 1 + 2 * seed)
     got = run_global(torch, cuda_device, kind, case, plain=False)
     want = run_global(torch, cuda_device, kind, case, plain=True)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.tobytes() == w.tobytes()
+
+
+@pytest.mark.parametrize("kind", ["gather", "write"])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_row_kernel_matches_plain(cuda_device, kind, seed):
+    import torch
+
+    from chip_smoke import rows_case, run_rows
+
+    case = rows_case(seed, 64, 300)
+    got = run_rows(torch, cuda_device, kind, case, plain=False)
+    want = run_rows(torch, cuda_device, kind, case, plain=True)
     for g, w in zip(got, want):
         assert g.dtype == w.dtype and g.tobytes() == w.tobytes()

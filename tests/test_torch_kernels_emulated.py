@@ -1,10 +1,11 @@
 """The port's CUDA kernels, compiled by g++ against a CPU stand-in of
 the CUDA runtime (tests/cuda_emu/cuda_runtime.h), against their plain
 PyTorch versions: the same seeded cases as tests/test_torch_kernels.py
-(K1 and K2 narrow and wide; K3-K6 of the GLOBAL plane), tolerance 0.
+(K1 and K2 narrow and wide; K3-K6 of the GLOBAL plane; the row gather
+K7 and row scatter K8), tolerance 0.
 
 This holds the kernels' device logic (the round steps, the replica
-answer, the sync, the scatters) on a machine with no card, where the
+answer, the sync, the scatters, the row composition and split) on a machine with no card, where the
 cuda-marked tests skip.  The stand-in runs the threads of a launch one
 after another, so it shows no race and nothing of what nvcc does; the
 card runs of tests/test_torch_kernels.py and chip_smoke.py remain the
@@ -109,3 +110,25 @@ def test_emulated_global_kernel_matches_plain(emulated, kind, seed):
         (emulated.set_replica if kind == "replica" else emulated.clear_gslots)(g, a[0])
         out = []
     _same([t.numpy() for t in (*out, h, c, *g)], want)
+
+
+@pytest.mark.parametrize("kind", ["gather", "write"])
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_emulated_row_kernel_matches_plain(emulated, kind, seed):
+    import torch
+
+    from chip_smoke import rows_case, run_rows
+
+    case = rows_case(seed, 64, 300)
+    want = run_rows(torch, "cpu", kind, case, plain=True)
+    hot, cold, lanes, c32, c64, keep = case
+    h, c = torch.tensor(hot), torch.tensor(cold)
+    before = emulated.LAUNCHES[f"{kind}_rows"]
+    if kind == "gather":
+        out = list(emulated.gather_rows(h, c, torch.tensor(lanes)))
+    else:
+        emulated.write_rows(h, c, *[torch.tensor(np.ascontiguousarray(a[:, keep]))
+                                    for a in (lanes, c32, c64)])
+        out = []
+    _same([t.numpy() for t in (*out, h, c)], want)
+    assert emulated.LAUNCHES[f"{kind}_rows"] == before + 1
