@@ -14,10 +14,11 @@ Phases (any failure exits non-zero and prints no `ok` line):
               card and inputs: K1 (dict wire) and K2 (per-lane columns),
               narrow and wide, and the GLOBAL kernels K3 (answer
               rounds), K4 (sync), K5 (replica commit) and K6 (replica
-              clear), and the row gather (K7) and row scatter (K8);
-              small seeded cases plus one at the paths' full size;
-              outputs, state and replica-column bytes must be identical
-              (tolerance 0: all integer);
+              clear), the row gather (K7) and row scatter (K8), and the
+              tier move (K9, its records in both orders, with the
+              window's two hazards); small seeded cases plus one at the
+              paths' full size; outputs, state and replica-column bytes
+              must be identical (tolerance 0: all integer);
 4. service  — a V1Service on the card answers token, leaky, validation,
               duplicate-key and GLOBAL requests (with a GLOBAL sync on
               both) exactly as one on the CPU;
@@ -48,14 +49,30 @@ Phases (any failure exits non-zero and prints no `ok` line):
               cache (8 batches of 2,048 lanes with algorithm switches and
               RESET_REMAINING); state, algo_mirror, slot tables, answers,
               files, store calls and items must be identical;
+9. two-tier — the two-tier table at full size (bench_full.py config
+              3b on 8 shards: 8 x 32,768 front and 8 x 217,232 back
+              slots, a 10,000,000-key space, 131,072-lane batches of
+              mixed token and leaky buckets with daily and monthly
+              Gregorian durations over 4 rotating key windows, two in
+              flight): each batch demotes the window before last and
+              promotes its own through K9; a dataclass batch and a
+              GLOBAL sync promote demoted GLOBAL keys; snapshot_items
+              reads the back rows with K7; answers, sync, items, front
+              and back state, tier stats and tables must equal a store
+              on the plain versions (CPU); then one more batch step by
+              step, and the same batch on a single-tier store;
 8. numbers  — kernel time per launch at the paths' shapes, the plain
               version's, the library call's where one computes the same
-              function, and the memory bound, as one JSON line.
+              function, and the memory bound, as one JSON line (after
+              phase 9, whose inputs it times K9 and K7 on the back tier
+              with, and K1 on a 32,768-slot front against a 262,144-slot
+              single tier).
 
 The last line is `{"ok": true, "device": {...}}`.  Exits 2 without a
 CUDA device.
 """
 
+import gc
 import json
 import subprocess
 import sys
@@ -77,6 +94,16 @@ GLOBAL_KEYS = 50_000
 GLOBAL_BATCH = 2_048
 HOT_KEYS = 64
 PEER_KEYS = 16_384  # a replica commit that overflows the gslot table
+# The two-tier path (bench_full.py config 3b on the port's 8 shards)
+TT_FRONT = 32_768  # front slots per shard: 262,144 in all
+TT_BACK = 217_232  # back slots per shard: 1,737,856 in all, config 3's 2,000,000 with the front
+TT_KEYS = 10_000_000
+TT_WINDOWS = 4  # rotating key windows, offset by TT_KEYS / TT_WINDOWS ids
+TT_WARM, TT_TIMED = 4, 8
+TT_MOVES = 15_700  # demotions and promotions per shard in a full-size K9 case
+# The first instant of December 2023: the monthly lanes' reset is a
+# whole month away, more than an int32 delta of milliseconds.
+TT_NOW = 1_701_388_800_000
 
 
 def log(*a):
@@ -511,6 +538,94 @@ def rows_kernel_phase(torch, dev="cuda", full=(C_FULL, N_KEYS)):
     log(f"[kernels] {n} row cases, kernel == plain bit for bit "
         f"(launches {dict(_kernels.LAUNCHES)})")
     return errs
+
+
+# ---------------------------------------------------------------------
+# phase 3, the tier move: seeded cases (numpy) and runs
+# ---------------------------------------------------------------------
+MOVE_KERNEL = ("apply_moves", "gubernator_tpu/ops/buckets.py:1360")
+BACK_ROWS_KERNEL = ("gather_back_rows", "gubernator_tpu/ops/buckets.py:1406")
+
+
+def random_moves(rng, C, Cb, n_demo, n_promo):
+    """One drain window of each shard's moves, shaped as
+    NativeSlotTable.take_moves gives them: distinct destinations, 10%
+    cancelled records (src -1), and the two hazards of a window: a
+    demotion's source front slot reused as a promotion's destination,
+    and a kind-1 promotion reading a demotion's source front slot."""
+    moves = []
+    for _ in range(S):
+        ds = rng.choice(C, n_demo, replace=False).astype(np.int32)
+        dd = rng.choice(Cb, n_demo, replace=False).astype(np.int32)
+        reused = ds[: min(n_promo // 3, n_demo)]
+        pd = np.concatenate([reused, rng.choice(np.setdiff1d(np.arange(C), reused),
+                                                n_promo - reused.size, replace=False)])
+        pd = rng.permutation(pd).astype(np.int32)
+        pk = (rng.random(n_promo) < 0.4).astype(np.int32)
+        ps = np.where(pk == 1, rng.choice(ds if n_demo else np.arange(C), n_promo),
+                      rng.choice(Cb, n_promo)).astype(np.int32)
+        ds = np.where(rng.random(n_demo) < 0.1, -1, ds).astype(np.int32)
+        ps = np.where(rng.random(n_promo) < 0.1, -1, ps).astype(np.int32)
+        moves.append((pk, ps, pd, ds, dd))
+    return moves
+
+
+def moves_case(seed, C, Cb, n_demo, n_promo):
+    """Inputs of K9: (hot, cold, back_hot, back_cold, records i32[3, N]):
+    random tier tables, random_moves' window as flat records, plus
+    records that must do nothing: cancelled ones (src -1) aimed at live
+    destinations, an unknown kind, a shard and a destination out of
+    range."""
+    from gubernator_tpu_torch.ops import buckets
+
+    rng = np.random.default_rng(seed)
+    tiers = [rng.integers(-2**31, 2**31, (S, n, 8), dtype=np.int64).astype(np.int32)
+             for n in (C, C, Cb, Cb)]
+    records = buckets.moves_to_records(random_moves(rng, C, Cb, n_demo, n_promo))
+    live_dst = records[2, 0] if records.shape[1] else 0
+    dead = np.array([[2, 0, 3, S << 2, 2, 0],  # op = shard << 2 | kind
+                     [-1, -1, 0, 0, 0, Cb],  # src
+                     [live_dst, 1, 2, 0, Cb, 0]], np.int32)  # dst
+    return (*tiers, np.ascontiguousarray(np.concatenate([records, dead], axis=1)))
+
+
+def run_moves(torch, dev, case, plain, reverse=False):
+    """K9 (or its plain version) on copies of a case, the records in
+    their order or reversed; returns the four tables as numpy."""
+    from gubernator_tpu_torch.ops import _kernels, buckets
+
+    *tiers, records = case
+    if reverse:
+        records = np.ascontiguousarray(records[:, ::-1])
+    t = [torch.tensor(a, device=dev) for a in tiers]
+    fn = buckets.apply_moves_plain if plain else _kernels.apply_moves
+    fn(*t, torch.tensor(records, device=dev))
+    return [x.cpu().numpy() for x in t]
+
+
+def moves_kernel_phase(torch, dev="cuda", full=(TT_FRONT, TT_BACK, TT_MOVES)):
+    """K9 against its plain version: seeded small cases with both
+    hazards, the records in both orders, and one case at the two-tier
+    path's size (S=8 x 32,768 front and 217,232 back rows, ~226,000
+    live records)."""
+    from gubernator_tpu_torch.ops import _kernels
+
+    err, n = 0, 0
+    C, Cb, m = full
+    for seed, args in [(s, (64, 256, 20, 15)) for s in range(4)] + [(100, (C, Cb, m, m))]:
+        case = moves_case(seed, *args)
+        want = run_moves(torch, dev, case, plain=True)
+        for reverse in (False, True):
+            got = run_moves(torch, dev, case, plain=False, reverse=reverse)
+            e = max_abs_err(got, want)
+            if e != 0 or any(a.tobytes() != b.tobytes() for a, b in zip(got, want)):
+                raise AssertionError(f"moves seed={seed} {args} reverse={reverse}: "
+                                     f"kernel != plain (max abs err {e})")
+            err = max(err, e)
+            n += 1
+    log(f"[kernels] {n} tier-move cases (both record orders), kernel == plain bit for bit "
+        f"(launches {_kernels.LAUNCHES['apply_moves']})")
+    return err
 
 
 # ---------------------------------------------------------------------
@@ -1329,6 +1444,270 @@ def persist_phase(torch, dev="cuda"):
 
 
 # ---------------------------------------------------------------------
+# phase 9: the two-tier path at full size
+# ---------------------------------------------------------------------
+def two_tier_traffic():
+    """bench_full.py config 3b: one Zipf batch of the 10M keyspace (seed
+    3) replayed over TT_WINDOWS key windows offset by 2,500,000 ids,
+    mixed token and leaky buckets (key_id % 2) with daily and monthly
+    Gregorian durations; TT_WARM + TT_TIMED batches rotating over the
+    windows.  Returns the items for drive()."""
+    from gubernator_tpu_torch import native
+    from gubernator_tpu_torch.models.shard import GregResolver
+    from gubernator_tpu_torch.utils import gregorian
+
+    rng = np.random.RandomState(3)
+    key_ids = zipf_ids(rng, TT_KEYS, BATCH)
+    greg = GregResolver(TT_NOW)
+    ge_d, gd_d = greg.resolve(gregorian.GREGORIAN_DAYS)
+    ge_m, gd_m = greg.resolve(gregorian.GREGORIAN_MONTHS)
+    assert ge_m - TT_NOW > (1 << 31) - 1, ge_m - TT_NOW  # the wide output
+    monthly = (key_ids % 2).astype(bool)
+    cols = dict(
+        algorithm=(key_ids % 2).astype(np.int32),
+        behavior=np.full(BATCH, 4, np.int32),  # DURATION_IS_GREGORIAN
+        hits=np.ones(BATCH, np.int64),
+        limit=np.full(BATCH, 1_000_000, np.int64),
+        duration=np.where(monthly, gregorian.GREGORIAN_MONTHS,
+                          gregorian.GREGORIAN_DAYS).astype(np.int64),
+        greg_expire=np.where(monthly, ge_m, ge_d).astype(np.int64),
+        greg_duration=np.where(monthly, gd_m, gd_d).astype(np.int64),
+    )
+    windows = []
+    for w in range(TT_WINDOWS):
+        ids = (key_ids + w * (TT_KEYS // TT_WINDOWS)) % TT_KEYS
+        windows.append(native.PackedKeys(*native.pack_keys([f"c3:{k}" for k in ids])))
+    return [("warm" if i < TT_WARM else "timed", windows[i % TT_WINDOWS], cols, TT_NOW + i)
+            for i in range(TT_WARM + TT_TIMED)], len(np.unique(key_ids))
+
+
+def two_tier_requests(lo, hi, home):
+    """A 2,048-lane dataclass batch: GLOBAL token buckets over keys
+    lo..hi (each twice) and plain leaky lanes over their own keys."""
+    from gubernator_tpu_torch.types import Algorithm, Behavior, RateLimitRequest
+
+    reqs = [RateLimitRequest(name="c3g", unique_key=f"g{lo + i // 2}", hits=1 + i % 2,
+                             limit=1_000, duration=60_000, algorithm=Algorithm.TOKEN_BUCKET,
+                             behavior=Behavior.GLOBAL) for i in range(2 * (hi - lo))]
+    reqs += [RateLimitRequest(name="c3p", unique_key=f"p{(home * 7919 + i) % 5000}", hits=1,
+                              limit=1_000, duration=60_000, algorithm=Algorithm.LEAKY_BUCKET)
+             for i in range(GLOBAL_BATCH - len(reqs))]
+    return reqs
+
+
+class MoveCalls:
+    """Keeps the records of the largest tier-move window and the lanes of
+    the last back-tier gather a card store makes (the numbers phase
+    times K9 and K7 on them)."""
+
+    def __init__(self):
+        from gubernator_tpu_torch.ops import buckets
+
+        self.buckets, self.real = buckets, (buckets.apply_moves, buckets.read_back_rows)
+        self.records = self.back_lanes = None
+
+    def __enter__(self):
+        real_m, real_b = self.real
+
+        def moves(state, back, records):
+            if state.hot.device.type == "cuda" and (
+                    self.records is None or records.shape[1] > self.records.shape[1]):
+                self.records = records
+            return real_m(state, back, records)
+
+        def back_rows(back, lanes):
+            if back.hot.device.type == "cuda":
+                self.back_lanes = lanes
+            return real_b(back, lanes)
+
+        self.buckets.apply_moves, self.buckets.read_back_rows = moves, back_rows
+        return self
+
+    def __exit__(self, *exc):
+        self.buckets.apply_moves, self.buckets.read_back_rows = self.real
+        return False
+
+
+def two_tier_phase(torch, dev="cuda"):
+    """bench_full.py config 3b on the card store and on a store on the
+    plain versions (CPU), side by side: 2,048 dataclass lanes with
+    GLOBAL keys, TT_WARM + TT_TIMED columnar batches two in flight that
+    demote the window before last and promote their own, a dataclass
+    batch and a GLOBAL sync that promote the demoted GLOBAL keys, and
+    snapshot_items with the back rows."""
+    from gubernator_tpu_torch.ops import _kernels
+    from gubernator_tpu_torch.parallel.mesh import MeshBucketStore, shard_of_key
+
+    t_phase = time.perf_counter()
+    items, uniq = two_tier_traffic()
+    log(f"[two-tier] traffic made in {time.perf_counter() - t_phase:.1f} s: "
+        f"{len(items)} batches of {BATCH} lanes, {uniq} distinct keys a window, "
+        f"{TT_WINDOWS} windows of a {TT_KEYS}-key space")
+    base = 0
+    if dev == "cuda":
+        gc.collect()  # free what the earlier phases left unreachable
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()  # the earlier phases' stores
+    card, ref = (MeshBucketStore(capacity_per_shard=TT_FRONT, n_shards=S, device=d,
+                                 back_capacity_per_shard=TT_BACK) for d in (dev, "cpu"))
+
+    def fields(resps):
+        return [(r.status, r.limit, r.remaining, r.reset_time, r.error) for r in resps]
+
+    def sync_fields(res):
+        out = [res.did_work]
+        for cols in (res.broadcast_cols, res.remote_hit_cols):
+            out.append(None if cols is None else
+                       [np.asarray(getattr(cols, f)).tobytes() for f in vars(cols)])
+        return out
+
+    def check(what, a, b):
+        if a != b:
+            bad = [i for i, (x, y) in enumerate(zip(a, b)) if x != y][:5]
+            raise AssertionError(f"two-tier path, {what}: card store != plain store "
+                                 f"(first lanes {[(i, a[i], b[i]) for i in bad]})")
+
+    def item_fields(its):
+        return [(i.key, int(i.algorithm), i.expire_at, tuple(vars(i.value).values()))
+                for i in its]
+
+    _kernels.reset_launch_counts()
+    with MoveCalls() as calls:
+        # GLOBAL owners apply first, so their rows are the oldest in the fronts
+        first = card.apply(two_tier_requests(0, 256, 0), TT_NOW - 10)
+        warm = [b for b in items if b[0] == "warm"]
+        timed = [b for b in items if b[0] == "timed"]
+        answers, _ = drive(card, warm)
+        t0 = time.perf_counter()
+        got, lat = drive(card, timed)
+        timed_s = time.perf_counter() - t0
+        answers += got
+        stats_churn = [t.tier_stats for t in card.tables]
+        demoted_g = sum(card.tables[shard_of_key(k, S)].get_slot(k) is None
+                        for k in (f"c3g_g{i}" for i in range(256)))
+        # the same GLOBAL keys again, at shard 0, then a sync: the owners'
+        # demoted rows come back through the planner and the sync
+        reqs = two_tier_requests(128, 384, 1)
+        t0 = time.perf_counter()
+        resp = card.apply(reqs, TT_NOW + 1000, home_shard=0)
+        apply_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        res = card.sync_globals(TT_NOW + 1001)
+        sync_ms = (time.perf_counter() - t0) * 1e3
+        card_items = card.snapshot_items()
+    launches = {k: _kernels.LAUNCHES[k] for k in (
+        "bucket_rounds_dict", "apply_moves", "gather_back_rows", "gather_rows",
+        "global_answer_rounds", "global_sync")}
+    peak = torch.cuda.max_memory_allocated() - base if dev == "cuda" else 0
+    stats = [t.tier_stats for t in card.tables]
+    starved = sum(t.starved_evictions for t in card.tables)
+    lats = np.array(lat) * 1e3
+    log(f"[two-tier] launches: {launches}; tier-move launches {card.move_dispatches}")
+    log(f"[two-tier] {len(timed)} timed batches in {timed_s:.3f} s: "
+        f"{len(timed) * BATCH / timed_s:.0f} checks/s, batch latency "
+        f"p50 {np.percentile(lats, 50):.2f} ms, p99 {np.percentile(lats, 99):.2f} ms; "
+        f"peak device memory {peak / 2**20:.1f} MiB above the {base / 2**20:.1f} MiB "
+        f"the earlier phases hold")
+    log(f"[two-tier] after the churn: demotions {sum(s[2] for s in stats_churn)}, "
+        f"promotions {sum(s[3] for s in stats_churn)}; at the end: keys "
+        f"{sum(s[0] for s in stats)} ({sum(s[1] for s in stats)} in the back tiers), "
+        f"demotions {sum(s[2] for s in stats)}, promotions {sum(s[3] for s in stats)}, "
+        f"back evictions {sum(s[4] for s in stats)}, starved evictions {starved}; "
+        f"GLOBAL keys out of their owners' fronts before the second GLOBAL batch "
+        f"{demoted_g} of 256")
+    log(f"[two-tier] GLOBAL batch {apply_ms:.2f} ms, sync {sync_ms:.2f} ms "
+        f"({res.broadcast_count} broadcasts); snapshot_items {len(card_items)} items")
+    for kname in ("bucket_rounds_dict", "apply_moves", "gather_back_rows"):
+        if launches[kname] <= 0:
+            raise AssertionError(f"kernel {kname} was not launched on the two-tier path")
+    # at least a whole window demoted and promoted (125,505 keys at full size)
+    if min(sum(s[2] for s in stats_churn), sum(s[3] for s in stats_churn)) < uniq:
+        raise AssertionError(f"two-tier path: too little churn {stats_churn}")
+
+    # the same calls on the store on the plain versions
+    t0 = time.perf_counter()
+    check("first dataclass batch", fields(first),
+          fields(ref.apply(two_tier_requests(0, 256, 0), TT_NOW - 10)))
+    want, _ = drive(ref, warm)
+    want += drive(ref, timed)[0]
+    for (name, _, _, now), a, b in zip(items, answers, want):
+        for f in ("status", "limit", "remaining", "reset_time"):
+            if not np.array_equal(np.asarray(a[f]), np.asarray(b[f])):
+                raise AssertionError(f"two-tier batch at {now}: {f} differs from the plain store")
+    reqs = two_tier_requests(128, 384, 1)
+    check("second dataclass batch", fields(resp),
+          fields(ref.apply(reqs, TT_NOW + 1000, home_shard=0)))
+    check("sync", sync_fields(res), sync_fields(ref.sync_globals(TT_NOW + 1001)))
+    check("snapshot_items", item_fields(card_items), item_fields(ref.snapshot_items()))
+    for x, y in ((card.state.hot, ref.state.hot), (card.state.cold, ref.state.cold),
+                 (card.back.hot, ref.back.hot), (card.back.cold, ref.back.cold)):
+        if not torch.equal(x.cpu(), y):
+            raise AssertionError("two-tier path: front or back state differs from the plain store")
+    for ct, rt in zip(card.tables, ref.tables):
+        (ck, cs), (rk, rs) = ct.entries(), rt.entries()
+        cb, rb = ct.back_entries(), rt.back_entries()
+        if (ct.tier_stats != rt.tier_stats or ck != rk or cs.tobytes() != rs.tobytes()
+                or cb[0] != rb[0] or any(a.tobytes() != b.tobytes()
+                                         for a, b in zip(cb[1:], rb[1:]))
+                or ct.starved_evictions != rt.starved_evictions):
+            raise AssertionError("two-tier path: slot tables differ from the plain store")
+    card.check_consistency()
+    log(f"[two-tier] answers, front and back state, tier stats, tables, back tables, "
+        f"sync and {len(card_items)} items == plain store (CPU), checked in "
+        f"{time.perf_counter() - t0:.1f} s; phase took {time.perf_counter() - t_phase:.1f} s")
+    return card, items, launches, calls
+
+
+def two_tier_breakdown(torch, card, items):
+    """One more two-tier batch on the card store, step by step on the
+    host clock (plan, tier moves, pack+upload, K1, readback, commit),
+    and the same batch's K1 on a single-tier store of 262,144 slots a
+    shard that took the same windows: the K1 inputs of both for the
+    numbers phase."""
+    from gubernator_tpu_torch.models.shard import make_columns
+    from gubernator_tpu_torch.parallel.mesh import MeshBucketStore
+
+    _, keys, cols, now = items[TT_WARM]
+    c = make_columns(cols["algorithm"], cols["behavior"], cols["hits"], cols["limit"],
+                     cols["duration"], len(keys), cols["greg_expire"], cols["greg_duration"])
+    now += 10_000
+    out = {}
+    single = MeshBucketStore(capacity_per_shard=TT_FRONT * S, n_shards=S, device=card.device)
+    drive(single, items[:TT_WINDOWS + 1])
+    for label, store in (("two-tier", card), ("single-tier", single)):
+        store._drain_then_lock()
+        try:
+            torch.cuda.synchronize()
+            t = [time.perf_counter()]
+            prep = store._prepare_columns(keys, c, now)
+            t.append(time.perf_counter())
+            store._drain_moves()
+            torch.cuda.synchronize()
+            t.append(time.perf_counter())
+            staged = store._stage_columns(prep)
+            torch.cuda.synchronize()
+            t.append(time.perf_counter())
+            hot, cold = store.state.hot.clone(), store.state.cold.clone()
+            res = staged.kernel(store.state.hot, store.state.cold, *staged.args)
+            torch.cuda.synchronize()
+            t.append(time.perf_counter())
+            res_np = res.cpu().numpy()
+            t.append(time.perf_counter())
+            prep.commit(res_np)
+            t.append(time.perf_counter())
+        finally:
+            store._unlock_drained()
+        steps = np.diff(t) * 1e3
+        log(f"[breakdown] {label} batch, host clock: plan {steps[0]:.1f} ms, tier moves "
+            f"{steps[1]:.2f} ms, pack+upload {steps[2]:.1f} ms, kernel+sync {steps[3]:.2f} ms, "
+            f"readback {steps[4]:.2f} ms, decode+commit {steps[5]:.1f} ms "
+            f"({'wide' if staged.wide else 'narrow'}, rounds {staged.args[-3]})")
+        out[label] = (hot, cold, staged)
+    return out
+
+
+# ---------------------------------------------------------------------
 # phase 8: kernel numbers at the paths' shapes
 # ---------------------------------------------------------------------
 def time_launches(torch, fn, iters):
@@ -1353,20 +1732,28 @@ DEVICE_KERNELS = {
     "clear_gslots": ("clear_kernel",),
     "gather_rows": ("gather_rows_kernel",),
     "write_rows": ("write_rows_kernel",),
+    "gather_back_rows": ("gather_rows_kernel",),
+    "apply_moves": ("moves_gather_kernel", "moves_scatter_kernel"),
 }
 
 
-def device_ms(torch, kname, fn, iters=20):
+def device_ms(torch, kname, fn, iters=20, cold=False):
     """Device time per wrapper call from torch.profiler: the summed
     duration of the wrapper's kernels (DEVICE_KERNELS), which leaves out
     the host's launch gaps that the event timing of back-to-back calls
-    includes.  None when the trace holds no such kernel."""
+    includes.  With `cold`, a 64 MiB buffer is zeroed before each call
+    so the call finds the 50 MB L2 cache holding none of its rows (the
+    zeroing's own kernel is not summed).  None when the trace holds no
+    such kernel."""
     from torch.profiler import ProfilerActivity, profile
 
+    flush = torch.empty(16 << 20, dtype=torch.int32, device="cuda") if cold else None
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(iters):
+            if flush is not None:
+                flush.zero_()
             fn()
         torch.cuda.synchronize()
     us = [getattr(e, "device_time_total", 0) for e in prof.key_averages()
@@ -1375,7 +1762,7 @@ def device_ms(torch, kname, fn, iters=20):
         log(f"[profile] {kname}: no device time in the trace (not measured)")
         return None
     ms = sum(us) / iters / 1e3
-    log(f"[profile] {kname}: device {ms:.4f} ms per call")
+    log(f"[profile] {kname}: device {ms:.4f} ms per call{' (L2 flushed)' if cold else ''}")
     return ms
 
 
@@ -1623,6 +2010,130 @@ def rows_numbers_phase(torch, rows, launches, errs):
     return out
 
 
+def two_tier_numbers_phase(torch, card, launches, calls, k1_inputs, err):
+    """Time K9 on the largest tier-move window of the two-tier run and
+    K7 on its back-tier gather, their plain versions and the PyTorch
+    calls that move the same rows, against copies of the card store's
+    tables; and K1's device time on the step-by-step batch against a
+    32,768-slot front and against a 262,144-slot single tier."""
+    from gubernator_tpu_torch.ops import _kernels, buckets
+
+    out = []
+    # K9: the window's records, their live subset for the bound and the
+    # library's index lists (built once, outside the timing)
+    records = calls.records
+    hot, cold = card.state.hot.clone(), card.state.cold.clone()
+    bhot, bcold = card.back.hot.clone(), card.back.cold.clone()
+    live, sh, kind, src, dst = buckets._move_index(hot, bhot, records)
+    n_live = int(live.sum())
+    C, Cb = hot.shape[1], bhot.shape[1]
+    demote, k0 = kind == buckets.MOVE_DEMOTE, kind == buckets.MOVE_PROMOTE_BACK
+    k1 = ~demote & ~k0
+    front_src = torch.cat([sh[demote] * C + src[demote], sh[k1] * C + src[k1]])
+    back_src = sh[k0] * Cb + src[k0]
+    demo_dst, k1_dst, k0_dst = (sh[demote] * Cb + dst[demote], sh[k1] * C + dst[k1],
+                                sh[k0] * C + dst[k0])
+    nd = int(demote.sum())
+    fh, fc, bh, bc = (t.view(-1, 8) for t in (hot, cold, bhot, bcold))
+
+    def library_moves():
+        a_h, a_c = fh.index_select(0, front_src), fc.index_select(0, front_src)
+        b_h, b_c = bh.index_select(0, back_src), bc.index_select(0, back_src)
+        bh.index_copy_(0, demo_dst, a_h[:nd])
+        bc.index_copy_(0, demo_dst, a_c[:nd])
+        fh.index_copy_(0, k1_dst, a_h[nd:])
+        fc.index_copy_(0, k1_dst, a_c[nd:])
+        fh.index_copy_(0, k0_dst, b_h)
+        fc.index_copy_(0, k0_dst, b_c)
+
+    def k9():
+        _kernels.apply_moves(hot, cold, bhot, bcold, records)
+
+    ms = time_launches(torch, k9, 20)
+    device_ms(torch, "apply_moves", k9)
+    device_ms(torch, "apply_moves", k9, cold=True)
+    plain_ms = time_launches(
+        torch, lambda: buckets.apply_moves_plain(hot, cold, bhot, bcold, records), 3)
+    lib_ms = time_launches(torch, library_moves, 20)
+    # per live record: 12 bytes of record words, a 64-byte row pair read
+    # and written
+    nbytes = n_live * (12 + 64 + 64)
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    kname, replaces = MOVE_KERNEL
+    out.append({
+        "name": kname, "route": "cuda", "source": "gubernator_tpu_torch/csrc/moves.cu",
+        "replaces": replaces, "launches": launches[kname], "max_abs_err": err,
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
+        "library_ms": lib_ms,
+    })
+    log(f"[numbers] {kname}: {ms:.4f} ms/launch, plain {plain_ms:.3f} ms, library "
+        f"(index_select + index_copy_) {lib_ms:.4f} ms, bound {bound_ms:.6g} ms ({nbytes} "
+        f"bytes: {n_live} live records of {records.shape[1]}: {nd} demotions, "
+        f"{int(k0.sum())} promotions from the back, {int(k1.sum())} from the front)")
+
+    # K7 on the back tier: the lanes of snapshot_items' back gather
+    lanes = calls.back_lanes
+    bh3, bc3 = card.back.hot, card.back.cold
+    ok = (lanes[1] >= 0) & (lanes[1] < Cb)
+    lsh, lsl = lanes[0][ok].long(), lanes[1][ok].long()
+
+    def k7():
+        _kernels.gather_rows(bh3, bc3, lanes, count="gather_back_rows")
+
+    got = _kernels.gather_rows(bh3, bc3, lanes, count="gather_back_rows")
+    want = buckets.read_rows_plain(bh3, bc3, lanes)
+    k7_err = max_abs_err([t.cpu().numpy() for t in got], [t.cpu().numpy() for t in want])
+    if k7_err != 0:
+        raise AssertionError(f"K7 on the back tier != plain (max abs err {k7_err})")
+    ms = time_launches(torch, k7, 20)
+    device_ms(torch, "gather_back_rows", k7)
+    device_ms(torch, "gather_back_rows", k7, cold=True)
+    plain_ms = time_launches(torch, lambda: buckets.read_rows_plain(bh3, bc3, lanes), 3)
+    lib_ms = time_launches(torch, lambda: (bh3[lsh, lsl], bc3[lsh, lsl]), 20)
+    n_ok = int(ok.sum())
+    nbytes = n_ok * (8 + 64 + 48)  # lane words, two rows, the columns
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    kname, replaces = BACK_ROWS_KERNEL
+    out.append({
+        "name": kname, "route": "cuda", "source": "gubernator_tpu_torch/csrc/rows.cu",
+        "replaces": replaces, "launches": launches[kname], "max_abs_err": k7_err,
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
+        "library_ms": lib_ms,
+    })
+    log(f"[numbers] {kname} (K7 on the back tier): {ms:.4f} ms/launch, plain "
+        f"{plain_ms:.3f} ms, library {lib_ms:.4f} ms, bound {bound_ms:.6g} ms "
+        f"({nbytes} bytes: {n_ok} lanes)")
+
+    # The JAX package's reason for the split, on this card: K1 on the
+    # two-tier batch against its 32,768-slot front, the same wire with
+    # every slot s moved to s * 8 of a 262,144-slot table holding the
+    # same rows there (same work, an 8x larger table), and the single-
+    # tier store's own plan of the batch.
+    h0, c0, staged = k1_inputs["two-tier"]
+    wire, *rest = staged.args
+    P = (wire.shape[1] - buckets.DICT_WIRE_TABLE_WORDS) // 3
+    spread = wire.clone()
+    spread[:, :P] = torch.where(wire[:, :P] >= 0, wire[:, :P] * S, wire[:, :P])
+    big = [torch.zeros((h0.shape[0], h0.shape[1] * S, 8), dtype=torch.int32, device=h0.device)
+           for _ in range(2)]
+    big[0][:, ::S], big[1][:, ::S] = h0, c0
+    runs = {"front": (h0, c0, wire), "spread": (*big, spread)}
+    outs = {k: staged.kernel(h.clone(), c.clone(), w, *rest) for k, (h, c, w) in runs.items()}
+    if not torch.equal(outs["front"], outs["spread"]):
+        raise AssertionError("K1 on the spread wire answers otherwise than on the front")
+    sh0, sc0, sstaged = k1_inputs["single-tier"]
+    runs["single-tier plan"] = (sh0, sc0, *sstaged.args)
+    for label, (h, c, *args) in runs.items():
+        if label != "single-tier plan":
+            args = [args[0], *rest]
+        h, c = h.clone(), c.clone()
+        dev = device_ms(torch, "bucket_rounds_dict", lambda: staged.kernel(h, c, *args),
+                        cold=True)
+        log(f"[split] K1, {label} ({h.shape[1]} slots a shard, rounds {args[-3]}): "
+            f"device {dev} ms per call, L2 flushed")
+    return out
+
+
 def main():
     import torch
 
@@ -1635,13 +2146,17 @@ def main():
     errs = kernel_phase(torch)
     gerrs = global_kernel_phase(torch)
     rerrs = rows_kernel_phase(torch)
+    merr = moves_kernel_phase(torch)
     service_phase()
     store, batches, launches = main_phase(torch)
     gstore, glaunches, ginputs, gsum = global_phase(torch)
     row_calls, plaunches = persist_phase(torch)
+    tstore, titems, tlaunches, move_calls = two_tier_phase(torch)
+    k1_inputs = two_tier_breakdown(torch, tstore, titems)
     rows = numbers_phase(torch, store, batches, launches, errs)
     rows += global_numbers_phase(torch, gstore, glaunches, gerrs, ginputs, gsum["now"])
     rows += rows_numbers_phase(torch, row_calls, plaunches, rerrs)
+    rows += two_tier_numbers_phase(torch, tstore, tlaunches, move_calls, k1_inputs, merr)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -726,9 +726,14 @@ class ColumnarPipeline:
         """Hook: the K-batch launch for this store."""
         raise NotImplementedError
 
+    def _pre_launch(self) -> None:
+        """Hook: device work that must precede the group's launches (the
+        mesh store drains its queued tier moves here)."""
+
     def _launch_group(self, group) -> None:
         """Launch (ticket order, under `_lock`).  A multi-batch group
         writes one stacked result, read back once."""
+        self._pre_launch()
         self.device_dispatches += 1
         if len(group) == 1:
             staged, h = group[0]

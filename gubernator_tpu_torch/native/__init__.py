@@ -54,6 +54,16 @@ def _load() -> ctypes.CDLL:
     lib.gt_table_set_expire.argtypes = [p, c.c_int32, c.c_int64]
     lib.gt_table_keys_size.argtypes = [p, c.POINTER(c.c_int64), c.POINTER(c.c_int64)]
     lib.gt_table_keys.argtypes = [p, p, p, c.c_char_p]
+    lib.gt_table_enable_back.argtypes = [p, c.c_int64]
+    lib.gt_table_tier_stats.argtypes = [p, p]
+    lib.gt_table_starved_evictions.restype = c.c_int64
+    lib.gt_table_starved_evictions.argtypes = [p]
+    lib.gt_table_move_counts.argtypes = [p, c.POINTER(c.c_int64), c.POINTER(c.c_int64)]
+    lib.gt_table_take_moves.restype = c.c_int32
+    lib.gt_table_take_moves.argtypes = [p, c.c_int64, c.c_int64, p, p, p, p, p]
+    lib.gt_table_back_size.argtypes = [p, c.POINTER(c.c_int64), c.POINTER(c.c_int64)]
+    lib.gt_table_back_keys.argtypes = [p, p, p, p, c.c_char_p]
+    lib.gt_table_load_back.argtypes = [p, p, p, p, p, c.c_int64, c.c_int64]
     lib.gt_mesh_get_slots.argtypes = [p, c.c_int64, p, p, c.c_int64, p, p]
     lib.gt_mesh_lookup_or_assign.argtypes = [p, c.c_int64, p, p, c.c_int64, c.c_int64,
                                              p, p, p]
@@ -136,7 +146,9 @@ def fnv1_batch(keys, variant_1a: bool = True) -> np.ndarray:
 class NativeSlotTable:
     """Key -> slot table of one shard: strict expiry (cache.go:151),
     same-slot recycling on expiry (cache.go:138-163), LRU eviction at
-    capacity (cache.go:115-130)."""
+    capacity (cache.go:115-130); with `enable_back`, the front of a
+    two-tier table whose evictions demote live rows to a FIFO back tier
+    and whose lookups promote them again."""
 
     def __init__(self, capacity: int):
         if capacity <= 0:
@@ -213,6 +225,79 @@ class NativeSlotTable:
 
     def keys(self) -> List[str]:
         return self.entries()[0]
+
+    # -- two-tier back tier --------------------------------------------
+    def enable_back(self, back_capacity: int) -> None:
+        """Turn on the back tier: front LRU evictions demote rows to a
+        FIFO back table instead of dropping them; lookups promote them
+        back.  Device moves queue in the table until take_moves."""
+        self._lib.gt_table_enable_back(self._ptr, back_capacity)
+
+    @property
+    def tier_stats(self) -> Tuple[int, int, int, int, int]:
+        """(total_keys, back_keys, demotions, promotions, back_evictions)."""
+        out = (ctypes.c_int64 * 5)()
+        self._lib.gt_table_tier_stats(self._ptr, out)
+        return tuple(int(x) for x in out)
+
+    @property
+    def starved_evictions(self) -> int:
+        """Evictions that found every front slot pending (an in-flight
+        write or a queued promotion) and fell back to a lower rung."""
+        return int(self._lib.gt_table_starved_evictions(self._ptr))
+
+    def move_counts(self) -> Tuple[int, int]:
+        """(queued promotions, queued demotions) of this drain window."""
+        n_promo, n_demo = ctypes.c_int64(), ctypes.c_int64()
+        self._lib.gt_table_move_counts(self._ptr, ctypes.byref(n_promo),
+                                       ctypes.byref(n_demo))
+        return int(n_promo.value), int(n_demo.value)
+
+    def take_moves(self):
+        """Drain the queued device moves: (promo_kind, promo_src,
+        promo_dst, demo_src, demo_dst) i32 arrays.  The caller MUST
+        apply them (ops/buckets.py apply_moves) before any other launch
+        touches the front rows."""
+        while True:
+            n_promo, n_demo = self.move_counts()
+            arrays = [np.empty(max(n, 1), np.int32)
+                      for n in (n_promo,) * 3 + (n_demo,) * 2]
+            if self._lib.gt_table_take_moves(
+                    self._ptr, n_promo, n_demo, *[a.ctypes.data for a in arrays]) == 0:
+                break  # else a concurrent plan queued more: size again
+        pk, ps, pd, ds, dd = arrays
+        return pk[:n_promo], ps[:n_promo], pd[:n_promo], ds[:n_demo], dd[:n_demo]
+
+    def back_entries(self) -> Tuple[List[str], np.ndarray, np.ndarray]:
+        """(keys, back_slots i32, expire i64) of every back-tier row, in
+        the hash map's iteration order."""
+        count = ctypes.c_int64()
+        total = ctypes.c_int64()
+        self._lib.gt_table_back_size(self._ptr, ctypes.byref(count), ctypes.byref(total))
+        n, nb = int(count.value), int(total.value)
+        if n == 0:
+            return [], np.empty(0, np.int32), np.empty(0, np.int64)
+        slots = np.empty(n, dtype=np.int32)
+        expire = np.empty(n, dtype=np.int64)
+        offsets = np.empty(n + 1, dtype=np.int64)
+        buf = ctypes.create_string_buffer(max(nb, 1))
+        self._lib.gt_table_back_keys(self._ptr, slots.ctypes.data, expire.ctypes.data,
+                                     offsets.ctypes.data, buf)
+        raw = buf.raw[:nb]
+        keys = [raw[offsets[i]:offsets[i + 1]].decode("utf-8") for i in range(n)]
+        return keys, slots, expire
+
+    def load_back(self, keys, slots, expire, cursor: int) -> None:
+        """Map `keys` to back slots `slots` with their expiries, in
+        order, and set the FIFO cursor (a fresh table with its back tier
+        enabled; MeshBucketStore.load_state_numpy)."""
+        slots = np.ascontiguousarray(slots, dtype=np.int32)
+        expire = np.ascontiguousarray(expire, dtype=np.int64)
+        buf, offsets = pack_keys(keys)
+        self._lib.gt_table_load_back(
+            self._ptr, slots.ctypes.data, expire.ctypes.data,
+            buf.ctypes.data if len(buf) else None, offsets.ctypes.data,
+            len(slots), cursor)
 
     def commit(self, slots, new_expire_ms, removed, keys) -> None:
         """Key-guarded commit (gt_table_commit_keys): an unmapped slot

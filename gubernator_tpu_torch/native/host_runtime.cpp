@@ -8,9 +8,11 @@
 // enumeration of the persistence plane), the grouped planner
 // (gt_batch_*), FNV-1/FNV-1a batch hashing and the mesh planner
 // (gt_mesh_*), plus bulk forms of the transfer plane's per-key loops
-// (gt_mesh_get_slots, gt_mesh_lookup_or_assign, gt_mesh_set_expire).
-// The two-tier back table, the JSON/frame parsers, the HTTP edge and
-// the ingress queue are not part of the port yet.
+// (gt_mesh_get_slots, gt_mesh_lookup_or_assign, gt_mesh_set_expire),
+// and the two-tier mode (a FIFO back table behind the LRU front, with
+// queued device moves: gt_table_enable_back .. gt_table_back_keys).
+// The JSON/frame parsers, the HTTP edge and the ingress queue are not
+// part of the port yet.
 // Behaviour on everything kept is the reference's line for line, so a
 // port store and a JAX store given the same requests plan the same
 // slots, rounds and occurrence indices.
@@ -82,7 +84,40 @@ struct Table {
   // re-verification for shards whose mapping is provably unchanged
   // since the last sync (O(active-gslots) -> O(changed)).
   uint64_t map_generation = 0;
+  // Evictions that found no slot free of pending writes and promotions
+  // (the second and third rungs of lookup_or_assign's ladder).  A
+  // diagnostic of the port: the JAX table does not count them.
+  int64_t starved_evictions = 0;
 
+  // ---- two-tier mode (back_capacity > 0) ----------------------------
+  // The device keeps a small FRONT table (every kernel lane addresses
+  // it) plus a big BACK table written only by batched demotion moves.
+  // Front LRU eviction DEMOTES the row (device move, state preserved)
+  // instead of dropping it; a later lookup PROMOTES it back.  The host
+  // tracks key locations and queues the device moves; dispatchers drain
+  // them (gt_table_take_moves -> ops/buckets.py apply_moves) before any
+  // launch that reads front rows.  The back tier evicts FIFO (ring
+  // cursor): only then is bucket state truly lost, matching the
+  // reference's plain LRU loss at total capacity.
+  int64_t back_capacity = 0;
+  std::unordered_map<std::string, int32_t> key_to_back;
+  std::vector<std::string> back_key;  // back slot -> key
+  std::vector<uint8_t> back_mapped;
+  std::vector<int64_t> back_expire;
+  int64_t back_clock = 0;  // FIFO allocation cursor
+  int64_t back_size = 0, back_evictions = 0, demotions = 0, promotions = 0;
+  // Pending device moves.  promo kind: 0 = gather from back slot, 1 =
+  // gather from FRONT slot (a key demoted and re-promoted inside one
+  // drain window: its row never reached the back table, so the device
+  // copies front->front; the demo record is cancelled).
+  std::vector<int32_t> mv_promo_kind, mv_promo_src, mv_promo_dst;
+  std::vector<int32_t> mv_demo_src, mv_demo_dst;
+  // back slot -> index into mv_demo (this window) for cycle rewrite
+  std::unordered_map<int32_t, int32_t> pending_demo_by_back;
+  // per front slot: index into mv_promo_* of a queued-but-undrained
+  // promotion (-1 none).  The row is not on device yet, so eviction
+  // must prefer other slots and, if forced, CANCEL the record.
+  std::vector<int32_t> pending_promo;
 
   explicit Table(int64_t cap)
       : capacity(cap),
@@ -91,7 +126,8 @@ struct Table {
         expire_ms(cap, 0),
         pending_write(cap, 0),
         lru_prev(cap, -1),
-        lru_next(cap, -1) {
+        lru_next(cap, -1),
+        pending_promo(cap, -1) {
     free_slots.reserve(cap);
     for (int64_t i = cap - 1; i >= 0; --i) free_slots.push_back((int32_t)i);
     key_to_slot.reserve((size_t)cap * 2);
@@ -130,12 +166,100 @@ struct Table {
   }
 
 
-  // Drop the key occupying slot s (LRU eviction, cache.go:115-130).
-  void evict(int32_t s) {
+  void enable_back(int64_t cap) {
+    back_capacity = cap;
+    back_key.resize(cap);
+    back_mapped.assign(cap, 0);
+    back_expire.assign(cap, 0);
+    key_to_back.reserve((size_t)cap * 2);
+  }
+
+  void unmap_back(int32_t b) {
+    if (!back_mapped[b]) return;
+    key_to_back.erase(back_key[b]);
+    back_key[b].clear();
+    back_mapped[b] = 0;
+    back_expire[b] = 0;
+    --back_size;
+  }
+
+  // Neutralize a queued demo targeting back slot b (src=-1 device
+  // no-op): required whenever b is freed or reused mid-window, or the
+  // move launch could write two rows onto one destination.
+  void cancel_pending_demo(int32_t b) {
+    auto pd = pending_demo_by_back.find(b);
+    if (pd != pending_demo_by_back.end()) {
+      mv_demo_src[(size_t)pd->second] = -1;
+      pending_demo_by_back.erase(pd);
+    }
+  }
+
+  // A back slot mid-promotion: lookup_or_assign resolves the promo
+  // source BEFORE allocating the front slot, and that allocation's
+  // eviction can demote another key; alloc_back must not wrap the FIFO
+  // cursor onto the in-flight source, or the promoted key would adopt
+  // the victim's row.
+  int32_t promo_in_flight = -1;
+
+  // FIFO ring allocation; wrapping onto a live entry drops it (the
+  // two-tier design's only true state loss).  Returns -1 when no slot
+  // is usable (back_capacity==1 and that slot is mid-promotion): the
+  // caller drops the row instead of demoting.
+  int32_t alloc_back(const std::string& key) {
+    int32_t b = (int32_t)(back_clock % back_capacity);
+    ++back_clock;
+    if (b == promo_in_flight) {
+      if (back_capacity == 1) return -1;
+      b = (int32_t)(back_clock % back_capacity);
+      ++back_clock;
+    }
+    if (back_mapped[b]) {
+      unmap_back(b);
+      ++back_evictions;
+      ++evictions;
+    }
+    cancel_pending_demo(b);
+    back_key[b] = key;
+    back_mapped[b] = 1;
+    key_to_back.emplace(key, b);
+    ++back_size;
+    return b;
+  }
+
+  // Evict the key occupying front slot s (LRU eviction,
+  // cache.go:115-130).  In two-tier mode a live occupant is DEMOTED:
+  // queue the device row move front[s] -> back[b] and move the host
+  // mapping.  Expired occupants are simply dropped.
+  void evict_front(int32_t s, int64_t now_ms) {
     lru_unlink(s);
-    key_to_slot.erase(slot_key[s]);
-    slot_key[s].clear();
+    const std::string k = std::move(slot_key[s]);
+    key_to_slot.erase(k);
     slot_mapped[s] = 0;
+    // Demotion preserves state ONLY when the device row at s really is
+    // this key's current state.  Under the all-pending starvation
+    // fallback the chosen slot may have (a) a queued promotion whose
+    // row hasn't arrived (demoting would park the PREVIOUS occupant's
+    // row under this key's name): cancel the promo and drop instead;
+    // (b) an in-flight batch write (pending_write): the row is mid-air,
+    // drop.  Both degrade to the reference's loss, never to serving
+    // another key's counters.
+    if (pending_promo[s] >= 0) {
+      mv_promo_src[(size_t)pending_promo[s]] = -1;  // device no-op
+      pending_promo[s] = -1;
+      ++back_evictions;  // the promoted state is lost
+    } else if (back_capacity > 0 && pending_write[s] == 0 &&
+               expire_ms[s] >= now_ms) {
+      int32_t b = alloc_back(k);
+      if (b >= 0) {
+        back_expire[b] = expire_ms[s];
+        pending_demo_by_back[b] = (int32_t)mv_demo_src.size();
+        mv_demo_src.push_back(s);
+        mv_demo_dst.push_back(b);
+        ++demotions;
+      } else {
+        ++back_evictions;  // degenerate: nowhere to park the row
+      }
+    }
     expire_ms[s] = 0;
     ++evictions;
     ++map_generation;
@@ -180,33 +304,88 @@ struct Table {
       if (expire_ms[s] >= now_ms || pending_write[s] > 0) return {s, true};
       return {s, false};  // expired: recycle same slot in place
     }
+    // Two-tier: a live row demoted to the back tier promotes (a
+    // logical cache hit: the state survives the round trip).
+    int32_t promo_b = -1;
+    if (back_capacity > 0) {
+      auto itb = key_to_back.find(k);
+      if (itb != key_to_back.end()) {
+        int32_t b = itb->second;
+        if (back_expire[b] >= now_ms) {
+          promo_b = b;
+        } else {
+          cancel_pending_demo(b);
+          unmap_back(b);  // expired in back: plain miss-create
+        }
+      }
+    }
+    promo_in_flight = promo_b;  // shield the source from FIFO reuse
     int32_t s;
     if (!free_slots.empty()) {
       s = free_slots.back();
       free_slots.pop_back();
     } else {
       // Evict LRU (cache.go:115-130), skipping slots whose device write
-      // from an earlier pipelined batch is still in flight — stealing
+      // from an earlier pipelined batch is still in flight (stealing
       // one drops that batch's device state mid-air and invalidates its
-      // plan-time chaining assumptions.  Walk from the cold end; under
-      // pipelining the pending slots are the recently-touched ones, so
-      // the head is normally clean.  Fall back to the raw head only
-      // when every slot is pending (capacity fully in flight).
+      // plan-time chaining assumptions) and slots awaiting a queued
+      // promotion this drain window (their device row lands with the
+      // NEXT move launch; demoting one would copy a pre-promotion
+      // row).  Walk from the cold end; under pipelining the pending
+      // slots are the recently-touched ones, so the head is normally
+      // clean.  Preference ladder: fully clean slot > promo-free slot
+      // (in-flight write: evict_front drops instead of demoting) > raw
+      // head (pending promo: evict_front cancels the record — loss,
+      // never corruption).
       s = -1;
       for (int32_t cand = lru_head; cand >= 0; cand = lru_next[cand]) {
-        if (pending_write[cand] == 0) {
+        if (pending_write[cand] == 0 && pending_promo[cand] < 0) {
           s = cand;
           break;
         }
       }
+      if (s < 0) {
+        ++starved_evictions;
+        for (int32_t cand = lru_head; cand >= 0; cand = lru_next[cand]) {
+          if (pending_promo[cand] < 0) {
+            s = cand;
+            break;
+          }
+        }
+      }
       if (s < 0) s = lru_head;
-      evict(s);
+      evict_front(s, now_ms);
     }
     key_to_slot.emplace(std::move(k), s);
     slot_key[s].assign(key, len);
     slot_mapped[s] = 1;
     lru_push_back(s);
     ++map_generation;
+    if (promo_b >= 0) {
+      expire_ms[s] = back_expire[promo_b];
+      // Queue the device move.  A demo still pending for this back
+      // slot (same drain window) means the row never left the front
+      // table: copy front->front (kind 1) instead of reading the
+      // not-yet-written back slot, and cancel the parked demo copy
+      // (its destination is now free for same-window reuse).
+      auto pd = pending_demo_by_back.find(promo_b);
+      if (pd != pending_demo_by_back.end()) {
+        mv_promo_kind.push_back(1);
+        mv_promo_src.push_back(mv_demo_src[(size_t)pd->second]);
+        mv_demo_src[(size_t)pd->second] = -1;
+        pending_demo_by_back.erase(pd);
+      } else {
+        mv_promo_kind.push_back(0);
+        mv_promo_src.push_back(promo_b);
+      }
+      mv_promo_dst.push_back(s);
+      pending_promo[s] = (int32_t)mv_promo_dst.size() - 1;
+      unmap_back(promo_b);
+      promo_in_flight = -1;
+      ++promotions;
+      return {s, true};
+    }
+    promo_in_flight = -1;
     expire_ms[s] = 0;
     return {s, false};
   }
@@ -287,6 +466,125 @@ void gt_table_lookup_or_assign(void* tv, const char* key, int64_t len,
   auto [s, e] = ((Table*)tv)->lookup_or_assign(key, (size_t)len, now_ms);
   *out_slot = s;
   *out_exists = e ? 1 : 0;
+}
+
+// ---- two-tier back tier -----------------------------------------------
+
+void gt_table_enable_back(void* tv, int64_t back_capacity) {
+  GT_LOCK((Table*)tv);
+  ((Table*)tv)->enable_back(back_capacity);
+}
+
+// out: total keys (front+back), back keys, demotions, promotions,
+// back evictions (true state loss)
+void gt_table_tier_stats(void* tv, int64_t* out) {
+  Table* t = (Table*)tv;
+  GT_LOCK(t);
+  out[0] = (int64_t)t->key_to_slot.size() + t->back_size;
+  out[1] = t->back_size;
+  out[2] = t->demotions;
+  out[3] = t->promotions;
+  out[4] = t->back_evictions;
+}
+
+int64_t gt_table_starved_evictions(void* tv) {
+  GT_LOCK((Table*)tv);
+  return ((Table*)tv)->starved_evictions;
+}
+
+void gt_table_move_counts(void* tv, int64_t* n_promo, int64_t* n_demo) {
+  Table* t = (Table*)tv;
+  GT_LOCK(t);
+  *n_promo = (int64_t)t->mv_promo_src.size();
+  *n_demo = (int64_t)t->mv_demo_src.size();
+}
+
+// Drain the queued device moves into caller arrays and close the drain
+// window: after this call the rows are considered ON DEVICE in their new
+// homes, so the dispatcher MUST run the move launch (ops/buckets.py
+// apply_moves) with exactly these records before any other launch.
+// The caller passes its arrays' capacities: when more moves are queued
+// than fit (a planner in another thread queued some since the caller
+// read gt_table_move_counts), nothing is taken and 1 is returned, so the
+// count and the copy are one atomic step.  0 on success.
+int32_t gt_table_take_moves(void* tv, int64_t cap_promo, int64_t cap_demo,
+                            int32_t* promo_kind, int32_t* promo_src,
+                            int32_t* promo_dst, int32_t* demo_src,
+                            int32_t* demo_dst) {
+  Table* t = (Table*)tv;
+  GT_LOCK(t);
+  if ((int64_t)t->mv_promo_src.size() > cap_promo ||
+      (int64_t)t->mv_demo_src.size() > cap_demo)
+    return 1;
+  std::memcpy(promo_kind, t->mv_promo_kind.data(),
+              t->mv_promo_kind.size() * sizeof(int32_t));
+  std::memcpy(promo_src, t->mv_promo_src.data(),
+              t->mv_promo_src.size() * sizeof(int32_t));
+  std::memcpy(promo_dst, t->mv_promo_dst.data(),
+              t->mv_promo_dst.size() * sizeof(int32_t));
+  std::memcpy(demo_src, t->mv_demo_src.data(),
+              t->mv_demo_src.size() * sizeof(int32_t));
+  std::memcpy(demo_dst, t->mv_demo_dst.data(),
+              t->mv_demo_dst.size() * sizeof(int32_t));
+  for (int32_t s : t->mv_promo_dst) t->pending_promo[s] = -1;
+  t->mv_promo_kind.clear();
+  t->mv_promo_src.clear();
+  t->mv_promo_dst.clear();
+  t->mv_demo_src.clear();
+  t->mv_demo_dst.clear();
+  t->pending_demo_by_back.clear();
+  return 0;
+}
+
+// Snapshot protocol for the back tier (Loader.Save needs every live
+// item): gt_table_back_size for buffer sizing, then gt_table_back_keys
+// fills (back_slots, expire, offsets[count+1], key bytes), in the hash
+// map's iteration order (the JAX table's order, same container).
+void gt_table_back_size(void* tv, int64_t* count, int64_t* total_bytes) {
+  Table* t = (Table*)tv;
+  GT_LOCK(t);
+  *count = t->back_size;
+  int64_t bytes = 0;
+  for (auto& kv : t->key_to_back) bytes += (int64_t)kv.first.size();
+  *total_bytes = bytes;
+}
+
+void gt_table_back_keys(void* tv, int32_t* slots, int64_t* expire,
+                        int64_t* offsets, char* bytes) {
+  Table* t = (Table*)tv;
+  GT_LOCK(t);
+  int64_t i = 0, off = 0;
+  for (auto& kv : t->key_to_back) {
+    slots[i] = kv.second;
+    expire[i] = t->back_expire[kv.second];
+    offsets[i] = off;
+    std::memcpy(bytes + off, kv.first.data(), kv.first.size());
+    off += (int64_t)kv.first.size();
+    ++i;
+  }
+  offsets[i] = off;
+}
+
+// Load another table's back tier into this (fresh, enabled) one: n
+// entries (back slot, expire, key) in the given order and the FIFO
+// cursor (MeshBucketStore.load_state_numpy).  No moves are queued.
+void gt_table_load_back(void* tv, const int32_t* slots, const int64_t* expire,
+                        const char* keys, const int64_t* offsets, int64_t n,
+                        int64_t back_clock) {
+  Table* t = (Table*)tv;
+  GT_LOCK(t);
+  for (int64_t i = 0; i < n; ++i) {
+    int32_t b = slots[i];
+    if (b < 0 || b >= t->back_capacity) continue;
+    t->unmap_back(b);
+    std::string k(keys + offsets[i], (size_t)(offsets[i + 1] - offsets[i]));
+    t->back_key[b] = k;
+    t->back_mapped[b] = 1;
+    t->back_expire[b] = expire[i];
+    t->key_to_back.emplace(std::move(k), b);
+    ++t->back_size;
+  }
+  t->back_clock = back_clock;
 }
 
 // Bulk expiry read for the narrow-wire keep-sentinel decode: lanes

@@ -1,10 +1,10 @@
 """Build, bind and launch the port's CUDA kernels.
 
-csrc/bucket_rounds.cu (K1, K2), csrc/global_ops.cu (K3-K6) and
-csrc/rows.cu (K7, K8) are compiled with nvcc for sm_90a, one nvcc
-process per source started together, into one shared library with a plain C interface the first
-time a kernel is launched (or `build()` is called), and bound through
-ctypes.  Each wrapper checks
+csrc/bucket_rounds.cu (K1, K2), csrc/global_ops.cu (K3-K6),
+csrc/rows.cu (K7, K8) and csrc/moves.cu (K9) are compiled with nvcc for
+sm_90a, one nvcc process per source started together, into one shared
+library with a plain C interface the first time a kernel is launched
+(or `build()` is called), and bound through ctypes.  Each wrapper checks
 device, dtype, shape and contiguity, allocates its output and scratch
 with torch.empty, launches on PyTorch's current stream, raises when the
 launch returns a CUDA error, and counts its launches in LAUNCHES.
@@ -27,7 +27,7 @@ from .buckets import DICT_WIRE_TABLE_WORDS
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 SOURCES = [os.path.join(_CSRC, name)
-           for name in ("bucket_rounds.cu", "global_ops.cu", "rows.cu")]
+           for name in ("bucket_rounds.cu", "global_ops.cu", "rows.cu", "moves.cu")]
 HEADERS = [os.path.join(_CSRC, "bucket_rounds.cuh")]
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -36,11 +36,14 @@ NVCC_FLAGS = [
 LINK_FLAGS = ["-shared"]
 
 # Launches per kernel since the last reset_launch_counts(): one per
-# wrapper call that reached the kernel.
+# wrapper call that reached the kernel (K9's call is its two launches).
+# The row gather counts under "gather_back_rows" when it reads the
+# two-tier table's back tier (ops/buckets.py read_back_rows).
 LAUNCHES = {
     "bucket_rounds_dict": 0, "bucket_rounds_cols": 0,
     "global_answer_rounds": 0, "global_sync": 0, "set_replica": 0,
     "clear_gslots": 0, "gather_rows": 0, "write_rows": 0,
+    "gather_back_rows": 0, "apply_moves": 0,
 }
 _STAGE_WORDS = 16  # per-lane scratch record (bucket_rounds.cuh kStageWords)
 
@@ -80,6 +83,7 @@ _SIGNATURES = {
     "gt_clear_gslots": [_P, _P, _P, _P, _P, _P, _I64, _I64, _P, _I64, _P],
     "gt_gather_rows": [_P, _P, _I64, _I64, _P, _I64, _P, _P, _P],
     "gt_write_rows": [_P, _P, _I64, _I64, _P, _I64, _P, _P, _P],
+    "gt_apply_moves": [_P, _P, _I64, _I64, _P, _P, _I64, _P, _I64, _P, _P],
 }
 
 
@@ -292,9 +296,10 @@ def _lanes(lanes, device):
     return lanes.shape[1]
 
 
-def gather_rows(hot, cold, lanes):
+def gather_rows(hot, cold, lanes, count: str = "gather_rows"):
     """K7: the full rows at lanes i32[2, M]; returns (c32 i32[2, M],
-    c64 i64[5, M]) (see ops/buckets.py read_rows_plain)."""
+    c64 i64[5, M]) (see ops/buckets.py read_rows_plain).  The launch
+    counts under `count` ("gather_back_rows" on the back tier)."""
     S, C = _state(hot, cold)
     M = _lanes(lanes, hot.device)
     c32 = torch.empty((2, M), dtype=torch.int32, device=hot.device)
@@ -303,7 +308,7 @@ def gather_rows(hot, cold, lanes):
         rc = _get_lib().gt_gather_rows(hot.data_ptr(), cold.data_ptr(), S, C,
                                        lanes.data_ptr(), M, c32.data_ptr(),
                                        c64.data_ptr(), _stream(hot.device))
-        _finish("gather_rows", rc)
+        _finish(count, rc)
     return c32, c64
 
 
@@ -320,3 +325,29 @@ def write_rows(hot, cold, lanes, c32, c64) -> None:
                                       lanes.data_ptr(), M, c32.data_ptr(),
                                       c64.data_ptr(), _stream(hot.device))
         _finish("write_rows", rc)
+
+
+# ---------------------------------------------------------------------
+# Tier moves of the two-tier table (csrc/moves.cu)
+# ---------------------------------------------------------------------
+def apply_moves(hot, cold, back_hot, back_cold, records) -> None:
+    """K9: one drain window of tier moves, records i32[3, N] = (op =
+    shard << 2 | kind, src, dst), applied to the front hot/cold
+    [S, C, 8] and back hot/cold [S, Cb, 8] in place; live records must
+    name distinct destinations (see ops/buckets.py apply_moves_plain)."""
+    S, C = _state(hot, cold)
+    bS, Cb = _state(back_hot, back_cold)
+    if bS != S:
+        raise ValueError(f"back tier has {bS} shards, front {S}")
+    if records.dim() != 2 or records.shape[0] != 3:
+        raise ValueError(f"records must be [3, N], got {tuple(records.shape)}")
+    N = records.shape[1]
+    _check("records", records, torch.int32, (3, N), hot.device)
+    if not N:
+        return
+    stage = torch.empty((N, 16), dtype=torch.int32, device=hot.device)
+    rc = _get_lib().gt_apply_moves(
+        hot.data_ptr(), cold.data_ptr(), S, C, back_hot.data_ptr(),
+        back_cold.data_ptr(), Cb, records.data_ptr(), N, stage.data_ptr(),
+        _stream(hot.device))
+    _finish("apply_moves", rc)

@@ -10,15 +10,17 @@ it); see its module docstring for the reference citations.
 
 Two implementations of each device function live here:
 
-* the CUDA kernels (csrc/bucket_rounds.cu and csrc/rows.cu, bound in
-  ops/_kernels.py), which the wrappers `bucket_rounds_dict` /
-  `bucket_rounds_cols` and the row gather / scatter `gather_rows` /
-  `write_rows` launch for CUDA tensors;
+* the CUDA kernels (csrc/bucket_rounds.cu, csrc/rows.cu and
+  csrc/moves.cu, bound in ops/_kernels.py), which the wrappers
+  `bucket_rounds_dict` / `bucket_rounds_cols`, the row gather / scatter
+  `gather_rows` / `write_rows` (and `read_back_rows`, the gather on the
+  two-tier table's back tier) and the tier move `apply_moves` launch for
+  CUDA tensors;
 * their plain PyTorch versions (`bucket_rounds_dict_plain`,
-  `bucket_rounds_cols_plain`, `read_rows_plain`, `write_rows_plain`), a
-  straight transcription of the JAX programs, which the wrappers take
-  for CPU tensors and which the chip smoke test holds the kernels
-  against on the card.
+  `bucket_rounds_cols_plain`, `read_rows_plain`, `write_rows_plain`,
+  `apply_moves_plain`), a straight transcription of the JAX programs,
+  which the wrappers take for CPU tensors and which the chip smoke test
+  holds the kernels against on the card.
 
 State is updated in place (the kernels write their rows into `hot` and
 `cold`; the plain versions scatter into them), which replaces the JAX
@@ -810,3 +812,114 @@ def write_rows(hot, cold, lanes, c32, c64) -> None:
                             c64.reshape(5, -1).contiguous())
         return
     write_rows_plain(hot, cold, lanes, c32, c64)
+
+
+# ---------------------------------------------------------------------
+# The two-tier table's back tier and its moves.  Kernel lanes address
+# only the front table (BucketState); rows move between the tiers in
+# host-planned windows of promotions and demotions (the native Table's
+# two-tier mode), applied by `apply_moves` before any launch that reads
+# front rows.
+# ---------------------------------------------------------------------
+class BackState(NamedTuple):
+    """Back tier of the two-tier bucket table: hot and cold int32
+    [S, Cb, 8], the BucketState row layout.  Only the move launch
+    writes it; the snapshot path reads it (read_back_rows)."""
+
+    hot: torch.Tensor
+    cold: torch.Tensor
+
+
+def init_back(n_shards: int, capacity: int, device) -> BackState:
+    """A zeroed back tier of `capacity` rows per shard."""
+    return BackState(*init_state(n_shards, capacity, device))
+
+
+# Move record kinds (the low two bits of a record's op word).
+MOVE_PROMOTE_BACK = 0  # back[src] -> front[dst]
+MOVE_PROMOTE_FRONT = 1  # front[src] -> front[dst] (demoted and re-promoted in one window)
+MOVE_DEMOTE = 2  # front[src] -> back[dst]
+
+
+def moves_to_records(moves) -> np.ndarray:
+    """One drain window of every shard's queued moves as flat records
+    i32[3, N] = (op = shard << 2 | kind, src, dst).  `moves[s]` is shard
+    s's (promo_kind, promo_src, promo_dst, demo_src, demo_dst) from
+    NativeSlotTable.take_moves; cancelled records (src -1) are left
+    out.  One device holds every shard, so the list needs none of the
+    JAX store's [S, pow2] padding."""
+    parts = []
+    for s, (pk, ps, pd, ds, dd) in enumerate(moves):
+        pk, ps, pd, ds, dd = (np.asarray(a, np.int64) for a in (pk, ps, pd, ds, dd))
+        d, p = ds >= 0, ps >= 0
+        parts.append(np.stack([(s << 2) | np.full(int(d.sum()), MOVE_DEMOTE), ds[d], dd[d]]))
+        parts.append(np.stack([(s << 2) | pk[p], ps[p], pd[p]]))
+    if not parts:
+        return np.zeros((3, 0), np.int32)
+    return np.ascontiguousarray(np.concatenate(parts, axis=1), dtype=np.int32)
+
+
+def _move_index(hot, back_hot, records):
+    """(live, shard, kind, src, dst) of each record; a record whose
+    kind, shard, source or destination is out of range is not live."""
+    S, C, Cb = hot.shape[0], hot.shape[1], back_hot.shape[1]
+    op, src, dst = records.to(_I64)
+    shard, kind = op >> 2, op & 3
+    src_cap = torch.where(kind == MOVE_PROMOTE_BACK, Cb, C)
+    dst_cap = torch.where(kind == MOVE_DEMOTE, Cb, C)
+    live = ((kind <= MOVE_DEMOTE) & (shard >= 0) & (shard < S) & (src >= 0)
+            & (src < src_cap) & (dst >= 0) & (dst < dst_cap))
+    return live, shard[live], kind[live], src[live], dst[live]
+
+
+def apply_moves_plain(hot, cold, back_hot, back_cold, records) -> None:
+    """Plain version of the tier move K9 (the JAX package's
+    buckets.apply_moves, through _moves_mesh_jit): apply one drain
+    window of records i32[3, N] (moves_to_records) in place.  Every
+    source row is read before any destination is written, so demotions
+    take PRE-promotion front rows and promotions take pre-demotion back
+    rows (kind 0) or front rows (kind 1), whatever the records' order.
+    Records that are not live (a negative source) do nothing.  The live
+    records must name distinct destinations (the host's
+    cancel_pending_demo makes them so): two writes of one row would
+    race on the card."""
+    live, sh, kind, src, dst = _move_index(hot, back_hot, records)
+    C, Cb = hot.shape[1], back_hot.shape[1]
+    demote = kind == MOVE_DEMOTE
+    key = (sh * 2 + demote.to(_I64)) * max(C, Cb) + dst
+    if torch.unique(key).numel() != key.numel():
+        raise ValueError("apply_moves: a destination row appears more than once")
+    from_back = (kind == MOVE_PROMOTE_BACK)[:, None]
+    fsrc, bsrc = src.clamp(max=C - 1), src.clamp(max=Cb - 1)
+    rows_hot = torch.where(from_back, back_hot[sh, bsrc], hot[sh, fsrc])
+    rows_cold = torch.where(from_back, back_cold[sh, bsrc], cold[sh, fsrc])
+    up = ~demote
+    hot[sh[up], dst[up]] = rows_hot[up]
+    cold[sh[up], dst[up]] = rows_cold[up]
+    back_hot[sh[demote], dst[demote]] = rows_hot[demote]
+    back_cold[sh[demote], dst[demote]] = rows_cold[demote]
+
+
+def apply_moves(state: BucketState, back: BackState, records) -> None:
+    """Apply one drain window of tier moves (records i32[3, N]) to the
+    front and back tables in place (see apply_moves_plain)."""
+    if _route(state.hot) == "cuda":
+        from . import _kernels
+
+        _kernels.apply_moves(state.hot, state.cold, back.hot, back.cold, records)
+        return
+    apply_moves_plain(state.hot, state.cold, back.hot, back.cold, records)
+
+
+def read_back_rows(back: BackState, lanes):
+    """The full rows of the back tier at `lanes` i32[2, ...] (shard,
+    back slot): the row gather on the back tensors, (c32, c64) as
+    gather_rows gives them (the JAX package's read_back_rows)."""
+    if _route(back.hot) == "cuda":
+        from . import _kernels
+
+        dims = lanes.shape[1:]
+        c32, c64 = _kernels.gather_rows(back.hot, back.cold, _flat_lanes(lanes),
+                                        count="gather_back_rows")
+        return c32.reshape(2, *dims), c64.reshape(5, *dims)
+    return read_rows_plain(back.hot, back.cold, lanes)

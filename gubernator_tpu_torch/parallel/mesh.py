@@ -33,13 +33,26 @@ row with one row-gather launch (snapshot.py dumps it), and
 Loader's items) with one row gather, the host's monotone merge
 (reshard.py) and one row scatter; `snapshot_items` feeds Loader.save.
 
+The two-tier table (`back_capacity_per_shard > 0`): a small front
+table takes every kernel lane, and its LRU evictions demote live rows
+into a device-resident back tier ([S, Cb, 8], FIFO) instead of dropping
+them; a later lookup promotes the row again.  The C++ tables queue the
+row moves while planning, and `_drain_moves` applies each window with
+one tier-move launch (ops/buckets.py apply_moves) before any launch that
+reads front rows: the columnar launch (`_pre_launch`), the dataclass
+path after planning, the GLOBAL sync after owner-slot resolution, and
+the persistence plane's gathers and commits.  `snapshot_items` reads the
+back rows too (ops/buckets.py read_back_rows); `snapshot_columns` does
+not, as in the JAX store.
+
 The JAX store serialises its sync collective across stores with a
 process-wide lock (`_SYNC_COLLECTIVE_LOCK`) because two interleaved
 rendezvous on a shared virtual CPU mesh can deadlock; one device has no
 rendezvous, so the port has no such lock.
 
-Not ported yet: the two-tier table, `measure_sync_cost_s`, `load_item`
-and resharding (`drain_keys`, `forget_keys`, `resident_*`).
+Not ported yet: `measure_sync_cost_s`, `load_item`, `warmup`,
+`occupancy_stats` and resharding (`drain_keys`, `forget_keys`,
+`resident_*`).
 """
 
 from __future__ import annotations
@@ -225,7 +238,24 @@ class MeshBucketStore(ColumnarPipeline):
     """
 
     def __init__(self, capacity_per_shard: int = 50_000, n_shards: int = 8,
-                 device=None, g_capacity: int = 4096, store=None):
+                 device=None, g_capacity: int = 4096, store=None,
+                 back_capacity_per_shard: int = 0):
+        """back_capacity_per_shard > 0 enables the two-tier table: the
+        front (capacity_per_shard) takes every kernel lane, front LRU
+        evictions demote live rows into a back tier of this many rows
+        per shard, and later lookups promote them back.  Total capacity
+        is front + back per shard; state is lost only when the back
+        tier wraps (FIFO).  Not with a Store SPI, whose resolver injects
+        rows mid-round.
+
+        Sizing contract: the front must hold one batch's per-shard
+        working set (unique keys) with room to spare; a batch whose
+        unique keys exceed it exhausts the pending-write guard and takes
+        the planner's all-pending fallback (the loss a single-tier table
+        of that size would have).  The tiers pay off when the churn is
+        across batches."""
+        if back_capacity_per_shard > 0 and store is not None:
+            raise ValueError("two-tier table is incompatible with a Store SPI")
         self.device = resolve_device(device)
         self.store = store  # Store SPI (store.py), or None
         self.n_shards = n_shards
@@ -236,9 +266,13 @@ class MeshBucketStore(ColumnarPipeline):
         # per batch.
         self._lock = threading.RLock()
         self._init_pipeline()
-        self.tables = [native.NativeSlotTable(capacity_per_shard)
-                       for _ in range(n_shards)]
+        self.back_capacity_per_shard = back_capacity_per_shard
+        self.tables = self._new_tables()
         self.state = buckets.init_state(n_shards, capacity_per_shard, self.device)
+        self.back = (buckets.init_back(n_shards, back_capacity_per_shard, self.device)
+                     if back_capacity_per_shard > 0 else None)
+        # Tier-move launches (one per drain window that moved rows).
+        self.move_dispatches = 0
         # Each slot's algorithm on the host: the Store resolver detects
         # algorithm switches with it.
         self.algo_mirror = np.zeros((n_shards, capacity_per_shard), dtype=np.int32)
@@ -257,8 +291,40 @@ class MeshBucketStore(ColumnarPipeline):
         self.last_sync_cost_s: Optional[float] = None
         self._sync_gen: Optional[list] = None
 
+    def _new_tables(self) -> list:
+        tables = [native.NativeSlotTable(self.capacity_per_shard)
+                  for _ in range(self.n_shards)]
+        if self.back_capacity_per_shard > 0:
+            for t in tables:
+                t.enable_back(self.back_capacity_per_shard)
+        return tables
+
     def size(self) -> int:
         return sum(len(t) for t in self.tables)
+
+    def _drain_moves(self) -> None:
+        """Apply every queued tier move (caller holds the store lock).
+
+        Planning queues promotions and demotions in the C++ tables; this
+        takes them and applies the whole window, every shard, with one
+        tier-move launch, so the rows are in their new homes before any
+        launch that reads front rows.  No launch when nothing is queued
+        (the steady state of front-resident traffic)."""
+        if self.back is None:
+            return
+        records = buckets.moves_to_records([t.take_moves() for t in self.tables])
+        if not records.shape[1]:
+            return
+        buckets.apply_moves(self.state, self.back, self._upload(records))
+        self.move_dispatches += 1
+
+    def _pre_launch(self) -> None:
+        # Tier moves queued by the group's plans must land before its
+        # launches read front rows.  One drain covers the group: moves
+        # queued by a later plan are safe to apply early, since the
+        # pending-write guard keeps every in-flight batch's slots out of
+        # the mover's reach.
+        self._drain_moves()
 
     @property
     def supports_columns(self) -> bool:
@@ -360,6 +426,7 @@ class MeshBucketStore(ColumnarPipeline):
             rid, occ, wr, nr = plan_grouped_python(self.tables[s], by_shard[s], now_ms)
             plans.append((rid, occ, wr))
             n_rounds = max(n_rounds, nr)
+        self._drain_moves()  # tier moves queued by the planning
         padded = pad_size(max(len(c) for c in by_shard))
         lanes = np.zeros((S, 6, padded), np.int32)
         lanes[:, 0] = -1
@@ -496,11 +563,18 @@ class MeshBucketStore(ColumnarPipeline):
     def _read_rows(self, lanes: np.ndarray) -> buckets.BucketRows:
         """The rows at host lanes i32[2, M] (shard, slot), one row-gather
         launch, as host BucketRows."""
-        c32, c64 = buckets.gather_rows(
-            self.state.hot, self.state.cold,
-            self._upload(np.ascontiguousarray(lanes, np.int32)))
+        return buckets.cols_to_rows(*self._gather_cols(lanes))
+
+    def _gather_cols(self, lanes: np.ndarray, back: bool = False):
+        """Host (c32, c64) of the front rows (or with `back`, the back
+        tier's rows) at host lanes i32[2, M], one row-gather launch."""
+        dev_lanes = self._upload(np.ascontiguousarray(lanes, np.int32))
+        if back:
+            c32, c64 = buckets.read_back_rows(self.back, dev_lanes)
+        else:
+            c32, c64 = buckets.gather_rows(self.state.hot, self.state.cold, dev_lanes)
         f32, f64 = _readback(c32), _readback(c64)
-        return buckets.cols_to_rows(f32(), f64())
+        return f32(), f64()
 
     def _write_rows(self, lanes: np.ndarray, c32: np.ndarray, c64: np.ndarray) -> None:
         """Write rows at host lanes i32[2, M] (distinct), one row-scatter
@@ -514,17 +588,35 @@ class MeshBucketStore(ColumnarPipeline):
     @_drained_locked
     def snapshot_items(self):
         """Loader.Save path (gubernator.go:93-111): every resident key as
-        a CacheItem, shard by shard, with one row gather.  (The JAX store
-        also reads its two-tier back table, which the port has not.)"""
-        keys: List[str] = []
-        lanes = []
-        for s, t in enumerate(self.tables):
-            k, slots = t.entries()
-            keys.extend(k)
-            lanes.append(np.stack([np.full(len(k), s, np.int32), slots]))
-        if not keys:
-            return []
-        return _rows_to_items(keys, self._read_rows(np.concatenate(lanes, axis=1)))
+        a CacheItem, shard by shard (a two-tier table's front keys, then
+        its back keys, as the JAX store lists them), with one row gather
+        for the fronts and one for the back tiers."""
+        self._drain_moves()  # pending promotions leave front rows stale
+        front = [t.entries() for t in self.tables]
+        back = ([t.back_entries()[:2] for t in self.tables] if self.back is not None
+                else [([], np.empty(0, np.int32))] * self.n_shards)
+
+        def gather(entries, read):
+            lanes = np.concatenate(
+                [np.stack([np.full(len(k), s, np.int32), slots])
+                 for s, (k, slots) in enumerate(entries)], axis=1)
+            if not lanes.shape[1]:
+                return None
+            return buckets.cols_to_rows(*read(lanes))
+
+        front_rows = gather(front, self._gather_cols)
+        back_rows = gather(back, lambda lanes: self._gather_cols(lanes, back=True))
+        items = []
+        at = {"front": 0, "back": 0}
+        for s in range(self.n_shards):
+            for tier, keys, rows in (("front", front[s][0], front_rows),
+                                     ("back", back[s][0], back_rows)):
+                if keys:
+                    n, i = len(keys), at[tier]
+                    items.extend(_rows_to_items(
+                        keys, buckets.BucketRows(*(f[i:i + n] for f in rows))))
+                    at[tier] = i + n
+        return items
 
     @_drained_locked
     def snapshot_columns(self, now_ms: int) -> TransferColumns:
@@ -544,6 +636,7 @@ class MeshBucketStore(ColumnarPipeline):
         found = np.nonzero(slot >= 0)[0]
         if not found.size:
             return TransferColumns.empty()
+        self._drain_moves()  # land queued promotions before reading rows
         order = found[np.argsort(shard[found], kind="stable")]
         rows = self._read_rows(np.stack([shard[order], slot[order]]))
         self.transfer_drain_dispatches += 1
@@ -582,6 +675,9 @@ class MeshBucketStore(ColumnarPipeline):
         m = idx.size
         shard_ix, slot_ix, exists_ix = native.mesh_lookup_or_assign(
             self.tables, list(seen), now_ms)
+        # The lookups may have queued promotions of back-tier keys: land
+        # them before reading front rows.
+        self._drain_moves()
         lanes = np.stack([shard_ix, slot_ix])
         cur = self._read_rows(lanes)
         merged = merge_transfer_rows(
@@ -730,6 +826,9 @@ class MeshBucketStore(ColumnarPipeline):
                 continue
             if self.tables[o].get_slot(gt.key_of(g)) != int(gt.owner_slot[g]):
                 gt.owner_slot[g] = -1
+        # The resolution may have promoted demoted GLOBAL keys: their
+        # rows must be in the front table before the sync reads them.
+        self._drain_moves()
         cfg = global_ops.SyncConfig(
             owner_slot=gt.owner_slot, owner_shard=gt.owner_shard,
             algorithm=gt.algorithm, behavior=gt.behavior, limit=gt.limit,
@@ -937,31 +1036,54 @@ class MeshBucketStore(ColumnarPipeline):
         return run
 
     # ------------------------------------------------------------------
-    def load_state_numpy(self, hot, cold, entries, algo_mirror=None) -> None:
+    def load_state_numpy(self, hot, cold, entries, algo_mirror=None, back=None) -> None:
         """Replace this store's state with another store's: `hot` and
         `cold` are [S, C, 8] arrays (for example the JAX store's
         `np.asarray(store.state.hot)`), `entries` holds each shard's
         (keys, slots, expire) key map, committed into fresh tables, and
         `algo_mirror` the i32 [S, C] slot algorithms (zeros when not
-        given).  Afterwards both stores answer the next batch
-        identically."""
+        given).  A two-tier store also takes `back` = (back_hot,
+        back_cold, back_entries, cursors): the back tier's [S, Cb, 8]
+        arrays, each shard's (keys, back_slots, expire) back map (the
+        JAX table's `back_entries()`) and its FIFO allocation cursor.
+        The JAX table does not expose its cursor; below the back tier's
+        first wrap it equals the shard's demotion count (`tier_stats`).
+        The back map's iteration order after the load may differ from
+        the source table's.  Afterwards both stores answer the next
+        batch identically."""
         if len(entries) != self.n_shards:
             raise ValueError(f"need {self.n_shards} shard entries, got {len(entries)}")
+        if (back is None) != (self.back is None):
+            raise ValueError("back is required exactly when the store has a back tier")
         state = buckets.state_from_numpy(hot, cold, self.device)
         if state.hot.shape != self.state.hot.shape:
             raise ValueError(
                 f"state shape {tuple(state.hot.shape)} != {tuple(self.state.hot.shape)}"
             )
+        back_state = None
+        if back is not None:
+            back_hot, back_cold, back_entries, cursors = back
+            back_state = buckets.BackState(*buckets.state_from_numpy(
+                back_hot, back_cold, self.device))
+            if back_state.hot.shape != self.back.hot.shape:
+                raise ValueError(f"back shape {tuple(back_state.hot.shape)} != "
+                                 f"{tuple(self.back.hot.shape)}")
+            if len(back_entries) != self.n_shards or len(cursors) != self.n_shards:
+                raise ValueError(f"need {self.n_shards} back entries and cursors")
         mirror = np.zeros_like(self.algo_mirror)
         if algo_mirror is not None:
             mirror[:] = algo_mirror
         self._drain_then_lock()
         try:
-            self.tables = [native.NativeSlotTable(self.capacity_per_shard)
-                           for _ in range(self.n_shards)]
+            self.tables = self._new_tables()
             for table, (keys, slots, expire) in zip(self.tables, entries):
                 n = len(keys)
                 table.commit(slots, expire, np.zeros(n, np.uint8), keys)
+            if back_state is not None:
+                for table, (keys, slots, expire), cursor in zip(
+                        self.tables, back_entries, cursors):
+                    table.load_back(keys, slots, expire, int(cursor))
+                self.back = back_state
             self.state = state
             self.algo_mirror = mirror
             self._sync_gen = None  # fresh slot tables: verify every owner slot
@@ -995,3 +1117,29 @@ class MeshBucketStore(ColumnarPipeline):
             self._sync_gen = None  # fresh slot tables: verify every owner slot
         finally:
             self._unlock_drained()
+
+    @_drained_locked
+    def check_consistency(self) -> None:
+        """Invariant sweep over the host tier (the JAX store's test and
+        debug check): every shard's key->slot map must be a bijection
+        onto in-range slots and sized consistently, and a two-tier
+        table's back map likewise, with no key in both tiers.  Raises
+        AssertionError on corruption."""
+        for s, t in enumerate(self.tables):
+            keys, slots = t.entries()
+            assert len(set(keys)) == len(keys), f"shard {s}: a key mapped twice"
+            assert len(set(slots.tolist())) == len(slots), f"shard {s}: slot aliasing"
+            assert len(keys) == len(t), f"shard {s}: size {len(t)} != mapped keys {len(keys)}"
+            assert all(t.get_slot(k) == int(c) for k, c in zip(keys, slots)), (
+                f"shard {s}: key map and slot list disagree")
+            assert ((slots >= 0) & (slots < self.capacity_per_shard)).all(), (
+                f"shard {s}: slot out of range")
+            if self.back is None:
+                continue
+            bkeys, bslots, _ = t.back_entries()
+            assert len(set(bslots.tolist())) == len(bslots), f"shard {s}: back slot aliasing"
+            assert ((bslots >= 0) & (bslots < self.back_capacity_per_shard)).all(), (
+                f"shard {s}: back slot out of range")
+            assert t.tier_stats[:2] == (len(keys) + len(bkeys), len(bkeys)), (
+                f"shard {s}: tier sizes disagree")
+            assert not set(keys) & set(bkeys), f"shard {s}: a key in both tiers"

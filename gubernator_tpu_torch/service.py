@@ -66,6 +66,10 @@ class ServiceConfig:
 
     store: Optional[MeshBucketStore] = None  # built from the sizes when None
     cache_size: int = 50_000  # total slots, split evenly over 8 shards
+    # Two-tier table: > 0 adds a device-resident back tier of this many
+    # extra slots (total capacity = cache_size + back_cache_size; the
+    # small front takes every kernel lane, see MeshBucketStore).
+    back_cache_size: int = 0
     # GLOBAL sync interval; None = sized from the measured sync cost.
     global_sync_wait_s: Optional[float] = None
     clock: Clock = field(default_factory=lambda: DEFAULT_CLOCK)
@@ -159,6 +163,10 @@ class V1Service:
             # of the cache size, clamped to [4096, 65536].
             g_capacity=min(max(4096, conf.cache_size), 65536),
             store=conf.persist_store,
+            # Ceil division: any nonzero back_cache_size enables the back
+            # tier (as the JAX service sizes it).
+            back_capacity_per_shard=-(-conf.back_cache_size // N_SHARDS)
+            if conf.back_cache_size > 0 else 0,
         )
         self._closed = False
         if conf.loader is not None:

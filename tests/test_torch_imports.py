@@ -118,9 +118,13 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         _kernels.write_rows(hot, hot.clone(), lanes, lanes.clone(),
                             torch.zeros((5, 8), dtype=torch.int64))
+    with pytest.raises(ValueError, match="CUDA"):
+        _kernels.apply_moves(hot, hot.clone(), hot.clone(), hot.clone(),
+                             torch.zeros((3, 8), dtype=torch.int32))
     assert set(_kernels.LAUNCHES) == {
         "bucket_rounds_dict", "bucket_rounds_cols", "global_answer_rounds",
-        "global_sync", "set_replica", "clear_gslots", "gather_rows", "write_rows"}
+        "global_sync", "set_replica", "clear_gslots", "gather_rows", "write_rows",
+        "gather_back_rows", "apply_moves"}
     assert not any(_kernels.LAUNCHES.values())
 
 

@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
 card: seeded cases (chip_smoke.make_case, chip_smoke.global_case,
-chip_smoke.rows_case) through each kernel (K1 and K2 narrow and wide;
-K3-K6 of the GLOBAL plane; the row gather K7 and row scatter K8) must
+chip_smoke.rows_case, chip_smoke.moves_case) through each kernel (K1 and
+K2 narrow and wide; K3-K6 of the GLOBAL plane; the row gather K7 and row
+scatter K8; the tier move K9, its records in either order) must
 give the plain version's outputs, state and replica-column bytes
 exactly (tolerance 0: all integer).  Skipped without a CUDA device; on a
 machine with one, run `python -m pytest -m cuda tests/test_torch_kernels.py`.
@@ -61,5 +62,19 @@ def test_row_kernel_matches_plain(cuda_device, kind, seed):
     case = rows_case(seed, 64, 300)
     got = run_rows(torch, cuda_device, kind, case, plain=False)
     want = run_rows(torch, cuda_device, kind, case, plain=True)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.tobytes() == w.tobytes()
+
+
+@pytest.mark.parametrize("reverse", [False, True], ids=["in_order", "reversed"])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_moves_kernel_matches_plain(cuda_device, seed, reverse):
+    import torch
+
+    from chip_smoke import moves_case, run_moves
+
+    case = moves_case(seed, 64, 256, 20, 15)
+    got = run_moves(torch, cuda_device, case, plain=False, reverse=reverse)
+    want = run_moves(torch, cuda_device, case, plain=True)
     for g, w in zip(got, want):
         assert g.dtype == w.dtype and g.tobytes() == w.tobytes()

@@ -2,10 +2,11 @@
 the CUDA runtime (tests/cuda_emu/cuda_runtime.h), against their plain
 PyTorch versions: the same seeded cases as tests/test_torch_kernels.py
 (K1 and K2 narrow and wide; K3-K6 of the GLOBAL plane; the row gather
-K7 and row scatter K8), tolerance 0.
+K7 and row scatter K8; the tier move K9), tolerance 0.
 
 This holds the kernels' device logic (the round steps, the replica
-answer, the sync, the scatters, the row composition and split) on a machine with no card, where the
+answer, the sync, the scatters, the row composition and split, the
+tier move's gather and scatter) on a machine with no card, where the
 cuda-marked tests skip.  The stand-in runs the threads of a launch one
 after another, so it shows no race and nothing of what nvcc does; the
 card runs of tests/test_torch_kernels.py and chip_smoke.py remain the
@@ -132,3 +133,43 @@ def test_emulated_row_kernel_matches_plain(emulated, kind, seed):
         out = []
     _same([t.numpy() for t in (*out, h, c)], want)
     assert emulated.LAUNCHES[f"{kind}_rows"] == before + 1
+
+
+@pytest.mark.parametrize("reverse", [False, True], ids=["in_order", "reversed"])
+@pytest.mark.parametrize("seed,C,Cb,n_demo,n_promo", [
+    (0, 64, 256, 20, 15), (1, 64, 64, 40, 30), (2, 32, 512, 0, 12), (3, 32, 16, 9, 0)])
+def test_emulated_moves_kernel_matches_plain(emulated, reverse, seed, C, Cb, n_demo, n_promo):
+    """K9 with both hazards of a window (a demoted front slot reused by a
+    promotion, a kind-1 promotion reading a demotion's source) and dead
+    records, the records in either order."""
+    import torch
+
+    from chip_smoke import moves_case, run_moves
+
+    case = moves_case(seed, C, Cb, n_demo, n_promo)
+    want = run_moves(torch, "cpu", case, plain=True)
+    *tiers, records = case
+    if reverse:
+        records = np.ascontiguousarray(records[:, ::-1])
+    t = [torch.tensor(a) for a in tiers]
+    before = emulated.LAUNCHES["apply_moves"]
+    emulated.apply_moves(*t, torch.tensor(records))
+    _same([x.numpy() for x in t], want)
+    assert emulated.LAUNCHES["apply_moves"] == before + 1
+
+
+def test_emulated_back_row_gather_counts_apart(emulated):
+    """K7 on a back tier (ops/buckets.py read_back_rows) counts under its
+    own name."""
+    import torch
+
+    from chip_smoke import rows_case, run_rows
+
+    hot, cold, lanes, *_ = case = rows_case(5, 64, 300)
+    want = run_rows(torch, "cpu", "gather", case, plain=True)
+    h, c = torch.tensor(hot), torch.tensor(cold)
+    before = dict(emulated.LAUNCHES)
+    out = emulated.gather_rows(h, c, torch.tensor(lanes), count="gather_back_rows")
+    _same([t.numpy() for t in (*out, h, c)], want)
+    assert emulated.LAUNCHES["gather_back_rows"] == before["gather_back_rows"] + 1
+    assert emulated.LAUNCHES["gather_rows"] == before["gather_rows"]
