@@ -14,9 +14,12 @@ Phases (any failure exits non-zero and prints no `ok` line):
               card and inputs: K1 (dict wire) and K2 (per-lane columns),
               narrow and wide, and the GLOBAL kernels K3 (answer
               rounds), K4 (sync), K5 (replica commit) and K6 (replica
-              clear), the row gather (K7) and row scatter (K8), and the
+              clear), the row gather (K7) and row scatter (K8), the
               tier move (K9, its records in both orders, with the
-              window's two hazards); small seeded cases plus one at the
+              window's two hazards), and the compact commit (K10, on the
+              dict wire and on per-lane columns, every write lane listed
+              or half of them; also held against K1/K2 on the same
+              single-round batch); small seeded cases plus one at the
               paths' full size; outputs, state and replica-column bytes
               must be identical (tolerance 0: all integer);
 4. service  — a V1Service on the card answers token, leaky, validation,
@@ -61,12 +64,24 @@ Phases (any failure exits non-zero and prints no `ok` line):
               and back state, tier stats and tables must equal a store
               on the plain versions (CPU); then one more batch step by
               step, and the same batch on a single-tier store;
+10. shard   — the one-shard store at full size (bench.py's headline:
+              ShardStore(capacity=300_000), 100,000 keys, Zipf, 131,072-
+              lane batches of mixed token and leaky buckets): 2 warm
+              batches, then two dispatcher threads of 4 batches two in
+              flight each; a 400-config batch narrow and wide (K2) and a
+              monthly-Gregorian batch; the dataclass leg
+              (ShardStore(capacity=200_000).apply, 2 warm and 4 timed);
+              a Store SPI over a 50,000-slot store; an express store
+              (1-lane batches take K1 on the card, the host slot on the
+              CPU); everything == a ShardStore on the plain versions
+              (CPU) replayed in ticket order;
 8. numbers  — kernel time per launch at the paths' shapes, the plain
               version's, the library call's where one computes the same
               function, and the memory bound, as one JSON line (after
-              phase 9, whose inputs it times K9 and K7 on the back tier
-              with, and K1 on a 32,768-slot front against a 262,144-slot
-              single tier).
+              phases 9 and 10, whose inputs it times K9 and K7 on the
+              back tier with, K1 on a 32,768-slot front against a
+              262,144-slot single tier, K1 and K2 at S = 1, and K10
+              beside K1 on the headline's single-round batch).
 
 The last line is `{"ok": true, "device": {...}}`.  Exits 2 without a
 CUDA device.
@@ -104,6 +119,12 @@ TT_MOVES = 15_700  # demotions and promotions per shard in a full-size K9 case
 # The first instant of December 2023: the monthly lanes' reset is a
 # whole month away, more than an int32 delta of milliseconds.
 TT_NOW = 1_701_388_800_000
+# The one-shard store (bench.py main(), the JAX package's headline)
+SHARD_C = 300_000  # ShardStore(capacity=300_000)
+SHARD_KEYS = 100_000
+SHARD_DC_C = 200_000  # its dataclass leg: ShardStore(capacity=200_000)
+SHARD_THREADS, SHARD_ITERS = 2, 4
+SHARD_DC_WARM, SHARD_DC_TIMED = 2, 4
 
 
 def log(*a):
@@ -162,8 +183,8 @@ def _split(v):
     return (v & 0xFFFFFFFF).astype(np.uint32).view(np.int32), (v >> 32).astype(np.int32)
 
 
-def random_state(rng, C, wide):
-    n = S * C
+def random_state(rng, C, wide, shards=S):
+    n = shards * C
     algo = rng.integers(0, 2, n)
     limit = np.where(rng.random(n) < 0.8, rng.integers(0, 200, n),
                      rng.integers(0, 2**40 if wide else 200, n))
@@ -183,7 +204,7 @@ def random_state(rng, C, wide):
     hot[:, 5], hot[:, 6] = _split(expire)
     cold[:, 0], cold[:, 1] = _split(limit)
     cold[:, 2], cold[:, 3] = _split(duration)
-    return hot.reshape(S, C, 8), cold.reshape(S, C, 8)
+    return hot.reshape(shards, C, 8), cold.reshape(shards, C, 8)
 
 
 def random_configs(rng, k, wide):
@@ -208,14 +229,14 @@ def random_configs(rng, k, wide):
     return [np.asarray(c, np.int64) for c in (algo, behavior, hits, limit, duration, ge, gd)]
 
 
-def random_plan(rng, C, P, rounds):
+def random_plan(rng, C, P, rounds, shards=S):
     """Per-shard lanes as the grouped planner emits them: unique slots
     per (round, shard), uniform groups with consecutive occ and one
     writer, 20% padding, lanes shuffled."""
-    cols = {k: np.zeros((S, P), np.int64) for k in ("slot", "ex", "wr", "occ", "rid", "grp")}
+    cols = {k: np.zeros((shards, P), np.int64) for k in ("slot", "ex", "wr", "occ", "rid", "grp")}
     cols["slot"][:] = -1
     used = int(P * 0.8)
-    for s in range(S):
+    for s in range(shards):
         sizes = rng.choice([1, 1, 1, 2, 3, 5], used)
         ends = np.cumsum(sizes)
         g = int(np.searchsorted(ends, used)) + 1
@@ -291,7 +312,7 @@ def run_kernel(torch, dev, kind, hot, cold, args, n_rounds, wide, plain):
     else:
         # into slice 1 of a stacked result, as a fused launch group writes
         P = (targs[0].shape[1] - buckets.DICT_WIRE_TABLE_WORDS) // 3
-        stacked = torch.zeros((2, S, 4, P), device=dev,
+        stacked = torch.zeros((2, targs[0].shape[0], 4, P), device=dev,
                               dtype=torch.int64 if wide else torch.int32)
         out = buckets.bucket_rounds_dict(h, c, *targs, n_rounds, NOW, wide, out=stacked[1])
     return out.cpu().numpy(), h.cpu().numpy(), c.cpu().numpy()
@@ -299,6 +320,15 @@ def run_kernel(torch, dev, kind, hot, cold, args, n_rounds, wide, plain):
 
 def max_abs_err(a, b):
     return max(int(np.abs(x.astype(np.int64) - y.astype(np.int64)).max()) for x, y in zip(a, b))
+
+
+def distinct_rows(slot, mask) -> int:
+    """The distinct (shard, slot) rows among the lanes `mask` picks of
+    `slot` [S, P] (tensors or arrays): what a bound counts once, however
+    many lanes of a key group touch the row."""
+    slot, mask = (np.asarray(a.cpu() if hasattr(a, "cpu") else a) for a in (slot, mask))
+    shard = np.broadcast_to(np.arange(slot.shape[0], dtype=np.int64)[:, None], slot.shape)
+    return int(np.unique((shard << 32 | slot.astype(np.int64))[mask]).size)
 
 
 def kernel_phase(torch, dev="cuda", full=(C_FULL, 32_768)):
@@ -629,6 +659,132 @@ def moves_kernel_phase(torch, dev="cuda", full=(TT_FRONT, TT_BACK, TT_MOVES)):
 
 
 # ---------------------------------------------------------------------
+# phase 3, the compact commit (K10): one-shard single-round cases
+# ---------------------------------------------------------------------
+COMPACT_KERNEL = ("bucket_compact", "gubernator_tpu/ops/buckets.py:849")
+
+
+def _pad_wlane(wl):
+    """Write lanes as the host hands them over: i32[1, Pw], -1 padded
+    to a multiple of 256."""
+    out = np.full((1, (len(wl) // 256 + 1) * 256), -1, np.int32)
+    out[0, :len(wl)] = wl
+    return out
+
+
+def compact_args(kind, plan, cfgs, cfg):
+    """A one-shard single-round plan's lanes as K10 (and K1/K2) take
+    them: the dict wire, or the narrow per-lane columns."""
+    from gubernator_tpu_torch.ops import buckets
+
+    if kind == "dict":
+        table = [np.concatenate([c, np.zeros(256 - len(c), np.int64)]) for c in cfgs]
+        return (buckets.pack_dict_wire(plan["slot"], plan["ex"], plan["wr"], cfg,
+                                       plan["occ"], plan["rid"], table),)
+    vals = [c[cfg] for c in cfgs]
+    lanes = np.stack([plan["slot"], plan["ex"] | (plan["wr"] << 1), vals[0], vals[1],
+                      plan["occ"], plan["rid"]], axis=1).astype(np.int32)
+    return lanes, np.stack(vals[2:7], axis=1).astype(np.int32)
+
+
+def compact_case(seed, C, P, kind, n_cfg, subset=False):
+    """A seeded one-shard single-round batch (uniform groups, one writer
+    each) and its write lanes: (hot, cold, args, wlane).  With `subset`,
+    wlane lists half of the write lanes."""
+    rng = np.random.default_rng(seed)
+    hot, cold = random_state(rng, C, False, shards=1)
+    cfgs = random_configs(rng, n_cfg, False)
+    plan = random_plan(rng, C, P, 1, shards=1)
+    cfg = rng.integers(0, n_cfg, (1, P))
+    cfg[0] = cfg[0][plan["grp"][0] % P]
+    wl = np.nonzero(plan["wr"][0] & (plan["slot"][0] >= 0))[0]
+    if subset:
+        wl = np.sort(rng.choice(wl, wl.size // 2, replace=False))
+    return hot, cold, compact_args(kind, plan, cfgs, cfg), _pad_wlane(wl)
+
+
+def zipf_compact_case(seed, C, P, n_keys, kind):
+    """A full-size K10 case from the C++ planner: the headline's Zipf
+    traffic (`key_id % 2` algorithms) planned on a C-slot table that an
+    earlier batch filled, so most lanes find their bucket; the state is
+    seeded rows.  Returns (hot, cold, args, wlane)."""
+    from gubernator_tpu_torch import native
+    from gubernator_tpu_torch.models.shard import make_columns
+    from gubernator_tpu_torch.ops import buckets
+
+    rng = np.random.RandomState(seed)
+    table = native.NativeSlotTable(C)
+    for _ in range(2):
+        ids = zipf_ids(rng, n_keys, P)
+        cols = make_columns((ids % 2).astype(np.int32), np.zeros(P, np.int32),
+                            np.ones(P, np.int64), np.full(P, 1_000_000, np.int64),
+                            np.full(P, 3_600_000, np.int64), P)
+        planner = native.NativeBatchPlanner(table, [f"k{k}" for k in ids], NOW)
+        rid, slot, ex, occ, wr, n_rounds = planner.plan_grouped(cols, 8)
+        planner.commit_plan(np.full(P, NOW + 3_600_000, np.int64), np.zeros(P, bool))
+    assert n_rounds == 1, n_rounds
+    cfg_idx, cfgs = buckets.build_config_dict(cols, NOW)
+    plan = {"slot": slot[None], "ex": ex[None], "wr": wr[None], "occ": occ[None],
+            "rid": rid[None]}
+    hot, cold = random_state(np.random.default_rng(seed), C, False, shards=1)
+    cfgs = [np.asarray(c[:int(cfg_idx.max()) + 1], np.int64) for c in cfgs]
+    return (hot, cold, compact_args(kind, plan, cfgs, cfg_idx[None].astype(np.int64)),
+            _pad_wlane(np.nonzero(wr)[0]))
+
+
+def run_compact(torch, dev, kind, case, plain):
+    """K10 (or its plain version) on copies of a case: (out, hot, cold)."""
+    from gubernator_tpu_torch.ops import buckets
+
+    hot, cold, args, wlane = case
+    h, c = torch.tensor(hot, device=dev), torch.tensor(cold, device=dev)
+    targs = [torch.tensor(a, device=dev) for a in args]
+    wl = torch.tensor(wlane, device=dev)
+    if kind == "dict":
+        fn = buckets.apply_compact_packed_plain if plain else buckets.compact_dict
+    else:
+        fn = buckets.apply_compact32_plain if plain else buckets.compact_cols
+    out = fn(h, c, *targs, wl, NOW)
+    return out.cpu().numpy(), h.cpu().numpy(), c.cpu().numpy()
+
+
+def compact_kernel_phase(torch, dev="cuda", full=(SHARD_C, BATCH, SHARD_KEYS)):
+    """K10 against its plain version and against K1 (dict wire) or K2
+    (columns) on the same single-round batch: seeded cases (every write
+    lane listed, or half of them) and one at the headline ShardStore's
+    size (C = 300,000, a 131,072-lane Zipf plan over 100,000 keys).
+    With every write lane listed, the output and the state must equal
+    the rounds kernel's; with half, the output."""
+    from gubernator_tpu_torch.ops import _kernels
+
+    err = 0
+    n = 0
+    for kind in ("dict", "cols"):
+        cases = [(seed, compact_case(seed, 512, 256, kind, 12 if kind == "dict" else 300,
+                                     subset=seed % 2 == 1)) for seed in range(6)]
+        cases.append((100, zipf_compact_case(100, *full[:2], full[2], kind)))
+        for seed, case in cases:
+            got = run_compact(torch, dev, kind, case, plain=False)
+            want = run_compact(torch, dev, kind, case, plain=True)
+            e = max_abs_err(got, want)
+            if e != 0 or any(g.tobytes() != w.tobytes() for g, w in zip(got, want)):
+                raise AssertionError(f"compact {kind} seed={seed}: kernel != plain "
+                                     f"(max abs err {e})")
+            hot, cold, args, _ = case
+            rounds = run_kernel(torch, dev, kind, hot, cold, args, 1, False, plain=False)
+            full_list = seed % 2 == 0 or seed == 100
+            for g, r in list(zip(got, rounds))[:3 if full_list else 1]:
+                if g.tobytes() != r.tobytes():
+                    raise AssertionError(f"compact {kind} seed={seed}: K10 != the rounds "
+                                         f"kernel on the same batch")
+            err = max(err, e)
+            n += 1
+    log(f"[kernels] {n} compact cases, K10 == plain bit for bit and == K1/K2 on the same "
+        f"single-round batch (launches {dict(_kernels.LAUNCHES)})")
+    return err
+
+
+# ---------------------------------------------------------------------
 # phase 4: service on the card against the service on the CPU
 # ---------------------------------------------------------------------
 def service_phase(devices=("cuda", "cpu")):
@@ -805,7 +961,7 @@ def main_phase(torch, dev="cuda"):
     log(f"[main] launches on the main path: {launches}")
     log(f"[main] {len(timed)} timed batches in {timed_s:.3f} s: "
         f"{len(timed) * BATCH / timed_s:.0f} checks/s, batch latency "
-        f"p50 {np.percentile(lats, 50):.2f} ms, p99 {np.percentile(lats, 99):.2f} ms; "
+        f"p50 {np.percentile(lats, 50):.2f} ms, max {lats.max():.2f} ms of {lats.size}; "
         f"peak device memory {peak / 2**20:.1f} MiB")
     for kname, count in launches.items():
         if count <= 0:
@@ -946,7 +1102,8 @@ def global_phase(torch, dev="cuda"):
     res = sync("ramp sync", now)
     ramp_sync_s = card.last_sync_cost_s
     log(f"[global] ramp: {len(ramp_lat)} batches of {GLOBAL_BATCH} lanes, apply latency "
-        f"p50 {np.percentile(ramp_lat, 50):.2f} ms, p99 {np.percentile(ramp_lat, 99):.2f} ms; "
+        f"p50 {np.percentile(ramp_lat, 50):.2f} ms, "
+        f"max {ramp_lat.max():.2f} ms of {ramp_lat.size}; "
         f"full sync at {len(card.gtable)} active gslots: last_sync_cost_s "
         f"{ramp_sync_s:.4f} s, {res.broadcast_count} broadcasts")
 
@@ -1099,20 +1256,46 @@ def result_bytes(res):
             + sorted((i, r.error, r.status, r.remaining) for i, r in res.overrides.items()))
 
 
-def same_stores(torch, what, a, b):
+def same_stores(torch, what, a, b, path="persistence path"):
     """State, algo_mirror and slot tables (keys in order, slots,
-    expiries) of two port stores identical."""
+    expiries) of two port stores (MeshBucketStores or ShardStores)
+    identical."""
     for x, y in ((a.state.hot, b.state.hot), (a.state.cold, b.state.cold)):
         if not torch.equal(x.cpu(), y.cpu()):
-            raise AssertionError(f"persistence path, {what}: state differs from the plain store")
+            raise AssertionError(f"{path}, {what}: state differs from the plain store")
     if a.algo_mirror.tobytes() != b.algo_mirror.tobytes():
-        raise AssertionError(f"persistence path, {what}: algo_mirror differs")
-    every = np.arange(a.capacity_per_shard, dtype=np.int32)
-    for ta, tb in zip(a.tables, b.tables):
+        raise AssertionError(f"{path}, {what}: algo_mirror differs")
+    every = np.arange(a.state.hot.shape[1], dtype=np.int32)
+    def tables(st):
+        return st.tables if hasattr(st, "tables") else [st.table]
+
+    for ta, tb in zip(tables(a), tables(b)):
         (ka, sa), (kb, sb) = ta.entries(), tb.entries()
         if ka != kb or sa.tobytes() != sb.tobytes() or \
                 ta.get_expire_bulk(every).tobytes() != tb.get_expire_bulk(every).tobytes():
-            raise AssertionError(f"persistence path, {what}: slot tables differ")
+            raise AssertionError(f"{path}, {what}: slot tables differ")
+
+
+def preloaded_store(pre_algo):
+    """A MockStore holding len(pre_algo) items `st_<i>` (leaky where
+    pre_algo[i], else token) of limit 100 an hour, half used."""
+    from gubernator_tpu_torch import store as spi
+
+    st = spi.MockStore()
+    for i, leaky in enumerate(pre_algo.tolist()):
+        v = (spi.LeakyBucketItem(limit=100, duration=3_600_000, remaining=50.5,
+                                 updated_at=NOW - i) if leaky else
+             spi.TokenBucketItem(limit=100, duration=3_600_000, remaining=50,
+                                 created_at=NOW - i))
+        st.cache_items[f"st_{i}"] = spi.CacheItem(
+            algorithm=int(leaky), key=f"st_{i}", value=v, expire_at=NOW + 3_600_000)
+    return st
+
+
+def item_tuples(st):
+    """A MockStore's items as comparable tuples."""
+    return {k: (it.algorithm, it.expire_at, type(it.value).__name__,
+                tuple(vars(it.value).values())) for k, it in st.cache_items.items()}
 
 
 class RowCalls:
@@ -1196,8 +1379,8 @@ def persist_phase(torch, dev="cuda"):
 
     from gubernator_tpu_torch import native, snapshot
     from gubernator_tpu_torch import store as spi
+    from gubernator_tpu_torch.models import shard
     from gubernator_tpu_torch.ops import _kernels, buckets
-    from gubernator_tpu_torch.parallel import mesh
     from gubernator_tpu_torch.parallel.mesh import MeshBucketStore
     from gubernator_tpu_torch.service import ServiceConfig, V1Service
     from gubernator_tpu_torch.utils.clock import Clock
@@ -1236,7 +1419,7 @@ def persist_phase(torch, dev="cuda"):
         ("slot assignment (C++)", native, "mesh_lookup_or_assign"),
         ("row gather (upload, K7, readback)", MeshBucketStore, "_read_rows"),
         ("of which K7", buckets, "gather_rows"),
-        ("merge", mesh, "merge_transfer_rows"),
+        ("merge", shard, "merge_transfer_rows"),
         ("row scatter (upload, K8)", MeshBucketStore, "_write_rows"),
         ("of which K8", buckets, "write_rows"),
         ("table expiry (C++)", native, "mesh_set_expire"),
@@ -1382,16 +1565,7 @@ def persist_phase(torch, dev="cuda"):
     pre_algo = srng.integers(0, 2, n_pre)
     stores, ssvcs = {}, {}
     for d in devs:
-        stores[d] = spi.MockStore()
-        for i in range(n_pre):
-            if pre_algo[i]:
-                v = spi.LeakyBucketItem(limit=100, duration=3_600_000, remaining=50.5,
-                                        updated_at=NOW - i)
-            else:
-                v = spi.TokenBucketItem(limit=100, duration=3_600_000, remaining=50,
-                                        created_at=NOW - i)
-            stores[d].cache_items[f"st_{i}"] = spi.CacheItem(
-                algorithm=int(pre_algo[i]), key=f"st_{i}", value=v, expire_at=NOW + 3_600_000)
+        stores[d] = preloaded_store(pre_algo)
         ssvcs[d] = service(devs[d], cache, persist_store=stores[d])
     spi_launches = dict.fromkeys(counts(), 0)
     spi_s = {d: 0.0 for d in devs}
@@ -1415,10 +1589,6 @@ def persist_phase(torch, dev="cuda"):
             raise AssertionError(f"persistence path: Store SPI batch {i} differs")
         for d in devs:
             ssvcs[d].clock.advance(10)
-
-    def item_tuples(st):
-        return {k: (it.algorithm, it.expire_at, type(it.value).__name__,
-                    tuple(vars(it.value).values())) for k, it in st.cache_items.items()}
 
     if stores["card"].called != stores["cpu"].called or \
             item_tuples(stores["card"]) != item_tuples(stores["cpu"]):
@@ -1606,7 +1776,7 @@ def two_tier_phase(torch, dev="cuda"):
     log(f"[two-tier] launches: {launches}; tier-move launches {card.move_dispatches}")
     log(f"[two-tier] {len(timed)} timed batches in {timed_s:.3f} s: "
         f"{len(timed) * BATCH / timed_s:.0f} checks/s, batch latency "
-        f"p50 {np.percentile(lats, 50):.2f} ms, p99 {np.percentile(lats, 99):.2f} ms; "
+        f"p50 {np.percentile(lats, 50):.2f} ms, max {lats.max():.2f} ms of {lats.size}; "
         f"peak device memory {peak / 2**20:.1f} MiB above the {base / 2**20:.1f} MiB "
         f"the earlier phases hold")
     log(f"[two-tier] after the churn: demotions {sum(s[2] for s in stats_churn)}, "
@@ -1708,6 +1878,404 @@ def two_tier_breakdown(torch, card, items):
 
 
 # ---------------------------------------------------------------------
+# phase 10: the one-shard store at full size (bench.py's headline)
+# ---------------------------------------------------------------------
+def shard_traffic():
+    """bench.py main()'s headline batch (seed 42): 131,072 lanes over
+    100,000 keys, 80% of the traffic on 10% of them, `key_id % 2`
+    algorithms (token and leaky), hits 1, limit 1,000,000, duration
+    3,600,000; every dispatch resends it at now + i.  Returns (key_ids,
+    packed keys, columns)."""
+    from gubernator_tpu_torch import native
+
+    rng = np.random.RandomState(42)
+    hot = rng.randint(0, SHARD_KEYS // 10, size=BATCH)
+    cold = rng.randint(0, SHARD_KEYS, size=BATCH)
+    key_ids = np.where(rng.random(BATCH) < 0.8, hot, cold)
+    keys = native.PackedKeys(*native.pack_keys([f"bench_account:{k}" for k in key_ids]))
+    cols = dict(algorithm=(key_ids % 2).astype(np.int32), behavior=np.zeros(BATCH, np.int32),
+                hits=np.ones(BATCH, np.int64), limit=np.full(BATCH, 1_000_000, np.int64),
+                duration=np.full(BATCH, 3_600_000, np.int64))
+    return key_ids, keys, cols
+
+
+def shard_requests(key_ids, salt):
+    """bench.py's dataclass-leg batch `make_batch(salt)`."""
+    from gubernator_tpu_torch.types import Algorithm, RateLimitRequest
+
+    return [RateLimitRequest(
+        name="bench", unique_key=f"account:{(k + salt) % SHARD_KEYS}", hits=1,
+        limit=1_000_000, duration=3_600_000,
+        algorithm=Algorithm.TOKEN_BUCKET if (k + salt) % 2 == 0 else Algorithm.LEAKY_BUCKET)
+        for k in key_ids.tolist()]
+
+
+def shard_headline(store, keys, cols):
+    """2 warm batches, then SHARD_THREADS dispatcher threads of
+    SHARD_ITERS batches each, two in flight per thread.  Returns the
+    answers by ticket {ticket: (now, result)}, the threaded batches'
+    dispatch-to-answer latencies and the threaded leg's seconds."""
+    from collections import deque
+
+    results, lats, errors = {}, [], []
+    lock = threading.Lock()
+
+    def dispatch(i):
+        return store.apply_columns_async(keys, now_ms=NOW + i, **cols), NOW + i
+
+    for i in range(2):
+        h, now = dispatch(i)
+        results[h.ticket] = (now, h.result())
+
+    def finish(p):
+        h, now, t = p
+        r = h.result()
+        with lock:
+            lats.append(time.perf_counter() - t)
+            results[h.ticket] = (now, r)
+
+    def worker(base):
+        try:
+            pending = deque()
+            for i in range(SHARD_ITERS):
+                t = time.perf_counter()
+                pending.append((*dispatch(base + i), t))
+                if len(pending) >= 2:
+                    finish(pending.popleft())
+            while pending:
+                finish(pending.popleft())
+        except BaseException as e:  # noqa: BLE001 — re-raised below
+            errors.append(e)
+
+    threads = [threading.Thread(target=worker, args=(2 + k * SHARD_ITERS,))
+               for k in range(SHARD_THREADS)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    timed_s = time.perf_counter() - t0
+    if errors:
+        raise errors[0]
+    return results, lats, timed_s
+
+
+def same_answers(what, got, want):
+    for f in ("status", "limit", "remaining", "reset_time"):
+        if not np.array_equal(np.asarray(got[f]), np.asarray(want[f])):
+            raise AssertionError(f"one-shard path, {what}: {f} differs from the plain store")
+
+
+def shard_phase(torch, dev="cuda"):
+    """bench.py's headline deployment through the port's ShardStore on
+    the card, every leg held against a ShardStore on the plain versions
+    (CPU) replayed in ticket order.  Returns (card store, the K1/K2
+    batches for the numbers phase, launches)."""
+    from gubernator_tpu_torch.models.shard import GregResolver, ShardStore
+    from gubernator_tpu_torch.ops import _kernels, buckets
+    from gubernator_tpu_torch.types import RateLimitRequest
+    from gubernator_tpu_torch.utils import gregorian
+
+    t_phase = time.perf_counter()
+    key_ids, keys, cols = shard_traffic()
+    if dev == "cuda":
+        gc.collect()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()  # the earlier phases' stores
+        torch.cuda.reset_peak_memory_stats()
+    # the K2 calls' widths (the launch counts name the kernel only)
+    k2 = {"narrow": 0, "wide": 0}
+    real_k2 = buckets.bucket_rounds_cols
+
+    def counted_k2(*a, **kw):
+        if a[0].device.type == torch.device(dev).type:  # the card store's calls
+            k2["wide" if a[6] else "narrow"] += 1
+        return real_k2(*a, **kw)
+
+    buckets.bucket_rounds_cols = counted_k2
+    _kernels.reset_launch_counts()
+    # (a) the headline: two dispatcher threads on the columnar pipeline
+    card = ShardStore(capacity=SHARD_C, device=dev)
+    groups = []
+    real_launch = card._launch_group
+
+    def launch_group(group):
+        groups.append(len(group))
+        return real_launch(group)
+
+    card._launch_group = launch_group
+    results, lats, timed_s = shard_headline(card, keys, cols)
+    n_timed = SHARD_THREADS * SHARD_ITERS
+    lat = np.array(lats) * 1e3
+    log(f"[shard] headline: {n_timed} batches of {BATCH} lanes from {SHARD_THREADS} threads "
+        f"(2 in flight each) in {timed_s:.3f} s: {n_timed * BATCH / timed_s:.0f} checks/s, "
+        f"batch latency p50 {np.percentile(lat, 50):.2f} ms, max {lat.max():.2f} ms of {lat.size}; "
+        f"{len(groups)} launch groups of sizes {groups}")
+    # (b) the 400-config batch, narrow and wide (K2), and a monthly-
+    # Gregorian batch (the dict wire's wide output)
+    rng = np.random.RandomState(43)
+    ids = zipf_ids(rng, SHARD_KEYS, BATCH)
+    configs = (native_keys([f"bench_account:{k}" for k in ids]), dict(
+        algorithm=(ids % 2).astype(np.int32), behavior=np.zeros(BATCH, np.int32),
+        hits=np.ones(BATCH, np.int64), limit=(1_000_000 + ids % 400).astype(np.int64),
+        duration=np.full(BATCH, 3_600_000, np.int64)), NOW + 100)
+    ge, gd = GregResolver(TT_NOW).resolve(gregorian.GREGORIAN_MONTHS)
+    ids = zipf_ids(rng, SHARD_KEYS, BATCH)
+    monthly = (native_keys([f"bench_month:{k}" for k in ids]), dict(
+        algorithm=(ids % 2).astype(np.int32), behavior=np.full(BATCH, 4, np.int32),
+        hits=np.ones(BATCH, np.int64), limit=np.full(BATCH, 1_000_000, np.int64),
+        duration=np.full(BATCH, gregorian.GREGORIAN_MONTHS, np.int64),
+        greg_expire=np.full(BATCH, ge, np.int64), greg_duration=np.full(BATCH, gd, np.int64)),
+        TT_NOW)
+    batches = {"headline": (keys, cols, None), "400 configs narrow": (*configs[:2], None),
+               "400 configs wide": (*configs[:2], "wide"), "monthly": (*monthly[:2], None)}
+    results = {t: ("headline", now, r) for t, (now, r) in results.items()}
+    for name in ("400 configs narrow", "400 configs wide", "monthly"):
+        k, c, fw = batches[name]
+        now = monthly[2] if name == "monthly" else configs[2]
+        h = card.apply_columns_async(k, now_ms=now, force_wire=fw, **c)
+        results[h.ticket] = (name, now, h.result())
+    # the same traffic through a store on the plain versions, in ticket order
+    t0 = time.perf_counter()
+    ref = ShardStore(capacity=SHARD_C, device="cpu")
+    for ticket in sorted(results):
+        name, now, got = results[ticket]
+        k, c, fw = batches[name]
+        same_answers(f"{name} batch at {now}", got,
+                     ref.apply_columns(k, now_ms=now, force_wire=fw, **c))
+    same_stores(torch, "columnar", card, ref, "one-shard path")
+    over = sum(int((r["status"] == 1).sum()) for _, _, r in results.values())
+    log(f"[shard] {len(results)} columnar batches (2 warm, {n_timed} threaded, 400 configs "
+        f"narrow and wide, monthly Gregorian) == plain store (CPU) replayed in ticket order: "
+        f"answers, state, algo_mirror, table ({over} OVER_LIMIT lanes; checked in "
+        f"{time.perf_counter() - t0:.1f} s)")
+    if k2["narrow"] < 1 or k2["wide"] < 1:
+        raise AssertionError(f"one-shard path: K2 narrow and wide not both launched: {k2}")
+    # (c) the dataclass leg
+    sides = {"card": dev, "cpu": "cpu"}  # side -> device
+    dc = {k: ShardStore(capacity=SHARD_DC_C, device=d) for k, d in sides.items()}
+    dc_s = 0.0
+    for i in range(SHARD_DC_WARM + SHARD_DC_TIMED):
+        reqs = shard_requests(key_ids, i)
+        t0 = time.perf_counter()
+        got = dc["card"].apply(reqs, NOW + i)
+        if i >= SHARD_DC_WARM:
+            dc_s += time.perf_counter() - t0
+        if got != dc["cpu"].apply(reqs, NOW + i):
+            raise AssertionError(f"one-shard path: dataclass batch {i} differs from the plain store")
+    same_stores(torch, "dataclass", dc["card"], dc["cpu"], "one-shard path")
+    log(f"[shard] dataclass leg: {SHARD_DC_TIMED} batches of {BATCH} requests in "
+        f"{dc_s:.3f} s (apply only): {SHARD_DC_TIMED * BATCH / dc_s:.0f} checks/s; "
+        f"== plain store")
+    del dc
+    # (d) a Store SPI over a 50,000-slot store: 8 batches of 2,048
+    # lanes with algorithm switches and RESET_REMAINING
+    srng = np.random.default_rng(17)
+    n_pre, n_keys, cache, lanes = 25_000, 40_000, 50_000, 2_048
+    pre_algo = srng.integers(0, 2, n_pre)
+    stores, sstores = {}, {}
+    for side, d in sides.items():
+        stores[side] = preloaded_store(pre_algo)
+        sstores[side] = ShardStore(capacity=cache, device=d, store=stores[side])
+    spi_s = 0.0
+    for i in range(8):
+        ids = srng.integers(0, n_keys, lanes)
+        algos = np.where(ids < n_pre, pre_algo[np.minimum(ids, n_pre - 1)], ids % 2)
+        algos = np.where(srng.random(lanes) < 0.05, 1 - algos, algos)
+        beh = np.where(srng.random(lanes) < 0.02, 8, 0)
+        reqs = [RateLimitRequest(name="st", unique_key=str(k), hits=1, limit=100,
+                                 duration=3_600_000, algorithm=int(a), behavior=int(b))
+                for k, a, b in zip(ids.tolist(), algos.tolist(), beh.tolist())]
+        t0 = time.perf_counter()
+        got = sstores["card"].apply(reqs, NOW + 10 * i)
+        spi_s += time.perf_counter() - t0
+        if got != sstores["cpu"].apply(reqs, NOW + 10 * i):
+            raise AssertionError(f"one-shard path: Store SPI batch {i} differs")
+
+    if stores["card"].called != stores["cpu"].called or \
+            item_tuples(stores["card"]) != item_tuples(stores["cpu"]):
+        raise AssertionError("one-shard path: the Store SPI's calls or items differ")
+    same_stores(torch, "Store SPI", sstores["card"], sstores["cpu"], "one-shard path")
+    log(f"[shard] Store SPI: 8 batches of {lanes} lanes, calls {stores['card'].called}; "
+        f"card == CPU; {spi_s / 8:.3f} s a batch on the card")
+    # (e) the express slot: 1-lane batches with scalar_fast_path on take
+    # K1 on the card and the host slot on the CPU
+    ex = {k: ShardStore(capacity=4096, device=d) for k, d in sides.items()}
+    erng = np.random.default_rng(5)
+    before = _kernels.LAUNCHES["bucket_rounds_dict"]
+    for st in ex.values():
+        st.scalar_fast_path = True
+    for i in range(40):
+        k = [f"ex{int(erng.integers(0, 6))}"]
+        c = dict(algorithm=np.array([i % 2], np.int32),
+                 behavior=np.array([8 if erng.random() < 0.1 else 0], np.int32),
+                 hits=np.array([int(erng.integers(0, 3))], np.int64),
+                 limit=np.array([5], np.int64), duration=np.array([1000], np.int64))
+        now = NOW + 40 * i
+        same_answers(f"express batch {i}", ex["card"].apply_columns(k, now_ms=now, **c),
+                     ex["cpu"].apply_columns(k, now_ms=now, **c))
+    express_k1 = _kernels.LAUNCHES["bucket_rounds_dict"] - before
+    on_card = (0, 40) if dev == "cuda" else (40, 0)  # (slot applies, K1 launches)
+    if (ex["card"].scalar_applies, express_k1) != on_card or ex["cpu"].scalar_applies != 40:
+        raise AssertionError(f"one-shard path: express slot on the card {ex['card'].scalar_applies}, "
+                             f"on the CPU {ex['cpu'].scalar_applies}, K1 {express_k1}")
+    same_stores(torch, "express", ex["card"], ex["cpu"], "one-shard path")
+    log(f"[shard] express store: 40 one-lane batches, card (K1, scalar_applies "
+        f"{ex['card'].scalar_applies}) == CPU (scalar_applies {ex['cpu'].scalar_applies})")
+    buckets.bucket_rounds_cols = real_k2
+    launches = {k: _kernels.LAUNCHES[k] for k in (
+        "bucket_rounds_dict", "bucket_rounds_cols", "gather_rows", "write_rows",
+        "bucket_compact")}
+    peak = torch.cuda.max_memory_allocated() - base if dev == "cuda" else 0
+    log(f"[shard] launches on the one-shard path: {launches} (K2 narrow {k2['narrow']}, "
+        f"wide {k2['wide']}); peak device memory of the phase {peak / 2**20:.1f} MiB; "
+        f"phase took {time.perf_counter() - t_phase:.1f} s")
+    for kname in ("bucket_rounds_dict", "bucket_rounds_cols", "gather_rows", "write_rows"):
+        if launches[kname] <= 0:
+            raise AssertionError(f"kernel {kname} was not launched on the one-shard path")
+    launches["k2"] = k2
+    card._launch_group = real_launch
+    return card, {"headline": (keys, cols, NOW + 200), "configs": configs}, launches
+
+
+def shard_numbers_phase(torch, card, batches, launches, k10_err):
+    """K1 and K2 (narrow and wide) at S = 1 on the one-shard store's
+    batches, and K10 on the headline's single-round batch beside K1 on
+    the same batch: one more batch of each planned and staged step by
+    step, then each kernel, its plain version, its device time and its
+    byte bound over the live lanes, against copies of the store's
+    state."""
+    from gubernator_tpu_torch.models.shard import make_columns
+    from gubernator_tpu_torch.ops import buckets
+
+    rows = []
+    plans = [("bucket_rounds_dict", "headline", None, "gubernator_tpu/ops/buckets.py:1066"),
+             ("bucket_rounds_cols", "configs", None, "gubernator_tpu/ops/buckets.py:844"),
+             ("bucket_rounds_cols", "configs", "wide", "gubernator_tpu/ops/buckets.py:728")]
+    for kname, which, fw, replaces in plans:
+        keys, cols, now = batches[which]
+        c = make_columns(cols["algorithm"], cols["behavior"], cols["hits"], cols["limit"],
+                         cols["duration"], len(keys))
+        hot0, cold0 = card.state.hot.clone(), card.state.cold.clone()
+        hot, cold = hot0.clone(), cold0.clone()
+        torch.cuda.synchronize()
+        t = [time.perf_counter()]
+        prep = card._prepare_columns(keys, c, now, fw)
+        t.append(time.perf_counter())
+        staged = card._stage_columns(prep)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        out = staged.kernel(hot, cold, *staged.args)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        out_np = out.cpu().numpy()
+        t.append(time.perf_counter())
+        prep.commit(out_np)
+        t.append(time.perf_counter())
+        steps = np.diff(t) * 1e3
+        width = "wide" if staged.wide else "narrow"
+        log(f"[breakdown] one-shard {which} batch ({kname}, {width}), host clock: plan "
+            f"{steps[0]:.1f} ms, pack+upload {steps[1]:.1f} ms, kernel+sync {steps[2]:.2f} ms, "
+            f"readback {steps[3]:.2f} ms, decode+commit {steps[4]:.1f} ms")
+        assert staged.kernel.__name__ == kname, (staged.kernel.__name__, kname)
+        changed_cold = int((cold != cold0).any(dim=2).sum())
+        args = staged.args
+        if kname == "bucket_rounds_dict":
+            wire = args[0]
+            P = (wire.shape[1] - buckets.DICT_WIRE_TABLE_WORDS) // 3
+            slot, write = wire[:, :P], ((wire[:, P:2 * P] >> 17) & 1) == 1
+            lane_bytes, table_bytes = 3 * 4, buckets.DICT_WIRE_TABLE_WORDS * 4
+            plain = buckets.bucket_rounds_dict_plain
+        else:
+            slot, write = args[0][:, 0], ((args[0][:, 1] >> 1) & 1) == 1
+            lane_bytes, table_bytes = 6 * 4 + 5 * args[1].element_size(), 0
+            plain = buckets.bucket_rounds_cols_plain
+        valid = slot >= 0
+        n_valid = int(valid.sum())
+        # per valid lane its inputs and output; per distinct row its hot
+        # and cold words read once, per distinct written row its hot
+        # words, per changed config its cold words
+        n_rows, n_write = distinct_rows(slot, valid), distinct_rows(slot, valid & write)
+        nbytes = (n_valid * (lane_bytes + 4 * out.element_size()) + table_bytes
+                  + 64 * n_rows + 32 * n_write + 32 * changed_cold)
+
+        hp, cp = hot0.clone(), cold0.clone()
+        want = plain(hp, cp, *args)
+        err = max_abs_err([t.cpu().numpy() for t in (out, hot, cold)],
+                          [t.cpu().numpy() for t in (want, hp, cp)])
+        if err != 0:
+            raise AssertionError(f"{kname} at S=1 != its plain version (max abs err {err})")
+
+        def run(h=hot, cd=cold, a=args, k=staged.kernel):
+            return k(h, cd, *a)
+
+        ms = time_launches(torch, run, 20)
+        dev_ms = device_ms(torch, kname, run)
+        plain_ms = time_launches(torch, lambda: plain(hot, cold, *args), 3)
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        rows.append({
+            "name": f"{kname}/shard{'_wide' if staged.wide else ''}", "route": "cuda",
+            "source": "gubernator_tpu_torch/csrc/bucket_rounds.cu", "replaces": replaces,
+            "launches": (launches["k2"]["wide" if staged.wide else "narrow"]
+                         if kname == "bucket_rounds_cols" else launches[kname]),
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None,
+        })
+        log(f"[numbers] {kname} at S=1 ({which} batch, C={hot.shape[1]} P={slot.shape[1]}, "
+            f"{width}, rounds {args[-3]}): {ms:.4f} ms/launch, device {dev_ms} ms, plain "
+            f"{plain_ms:.2f} ms, bound {bound_ms:.6g} ms ({nbytes} bytes: {n_valid} lanes, "
+            f"{n_rows} rows, {n_write} written, {changed_cold} cold rows)")
+        if kname != "bucket_rounds_dict":
+            continue
+        # K10 on the same single-round batch, the plan's write lanes listed
+        if args[1] != 1:
+            raise AssertionError(f"the headline batch planned {args[1]} rounds, not 1")
+        wl = np.nonzero(prep.wr_col)[0]
+        wlane = torch.tensor(_pad_wlane(wl), device=hot.device)
+        h10, c10 = hot0.clone(), cold0.clone()
+        h1, c1 = hot0.clone(), cold0.clone()
+        out10 = buckets.compact_dict(h10, c10, wire, wlane, now)
+        out1 = staged.kernel(h1, c1, *args)
+        if not (torch.equal(out10, out1) and torch.equal(h10, h1) and torch.equal(c10, c1)):
+            raise AssertionError("K10 != K1 on the headline's single-round batch")
+        pout = buckets.apply_compact_packed_plain(hot0.clone(), cold0.clone(), wire, wlane, now)
+        if not torch.equal(pout, out10):
+            raise AssertionError("K10 != its plain version on the headline's batch")
+
+        def k10(h=h10, cd=c10):
+            return buckets.compact_dict(h, cd, wire, wlane, now)
+
+        ms10 = time_launches(torch, k10, 20)
+        dev10 = device_ms(torch, "bucket_compact", k10)
+        dev1 = device_ms(torch, kname, run, cold=True)
+        dev10c = device_ms(torch, "bucket_compact", k10, cold=True)
+        plain10 = time_launches(
+            torch, lambda: buckets.apply_compact_packed_plain(h10, c10, wire, wlane, now), 3)
+        nbytes10 = (n_valid * (lane_bytes + 16) + table_bytes + 4 * wl.size
+                    + 64 * n_rows + 32 * n_write + 32 * changed_cold)
+        bound10 = nbytes10 / HBM_BYTES_PER_S * 1e3
+        kname10, replaces10 = COMPACT_KERNEL
+        rows.append({
+            "name": kname10, "route": "cuda", "source": "gubernator_tpu_torch/csrc/compact.cu",
+            "replaces": replaces10, "launches": launches[kname10], "max_abs_err": k10_err,
+            "ms": ms10, "plain_ms": plain10, "bound_ms": bound10, "bound_by": "bytes",
+            "library_ms": None,
+        })
+        log(f"[numbers] {kname10} (K10, headline batch, S=1, P={P}, {wl.size} write lanes): "
+            f"{ms10:.4f} ms/launch, device {dev10} ms warm / {dev10c} ms L2 flushed, plain "
+            f"{plain10:.2f} ms, bound {bound10:.6g} ms ({nbytes10} bytes); K1 on the same "
+            f"batch {ms:.4f} ms/launch, device {dev_ms} ms warm / {dev1} ms L2 flushed; "
+            f"launches on the one-shard path {launches[kname10]} (no store calls it)")
+    return rows
+
+
+def native_keys(keys):
+    from gubernator_tpu_torch import native
+
+    return native.PackedKeys(*native.pack_keys(keys))
+
+
+# ---------------------------------------------------------------------
 # phase 8: kernel numbers at the paths' shapes
 # ---------------------------------------------------------------------
 def time_launches(torch, fn, iters):
@@ -1734,6 +2302,7 @@ DEVICE_KERNELS = {
     "write_rows": ("write_rows_kernel",),
     "gather_back_rows": ("gather_rows_kernel",),
     "apply_moves": ("moves_gather_kernel", "moves_scatter_kernel"),
+    "bucket_compact": ("compact_compute", "compact_commit"),
 }
 
 
@@ -1809,8 +2378,8 @@ def numbers_phase(torch, store, batches, launches, errs):
         plain_ms = time_launches(torch, lambda: plain(hot, cold, *staged.args), 3)
         # bytes the function must move: the valid lanes' inputs once and
         # outputs once (the padding that fills each shard to P answers no
-        # request and is not counted), a hot+cold row gathered per valid
-        # lane, a hot row scattered per writing lane, a cold row per
+        # request and is not counted), each distinct row's hot+cold words
+        # read once, each distinct written row's hot words, a cold row per
         # changed config
         args = staged.args
         if kind == "dict":
@@ -1826,9 +2395,9 @@ def numbers_phase(torch, store, batches, launches, errs):
             lane_bytes, table_bytes = 6 * 4 + 5 * values.element_size(), 0
         valid = slot >= 0
         n_valid = int(valid.sum())
-        n_write = int((valid & write).sum())
+        n_rows, n_write = distinct_rows(slot, valid), distinct_rows(slot, valid & write)
         nbytes = (n_valid * (lane_bytes + 4 * out.element_size()) + table_bytes
-                  + 64 * n_valid + 32 * n_write + 32 * changed_cold)
+                  + 64 * n_rows + 32 * n_write + 32 * changed_cold)
         bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
         rows.append({
             "name": kname, "route": "cuda",
@@ -1840,7 +2409,7 @@ def numbers_phase(torch, store, batches, launches, errs):
         log(f"[numbers] {kname} ({name} batch, S={slot.shape[0]} P={slot.shape[1]}, "
             f"{'wide' if staged.wide else 'narrow'}, rounds {args[-3]}): "
             f"{ms:.4f} ms/launch, plain {plain_ms:.2f} ms, bound {bound_ms:.6g} ms "
-            f"({nbytes} bytes: {n_valid} lanes, {n_write} writers, "
+            f"({nbytes} bytes: {n_valid} lanes, {n_rows} rows, {n_write} written, "
             f"{changed_cold} cold rows)")
     return rows
 
@@ -1893,10 +2462,12 @@ def global_numbers_phase(torch, card, launches, errs, inputs, now):
     evaluated = (slot >= 0) & ~cached
     live = (slot >= 0) | (gs >= 0)  # lanes that answer a request; the rest pads shards to P
     P = slot.shape[1]
-    # per GLOBAL lane rep_expire and the ghits add, per replica answer its
-    # rep_* words, per bucket lane its rows, per writer its new rows
-    traffic = (24 * int((gs >= 0).sum()) + 28 * int(cached.sum()) + 64 * int(evaluated.sum())
-               + 32 * int((evaluated & write).sum()) + 32 * changed_cold)
+    # once per distinct gslot its rep_expire and the ghits add, per
+    # distinct gslot answered from the replica its rep_* words, per
+    # distinct bucket row its rows, per distinct written row its new rows
+    traffic = (24 * distinct_rows(gs, gs >= 0) + 28 * distinct_rows(gs, cached & (gs >= 0))
+               + 64 * distinct_rows(slot, evaluated)
+               + 32 * distinct_rows(slot, evaluated & write) + 32 * changed_cold)
     # the bound counts the live lanes' 6 lane, 5 value and gslot words
     # in and 5 output words out; the padded arrays the kernel reads are
     # given beside it
@@ -2147,16 +2718,19 @@ def main():
     gerrs = global_kernel_phase(torch)
     rerrs = rows_kernel_phase(torch)
     merr = moves_kernel_phase(torch)
+    cerr = compact_kernel_phase(torch)
     service_phase()
     store, batches, launches = main_phase(torch)
     gstore, glaunches, ginputs, gsum = global_phase(torch)
     row_calls, plaunches = persist_phase(torch)
     tstore, titems, tlaunches, move_calls = two_tier_phase(torch)
     k1_inputs = two_tier_breakdown(torch, tstore, titems)
+    sstore, sbatches, slaunches = shard_phase(torch)
     rows = numbers_phase(torch, store, batches, launches, errs)
     rows += global_numbers_phase(torch, gstore, glaunches, gerrs, ginputs, gsum["now"])
     rows += rows_numbers_phase(torch, row_calls, plaunches, rerrs)
     rows += two_tier_numbers_phase(torch, tstore, tlaunches, move_calls, k1_inputs, merr)
+    rows += shard_numbers_phase(torch, sstore, sbatches, slaunches, cerr)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,11 +1,13 @@
-"""Host side of the bucket stores: request columns, padding, Gregorian
-precompute, the narrow-output decode and the overlapped dispatch
-pipeline of the columnar path, the request preparation and round
-planner of the dataclass path (`MeshBucketStore.apply`), and the Store
-SPI's round planner, resolver and item <-> row conversions.
+"""The one-shard bucket store (`ShardStore`) and the host side shared
+with the sharded store: request columns, padding, Gregorian precompute,
+the narrow-output decode and the overlapped dispatch pipeline of the
+columnar path (with its express scalar slot), the request preparation
+and round planner of the dataclass path, and the Store SPI's round
+planner, resolver and item <-> row conversions.
 
-The port of the JAX package's models/shard.py (the parts the mesh
-store's columnar and dataclass paths run).  Where the JAX package threads donated
+The port of the JAX package's models/shard.py, without its reshard
+surface (`resident_keys`, `resident_mask`, `drain_keys`,
+`forget_keys`).  Where the JAX package threads donated
 device buffers through jitted calls, the port launches kernels on one
 CUDA stream that update the state tensors in place: the wire goes up
 from a pinned host buffer with a non-blocking copy, the packed result
@@ -24,7 +26,9 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import native
 from ..ops import buckets
+from ..ops import scalar as scalar_ops
 from ..types import (
     Algorithm,
     Behavior,
@@ -32,7 +36,9 @@ from ..types import (
     RateLimitResponse,
     has_behavior,
 )
+from ..reshard import TransferColumns, merge_transfer_rows
 from ..utils import gregorian
+from .slot_table import SlotTable
 
 # Batches pad to a small set of bucket sizes (64, 256, 1024, then powers
 # of two), as the JAX package does, so both stores plan identical
@@ -129,9 +135,10 @@ def prepare_requests(
 
 def plan_grouped_python(table, prepared: Sequence[_Prepared], now_ms: int):
     """Full-plan twin of the C++ gt_batch_plan_grouped driven one key
-    at a time through a slot table's lookup_or_assign: uniform duplicate groups (same key, identical config, no
-    RESET_REMAINING) collapse into round 0 with per-lane occurrence
-    indices and a single scattering (write) lane; everything else takes
+    at a time through a slot table's lookup_or_assign: uniform
+    duplicate groups (same key, identical config, no RESET_REMAINING)
+    collapse into round 0 with per-lane occurrence indices and a
+    single scattering (write) lane; everything else takes
     the round scheme from round 1 with the same chaining/deferral rules
     as RoundPlanner.  Mutates each _Prepared's slot/exists; returns
     (round_id, occ, write, n_rounds) arrays aligned to `prepared`.
@@ -511,16 +518,51 @@ class _SharedFetch:
             return self._np[i]
 
 
+def resolve_device(device=None) -> torch.device:
+    """A store's device: `device` when given, else the current CUDA
+    device.  Never falls back to the CPU: callers who want the CPU (the
+    tests) ask for it."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device is available; pass device='cpu' to run "
+                "on the CPU explicitly"
+            )
+        return torch.device("cuda", torch.cuda.current_device())
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {device}")
+    return device
+
+
+def upload(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """Host array -> tensor on `device`; on the card through a pinned
+    buffer with a non-blocking copy on the current stream."""
+    t = torch.from_numpy(a)
+    if device.type != "cuda":
+        return t
+    return t.pin_memory().to(device, non_blocking=True)
+
+
 @dataclass
 class _Staged:
     """A prepared batch between the stage and launch steps: its inputs
     are already on the device.  `launch` runs it alone; same-`fuse_key`
-    neighbours waiting at the launch gate launch as one group."""
+    neighbours waiting at the launch gate launch as one group.
 
-    kernel: Callable  # ops/buckets.py bucket_rounds_dict or bucket_rounds_cols
+    An express batch (ops/scalar.py) has `scalar` instead of a kernel:
+    a host closure that evaluates its lanes and writes their rows in
+    place, returning the packed output the ordinary commit decodes.  It
+    runs at the batch's launch turn under the store lock, never fuses,
+    and commits in ticket order like any batch."""
+
+    kernel: Optional[Callable]  # ops/buckets.py bucket_rounds_dict or bucket_rounds_cols
     args: tuple  # the kernel's arguments after (hot, cold)
     fuse_key: object = None  # None = not fuse-eligible (per-lane-column wire)
     wide: bool = False
+    scalar: Optional[Callable] = None
 
     def launch(self, state) -> torch.Tensor:
         """Apply the batch to `state` in place; returns the packed output."""
@@ -603,6 +645,68 @@ class ColumnsHandle:
         return self._value
 
 
+# Widest batch the express slot serves.  Its lanes apply one after
+# another in submission order (the semantics the rounds and duplicate
+# groups reproduce), so the cap bounds the host loop's cost, not
+# correctness.
+SCALAR_MAX_LANES = 4
+
+
+def _drained_locked(fn):
+    """Run a mutator with the pipeline drained and the plan and store
+    locks held (ColumnarPipeline._drain_then_lock): it must observe every
+    in-flight columnar batch's commits, and no new batch may plan
+    against the state it mutates."""
+
+    def wrapper(self, *args, **kwargs):
+        self._drain_then_lock()
+        try:
+            return fn(self, *args, **kwargs)
+        finally:
+            self._unlock_drained()
+
+    wrapper.__name__ = fn.__name__
+    wrapper.__doc__ = fn.__doc__
+    return wrapper
+
+
+def tables_get_slots(tables, keys) -> Tuple[np.ndarray, np.ndarray]:
+    """(shard i32[n], slot i32[n]) of each key in a store's per-shard
+    slot tables, slot -1 where the key is not mapped: one C++ call over
+    native tables, key by key in the Python SlotTable of a one-shard
+    store."""
+    if isinstance(tables[0], native.NativeSlotTable):
+        return native.mesh_get_slots(tables, keys)
+    (table,) = tables
+    slot = np.fromiter((-1 if (s := table.get_slot(k)) is None else s for k in keys),
+                       np.int32, count=len(keys))
+    return np.zeros_like(slot), slot
+
+
+def tables_lookup_or_assign(tables, keys, now_ms: int):
+    """(shard i32[n], slot i32[n], exists bool[n]): each key's
+    `lookup_or_assign` in its shard's table, key by key in order."""
+    if isinstance(tables[0], native.NativeSlotTable):
+        return native.mesh_lookup_or_assign(tables, keys, now_ms)
+    (table,) = tables
+    slot = np.empty(len(keys), np.int32)
+    exists = np.zeros(len(keys), bool)
+    for j, k in enumerate(keys):
+        slot[j], exists[j] = table.lookup_or_assign(k, now_ms)
+    return np.zeros_like(slot), slot, exists
+
+
+def tables_set_expire(tables, shard, slot, expire) -> None:
+    """Set the table expiry of (shard[i], slot[i]) to expire[i], in
+    order."""
+    if isinstance(tables[0], native.NativeSlotTable):
+        native.mesh_set_expire(tables, shard, slot, expire)
+        return
+    (table,) = tables
+    for j in range(len(slot)):
+        table.set_expire(int(slot[j]), int(expire[j]))
+
+
 class ColumnarPipeline:
     """Mixin: the overlapped dispatch pipeline for columnar batches.
 
@@ -635,17 +739,31 @@ class ColumnarPipeline:
         self._launch_aborted: set = set()  # tombstoned tickets
         # Launch groups issued by this store (a fused group counts once).
         self.device_dispatches = 0
+        # Express scalar applies (ops/scalar.py): batches answered by
+        # the host slot, counted apart (a scalar apply launches nothing).
+        self.scalar_applies = 0
+        # The express slot's switch, off at the store level: a service
+        # turns it on; bare stores launch every batch.
+        self.scalar_fast_path = False
+        # Kernel launches of the persistence plane: one row gather per
+        # snapshot_columns, gather + scatter per commit_transfer.
+        self.transfer_drain_dispatches = 0
+        self.transfer_commit_dispatches = 0
 
     def _submit_pipelined(self, keys, cols, now_ms: int,
                           force_wire: Optional[str] = None) -> ColumnsHandle:
+        # The express slot is decided before the plan, which it pins to
+        # the wide decode.
+        use_scalar = force_wire is None and self._scalar_eligible(cols)
         with self._plan_lock:
-            prep = self._prepare_columns(keys, cols, now_ms, force_wire)
+            prep = self._prepare_columns(keys, cols, now_ms,
+                                         "wide" if use_scalar else force_wire)
             handle = ColumnsHandle(self, prep.commit, cols.limit)
             handle.ticket = self._next_ticket
             self._next_ticket += 1
             self._inflight.append(handle)
         try:
-            staged = self._stage_columns(prep)
+            staged = self._stage_scalar(prep) if use_scalar else self._stage_columns(prep)
         except BaseException as e:
             self._abort_launch_turn(handle, e)
             raise
@@ -730,9 +848,26 @@ class ColumnarPipeline:
         """Hook: device work that must precede the group's launches (the
         mesh store drains its queued tier moves here)."""
 
+    def _scalar_eligible(self, cols) -> bool:
+        """Hook: whether this batch takes the express scalar slot
+        instead of a launch (stores with one override)."""
+        return False
+
+    def _stage_scalar(self, prep) -> _Staged:
+        raise NotImplementedError
+
     def _launch_group(self, group) -> None:
         """Launch (ticket order, under `_lock`).  A multi-batch group
-        writes one stacked result, read back once."""
+        writes one stacked result, read back once.  An express batch
+        (always alone: it never fuses) runs its host closure instead:
+        the plain versions it follows ran synchronously, so the rows are
+        final when it reads them."""
+        if len(group) == 1 and group[0][0].scalar is not None:
+            staged, h = group[0]
+            packed = staged.scalar()
+            self.scalar_applies += 1
+            h._launch_ok(lambda: packed)
+            return
         self._pre_launch()
         self.device_dispatches += 1
         if len(group) == 1:
@@ -744,6 +879,166 @@ class ColumnarPipeline:
         shared = _SharedFetch(_readback(stacked))
         for i, (_, h) in enumerate(group):
             h._launch_ok(lambda i=i: shared.get(i))
+
+    # -- host <-> device transfers and the row plane (both stores) -----
+    def _upload(self, a: np.ndarray) -> torch.Tensor:
+        return upload(a, self.device)
+
+    def _read_rows(self, lanes: np.ndarray) -> buckets.BucketRows:
+        """The rows at host lanes i32[2, M] (shard, slot), one row-gather
+        launch, as host BucketRows."""
+        return buckets.cols_to_rows(*self._gather_cols(lanes))
+
+    def _gather_cols(self, lanes: np.ndarray, back: bool = False):
+        """Host (c32, c64) of the front rows (or with `back`, the back
+        tier's rows) at host lanes i32[2, M], one row-gather launch."""
+        dev_lanes = self._upload(np.ascontiguousarray(lanes, np.int32))
+        if back:
+            c32, c64 = buckets.read_back_rows(self.back, dev_lanes)
+        else:
+            c32, c64 = buckets.gather_rows(self.state.hot, self.state.cold, dev_lanes)
+        f32, f64 = _readback(c32), _readback(c64)
+        return f32(), f64()
+
+    def _write_rows(self, lanes: np.ndarray, c32: np.ndarray, c64: np.ndarray) -> None:
+        """Write rows at host lanes i32[2, M] (distinct), one row-scatter
+        launch."""
+        buckets.write_rows(
+            self.state.hot, self.state.cold,
+            self._upload(np.ascontiguousarray(lanes, np.int32)),
+            self._upload(np.ascontiguousarray(c32, np.int32)),
+            self._upload(np.ascontiguousarray(c64, np.int64)))
+
+    # -- Store SPI and the persistence plane (both stores) --------------
+    def _tables(self) -> list:
+        """Hook: the store's slot table of each shard, in shard order."""
+        raise NotImplementedError
+
+    def _mirror(self) -> np.ndarray:
+        """The host algorithm mirror as [S, C] (a view: a ShardStore
+        keeps its one shard's as [C])."""
+        return self.algo_mirror.reshape(len(self._tables()), -1)
+
+    def _store_resolver(self, s: int, now_ms: int):
+        return make_store_resolver(
+            self._tables()[s], self._mirror()[s], self.store,
+            lambda slot, item: self._inject(s, slot, item), now_ms,
+        )
+
+    def _inject(self, s: int, slot: int, item) -> None:
+        """Write a store item's row at (s, slot): one row-scatter launch
+        with one lane, in stream order before the round's launch."""
+        rows = item_to_rows(item)
+        self._mirror()[s, slot] = int(rows.algo[0])
+        self._write_rows(np.array([[s], [slot]], np.int32), *buckets.rows_to_cols(rows))
+        self._tables()[s].set_expire(slot, item.expire_at)
+
+    def _fire_store_callbacks(self, chunks, cached, removed) -> None:
+        """store.remove for removed lanes, store.on_change with the
+        lane's row after the round for the others (the deferred
+        s.OnChange, algorithms.go:64-68), shard-major in chunk order.
+        `chunks` holds each shard's round, `cached` and `removed` are
+        bool [S, P] (replica-cache answers never touch the store).  One
+        row gather serves every shard."""
+        live = [[] for _ in chunks]
+        for s, chunk in enumerate(chunks):
+            live[s] = [(i, p) for i, p in enumerate(chunk)
+                       if not cached[s, i] and p.slot >= 0 and not removed[s, i]]
+        lanes = [(s, p.slot) for s in range(len(chunks)) for _, p in live[s]]
+        rows = self._read_rows(np.array(lanes, np.int32).T) if lanes else None
+        at = 0
+        for s, chunk in enumerate(chunks):
+            for i, p in enumerate(chunk):
+                if not cached[s, i] and p.slot >= 0 and removed[s, i]:
+                    self.store.remove(p.key)
+            if not live[s]:
+                continue
+            n = len(live[s])
+            items = _rows_to_items([p.key for _, p in live[s]],
+                                   buckets.BucketRows(*(f[at:at + n] for f in rows)))
+            at += n
+            for (_, p), item in zip(live[s], items):
+                self.store.on_change(p.req, item)
+
+    @_drained_locked
+    def snapshot_columns(self, now_ms: int) -> TransferColumns:
+        """Durability dump (snapshot.py): every resident key's full row,
+        gathered with one row-gather launch.  The tables keep their keys;
+        a mesh's owner-side GLOBAL buckets are included (they restore as
+        ordinary rows).  Warmup keys stay out of the file."""
+        keys = [k for t in self._tables() for k in t.keys()
+                if not k.startswith("__warmup__")]
+        return self._gather_transfer_locked(keys, now_ms)
+
+    def _gather_transfer_locked(self, keys, now_ms: int) -> TransferColumns:
+        """The rows of `keys` at their owner shards (keys no longer
+        mapped are skipped), shard-major and in key order within a shard
+        as the JAX stores lay them out, minus rows already expired."""
+        shard, slot = tables_get_slots(self._tables(), keys)
+        found = np.nonzero(slot >= 0)[0]
+        if not found.size:
+            return TransferColumns.empty()
+        self._pre_launch()  # land queued tier moves before reading rows
+        order = found[np.argsort(shard[found], kind="stable")]
+        rows = self._read_rows(np.stack([shard[order], slot[order]]))
+        self.transfer_drain_dispatches += 1
+        self.device_dispatches += 1
+        live = np.nonzero(rows.expire_at >= now_ms)[0]
+        return TransferColumns(
+            keys=[keys[i] for i in order[live].tolist()],
+            algorithm=rows.algo[live].astype(np.int32),
+            status=rows.status[live].astype(np.int32),
+            limit=rows.limit[live].astype(np.int64),
+            remaining=rows.remaining[live].astype(np.int64),
+            duration=rows.duration[live].astype(np.int64),
+            stamp=rows.stamp[live].astype(np.int64),
+            expire_at=rows.expire_at[live].astype(np.int64),
+        )
+
+    @_drained_locked
+    def commit_transfer(self, cols: TransferColumns, now_ms: int) -> int:
+        """Commit a batch of full rows (a snapshot restore, a Loader's
+        items): assign slots for the whole batch in the host tables,
+        gather the current rows (one launch), merge monotonically on the
+        host (reshard.merge_transfer_rows: an idempotent min/max, so a
+        re-delivered or late batch cannot double-count), and scatter the
+        merged rows back (one launch).  Returns the lanes committed."""
+        if len(cols) == 0:
+            return 0
+        # Dead rows (already expired) are not worth a slot.
+        fresh = np.nonzero(np.asarray(cols.expire_at) >= now_ms)[0].tolist()
+        # Duplicate keys keep the LAST lane, at the first one's place
+        # (dict semantics, as the JAX stores order them).
+        seen: Dict[str, int] = dict(zip([cols.keys[j] for j in fresh], fresh))
+        if not seen:
+            return 0
+        idx = np.fromiter(seen.values(), dtype=np.int64, count=len(seen))
+        tables = self._tables()
+        shard_ix, slot_ix, exists_ix = tables_lookup_or_assign(tables, list(seen), now_ms)
+        # The lookups may have queued promotions of back-tier keys: land
+        # them before reading front rows.
+        self._pre_launch()
+        lanes = np.stack([shard_ix, slot_ix])
+        cur = self._read_rows(lanes)
+        merged = merge_transfer_rows(
+            {"algo": cur.algo, "status": cur.status, "limit": cur.limit,
+             "remaining": cur.remaining, "stamp": cur.stamp,
+             "expire_at": cur.expire_at},
+            cols, idx, now_ms, exists_ix,
+        )
+        c32, c64 = buckets.rows_to_cols(buckets.BucketRows(**merged))
+        # A batch with more keys for a shard than its capacity evicts
+        # keys of its own: the table maps their slot to the later key,
+        # so the later lane is the one written.
+        keep = buckets.last_lane_per_slot(shard_ix, slot_ix)
+        self._write_rows(lanes[:, keep], c32[:, keep], c64[:, keep])
+        self.transfer_commit_dispatches += 2
+        self.device_dispatches += 2
+        # Host mirrors: the algorithm (switch detection) and the table
+        # expiry (planning, eviction), lane by lane.
+        self._mirror()[shard_ix, slot_ix] = merged["algo"]
+        tables_set_expire(tables, shard_ix, slot_ix, merged["expire_at"])
+        return int(idx.size)
 
     def _drain_until(self, handle: ColumnsHandle) -> None:
         with self._drain_lock:
@@ -777,3 +1072,406 @@ class ColumnarPipeline:
     def _unlock_drained(self) -> None:
         self._lock.release()
         self._plan_lock.release()
+
+
+def express_lane(hot, cold, slot: int, exists, occ, cols: _Columns, i: int,
+                 now_ms: int):
+    """Lane i of `cols` through the express slot (ops/scalar.py) against
+    row `slot` of the writable views `hot`/`cold`; returns its packed
+    wide output (status | removed << 1, remaining, reset_time,
+    new_expire).  Exists is the planner's claim, except that a later
+    occurrence of an analytic duplicate group (occ > 0) shares the first
+    occurrence's claim: the earlier occurrence's write made the row
+    live.  Round 1+ lanes of one key already carry exists=True, and a
+    mid-batch slot takeover (another key, occ == 0, exists=False) must
+    keep creating."""
+    st, rem, reset, n_exp, removed = scalar_ops.apply_one(
+        hot[slot], cold[slot],
+        exists=bool(exists) or int(occ) > 0,
+        algorithm=int(cols.algo[i]),
+        behavior=int(cols.behavior[i]),
+        hits=int(cols.hits[i]),
+        limit=int(cols.limit[i]),
+        duration=int(cols.duration[i]),
+        greg_expire=int(cols.greg_expire[i]),
+        greg_duration=int(cols.greg_duration[i]),
+        now_ms=now_ms,
+    )
+    return st | (int(removed) << 1), rem, reset, n_exp
+
+
+def _pad(src: np.ndarray, padded: int, dtype) -> np.ndarray:
+    out = np.zeros(padded, dtype=dtype)
+    out[: len(src)] = src
+    return out
+
+
+@dataclass
+class _ShardPrep:
+    """Output of ShardStore's prepare stage: the plan columns plus the
+    commit closure, handed to the unlocked stage step."""
+
+    cols: _Columns
+    now_ms: int
+    force_wire: Optional[str]
+    n: int
+    padded: int
+    n_rounds: int
+    narrow: bool
+    slot_col: np.ndarray
+    rid_col: np.ndarray
+    ex_col: np.ndarray
+    occ_col: np.ndarray
+    wr_col: np.ndarray
+    commit: Callable
+
+
+class ShardStore(ColumnarPipeline):
+    """Bucket table of one shard on one device (the JAX package's
+    ShardStore, the store its bench.py headlines and its service takes
+    for a one-shard deployment).
+
+    The state is a BucketState with S = 1 (hot/cold int32 [1, C, 8]),
+    so the mesh store's kernels serve it unchanged: the columnar path
+    plans in the C++ runtime (native.NativeBatchPlanner) and launches
+    K1 on the dict wire, or K2 on per-lane columns (narrow, or wide
+    under `force_wire="wide"` or with wide values) when the batch has
+    more than 256 configs, an occurrence index above 65535 or more than
+    255 rounds; same-shape dict batches staged together launch as one
+    group.  Small batches on a CPU store take the express scalar slot
+    when `scalar_fast_path` is on (ops/scalar.py).
+
+    `store` is the optional persistence SPI (store.py): get() fulfils
+    misses, on_change() observes every applied request, remove() fires
+    on removals (algorithms.go:26-33,64-68,176-177).  With it, or with
+    `use_native=False` (the Python SlotTable), `apply` runs one round
+    per K2 launch with the host callbacks between rounds, and the
+    columnar path is unavailable.  `device=None` is the current CUDA
+    device (raises without one); "cpu" runs the plain versions.
+    """
+
+    def __init__(self, capacity: int = 50_000, device=None, store=None,
+                 use_native: bool = True):
+        self.capacity = capacity
+        self.device = resolve_device(device)
+        # The C++ runtime resolves keys and plans rounds; the Python
+        # SlotTable is its twin for the per-round path.
+        self._native = use_native
+        self.table = native.NativeSlotTable(capacity) if use_native else SlotTable(capacity)
+        self.store = store
+        # Guards the state tensors: launches serialise on it.
+        self._lock = threading.RLock()
+        self.state = buckets.init_state(1, capacity, self.device)
+        # Each slot's algorithm on the host, for the Store SPI's
+        # algorithm-switch detection.
+        self.algo_mirror = np.zeros(capacity, dtype=np.int32)
+        self._init_pipeline()
+
+    def describe_topology(self) -> Tuple[str, str]:
+        """(device type, mesh shape): one shard is a 1-wide mesh."""
+        return self.device.type, "1"
+
+    # ------------------------------------------------------------------
+    def apply(self, requests: Sequence[RateLimitRequest],
+              now_ms: int) -> List[RateLimitResponse]:
+        """Evaluate a batch; responses come back in request order."""
+        responses: List[Optional[RateLimitResponse]] = [None] * len(requests)
+        if self._native and self.store is None:
+            # Rides the columnar pipeline.
+            self._apply_native(requests, now_ms, responses)
+            return [r if r is not None else RateLimitResponse() for r in responses]
+        # Store SPI or Python table: host callbacks between rounds need
+        # the lock across the whole batch.
+        self._drain_then_lock()
+        try:
+            prepared = prepare_requests(requests, now_ms, responses)
+            resolver = self._store_resolver(0, now_ms) if self.store is not None else None
+            planner = RoundPlanner(self.table, prepared, now_ms, resolver=resolver)
+            while True:
+                chunk = planner.next_chunk()
+                if not chunk:
+                    break
+                self._run_round(chunk, now_ms, responses)
+            return [r if r is not None else RateLimitResponse() for r in responses]
+        finally:
+            self._unlock_drained()
+
+    def _apply_native(self, requests, now_ms: int, responses) -> None:
+        """The dataclass batch as columns through the pipeline; an
+        invalid Gregorian duration is its lane's error."""
+        greg = GregResolver(now_ms)
+        keep: List[int] = []
+        ge: List[int] = []
+        gd: List[int] = []
+        for i, req in enumerate(requests):
+            e = d = 0
+            if has_behavior(req.behavior, Behavior.DURATION_IS_GREGORIAN):
+                cached = greg.resolve(req.duration)
+                if isinstance(cached, gregorian.GregorianError):
+                    responses[i] = RateLimitResponse(error=str(cached))
+                    continue
+                e, d = cached
+            keep.append(i)
+            ge.append(e)
+            gd.append(d)
+        if not keep:
+            return
+        reqs = [requests[i] for i in keep]
+        m = len(reqs)
+        cols = make_columns(
+            np.fromiter((r.algorithm for r in reqs), np.int32, count=m),
+            np.fromiter((r.behavior for r in reqs), np.int32, count=m),
+            np.fromiter((r.hits for r in reqs), np.int64, count=m),
+            np.fromiter((r.limit for r in reqs), np.int64, count=m),
+            np.fromiter((r.duration for r in reqs), np.int64, count=m),
+            m, np.asarray(ge, np.int64), np.asarray(gd, np.int64),
+        )
+        status, remaining, reset = self._run_columns([r.hash_key() for r in reqs], cols,
+                                                     now_ms)
+        for j, i in enumerate(keep):
+            responses[i] = RateLimitResponse(
+                status=int(status[j]), limit=int(cols.limit[j]),
+                remaining=int(remaining[j]), reset_time=int(reset[j]),
+            )
+
+    def _run_columns(self, keys, cols: _Columns, now_ms: int):
+        """One pipelined batch: (status, remaining, reset_time) arrays
+        aligned to keys."""
+        r = self._submit_pipelined(keys, cols, now_ms).result()
+        return r["status"], r["remaining"], r["reset_time"]
+
+    def _prepare_columns(self, keys, cols: _Columns, now_ms: int,
+                         force_wire: Optional[str] = None) -> _ShardPrep:
+        """Stage 1 (under `_plan_lock`): the C++ grouped plan, the
+        pass-through expiry snapshot and the padded plan columns."""
+        n = len(keys)
+        planner = native.NativeBatchPlanner(self.table, keys, now_ms)
+        round_id, slots, exists, occ, write, n_rounds = planner.plan_grouped(
+            cols, int(Behavior.RESET_REMAINING))
+        padded = pad_size(n)
+        slot_col = _pad(slots, padded, np.int32)
+        slot_col[n:] = -1
+        rid_col = _pad(round_id, padded, np.int32)
+        ex_col = _pad(exists, padded, bool)
+        occ_col = _pad(occ, padded, np.int32)
+        wr_col = _pad(write, padded, bool)
+        narrow = narrow_ok(cols, now_ms) and force_wire != "wide"
+        # Snapshot the pass-through expiry now: the -2 keep-sentinel
+        # means "the kernel left this slot's pre-batch expiry unchanged",
+        # and pre-batch is defined at plan time.  A later pipelined
+        # batch's plan can evict or reassign these slots (zeroing their
+        # expiry) before this batch commits.
+        passthrough_exp = self.table.get_expire_bulk(slots) if narrow else None
+
+        def commit(packed_np):
+            packed_np = packed_np.reshape(4, -1)[:, :n]
+            with self._lock:
+                if narrow:
+                    status, removed, remaining, reset, new_exp = decode_narrow(
+                        self.table, keys, slots, packed_np, now_ms, passthrough_exp)
+                else:
+                    status, removed, remaining, reset, new_exp = buckets.unpack_output(
+                        packed_np)
+                planner.commit_plan(new_exp, removed)
+                self.algo_mirror[slots] = cols.algo
+                return status, remaining, reset
+
+        return _ShardPrep(
+            cols=cols, now_ms=now_ms, force_wire=force_wire, n=n, padded=padded,
+            n_rounds=n_rounds, narrow=narrow, slot_col=slot_col, rid_col=rid_col,
+            ex_col=ex_col, occ_col=occ_col, wr_col=wr_col, commit=commit,
+        )
+
+    def _stage_columns(self, prep: _ShardPrep) -> _Staged:
+        """Stage 2 (no locks): encode the wire and start its upload.  The
+        dict wire (K1) is fuse-eligible; the per-lane columns (K2)
+        launch alone."""
+        cols, now_ms, padded = prep.cols, prep.now_ms, prep.padded
+        n_rounds, narrow = prep.n_rounds, prep.narrow
+        dict_enc = None
+        if (prep.force_wire is None and n_rounds <= 255
+                and int(prep.occ_col.max(initial=0)) <= 65535):
+            # Values ride the wire's 256-row i64 table, so wide batches
+            # (monthly Gregorian, big limits) stay on it; only the
+            # output widens.
+            dict_enc = buckets.build_config_dict(cols, now_ms)
+        if dict_enc is not None:
+            cfg_idx, table = dict_enc
+            wire = buckets.pack_dict_wire(
+                prep.slot_col[None], prep.ex_col[None], prep.wr_col[None],
+                _pad(cfg_idx, padded, np.uint8)[None], prep.occ_col[None],
+                prep.rid_col[None], table)
+            return _Staged(
+                kernel=buckets.bucket_rounds_dict,
+                args=(self._upload(wire), n_rounds, now_ms, not narrow),
+                fuse_key=("dict", narrow, wire.shape[1]), wide=not narrow,
+            )
+        # K2's per-lane columns: narrow values are i32 with the Gregorian
+        # expiry as a delta from now (0 where unused), wide ones i64
+        greg = (np.where(cols.greg_duration != 0, cols.greg_expire - now_ms, 0) if narrow
+                else cols.greg_expire)
+        vdtype = np.int32 if narrow else np.int64
+        flags = prep.ex_col.astype(np.int32) | (prep.wr_col.astype(np.int32) << 1)
+        lanes = np.stack([prep.slot_col, flags, _pad(cols.algo, padded, np.int32),
+                          _pad(cols.behavior, padded, np.int32), prep.occ_col,
+                          prep.rid_col])[None]
+        values = np.stack([_pad(v, padded, vdtype) for v in (
+            cols.hits, cols.limit, cols.duration, greg, cols.greg_duration)])[None]
+        return _Staged(
+            kernel=buckets.bucket_rounds_cols,
+            args=(self._upload(lanes), self._upload(values), n_rounds, now_ms, not narrow),
+            wide=not narrow,
+        )
+
+    def _fused_launch_fn(self, k: int, wide: bool):
+        """K same-shape dict-wire batches: K launches of K1 in stream
+        order into one stacked [K, 4, P] result."""
+
+        def run(state, group):
+            return buckets.apply_rounds_packed_fused(
+                state, [s.args[0] for s in group], [s.args[1] for s in group],
+                [s.args[2] for s in group], wide)
+
+        return run
+
+    # -- express scalar slot (ops/scalar.py) ---------------------------
+    def _scalar_eligible(self, cols) -> bool:
+        """Small batches of a CPU store take the host slot when the
+        switch is on; never on the card, whose batches take K1."""
+        if not self.scalar_fast_path:
+            return False
+        if not 1 <= len(cols.hits) <= SCALAR_MAX_LANES:
+            return False
+        if not (self._native and self.store is None):
+            return False
+        return scalar_ops.device_is_cpu(self.device)
+
+    def _stage_scalar(self, prep: _ShardPrep) -> _Staged:
+        """Express stage: capture the plan's rows and return the host
+        closure, which returns a packed [4, n] wide output."""
+        cols = prep.cols
+        n = prep.n
+        slots = prep.slot_col[:n].copy()
+        exists = prep.ex_col[:n].copy()
+        occ = prep.occ_col[:n].copy()
+        now_ms = prep.now_ms
+
+        def run():
+            hot = scalar_ops.shard_view(self.state.hot, 0)
+            cold = scalar_ops.shard_view(self.state.cold, 0)
+            packed = np.zeros((4, n), dtype=np.int64)
+            for i in range(n):
+                packed[:, i] = express_lane(hot, cold, int(slots[i]), exists[i], occ[i],
+                                            cols, i, now_ms)
+            return packed
+
+        return _Staged(kernel=None, args=(), scalar=run)
+
+    @property
+    def supports_columns(self) -> bool:
+        """Whether the columnar path is usable: the C++ runtime and no
+        Store SPI."""
+        return self._native and self.store is None
+
+    def apply_columns(self, keys, algorithm, behavior, hits, limit, duration,
+                      now_ms: int, greg_expire=None, greg_duration=None,
+                      force_wire=None) -> dict:
+        """Columnar bulk API: a dict of numpy arrays (status, limit,
+        remaining, reset_time) aligned with `keys` (full hash keys);
+        Gregorian lanes carry their precomputed expiry and duration."""
+        return self.apply_columns_async(
+            keys, algorithm, behavior, hits, limit, duration, now_ms,
+            greg_expire, greg_duration, force_wire=force_wire).result()
+
+    def apply_columns_async(self, keys, algorithm, behavior, hits, limit, duration,
+                            now_ms: int, greg_expire=None, greg_duration=None,
+                            force_wire=None) -> ColumnsHandle:
+        """Pipelined apply_columns: returns once the batch is launched;
+        `handle.result()` blocks on its readback.  `force_wire="wide"`
+        forces the wide per-lane-column wire (a test and debugging aid)."""
+        if force_wire not in (None, "wide"):
+            raise ValueError(f"unknown force_wire {force_wire!r}")
+        cols = self._make_columns(algorithm, behavior, hits, limit, duration, len(keys),
+                                  greg_expire, greg_duration)
+        return self._submit_pipelined(keys, cols, now_ms, force_wire)
+
+    def _make_columns(self, algorithm, behavior, hits, limit, duration, n,
+                      greg_expire, greg_duration) -> _Columns:
+        if not self.supports_columns:
+            raise RuntimeError(
+                "apply_columns requires the native host runtime and no Store SPI")
+        return make_columns(algorithm, behavior, hits, limit, duration, n,
+                            greg_expire, greg_duration)
+
+    # ------------------------------------------------------------------
+    # Store SPI and the persistence plane (ColumnarPipeline's, at
+    # shard 0: row gather K7, row scatter K8)
+    # ------------------------------------------------------------------
+    def _tables(self) -> list:
+        return [self.table]
+
+    @_drained_locked
+    def load_item(self, item) -> None:
+        """Loader.Load path: place one persisted item (gubernator.go:78-90)."""
+        slot, _ = self.table.lookup_or_assign(item.key, 0)
+        self._inject(0, slot, item)
+
+    @_drained_locked
+    def snapshot_items(self):
+        """Loader.Save path (gubernator.go:93-111): every mapped slot as
+        a CacheItem, after the in-flight batches committed."""
+        keys = self.table.keys()
+        if not keys:
+            return []
+        return _rows_to_items(keys, self._read_rows(np.stack(tables_get_slots([self.table],
+                                                                              keys))))
+
+    def _run_round(self, chunk: List[_Prepared], now_ms: int, responses) -> None:
+        """One round: one K2 launch (the one-shard apply_batch), the
+        table commit, the responses, then the Store callbacks."""
+        b = len(chunk)
+        arrays = build_round_arrays(chunk, pad_size(b))
+        out = buckets.apply_batch(self.state, buckets.make_batch(*arrays), now_ms)
+        self.table.commit(arrays[0][:b], out.new_expire[:b], out.removed[:b],
+                          keys=[p.key for p in chunk])
+        for i, p in enumerate(chunk):
+            self.algo_mirror[p.slot] = int(p.req.algorithm)
+            responses[p.pos] = RateLimitResponse(
+                status=int(out.status[i]), limit=int(p.req.limit),
+                remaining=int(out.remaining[i]), reset_time=int(out.reset_time[i]),
+            )
+        if self.store is not None:
+            self._fire_store_callbacks([chunk], np.zeros((1, b), bool), out.removed[None, :b])
+
+    # ------------------------------------------------------------------
+    def size(self) -> int:
+        return len(self.table)
+
+    def load_state_numpy(self, hot, cold, entries, algo_mirror=None) -> None:
+        """Replace this store's state with a JAX ShardStore's: `hot` and
+        `cold` its [C, 8] rows (`np.asarray(store.state.hot)`; [1, C, 8]
+        is taken too), `entries` its table's (keys, slots, expire), and
+        `algo_mirror` its i32 [C] slot algorithms (zeros when not given).
+        The keys are mapped in `entries`' order, which becomes the
+        table's LRU order.  Afterwards both stores answer the next batch
+        identically."""
+        hot, cold = (np.asarray(a, np.int32).reshape(1, -1, 8) for a in (hot, cold))
+        state = buckets.state_from_numpy(hot, cold, self.device)
+        if state.hot.shape != self.state.hot.shape:
+            raise ValueError(
+                f"state shape {tuple(state.hot.shape)} != {tuple(self.state.hot.shape)}")
+        mirror = np.zeros_like(self.algo_mirror)
+        if algo_mirror is not None:
+            mirror[:] = algo_mirror
+        keys, slots, expire = entries
+        self._drain_then_lock()
+        try:
+            table = (native.NativeSlotTable(self.capacity) if self._native
+                     else SlotTable(self.capacity))
+            table.commit(np.asarray(slots, np.int32), np.asarray(expire, np.int64),
+                         np.zeros(len(keys), np.uint8), list(keys))
+            self.table = table
+            self.state = state
+            self.algo_mirror = mirror
+        finally:
+            self._unlock_drained()

@@ -1,0 +1,163 @@
+"""Host-side key -> device-slot table with LRU eviction and expiry recycling.
+
+The port's copy of the JAX package's models/slot_table.py, unchanged:
+`ShardStore(use_native=False)` plans with it.  It replaces the
+reference's LRU cache (`cache.go:52-218`): the *values* (bucket states)
+live on the device as integer rows;
+the host keeps only the string-key -> dense-slot mapping, an expiry
+mirror (refreshed from kernel outputs each batch), and LRU order for
+eviction when the slot pool is exhausted.
+
+Semantics parity:
+  * expired item == miss, slot recycled in place     (cache.go:138-163)
+  * LRU eviction when at capacity                    (cache.go:115-130)
+  * hit/miss/size accounting for metrics             (cache.go:88-92,205-218)
+
+The C++ twin (native/host_runtime.cpp) additionally tracks in-flight
+pipelined device writes (pending_write) and skips those slots when
+evicting.  This table has no such state because the pipelined columnar
+path requires the native runtime — on every state reachable through
+this class the two implementations behave identically (verified by the
+parity tests in tests/test_native.py and
+tests/test_torch_slot_table.py).
+"""
+
+from __future__ import annotations
+
+from collections import OrderedDict
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+
+class SlotTable:
+    def __init__(self, capacity: int):
+        if capacity <= 0:
+            raise ValueError("capacity must be positive")
+        self.capacity = capacity
+        self._key_to_slot: Dict[str, int] = {}
+        self._slot_to_key: List[Optional[str]] = [None] * capacity
+        # Host mirror of device expire_at, updated from kernel outputs.
+        self.expire_ms = np.zeros(capacity, dtype=np.int64)
+        self._free: List[int] = list(range(capacity - 1, -1, -1))
+        self._lru: "OrderedDict[int, None]" = OrderedDict()
+        self.hits = 0
+        self.misses = 0
+        self.evictions = 0
+        # Mapping-change generation (C++ twin: Table::map_generation):
+        # bumped on every key->slot mapping change (assign, remap,
+        # evict, remove) but NOT on in-place expiry reuse or expire
+        # writes.  Equal reads across two points in time guarantee the
+        # mapping is unchanged between them (the GLOBAL sync fast path).
+        self.generation = 0
+
+    def __len__(self) -> int:
+        return len(self._key_to_slot)
+
+    def key_of(self, slot: int) -> Optional[str]:
+        return self._slot_to_key[slot]
+
+    def get_slot(self, key: str) -> Optional[int]:
+        return self._key_to_slot.get(key)
+
+    def lookup_or_assign(self, key: str, now_ms: int) -> Tuple[int, bool]:
+        """Return (slot, exists).  exists=False means the kernel should treat
+        the slot as a fresh create (miss or expired-in-place)."""
+        slot = self._key_to_slot.get(key)
+        if slot is not None:
+            self._lru.move_to_end(slot)
+            # Strict expiry: an item at exactly ExpireAt is still a hit
+            # (cache.go:151 `ExpireAt < now`).
+            if self.expire_ms[slot] >= now_ms:
+                self.hits += 1
+                return slot, True
+            # Expired: same key recycles its own slot (cache.go:138-163).
+            self.misses += 1
+            return slot, False
+        self.misses += 1
+        if self._free:
+            slot = self._free.pop()
+        else:
+            # Evict least-recently-used (cache.go:115-130).
+            slot, _ = self._lru.popitem(last=False)
+            old_key = self._slot_to_key[slot]
+            if old_key is not None:
+                del self._key_to_slot[old_key]
+            self.evictions += 1
+        self._key_to_slot[key] = slot
+        self._slot_to_key[slot] = key
+        self.expire_ms[slot] = 0
+        self._lru[slot] = None
+        self._lru.move_to_end(slot)
+        self.generation += 1
+        return slot, False
+
+    def commit(
+        self,
+        slots: Sequence[int],
+        new_expire_ms: Sequence[int],
+        removed: Sequence[bool],
+        keys: Optional[Sequence[str]] = None,
+    ) -> None:
+        """Fold kernel outputs back into the host mirror; free removed slots.
+
+        `keys` guards against stale lanes: if eviction during the same
+        batch remapped a slot to a different key after this lane was
+        scheduled, the lane's result must NOT touch the slot's new owner
+        (the evicted lane's state is simply dropped, matching sequential
+        evict semantics).
+        """
+        for i, (slot, exp, rm) in enumerate(zip(slots, new_expire_ms, removed)):
+            if slot < 0:
+                continue
+            if keys is not None and self._slot_to_key[slot] != keys[i]:
+                if self._slot_to_key[slot] is None and not rm:
+                    # Remove-then-recreate chain: an earlier lane's
+                    # RESET_REMAINING freed the slot and a later round
+                    # recreated this key on device — re-map it (the C++
+                    # twin does the same, gt_batch_commit_plan).
+                    if keys[i] in self._key_to_slot:
+                        continue  # key meanwhile mapped elsewhere
+                    self._key_to_slot[keys[i]] = slot
+                    self._slot_to_key[slot] = keys[i]
+                    self.expire_ms[slot] = exp
+                    self.generation += 1
+                    # The slot was appended to _free by this very
+                    # commit loop's remove leg — O(1) pop from the end
+                    # in the common case, cold linear scan otherwise.
+                    if self._free and self._free[-1] == slot:
+                        self._free.pop()
+                    else:
+                        try:
+                            self._free.remove(slot)
+                        except ValueError:
+                            pass
+                    self._lru[slot] = None
+                    self._lru.move_to_end(slot)
+                continue  # otherwise: slot remapped mid-batch; lane is stale
+            if rm:
+                self.remove_slot(slot)
+            else:
+                self.expire_ms[slot] = exp
+
+    def set_expire(self, slot: int, expire_ms: int) -> None:
+        self.expire_ms[slot] = expire_ms
+
+    def remove_slot(self, slot: int) -> None:
+        key = self._slot_to_key[slot]
+        if key is None:
+            return
+        del self._key_to_slot[key]
+        self._slot_to_key[slot] = None
+        self.expire_ms[slot] = 0
+        self._lru.pop(slot, None)
+        self._free.append(slot)
+        self.generation += 1
+
+    def remove(self, key: str) -> None:
+        slot = self._key_to_slot.get(key)
+        if slot is not None:
+            self.remove_slot(slot)
+
+    def keys(self) -> List[str]:
+        return list(self._key_to_slot.keys())

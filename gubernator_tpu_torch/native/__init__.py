@@ -69,6 +69,20 @@ def _load() -> ctypes.CDLL:
                                              p, p, p]
     lib.gt_mesh_set_expire.argtypes = [p, p, p, p, c.c_int64]
     lib.gt_fnv1_batch.argtypes = [p, p, c.c_int64, c.c_int32, p]
+    lib.gt_batch_begin.restype = p
+    lib.gt_batch_begin.argtypes = [p, p, p, c.c_int64, c.c_int64]
+    lib.gt_batch_plan_grouped.restype = c.c_int64
+    lib.gt_batch_plan_grouped.argtypes = [
+        p,  # batch
+        p, p,  # algo, behavior
+        p, p, p,  # hits, limit, duration
+        p, p,  # greg_expire, greg_duration
+        c.c_int32,  # reset mask
+        p, p, p,  # round_id, slot, exists
+        p, p,  # occ, write
+    ]
+    lib.gt_batch_commit_plan.argtypes = [p, p, p]
+    lib.gt_batch_free.argtypes = [p]
     lib.gt_mesh_begin.restype = p
     lib.gt_mesh_begin.argtypes = [
         p, c.c_int64,  # tables[S], S
@@ -122,6 +136,9 @@ class PackedKeys:
 
     def __len__(self) -> int:
         return len(self.offsets) - 1
+
+    def __getitem__(self, i: int) -> str:
+        return bytes(self.buf[self.offsets[i]:self.offsets[i + 1]]).decode("utf-8")
 
 
 def as_packed(keys) -> Tuple[np.ndarray, np.ndarray]:
@@ -355,6 +372,63 @@ def mesh_set_expire(tables, shard, slot, expire) -> None:
     tables[0]._lib.gt_mesh_set_expire(
         _table_ptrs(tables), shard.ctypes.data, slot.ctypes.data,
         expire.ctypes.data, len(shard))
+
+
+class NativeBatchPlanner:
+    """Round planner of one slot table (ShardStore's columnar path): the
+    whole key batch resolved and split into kernel rounds in C++
+    (gt_batch_*), committed back after the launch.  The planner borrows
+    the packed key buffer, so it keeps it alive until freed."""
+
+    def __init__(self, table: NativeSlotTable, keys, now_ms: int):
+        self._lib = table._lib
+        self._table = table
+        self.n = len(keys)
+        self._buf, self._offsets = as_packed(keys)
+        self._ptr = self._lib.gt_batch_begin(
+            table._ptr, self._buf.ctypes.data if self.n else None,
+            self._offsets.ctypes.data, self.n, now_ms,
+        )
+
+    def __del__(self):
+        ptr = getattr(self, "_ptr", None)
+        if ptr:
+            self._lib.gt_batch_free(ptr)
+            self._ptr = None
+
+    def plan_grouped(self, cols, reset_mask: int):
+        """Grouped full plan (gt_batch_plan_grouped): uniform duplicate
+        groups collapse into round 0 with per-lane occurrence indices;
+        the rest take rounds 1+.  `cols` holds contiguous algo and
+        behavior (i32) and hits, limit, duration, greg_expire,
+        greg_duration (i64) aligned with the keys.  Returns (round_id,
+        slot, exists, occ, write, n_rounds)."""
+        n = max(self.n, 1)
+        round_id = np.zeros(n, dtype=np.int32)
+        slots = np.empty(n, dtype=np.int32)
+        exists = np.empty(n, dtype=np.uint8)
+        occ = np.zeros(n, dtype=np.int32)
+        write = np.empty(n, dtype=np.uint8)
+        n_rounds = self._lib.gt_batch_plan_grouped(
+            self._ptr,
+            cols.algo.ctypes.data, cols.behavior.ctypes.data,
+            cols.hits.ctypes.data, cols.limit.ctypes.data,
+            cols.duration.ctypes.data,
+            cols.greg_expire.ctypes.data, cols.greg_duration.ctypes.data,
+            reset_mask,
+            round_id.ctypes.data, slots.ctypes.data, exists.ctypes.data,
+            occ.ctypes.data, write.ctypes.data,
+        )
+        m = self.n
+        return (round_id[:m], slots[:m], exists[:m].astype(bool),
+                occ[:m], write[:m].astype(bool), int(n_rounds))
+
+    def commit_plan(self, new_expire_ms, removed) -> None:
+        """Fold the launch's outputs (in the keys' order) back into the
+        table; the last write of a key wins."""
+        expire = np.ascontiguousarray(new_expire_ms, dtype=np.int64)
+        rm = np.ascontiguousarray(removed, dtype=np.uint8)
+        self._lib.gt_batch_commit_plan(self._ptr, expire.ctypes.data, rm.ctypes.data)
 
 
 class NativeMeshPlanner:

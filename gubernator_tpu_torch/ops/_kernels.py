@@ -1,7 +1,8 @@
 """Build, bind and launch the port's CUDA kernels.
 
 csrc/bucket_rounds.cu (K1, K2), csrc/global_ops.cu (K3-K6),
-csrc/rows.cu (K7, K8) and csrc/moves.cu (K9) are compiled with nvcc for
+csrc/rows.cu (K7, K8), csrc/moves.cu (K9) and csrc/compact.cu (K10) are
+compiled with nvcc for
 sm_90a, one nvcc process per source started together, into one shared
 library with a plain C interface the first time a kernel is launched
 (or `build()` is called), and bound through ctypes.  Each wrapper checks
@@ -27,7 +28,8 @@ from .buckets import DICT_WIRE_TABLE_WORDS
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 SOURCES = [os.path.join(_CSRC, name)
-           for name in ("bucket_rounds.cu", "global_ops.cu", "rows.cu", "moves.cu")]
+           for name in ("bucket_rounds.cu", "global_ops.cu", "rows.cu", "moves.cu",
+                        "compact.cu")]
 HEADERS = [os.path.join(_CSRC, "bucket_rounds.cuh")]
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -43,7 +45,7 @@ LAUNCHES = {
     "bucket_rounds_dict": 0, "bucket_rounds_cols": 0,
     "global_answer_rounds": 0, "global_sync": 0, "set_replica": 0,
     "clear_gslots": 0, "gather_rows": 0, "write_rows": 0,
-    "gather_back_rows": 0, "apply_moves": 0,
+    "gather_back_rows": 0, "apply_moves": 0, "bucket_compact": 0,
 }
 _STAGE_WORDS = 16  # per-lane scratch record (bucket_rounds.cuh kStageWords)
 
@@ -84,6 +86,8 @@ _SIGNATURES = {
     "gt_gather_rows": [_P, _P, _I64, _I64, _P, _I64, _P, _P, _P],
     "gt_write_rows": [_P, _P, _I64, _I64, _P, _I64, _P, _P, _P],
     "gt_apply_moves": [_P, _P, _I64, _I64, _P, _P, _I64, _P, _I64, _P, _P],
+    "gt_bucket_compact": [_P, _P, _I64, _I64, _I32, _P, _P, _I64, _P, _I64, _I64,
+                          _P, _P, _P],
 }
 
 
@@ -351,3 +355,46 @@ def apply_moves(hot, cold, back_hot, back_cold, records) -> None:
         back_cold.data_ptr(), Cb, records.data_ptr(), N, stage.data_ptr(),
         _stream(hot.device))
     _finish("apply_moves", rc)
+
+
+# ---------------------------------------------------------------------
+# The compact commit (csrc/compact.cu)
+# ---------------------------------------------------------------------
+def bucket_compact(hot, cold, wlane, now_ms: int, wire=None, lanes=None, values=None):
+    """K10: one single-round narrow batch from the dict wire (`wire`
+    i32[S, 3P + 3072]) or from per-lane columns (`lanes` i32[S, 6, P],
+    `values` i32[S, 5, P]), round ids ignored; every lane evaluated,
+    then only the rows of the lanes in `wlane` i32[S, Pw] written (see
+    ops/buckets.py apply_compact32_plain).  Returns i32[S, 4, P]."""
+    S, C = _state(hot, cold)
+    dev = hot.device
+    if (wire is None) == (lanes is None):
+        raise ValueError("give either the dict wire or the per-lane columns")
+    if wire is not None:
+        if wire.dim() != 2 or (wire.shape[1] - DICT_WIRE_TABLE_WORDS) % 3 \
+                or wire.shape[1] <= DICT_WIRE_TABLE_WORDS:
+            raise ValueError(f"wire must be [S, 3P + {DICT_WIRE_TABLE_WORDS}], "
+                             f"got {tuple(wire.shape)}")
+        P = (wire.shape[1] - DICT_WIRE_TABLE_WORDS) // 3
+        _check("wire", wire, torch.int32, (S, wire.shape[1]), dev)
+        src, vals = wire, None
+    else:
+        if lanes.dim() != 3 or lanes.shape[1] != 6:
+            raise ValueError(f"lanes must be [S, 6, P], got {tuple(lanes.shape)}")
+        P = lanes.shape[2]
+        _check("lanes", lanes, torch.int32, (S, 6, P), dev)
+        _check("values", values, torch.int32, (S, 5, P), dev)
+        src, vals = lanes, values
+    if wlane.dim() != 2 or wlane.shape[0] != S:
+        raise ValueError(f"wlane must be [S, Pw], got {tuple(wlane.shape)}")
+    Pw = wlane.shape[1]
+    _check("wlane", wlane, torch.int32, (S, Pw), dev)
+    out = _out(None, S, P, False, dev)
+    stage = torch.empty((S, P, _STAGE_WORDS), dtype=torch.int32, device=dev)
+    rc = _get_lib().gt_bucket_compact(
+        hot.data_ptr(), cold.data_ptr(), S, C, 1 if wire is not None else 0,
+        src.data_ptr(), vals.data_ptr() if vals is not None else None, P,
+        wlane.data_ptr(), Pw, int(now_ms), stage.data_ptr(), out.data_ptr(),
+        _stream(dev))
+    _finish("bucket_compact", rc)
+    return out

@@ -10,17 +10,25 @@ it); see its module docstring for the reference citations.
 
 Two implementations of each device function live here:
 
-* the CUDA kernels (csrc/bucket_rounds.cu, csrc/rows.cu and
-  csrc/moves.cu, bound in ops/_kernels.py), which the wrappers
-  `bucket_rounds_dict` / `bucket_rounds_cols`, the row gather / scatter
-  `gather_rows` / `write_rows` (and `read_back_rows`, the gather on the
-  two-tier table's back tier) and the tier move `apply_moves` launch for
-  CUDA tensors;
+* the CUDA kernels (csrc/bucket_rounds.cu, csrc/rows.cu,
+  csrc/moves.cu and csrc/compact.cu, bound in ops/_kernels.py), which
+  the wrappers `bucket_rounds_dict` / `bucket_rounds_cols`, the row
+  gather / scatter `gather_rows` / `write_rows` (and `read_back_rows`,
+  the gather on the two-tier table's back tier), the tier move
+  `apply_moves` and the compact commit `compact_dict` / `compact_cols`
+  launch for CUDA tensors;
 * their plain PyTorch versions (`bucket_rounds_dict_plain`,
   `bucket_rounds_cols_plain`, `read_rows_plain`, `write_rows_plain`,
-  `apply_moves_plain`), a straight transcription of the JAX programs,
-  which the wrappers take for CPU tensors and which the chip smoke test
-  holds the kernels against on the card.
+  `apply_moves_plain`, `apply_compact_packed_plain`,
+  `apply_compact32_plain`), a straight transcription of the JAX
+  programs, which the wrappers take for CPU tensors and which the chip
+  smoke test holds the kernels against on the card.
+
+The one-shard forms of the JAX package's ShardStore that the port's
+ShardStore calls (`apply_batch`, `apply_rounds_packed_fused`) and K10's
+(`apply_compact32`, `apply_compact_packed`) are thin wrappers over the
+same kernels with S = 1; its other one-shard programs are
+`bucket_rounds_dict` / `bucket_rounds_cols` on a [1, C, 8] state.
 
 State is updated in place (the kernels write their rows into `hot` and
 `cold`; the plain versions scatter into them), which replaces the JAX
@@ -333,7 +341,8 @@ def _leak_amounts(el_c, lim_nn, rn):
 class RequestBatch(NamedTuple):
     """One batch of resolved requests for every shard, [S, P] each
     (int64 values, bool flags; the JAX package's RequestBatch with a
-    leading shard axis).  `slot` -1 marks an inactive or padding lane:
+    leading shard axis), or, from `make_batch`, one shard's host
+    columns [P].  `slot` -1 marks an inactive or padding lane:
     it reads nothing, writes nothing and answers zeros.  `occ` and
     `write` come from the grouped planner (occurrence index within a
     uniform duplicate group, and whether the lane stores its row)."""
@@ -536,8 +545,9 @@ def _apply_batch_packed(state: BucketState, req: RequestBatch, now):
 
 
 class BatchOutput(NamedTuple):
-    """Per-lane responses of `apply_batch`, [S, P] each (the JAX
-    package's BatchOutput)."""
+    """Per-lane responses (the JAX package's BatchOutput): tensors
+    [S, P] from `apply_batch_plain`, host arrays [P] from the one-shard
+    `apply_batch`."""
 
     status: torch.Tensor  # i64
     limit: torch.Tensor  # i64, the request's limit (0 on inactive lanes)
@@ -548,8 +558,9 @@ class BatchOutput(NamedTuple):
     pre_expire: torch.Tensor  # the slot's stored expiry as gathered
 
 
-def apply_batch(state: BucketState, req: RequestBatch, now) -> BatchOutput:
-    """The JAX package's apply_batch vmapped over S, in place: slots are
+def apply_batch_plain(state: BucketState, req: RequestBatch, now) -> BatchOutput:
+    """The JAX package's apply_batch vmapped over S, in place (the plain
+    versions of the GLOBAL kernels build on it): slots are
     unique within the batch (duplicate keys are the planner's rounds or
     `occ` groups).  The JAX form's `cold_cond` only chooses how its
     cold-row scatter is compiled; either way the cold row is written
@@ -607,13 +618,11 @@ def _finish(packed, now, wide: bool):
     return packed[:, :4].contiguous() if wide else _narrow(packed, now)
 
 
-def bucket_rounds_dict_plain(hot, cold, wire, n_rounds: int, now_ms: int,
-                             wide: bool):
-    """Plain version of the dict-wire kernel (the JAX package's
-    apply_rounds_packed / apply_rounds_packed_wide vmapped over S):
-    decodes the single-buffer wire i32[S, 3P + 3072], runs the rounds
-    against `hot`/`cold` in place and returns the packed output,
-    i32[S, 4, P] or, when `wide`, i64[S, 4, P]."""
+def _dict_request(wire, now: int, wide: bool):
+    """Decode a single-buffer wire i32[S, 3P + 3072] into the lanes'
+    RequestBatch and round ids (the JAX package's unpack_dict_wire and
+    the table gathers of apply_rounds_packed / _wide): the narrow form
+    takes each value's low word as int32, the wide one the whole i64."""
     S, W = wire.shape
     P = (W - DICT_WIRE_TABLE_WORDS) // 3
     w = wire.to(_I64)
@@ -632,7 +641,6 @@ def bucket_rounds_dict_plain(hot, cold, wire, n_rounds: int, now_ms: int,
         v = (hi << 32) | (lo & _MASK32)
         return v if wide else _sext32(v)
 
-    now = int(now_ms)
     hits, limit, duration, delta, greg_dur = (value(k) for k in range(5))
     if wide:
         greg_expire = torch.where(greg_dur != 0, now + delta, 0)
@@ -644,8 +652,35 @@ def bucket_rounds_dict_plain(hot, cold, wire, n_rounds: int, now_ms: int,
         greg_expire=greg_expire, greg_duration=greg_dur,
         occ=meta & 0xFFFF, write=(fl & 2) != 0,
     )
-    packed = _rounds_plain(BucketState(hot, cold), req, w[:, 2 * P:3 * P],
-                           n_rounds, now)
+    return req, w[:, 2 * P:3 * P]
+
+
+def _cols_request(lanes, values, now: int, wide: bool):
+    """Decode the per-lane-column wire (lanes i32[S, 6, P], values
+    [S, 5, P]) into the lanes' RequestBatch and round ids; narrow values
+    carry greg_expire as a delta from now, wide ones absolute."""
+    ln = lanes.to(_I64)
+    v = values.to(_I64)
+    greg_expire = v[:, 3] if wide else now + v[:, 3]
+    req = RequestBatch(
+        slot=ln[:, 0], exists=(ln[:, 1] & 1) != 0, algorithm=ln[:, 2],
+        behavior=ln[:, 3], hits=v[:, 0], limit=v[:, 1], duration=v[:, 2],
+        greg_expire=greg_expire, greg_duration=v[:, 4], occ=ln[:, 4],
+        write=(ln[:, 1] & 2) != 0,
+    )
+    return req, ln[:, 5]
+
+
+def bucket_rounds_dict_plain(hot, cold, wire, n_rounds: int, now_ms: int,
+                             wide: bool):
+    """Plain version of the dict-wire kernel (the JAX package's
+    apply_rounds_packed / apply_rounds_packed_wide vmapped over S):
+    decodes the single-buffer wire i32[S, 3P + 3072], runs the rounds
+    against `hot`/`cold` in place and returns the packed output,
+    i32[S, 4, P] or, when `wide`, i64[S, 4, P]."""
+    now = int(now_ms)
+    req, rid = _dict_request(wire, now, wide)
+    packed = _rounds_plain(BucketState(hot, cold), req, rid, n_rounds, now)
     return _finish(packed, now, wide)
 
 
@@ -658,18 +693,54 @@ def bucket_rounds_cols_plain(hot, cold, lanes, values, n_rounds: int,
     flags = exists | write<<1, algorithm, behavior, occ, round_id) and
     `values` [S, 5, P] (hits, limit, duration, greg_expire,
     greg_duration)."""
-    ln = lanes.to(_I64)
-    v = values.to(_I64)
     now = int(now_ms)
-    greg_expire = v[:, 3] if wide else now + v[:, 3]
-    req = RequestBatch(
-        slot=ln[:, 0], exists=(ln[:, 1] & 1) != 0, algorithm=ln[:, 2],
-        behavior=ln[:, 3], hits=v[:, 0], limit=v[:, 1], duration=v[:, 2],
-        greg_expire=greg_expire, greg_duration=v[:, 4], occ=ln[:, 4],
-        write=(ln[:, 1] & 2) != 0,
-    )
-    packed = _rounds_plain(BucketState(hot, cold), req, ln[:, 5], n_rounds, now)
+    req, rid = _cols_request(lanes, values, now, wide)
+    packed = _rounds_plain(BucketState(hot, cold), req, rid, n_rounds, now)
     return _finish(packed, now, wide)
+
+
+def _compact_plain(hot, cold, req: RequestBatch, wlane, now: int):
+    """One round of every lane (round ids ignored), then a commit of
+    only the lanes `wlane` i32[S, Pw] lists (the JAX package's
+    apply_compact32 vmapped over S): an entry below 0 is padding and
+    writes nothing, an entry >= P stands for lane P - 1 (JAX's clip), a
+    repeated entry writes its row twice (the same bytes); a listed lane
+    writes its hot row where it is a write lane and its cold row where
+    its config changed.  Returns the narrow i32[S, 4, P]."""
+    S, P = req.slot.shape
+    C = hot.shape[1]
+    sidx = torch.arange(S, device=req.slot.device)[:, None]
+    s = torch.clamp(req.slot, 0, C - 1)
+    out, new_hot, new_cold, writes, cold_changed = _apply_compute(
+        hot[sidx.expand(S, P), s], cold[sidx.expand(S, P), s], req, now)
+    wl = torch.clamp(wlane.to(_I64), 0, P - 1)
+    wsh = sidx.expand_as(wl)
+    in_table = req.slot < C  # a slot past the table drops its write
+    hot_w = (wlane >= 0) & (writes & in_table)[wsh, wl]
+    cold_w = hot_w & cold_changed[wsh, wl]
+    hot[wsh[hot_w], req.slot[wsh[hot_w], wl[hot_w]]] = new_hot[wsh[hot_w], wl[hot_w]]
+    cold[wsh[cold_w], req.slot[wsh[cold_w], wl[cold_w]]] = new_cold[wsh[cold_w], wl[cold_w]]
+    return _narrow(out, now)
+
+
+def apply_compact32_plain(hot, cold, lanes, values, wlane, now_ms: int):
+    """Plain version of the compact-commit kernel K10 fed from narrow
+    per-lane columns (the JAX package's apply_compact32 vmapped over S):
+    lanes i32[S, 6, P] and values i32[S, 5, P] as bucket_rounds_cols
+    takes them (round ids ignored), wlane i32[S, Pw]; updates hot/cold
+    in place and returns i32[S, 4, P] (see _compact_plain)."""
+    now = int(now_ms)
+    req, _ = _cols_request(lanes, values, now, wide=False)
+    return _compact_plain(hot, cold, req, wlane, now)
+
+
+def apply_compact_packed_plain(hot, cold, wire, wlane, now_ms: int):
+    """Plain version of K10 fed from the dict wire (the JAX package's
+    apply_compact_packed vmapped over S): wire i32[S, 3P + 3072], its
+    round ids ignored; otherwise as apply_compact32_plain."""
+    now = int(now_ms)
+    req, _ = _dict_request(wire, now, wide=False)
+    return _compact_plain(hot, cold, req, wlane, now)
 
 
 # ---------------------------------------------------------------------
@@ -710,6 +781,190 @@ def bucket_rounds_cols(hot, cold, lanes, values, n_rounds: int, now_ms: int,
                                            now_ms, wide)
     return bucket_rounds_cols_plain(hot, cold, lanes, values, n_rounds,
                                     now_ms, wide)
+
+
+def compact_dict(hot, cold, wire, wlane, now_ms: int):
+    """One single-round dict-wire batch with the compact commit: every
+    lane evaluated, only the rows of the lanes in `wlane` i32[S, Pw]
+    written (in place); returns the narrow i32[S, 4, P] (see
+    apply_compact_packed_plain)."""
+    if _route(hot) == "cuda":
+        from . import _kernels
+
+        return _kernels.bucket_compact(hot, cold, wlane, now_ms, wire=wire)
+    return apply_compact_packed_plain(hot, cold, wire, wlane, now_ms)
+
+
+def compact_cols(hot, cold, lanes, values, wlane, now_ms: int):
+    """compact_dict fed from narrow per-lane columns (see
+    apply_compact32_plain)."""
+    if _route(hot) == "cuda":
+        from . import _kernels
+
+        return _kernels.bucket_compact(hot, cold, wlane, now_ms, lanes=lanes,
+                                       values=values)
+    return apply_compact32_plain(hot, cold, lanes, values, wlane, now_ms)
+
+
+# ---------------------------------------------------------------------
+# One-shard forms: the JAX package's programs of its one-shard store
+# (ShardStore).  The port's ShardStore keeps a BucketState with S = 1,
+# so these run K1, K2 and K10 with one shard; they take one shard's
+# columns [P] (a wire i32[3P + 3072]) as the JAX forms do and return
+# the packed output without the shard axis.
+# ---------------------------------------------------------------------
+class RequestBatch32(NamedTuple):
+    """Narrow per-lane columns of one shard (the JAX package's
+    RequestBatch32): int32 values, the Gregorian expiry as a delta from
+    now (0 where unused).  Host arrays [P]."""
+
+    slot: np.ndarray
+    exists: np.ndarray
+    algorithm: np.ndarray
+    behavior: np.ndarray
+    hits: np.ndarray
+    limit: np.ndarray
+    duration: np.ndarray
+    greg_expire_delta: np.ndarray
+    greg_duration: np.ndarray
+    occ: np.ndarray
+    write: np.ndarray
+
+
+def _one_shard_columns(slot, exists, algorithm, behavior, vdtype, values, occ, write):
+    slot = np.asarray(slot, np.int32)
+    n = slot.shape[0]
+    return dict(
+        slot=slot, exists=np.asarray(exists, bool),
+        algorithm=np.asarray(algorithm, np.int32),
+        behavior=np.asarray(behavior, np.int32),
+        **{k: np.zeros(n, vdtype) if v is None else np.asarray(v, vdtype)
+           for k, v in values.items()},
+        # No occurrence column: every lane its own group; no write
+        # column: every lane writes (the JAX forms' None defaults).
+        occ=np.zeros(n, np.int32) if occ is None else np.asarray(occ, np.int32),
+        write=np.ones(n, bool) if write is None else np.asarray(write, bool),
+    )
+
+
+def make_batch(slot, exists, algorithm, behavior, hits, limit, duration,
+               greg_expire=None, greg_duration=None, occ=None,
+               write=None) -> RequestBatch:
+    """One shard's wide per-lane columns (the JAX package's make_batch)
+    as host arrays [P]; int64 values, absolute Gregorian expiry."""
+    return RequestBatch(**_one_shard_columns(
+        slot, exists, algorithm, behavior, np.int64,
+        dict(hits=hits, limit=limit, duration=duration, greg_expire=greg_expire,
+             greg_duration=greg_duration), occ, write))
+
+
+def make_batch32(slot, exists, algorithm, behavior, hits, limit, duration,
+                 greg_expire_delta=None, greg_duration=None, occ=None,
+                 write=None) -> RequestBatch32:
+    """One shard's narrow per-lane columns (the JAX package's
+    make_batch32) as host arrays [P]."""
+    return RequestBatch32(**_one_shard_columns(
+        slot, exists, algorithm, behavior, np.int32,
+        dict(hits=hits, limit=limit, duration=duration,
+             greg_expire_delta=greg_expire_delta, greg_duration=greg_duration),
+        occ, write))
+
+
+def batch_columns(req, round_id=None):
+    """One shard's batch (make_batch or make_batch32) as the per-lane
+    wire of K2 and K10: host lanes i32[1, 6, P] and values [1, 5, P],
+    i64 for a RequestBatch, i32 for a RequestBatch32.  `round_id`
+    defaults to round 0 for every lane."""
+    slot = np.asarray(req.slot, np.int32)
+    rid = np.zeros_like(slot) if round_id is None else np.asarray(round_id, np.int32)
+    flags = np.asarray(req.exists, np.int32) | (np.asarray(req.write, np.int32) << 1)
+    lanes = np.stack([slot, flags, np.asarray(req.algorithm, np.int32),
+                      np.asarray(req.behavior, np.int32),
+                      np.asarray(req.occ, np.int32), rid])[None]
+    wide = isinstance(req, RequestBatch)
+    greg_expire = req.greg_expire if wide else req.greg_expire_delta
+    values = np.stack([np.asarray(v, np.int64 if wide else np.int32) for v in (
+        req.hits, req.limit, req.duration, greg_expire, req.greg_duration)])[None]
+    return np.ascontiguousarray(lanes), np.ascontiguousarray(values)
+
+
+def _shard_device(state: BucketState) -> torch.device:
+    if state.hot.dim() != 3 or state.hot.shape[0] != 1:
+        raise ValueError(f"a one-shard state is [1, C, 8], got {tuple(state.hot.shape)}")
+    return state.hot.device
+
+
+def _put(a, device) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+
+def _wire_row(wire, device) -> torch.Tensor:
+    """A one-shard wire, i32[3P + 3072] (tensor or host array), as the
+    kernels' [1, W] on `device`."""
+    w = wire if isinstance(wire, torch.Tensor) else torch.from_numpy(np.asarray(wire, np.int32))
+    return w.to(device).reshape(1, -1).contiguous()
+
+
+def unpack_output(packed):
+    """Host decode of a wide packed i64[4, P] (the JAX package's
+    unpack_output): (status, removed, remaining, reset_time,
+    new_expire)."""
+    row0 = packed[0]
+    return ((row0 & 1).astype("int32"), (row0 >> 1).astype(bool),
+            packed[1], packed[2], packed[3])
+
+
+def apply_batch(state: BucketState, req: RequestBatch, now_ms: int) -> BatchOutput:
+    """The JAX package's apply_batch on one shard: one round of a wide
+    batch through K2 (round 0 for every lane), slots unique; the
+    BatchOutput is rebuilt on the host from the packed i64[4, P], the
+    limit echoed from the request.  The packed output carries no
+    pre-round expiry, so `pre_expire` is None."""
+    dev = _shard_device(state)
+    lanes, values = batch_columns(req)
+    packed = bucket_rounds_cols(state.hot, state.cold, _put(lanes, dev), _put(values, dev),
+                                1, now_ms, True)[0].cpu().numpy()
+    status, removed, remaining, reset, new_expire = unpack_output(packed)
+    slot = np.asarray(req.slot)
+    return BatchOutput(status=status, limit=np.where(slot >= 0, np.asarray(req.limit), 0),
+                       remaining=remaining, reset_time=reset, new_expire=new_expire,
+                       removed=removed, pre_expire=None)
+
+
+def apply_rounds_packed_fused(state: BucketState, wires, n_rounds_vec, now_vec,
+                              wide: bool = False):
+    """The JAX package's apply_rounds_packed_fused: K same-shape wires
+    applied in order (batch i + 1 sees the state batch i left), K
+    launches of K1 on one stream into one stacked result [K, 4, P]."""
+    dev = _shard_device(state)
+    ws = [_wire_row(w, dev) for w in wires]
+    P = (ws[0].shape[1] - DICT_WIRE_TABLE_WORDS) // 3
+    out = torch.empty((len(ws), 1, 4, P), device=dev,
+                      dtype=torch.int64 if wide else torch.int32)
+    for i, w in enumerate(ws):
+        bucket_rounds_dict(state.hot, state.cold, w, int(n_rounds_vec[i]),
+                           int(now_vec[i]), wide, out=out[i])
+    return out[:, 0]
+
+
+def apply_compact32(state: BucketState, req32: RequestBatch32, wlane, now_ms: int):
+    """The JAX package's apply_compact32 on one shard (K10 on narrow
+    columns): a single-round batch, every lane evaluated, only the rows
+    of the lanes in `wlane` i32[Pw] (-1 padded) written; returns the
+    narrow i32[4, P]."""
+    dev = _shard_device(state)
+    lanes, values = batch_columns(req32)
+    wl = _put(np.asarray(wlane, np.int32).reshape(1, -1), dev)
+    return compact_cols(state.hot, state.cold, _put(lanes, dev), _put(values, dev),
+                        wl, now_ms)[0]
+
+
+def apply_compact_packed(state: BucketState, wire, wlane, now_ms: int):
+    """The JAX package's apply_compact_packed on one shard (K10 on the
+    dict wire, its round ids ignored); returns the narrow i32[4, P]."""
+    dev = _shard_device(state)
+    wl = _put(np.asarray(wlane, np.int32).reshape(1, -1), dev)
+    return compact_dict(state.hot, state.cold, _wire_row(wire, dev), wl, now_ms)[0]
 
 
 # ---------------------------------------------------------------------

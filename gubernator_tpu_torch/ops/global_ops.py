@@ -140,7 +140,7 @@ def answer_rounds_plain(hot, cold, gcols: GlobalColumns, lanes, values, gslot,
         g = torch.clamp(gs, 0, G - 1)
         cached = has_g & (gcols.rep_expire[sidx, g] >= now)
         slot = torch.where(active & ~cached, req.slot, -1)
-        out = buckets.apply_batch(state, req._replace(slot=slot), now)
+        out = buckets.apply_batch_plain(state, req._replace(slot=slot), now)
         status = torch.where(cached, gcols.rep_status[sidx, g].to(_I64), out.status)
         row0 = status | (out.removed.to(_I64) << 1) | (cached.to(_I64) << 2)
         newp = torch.stack((
@@ -187,7 +187,7 @@ def global_sync_plain(hot, cold, gcols: GlobalColumns, cfg, dirty, now_ms: int):
         greg_duration=lanes(gd), occ=torch.zeros_like(apply_mask, dtype=_I64),
         write=apply_mask,
     )
-    out = buckets.apply_batch(BucketState(hot, cold), req, now)
+    out = buckets.apply_batch_plain(BucketState(hot, cold), req, now)
 
     def bcast(v):  # exactly one shard owns each gslot: a masked psum
         return torch.where(apply_mask, v, 0).sum(dim=0)

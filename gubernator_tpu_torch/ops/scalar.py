@@ -1,0 +1,264 @@
+"""Host-side scalar twin of the bucket kernel (the express slot's
+singleton fast path).
+
+The port of the JAX package's ops/scalar.py.  On a CPU store a small
+batch pays the whole launch machinery (wire packing, the plain
+version's vectorised rounds over a padded batch, the readback) for
+arithmetic that is a handful of integer operations per lane.  This
+module evaluates ONE lane of `_apply_compute` (ops/buckets.py) directly
+on the host and writes the bucket row IN PLACE through a writable view
+of the state tensor: a CPU tensor's `.numpy()` is already a writable
+view of its storage.  On a CUDA store there is no such view and the
+express slot is never taken: the batch takes the kernel (the JAX
+package likewise takes its device program on an accelerator).
+
+Safety contract (why the in-place write is sound):
+
+* CPU only — `device_is_cpu` gates on the store's device, and
+  `shard_view` refuses a tensor that is not on the CPU.
+* The write happens at the batch's LAUNCH turn, under the store's
+  `_lock` (the same lock every launch holds), so no other launch reads
+  the rows while one is mutated.
+* Ticket order is untouched: the scalar batch holds an ordinary
+  pipeline ticket and its commit runs through the ordinary FIFO drain,
+  so interleaved scalar and kernel batches replay in plan order.
+
+Semantics are a line-for-line port of `_apply_compute` for one lane
+(occ=0, write=True — a singleton is always its own duplicate group),
+with exact integer leak arithmetic and fixed-point leaky remaining.
+tests/test_torch_express.py holds it to the JAX package's apply_one and
+to the kernels' plain versions.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from ..types import Algorithm, Behavior, Status
+from .buckets import LEAKY_SCALE
+
+# hot/cold lane indices (BucketState layout, ops/buckets.py)
+_H_FLAGS, _H_REM_LO, _H_REM_HI = 0, 1, 2
+_H_STAMP_LO, _H_STAMP_HI, _H_EXP_LO, _H_EXP_HI = 3, 4, 5, 6
+_C_LIM_LO, _C_LIM_HI, _C_DUR_LO, _C_DUR_HI = 0, 1, 2, 3
+
+_MASK32 = (1 << 32) - 1
+_MASK64 = (1 << 64) - 1
+
+
+def _i64(v: int) -> int:
+    """Wrap a Python int to int64 two's-complement (the kernel's
+    arithmetic domain)."""
+    v &= _MASK64
+    return v - (1 << 64) if v >= (1 << 63) else v
+
+
+def _compose64(lo: int, hi: int) -> int:
+    """Exact int64 from a lo/hi int32 pair (sign lives in hi)."""
+    return (int(hi) << 32) | (int(lo) & _MASK32)
+
+
+def _lo32(v: int) -> int:
+    """Low 32 bits as a SIGNED int32 value (modular truncation, the
+    kernel's _lo32 — numpy rejects out-of-range assignment)."""
+    w = v & _MASK32
+    return w - (1 << 32) if w >= (1 << 31) else w
+
+
+def _hi32(v: int) -> int:
+    """High 32 bits as a signed int32 value."""
+    w = (v >> 32) & _MASK32
+    return w - (1 << 32) if w >= (1 << 31) else w
+
+
+# ---------------------------------------------------------------------
+# Writable host views of CPU state tensors
+# ---------------------------------------------------------------------
+
+def shard_view(t: torch.Tensor, s: int) -> np.ndarray:
+    """A writable numpy view of shard `s` of a state tensor [S, C, 8]
+    (its [C, 8] rows).  A tensor off the CPU has none: TypeError, never
+    a copy."""
+    return t[s].numpy()
+
+
+def device_is_cpu(device) -> bool:
+    return torch.device(device).type == "cpu"
+
+
+# ---------------------------------------------------------------------
+# The scalar kernel twin
+# ---------------------------------------------------------------------
+
+def _leak_amounts(el_c: int, lim_nn: int, rn: int) -> Tuple[int, int]:
+    """Exact (floor(el*lim/rn), floor((el*lim mod rn) * SCALE / rn)) —
+    Python ints are exact at any magnitude, matching _muldiv128."""
+    prod = el_c * lim_nn
+    lw = prod // rn
+    lr = prod % rn
+    return lw, (lr * LEAKY_SCALE) // rn
+
+
+def apply_one(
+    hot_row: np.ndarray,
+    cold_row: np.ndarray,
+    *,
+    exists: bool,
+    algorithm: int,
+    behavior: int,
+    hits: int,
+    limit: int,
+    duration: int,
+    greg_expire: int,
+    greg_duration: int,
+    now_ms: int,
+) -> Tuple[int, int, int, int, bool]:
+    """Evaluate one lane against its bucket row and WRITE the row in
+    place (hot + cold, the kernel's commit).  Returns
+    (status, remaining, reset_time, new_expire, removed) — exactly the
+    per-lane values `_pack_output` would carry for this lane.
+
+    `hot_row`/`cold_row` are writable int32[8] views of the slot's rows;
+    `exists` is the planner's claim that the slot maps this key (expiry
+    is revalidated here, like the kernel does device-side)."""
+    now = int(now_ms)
+    algorithm = int(algorithm)
+    behavior = int(behavior)
+    hits = int(hits)
+    limit = int(limit)
+    duration = int(duration)
+    greg_expire = int(greg_expire)
+    greg_duration = int(greg_duration)
+
+    # -- gather (two row reads) ---------------------------------------
+    g_flags = int(hot_row[_H_FLAGS])
+    g_algo = g_flags & 3
+    g_status = (g_flags >> 2) & 1
+    g_limit = _compose64(cold_row[_C_LIM_LO], cold_row[_C_LIM_HI])
+    g_rem = _compose64(hot_row[_H_REM_LO], hot_row[_H_REM_HI])
+    g_dur = _compose64(cold_row[_C_DUR_LO], cold_row[_C_DUR_HI])
+    g_stamp = _compose64(hot_row[_H_STAMP_LO], hot_row[_H_STAMP_HI])
+    g_exp = _compose64(hot_row[_H_EXP_LO], hot_row[_H_EXP_HI])
+
+    live = bool(exists) and g_exp >= now
+    exist = live and g_algo == algorithm
+
+    is_tok = algorithm == int(Algorithm.TOKEN_BUCKET)
+    greg = (behavior & int(Behavior.DURATION_IS_GREGORIAN)) != 0
+    reset_b = (behavior & int(Behavior.RESET_REMAINING)) != 0
+    OVER = int(Status.OVER_LIMIT)
+    UNDER = int(Status.UNDER_LIMIT)
+    do_hit = hits > 0
+
+    if is_tok:
+        if live and reset_b:
+            # -- token RESET_REMAINING: remove the bucket -------------
+            status, resp_rem, resp_reset = UNDER, limit, 0
+            n_rem, n_stamp, n_exp = g_rem, g_stamp, 0
+            n_limit, n_dur, n_status = g_limit, g_dur, UNDER
+            removed = True
+        else:
+            dur_changed = g_dur != duration
+            exp_from_cfg = greg_expire if greg else _i64(g_stamp + duration)
+            dur_expired = dur_changed and exp_from_cfg < now
+            t_exp = exp_from_cfg if dur_changed else g_exp
+            if exist and not dur_expired:
+                # -- token, existing item -------------------------------
+                t_rem0 = max(g_rem + (limit - g_limit), 0)
+                can_take = do_hit and hits <= t_rem0
+                t_rem1 = t_rem0 - hits if can_take else t_rem0
+                status = (
+                    OVER if do_hit and (t_rem0 == 0 or hits > t_rem0)
+                    else g_status
+                )
+                n_status = OVER if do_hit and t_rem0 == 0 else g_status
+                resp_rem = t_rem1 if can_take else t_rem0
+                resp_reset = t_exp
+                n_rem, n_stamp, n_exp = t_rem1, g_stamp, t_exp
+                n_limit, n_dur = limit, g_dur
+                removed = False
+            else:
+                # -- token, fresh create --------------------------------
+                c_exp = greg_expire if greg else _i64(now + duration)
+                c_over = hits > limit
+                c_rem = limit if c_over else limit - hits
+                status = OVER if c_over else UNDER
+                resp_rem, resp_reset = c_rem, c_exp
+                n_rem, n_stamp, n_exp = c_rem, now, c_exp
+                n_limit, n_dur, n_status = limit, duration, UNDER
+                removed = False
+    else:
+        rate_num = greg_duration if greg else duration
+        dur_eff = _i64(greg_expire - now) if greg else duration
+        lim_safe = max(limit, 1)
+        if exist:
+            # -- leaky, existing item ------------------------------------
+            l_rem = limit * LEAKY_SCALE if reset_b else g_rem
+            rn = max(rate_num, 1)
+            el_c = min(max(now - g_stamp, 0), rn)
+            lim_nn = max(limit, 0)
+            leak_whole, leak_frac = _leak_amounts(el_c, lim_nn, rn)
+            leak_s = leak_whole * LEAKY_SCALE + leak_frac
+            do_leak = leak_whole > 0
+            if do_leak:
+                l_rem = l_rem + leak_s
+            l_stamp = now if do_leak else g_stamp
+            if l_rem // LEAKY_SCALE > limit:
+                l_rem = limit * LEAKY_SCALE
+            rem_int = l_rem // LEAKY_SCALE
+            l_reset = _i64(now + rate_num // lim_safe)
+            at_zero = rem_int == 0
+            exact = (not at_zero) and rem_int == hits
+            overflow = (not at_zero) and (not exact) and hits > rem_int
+            take = exact or ((not at_zero) and (not overflow) and hits > 0)
+            l_rem_f = l_rem - hits * LEAKY_SCALE if take else l_rem
+            resp_rem = 0 if exact else (l_rem_f // LEAKY_SCALE if take else rem_int)
+            status = OVER if (at_zero or overflow) else UNDER
+            drained_exactly = do_hit and take and (rem_int - hits) == 0
+            any_plain = (int(take) - int(drained_exactly)) >= 1
+            l_exp = _i64(now + dur_eff) if any_plain else g_exp
+            resp_reset = l_reset
+            n_rem, n_stamp, n_exp = l_rem_f, l_stamp, l_exp
+            n_limit, n_dur, n_status = limit, duration, UNDER
+            removed = False
+        else:
+            # -- leaky, fresh create -------------------------------------
+            lc_over = hits > limit
+            lc_take = do_hit and hits <= limit
+            lc_rem = 0 if lc_over else (limit - hits * int(lc_take)) * LEAKY_SCALE
+            resp_rem = (limit - hits) if lc_take else (0 if lc_over else limit)
+            status = OVER if lc_over else UNDER
+            lc_exp = _i64(now + dur_eff)
+            resp_reset = _i64(now + dur_eff // lim_safe)
+            n_rem, n_stamp, n_exp = lc_rem, now, lc_exp
+            n_limit, n_dur, n_status = limit, dur_eff, UNDER
+            removed = False
+
+    # -- commit (the kernel's row scatter, in place) -------------------
+    n_flags = (algorithm & 3) | ((int(n_status) & 1) << 2)
+    n_rem = _i64(n_rem)
+    n_stamp = _i64(n_stamp)
+    n_exp = _i64(n_exp)
+    n_limit = _i64(n_limit)
+    n_dur = _i64(n_dur)
+    hot_row[_H_FLAGS] = n_flags
+    hot_row[_H_REM_LO] = _lo32(n_rem)
+    hot_row[_H_REM_HI] = _hi32(n_rem)
+    hot_row[_H_STAMP_LO] = _lo32(n_stamp)
+    hot_row[_H_STAMP_HI] = _hi32(n_stamp)
+    hot_row[_H_EXP_LO] = _lo32(n_exp)
+    hot_row[_H_EXP_HI] = _hi32(n_exp)
+    hot_row[7] = 0
+    # Cold write is unconditional: when the stored config did not
+    # change the values are equal and the write is a no-op — identical
+    # end state to the kernel's cond-guarded scatter.
+    cold_row[_C_LIM_LO] = _lo32(n_limit)
+    cold_row[_C_LIM_HI] = _hi32(n_limit)
+    cold_row[_C_DUR_LO] = _lo32(n_dur)
+    cold_row[_C_DUR_HI] = _hi32(n_dur)
+    cold_row[4] = cold_row[5] = cold_row[6] = cold_row[7] = 0
+
+    return int(status), _i64(resp_rem), _i64(resp_reset), n_exp, removed

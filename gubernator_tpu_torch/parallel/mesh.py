@@ -50,6 +50,9 @@ process-wide lock (`_SYNC_COLLECTIVE_LOCK`) because two interleaved
 rendezvous on a shared virtual CPU mesh can deadlock; one device has no
 rendezvous, so the port has no such lock.
 
+Small batches of a CPU store take the express scalar slot when
+`scalar_fast_path` is on (ops/scalar.py, as ShardStore).
+
 Not ported yet: `measure_sync_cost_s`, `load_item`, `warmup`,
 `occupancy_stats` and resharding (`drain_keys`, `forget_keys`,
 `resident_*`).
@@ -60,30 +63,32 @@ from __future__ import annotations
 import threading
 import time
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Sequence
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from .. import native
 from ..models.shard import (
+    SCALAR_MAX_LANES,
     ColumnarPipeline,
     ColumnsHandle,
     RoundPlanner,
+    _drained_locked,
     _readback,
     _rows_to_items,
     _Staged,
     build_round_arrays,
-    item_to_rows,
+    express_lane,
     make_columns,
-    make_store_resolver,
     narrow_ok,
     pad_size,
     plan_grouped_python,
     prepare_requests,
+    resolve_device,
 )
 from ..ops import buckets, global_ops
-from ..reshard import TransferColumns, merge_transfer_rows
+from ..ops import scalar as scalar_ops
 from ..types import (
     Behavior,
     RateLimitRequest,
@@ -98,25 +103,6 @@ from .global_mgr import GlobalKeyTable, GlobalsColumns, HitColumns
 def shard_of_key(key: str, n_shards: int) -> int:
     """Static shardmap: fnv1a-64 of the hash key, modulo shard count."""
     return hashing.hash_string_64(key) % n_shards
-
-
-def resolve_device(device=None) -> torch.device:
-    """The store's device: `device` when given, else the current CUDA
-    device.  Never falls back to the CPU: callers who want the CPU (the
-    tests) ask for it."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device is available; pass device='cpu' to run "
-                "on the CPU explicitly"
-            )
-        return torch.device("cuda", torch.cuda.current_device())
-    device = torch.device(device)
-    if device.type == "cuda" and device.index is None:
-        device = torch.device("cuda", torch.cuda.current_device())
-    if device.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {device}")
-    return device
 
 
 def _pad_pow2(n: int, floor: int = 8) -> int:
@@ -135,24 +121,6 @@ def _locked(fn):
     def wrapper(self, *args, **kwargs):
         with self._lock:
             return fn(self, *args, **kwargs)
-
-    wrapper.__name__ = fn.__name__
-    wrapper.__doc__ = fn.__doc__
-    return wrapper
-
-
-def _drained_locked(fn):
-    """Run a mutator with the pipeline drained and the plan and store
-    locks held (ColumnarPipeline._drain_then_lock): it must observe every
-    in-flight columnar batch's commits, and no new batch may plan
-    against the state it mutates."""
-
-    def wrapper(self, *args, **kwargs):
-        self._drain_then_lock()
-        try:
-            return fn(self, *args, **kwargs)
-        finally:
-            self._unlock_drained()
 
     wrapper.__name__ = fn.__name__
     wrapper.__doc__ = fn.__doc__
@@ -282,10 +250,6 @@ class MeshBucketStore(ColumnarPipeline):
         # Kernel launches made by replica-batch commits (one per
         # broadcast, plus one clear when it recycled gslots).
         self.replica_commit_dispatches = 0
-        # Kernel launches of the persistence plane: one row gather per
-        # snapshot_columns, gather + scatter per commit_transfer.
-        self.transfer_drain_dispatches = 0
-        self.transfer_commit_dispatches = 0
         # In-lock seconds of the last sync that did work (GlobalManager
         # sizes its window from it).
         self.last_sync_cost_s: Optional[float] = None
@@ -301,6 +265,9 @@ class MeshBucketStore(ColumnarPipeline):
 
     def size(self) -> int:
         return sum(len(t) for t in self.tables)
+
+    def _tables(self) -> list:
+        return self.tables
 
     def _drain_moves(self) -> None:
         """Apply every queued tier move (caller holds the store lock).
@@ -517,74 +484,6 @@ class MeshBucketStore(ColumnarPipeline):
         row0 = packed_np[:, 0]
         self._fire_store_callbacks(chunks, ((row0 >> 2) & 1) == 1, ((row0 >> 1) & 1) == 1)
 
-    def _store_resolver(self, s: int, now_ms: int):
-        return make_store_resolver(
-            self.tables[s], self.algo_mirror[s], self.store,
-            lambda slot, item: self._inject(s, slot, item), now_ms,
-        )
-
-    def _inject(self, s: int, slot: int, item) -> None:
-        """Write a store item's row at (s, slot): one row-scatter launch
-        with one lane, in stream order before the round's answer launch."""
-        rows = item_to_rows(item)
-        self.algo_mirror[s, slot] = int(rows.algo[0])
-        self._write_rows(np.array([[s], [slot]], np.int32), *buckets.rows_to_cols(rows))
-        self.tables[s].set_expire(slot, item.expire_at)
-
-    def _fire_store_callbacks(self, chunks, cached, removed) -> None:
-        """store.remove for removed lanes, store.on_change with the
-        lane's row after the round for the others (the deferred
-        s.OnChange, algorithms.go:64-68), shard-major in chunk order.
-        Replica-cache answers never touch the store.  One row gather
-        serves every shard."""
-        live = [[] for _ in chunks]
-        for s, chunk in enumerate(chunks):
-            live[s] = [(i, p) for i, p in enumerate(chunk)
-                       if not cached[s, i] and p.slot >= 0 and not removed[s, i]]
-        lanes = [(s, p.slot) for s in range(len(chunks)) for _, p in live[s]]
-        rows = self._read_rows(np.array(lanes, np.int32).T) if lanes else None
-        at = 0
-        for s, chunk in enumerate(chunks):
-            for i, p in enumerate(chunk):
-                if not cached[s, i] and p.slot >= 0 and removed[s, i]:
-                    self.store.remove(p.key)
-            if not live[s]:
-                continue
-            n = len(live[s])
-            items = _rows_to_items([p.key for _, p in live[s]],
-                                   buckets.BucketRows(*(f[at:at + n] for f in rows)))
-            at += n
-            for (_, p), item in zip(live[s], items):
-                self.store.on_change(p.req, item)
-
-    # ------------------------------------------------------------------
-    # Row gather / scatter (the persistence plane)
-    # ------------------------------------------------------------------
-    def _read_rows(self, lanes: np.ndarray) -> buckets.BucketRows:
-        """The rows at host lanes i32[2, M] (shard, slot), one row-gather
-        launch, as host BucketRows."""
-        return buckets.cols_to_rows(*self._gather_cols(lanes))
-
-    def _gather_cols(self, lanes: np.ndarray, back: bool = False):
-        """Host (c32, c64) of the front rows (or with `back`, the back
-        tier's rows) at host lanes i32[2, M], one row-gather launch."""
-        dev_lanes = self._upload(np.ascontiguousarray(lanes, np.int32))
-        if back:
-            c32, c64 = buckets.read_back_rows(self.back, dev_lanes)
-        else:
-            c32, c64 = buckets.gather_rows(self.state.hot, self.state.cold, dev_lanes)
-        f32, f64 = _readback(c32), _readback(c64)
-        return f32(), f64()
-
-    def _write_rows(self, lanes: np.ndarray, c32: np.ndarray, c64: np.ndarray) -> None:
-        """Write rows at host lanes i32[2, M] (distinct), one row-scatter
-        launch."""
-        buckets.write_rows(
-            self.state.hot, self.state.cold,
-            self._upload(np.ascontiguousarray(lanes, np.int32)),
-            self._upload(np.ascontiguousarray(c32, np.int32)),
-            self._upload(np.ascontiguousarray(c64, np.int64)))
-
     @_drained_locked
     def snapshot_items(self):
         """Loader.Save path (gubernator.go:93-111): every resident key as
@@ -617,88 +516,6 @@ class MeshBucketStore(ColumnarPipeline):
                         keys, buckets.BucketRows(*(f[i:i + n] for f in rows))))
                     at[tier] = i + n
         return items
-
-    @_drained_locked
-    def snapshot_columns(self, now_ms: int) -> TransferColumns:
-        """Durability dump (snapshot.py): every resident key's full row,
-        gathered with one row-gather launch.  The tables keep their keys;
-        owner-side GLOBAL buckets are included (they restore as ordinary
-        rows).  Warmup keys stay out of the file."""
-        keys = [k for t in self.tables for k in t.keys()
-                if not k.startswith("__warmup__")]
-        return self._gather_transfer_locked(keys, now_ms)
-
-    def _gather_transfer_locked(self, keys, now_ms: int) -> TransferColumns:
-        """The rows of `keys` at their owner shards (keys no longer
-        mapped are skipped), shard-major and in key order within a shard
-        as the JAX store lays them out, minus rows already expired."""
-        shard, slot = native.mesh_get_slots(self.tables, keys)
-        found = np.nonzero(slot >= 0)[0]
-        if not found.size:
-            return TransferColumns.empty()
-        self._drain_moves()  # land queued promotions before reading rows
-        order = found[np.argsort(shard[found], kind="stable")]
-        rows = self._read_rows(np.stack([shard[order], slot[order]]))
-        self.transfer_drain_dispatches += 1
-        self.device_dispatches += 1
-        live = np.nonzero(rows.expire_at >= now_ms)[0]
-        return TransferColumns(
-            keys=[keys[i] for i in order[live].tolist()],
-            algorithm=rows.algo[live].astype(np.int32),
-            status=rows.status[live].astype(np.int32),
-            limit=rows.limit[live].astype(np.int64),
-            remaining=rows.remaining[live].astype(np.int64),
-            duration=rows.duration[live].astype(np.int64),
-            stamp=rows.stamp[live].astype(np.int64),
-            expire_at=rows.expire_at[live].astype(np.int64),
-        )
-
-    @_drained_locked
-    def commit_transfer(self, cols: TransferColumns, now_ms: int) -> int:
-        """Commit a batch of full rows (a snapshot restore, a Loader's
-        items): assign slots for the whole batch in the host tables,
-        gather the current rows (one launch), merge monotonically on the
-        host (reshard.merge_transfer_rows: an idempotent min/max, so a
-        re-delivered or late batch cannot double-count), and scatter the
-        merged rows back (one launch).  Returns the lanes committed."""
-        n = len(cols)
-        if n == 0:
-            return 0
-        # Dead rows (already expired) are not worth a slot.
-        fresh = np.nonzero(np.asarray(cols.expire_at) >= now_ms)[0].tolist()
-        # Duplicate keys keep the LAST lane, at the first one's place
-        # (dict semantics, as the JAX store orders them).
-        seen: Dict[str, int] = dict(zip([cols.keys[j] for j in fresh], fresh))
-        if not seen:
-            return 0
-        idx = np.fromiter(seen.values(), dtype=np.int64, count=len(seen))
-        m = idx.size
-        shard_ix, slot_ix, exists_ix = native.mesh_lookup_or_assign(
-            self.tables, list(seen), now_ms)
-        # The lookups may have queued promotions of back-tier keys: land
-        # them before reading front rows.
-        self._drain_moves()
-        lanes = np.stack([shard_ix, slot_ix])
-        cur = self._read_rows(lanes)
-        merged = merge_transfer_rows(
-            {"algo": cur.algo, "status": cur.status, "limit": cur.limit,
-             "remaining": cur.remaining, "stamp": cur.stamp,
-             "expire_at": cur.expire_at},
-            cols, idx, now_ms, exists_ix,
-        )
-        c32, c64 = buckets.rows_to_cols(buckets.BucketRows(**merged))
-        # A batch with more keys for a shard than its capacity evicts
-        # keys of its own: the table maps their slot to the later key,
-        # so the later lane is the one written.
-        keep = buckets.last_lane_per_slot(shard_ix, slot_ix)
-        self._write_rows(lanes[:, keep], c32[:, keep], c64[:, keep])
-        self.transfer_commit_dispatches += 2
-        self.device_dispatches += 2
-        # Host mirrors: the algorithm (switch detection) and the table
-        # expiry (planning, eviction), lane by lane.
-        self.algo_mirror[shard_ix, slot_ix] = merged["algo"]
-        native.mesh_set_expire(self.tables, shard_ix, slot_ix, merged["expire_at"])
-        return int(m)
 
     # ------------------------------------------------------------------
     # GLOBAL replication
@@ -958,14 +775,6 @@ class MeshBucketStore(ColumnarPipeline):
             mp=mp, pos=mp.pos[:n], commit=commit,
         )
 
-    def _upload(self, a: np.ndarray) -> torch.Tensor:
-        """Host array -> device tensor; on the card through a pinned
-        buffer with a non-blocking copy on the current stream."""
-        t = torch.from_numpy(a)
-        if self.device.type != "cuda":
-            return t
-        return t.pin_memory().to(self.device, non_blocking=True)
-
     def _stage_columns(self, prep: _MeshPrep) -> _Staged:
         """Stage 2 (no locks): encode the wire and start its upload."""
         cols, now_ms, padded = prep.cols, prep.now_ms, prep.padded
@@ -1034,6 +843,43 @@ class MeshBucketStore(ColumnarPipeline):
             return out
 
         return run
+
+    # -- express scalar slot (ops/scalar.py) ---------------------------
+    def _scalar_eligible(self, cols) -> bool:
+        """ShardStore._scalar_eligible for S shards: each lane of a small
+        batch lives in one shard, evaluated on the host through that
+        shard's view.  Not with a Store SPI, nor with a back tier (its
+        plans queue tier moves that only a launch drains), nor on the
+        card."""
+        if not self.scalar_fast_path:
+            return False
+        if not 1 <= len(cols.hits) <= SCALAR_MAX_LANES:
+            return False
+        if self.store is not None or self.back is not None:
+            return False
+        return scalar_ops.device_is_cpu(self.device)
+
+    def _stage_scalar(self, prep: _MeshPrep) -> _Staged:
+        """Express stage: locate each lane's (shard, row) in the mesh plan
+        and return the host closure; its packed [S, 4, P] wide output
+        feeds the unchanged wide commit (mp.finish_wide).  Lanes apply
+        in submission order (see express_lane for the exists rule)."""
+        cols, mp, padded = prep.cols, prep.mp, prep.padded
+        pos = prep.pos.copy()
+        now_ms = prep.now_ms
+        S = self.n_shards
+
+        def run():
+            packed = np.zeros((S, 4, padded), dtype=np.int64)
+            for i in range(len(pos)):
+                s, j = divmod(int(pos[i]), padded)
+                packed[s, :, j] = express_lane(
+                    scalar_ops.shard_view(self.state.hot, s),
+                    scalar_ops.shard_view(self.state.cold, s), int(mp.slot[s, j]),
+                    mp.exists[s, j], mp.occ[s, j], cols, i, now_ms)
+            return packed
+
+        return _Staged(kernel=None, args=(), scalar=run)
 
     # ------------------------------------------------------------------
     def load_state_numpy(self, hot, cold, entries, algo_mirror=None, back=None) -> None:

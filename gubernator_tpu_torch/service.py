@@ -3,11 +3,15 @@ gubernator.go), on the port's columnar path.
 
 The port of the JAX package's service.py for a single node with no
 peers: every valid lane is owned locally.  Plain lanes are evaluated
-through `MeshBucketStore.apply_columns`; GLOBAL lanes take the store's
-dataclass path (`MeshBucketStore.apply`) as the JAX service routes them
-for a daemon that owns every key, and a GlobalManager syncs them on an
-interval.  With a Store SPI (`persist_store`) every lane takes the
-dataclass path, as the store's callbacks need.  Persistence: a Loader
+through the store's `apply_columns`; GLOBAL lanes take the store's
+dataclass path (`apply`) as the JAX service routes them for a daemon
+that owns every key, and a GlobalManager syncs them on an interval.
+The store is a MeshBucketStore built from the sizes, or the one given
+as `ServiceConfig.store` (a ShardStore for a one-shard deployment,
+which answers GLOBAL lanes as local ones and has no GLOBAL sync, as in
+the JAX package; the service then runs no GlobalManager).  With a
+Store SPI (`persist_store`) every lane takes the dataclass path, as the
+store's callbacks need.  Persistence: a Loader
 (`loader`) is loaded at boot and saved at close; a snapshot file
 (`snapshot_path`) is restored at boot and written at close and on an
 interval (snapshot.py).  Responses are the JAX V1Service's
@@ -64,7 +68,9 @@ class ServiceConfig:
     """Library-user config (reference Config, config.go:66-104), the
     fields of one node without peers."""
 
-    store: Optional[MeshBucketStore] = None  # built from the sizes when None
+    # Any store of the port (a MeshBucketStore, a ShardStore for a
+    # one-shard deployment); built from the sizes when None.
+    store: object = None
     cache_size: int = 50_000  # total slots, split evenly over 8 shards
     # Two-tier table: > 0 adds a device-resident back tier of this many
     # extra slots (total capacity = cache_size + back_cache_size; the
@@ -183,7 +189,8 @@ class V1Service:
             self, path=conf.snapshot_path, interval_s=conf.snapshot_interval_s)
         self.snapshots.restore()
         self.snapshots.start()
-        self.global_mgr = GlobalManager(self)
+        # A store without a GLOBAL sync (a ShardStore) gets no sync ticks.
+        self.global_mgr = GlobalManager(self) if hasattr(self.store, "sync_globals") else None
 
     # ------------------------------------------------------------------
     def get_rate_limits(self, req: GetRateLimitsRequest) -> GetRateLimitsResponse:
@@ -324,7 +331,8 @@ class V1Service:
         if self._closed:
             return
         self._closed = True
-        self.global_mgr.stop()
+        if self.global_mgr is not None:
+            self.global_mgr.stop()
         self.store._drain_all()
         self.snapshots.stop()
         self.snapshots.save_now("close")

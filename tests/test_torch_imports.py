@@ -51,12 +51,13 @@ def _imported_roots(path):
 
 
 def test_global_plane_modules_are_covered():
-    """The GLOBAL and persistence planes' modules are among those the
-    two checks above import with JAX absent and scan for imports."""
+    """The GLOBAL, persistence and one-shard store modules (the K10
+    binding lives in ops._kernels) are among those the two checks above
+    import with JAX absent and scan for imports."""
     mods = set(_modules())
     for m in ("ops.global_ops", "parallel.global_mgr", "utils.interval",
               "parallel.mesh", "service", "ops._kernels", "store", "reshard",
-              "snapshot"):
+              "snapshot", "models.shard", "models.slot_table", "ops.scalar"):
         assert f"gubernator_tpu_torch.{m}" in mods, m
 
 
@@ -121,10 +122,13 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         _kernels.apply_moves(hot, hot.clone(), hot.clone(), hot.clone(),
                              torch.zeros((3, 8), dtype=torch.int32))
+    with pytest.raises(ValueError, match="CUDA"):
+        _kernels.bucket_compact(hot, hot.clone(), torch.zeros((8, 4), dtype=torch.int32), 0,
+                                wire=torch.zeros((8, 3 * 64 + 3072), dtype=torch.int32))
     assert set(_kernels.LAUNCHES) == {
         "bucket_rounds_dict", "bucket_rounds_cols", "global_answer_rounds",
         "global_sync", "set_replica", "clear_gslots", "gather_rows", "write_rows",
-        "gather_back_rows", "apply_moves"}
+        "gather_back_rows", "apply_moves", "bucket_compact"}
     assert not any(_kernels.LAUNCHES.values())
 
 
@@ -141,3 +145,21 @@ def test_native_fnv1a_matches_python_hash():
 def test_package_exports_types():
     assert gubernator_tpu_torch.Algorithm.LEAKY_BUCKET == 1
     assert gubernator_tpu_torch.__version__
+
+
+def test_every_kernel_source_is_built_and_bound():
+    """Each csrc/*.cu (compact.cu's K10 included) is among the sources
+    the build compiles, and each of its C entry points has a ctypes
+    signature in ops/_kernels.py."""
+    import re
+
+    from gubernator_tpu_torch.ops import _kernels
+
+    csrc = os.path.join(PKG, "csrc")
+    cu = sorted(n for n in os.listdir(csrc) if n.endswith(".cu"))
+    assert "compact.cu" in cu
+    assert cu == sorted(os.path.basename(p) for p in _kernels.SOURCES)
+    for name in cu:
+        text = open(os.path.join(csrc, name)).read()
+        entry = re.findall(r"^int (gt_\w+)\(", text.split('extern "C"')[1], re.M)
+        assert entry and set(entry) <= set(_kernels._SIGNATURES), (name, entry)

@@ -1,11 +1,13 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
 card: seeded cases (chip_smoke.make_case, chip_smoke.global_case,
-chip_smoke.rows_case, chip_smoke.moves_case) through each kernel (K1 and
-K2 narrow and wide; K3-K6 of the GLOBAL plane; the row gather K7 and row
-scatter K8; the tier move K9, its records in either order) must
-give the plain version's outputs, state and replica-column bytes
-exactly (tolerance 0: all integer).  Skipped without a CUDA device; on a
-machine with one, run `python -m pytest -m cuda tests/test_torch_kernels.py`.
+chip_smoke.rows_case, chip_smoke.moves_case, chip_smoke.compact_case)
+through each kernel (K1 and K2 narrow and wide; K3-K6 of the GLOBAL
+plane; the row gather K7 and row scatter K8; the tier move K9, its
+records in either order; the compact commit K10, every write lane
+listed or half of them) must give the plain version's outputs, state
+and replica-column bytes exactly (tolerance 0: all integer).  Skipped
+without a CUDA device; on a machine with one, run
+`python -m pytest -m cuda tests/test_torch_kernels.py`.
 `python3 chip_smoke.py` runs the same comparison at full size."""
 
 import pytest
@@ -76,5 +78,19 @@ def test_moves_kernel_matches_plain(cuda_device, seed, reverse):
     case = moves_case(seed, 64, 256, 20, 15)
     got = run_moves(torch, cuda_device, case, plain=False, reverse=reverse)
     want = run_moves(torch, cuda_device, case, plain=True)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.tobytes() == w.tobytes()
+
+
+@pytest.mark.parametrize("kind", ["dict", "cols"])
+@pytest.mark.parametrize("seed,subset", [(0, False), (1, True)])
+def test_compact_kernel_matches_plain(cuda_device, kind, seed, subset):
+    import torch
+
+    from chip_smoke import compact_case, run_compact
+
+    case = compact_case(seed, 512, 256, kind, 12 if kind == "dict" else 300, subset=subset)
+    got = run_compact(torch, cuda_device, kind, case, plain=False)
+    want = run_compact(torch, cuda_device, kind, case, plain=True)
     for g, w in zip(got, want):
         assert g.dtype == w.dtype and g.tobytes() == w.tobytes()

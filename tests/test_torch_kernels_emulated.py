@@ -2,11 +2,13 @@
 the CUDA runtime (tests/cuda_emu/cuda_runtime.h), against their plain
 PyTorch versions: the same seeded cases as tests/test_torch_kernels.py
 (K1 and K2 narrow and wide; K3-K6 of the GLOBAL plane; the row gather
-K7 and row scatter K8; the tier move K9), tolerance 0.
+K7 and row scatter K8; the tier move K9; the compact commit K10),
+tolerance 0.
 
 This holds the kernels' device logic (the round steps, the replica
 answer, the sync, the scatters, the row composition and split, the
-tier move's gather and scatter) on a machine with no card, where the
+tier move's gather and scatter, the compact commit over the listed
+write lanes) on a machine with no card, where the
 cuda-marked tests skip.  The stand-in runs the threads of a launch one
 after another, so it shows no race and nothing of what nvcc does; the
 card runs of tests/test_torch_kernels.py and chip_smoke.py remain the
@@ -173,3 +175,44 @@ def test_emulated_back_row_gather_counts_apart(emulated):
     _same([t.numpy() for t in (*out, h, c)], want)
     assert emulated.LAUNCHES["gather_back_rows"] == before["gather_back_rows"] + 1
     assert emulated.LAUNCHES["gather_rows"] == before["gather_rows"]
+
+
+@pytest.mark.parametrize("kind", ["dict", "cols"])
+@pytest.mark.parametrize("seed,subset", [(0, False), (1, True), (2, False), (3, True)])
+def test_emulated_compact_kernel_matches_plain(emulated, kind, seed, subset):
+    """K10 on a one-shard single-round batch, every write lane listed or
+    half of them."""
+    import torch
+
+    from chip_smoke import NOW, compact_case, run_compact
+
+    case = compact_case(seed, 512, 256, kind, 12 if kind == "dict" else 300, subset=subset)
+    want = run_compact(torch, "cpu", kind, case, plain=True)
+    hot, cold, args, wlane = case
+    h, c = torch.tensor(hot), torch.tensor(cold)
+    src = dict(wire=torch.tensor(args[0])) if kind == "dict" else dict(
+        lanes=torch.tensor(args[0]), values=torch.tensor(args[1]))
+    before = emulated.LAUNCHES["bucket_compact"]
+    out = emulated.bucket_compact(h, c, torch.tensor(wlane), NOW, **src)
+    _same([t.numpy() for t in (out, h, c)], want)
+    assert emulated.LAUNCHES["bucket_compact"] == before + 1
+
+
+def test_emulated_compact_kernel_keeps_the_wlane_quirks(emulated):
+    """The JAX form's quirks: an entry past the batch stands for its last
+    lane, a repeated entry writes the same row again, a negative entry
+    writes nothing, an empty list commits nothing."""
+    import torch
+
+    from chip_smoke import NOW, compact_case, run_compact
+
+    hot, cold, args, wlane = compact_case(7, 512, 256, "dict", 12)
+    listed = wlane[0][wlane[0] >= 0]
+    odd = np.concatenate([listed, listed[:5], [256, 10_000, -1, -7]]).astype(np.int32)
+    for wl in (odd[None], np.zeros((1, 0), np.int32)):
+        case = (hot, cold, args, np.ascontiguousarray(wl))
+        want = run_compact(torch, "cpu", "dict", case, plain=True)
+        h, c = torch.tensor(hot), torch.tensor(cold)
+        out = emulated.bucket_compact(h, c, torch.tensor(case[3]), NOW,
+                                      wire=torch.tensor(args[0]))
+        _same([t.numpy() for t in (out, h, c)], want)
