@@ -9,10 +9,13 @@ Phases (any failure exits non-zero and prints no `ok` line):
 1. device   — the card's name and power limit (nvidia-smi);
 2. build    — nvcc builds the kernel libraries (one process per source)
               and g++ the host runtime, from this checkout's sources, in
-              parallel;
+              parallel; ptxas' registers and spills of each kernel, and
+              the SASS instructions one lane of K1/K2 executes in each
+              branch of the evaluation (the instruction bound's count);
 3. kernels  — each kernel against its plain PyTorch version on the same
               card and inputs: K1 (dict wire) and K2 (per-lane columns),
-              narrow and wide, and the GLOBAL kernels K3 (answer
+              narrow and wide (also in 5 rounds that reuse slots, and
+              past the lanes one launch holds), and the GLOBAL kernels K3 (answer
               rounds), K4 (sync), K5 (replica commit) and K6 (replica
               clear), the row gather (K7) and row scatter (K8), the
               tier move (K9, its records in both orders, with the
@@ -32,7 +35,9 @@ Phases (any failure exits non-zero and prints no `ok` line):
               monthly-Gregorian (wide) batch and one batch with more than
               256 configs (K2); every answer and the final state must
               equal the same traffic through a store on the plain
-              versions (CPU);
+              versions (CPU); then launch fusion on the card: a stalled
+              stage step queues batches at the launch gate, so they run
+              as groups of K1 launches back to back, == a CPU store;
 6. global   — the GLOBAL path at full size (bench_full.py config 7:
               8 x 65,536 slots, 65,536 gslots, 50,000 GLOBAL keys; the
               hot-key skew of config 4): a ramp of 2,048-lane batches
@@ -73,11 +78,13 @@ Phases (any failure exits non-zero and prints no `ok` line):
               (ShardStore(capacity=200_000).apply, 2 warm and 4 timed);
               a Store SPI over a 50,000-slot store; an express store
               (1-lane batches take K1 on the card, the host slot on the
-              CPU); everything == a ShardStore on the plain versions
-              (CPU) replayed in ticket order;
+              CPU), launch fusion as in phase 5; everything == a
+              ShardStore on the plain versions (CPU) replayed in ticket
+              order;
 8. numbers  — kernel time per launch at the paths' shapes, the plain
               version's, the library call's where one computes the same
-              function, and the memory bound, as one JSON line (after
+              function, and the bound (bytes; for K1/K2 also the
+              instruction bound, the larger of the two), as one JSON line (after
               phases 9 and 10, whose inputs it times K9 and K7 on the
               back tier with, K1 on a 32,768-slot front against a
               262,144-slot single tier, K1 and K2 at S = 1, and K10
@@ -87,10 +94,15 @@ The last line is `{"ok": true, "device": {...}}`.  Exits 2 without a
 CUDA device.
 """
 
+import collections
 import gc
+import heapq
 import json
+import os
+import re
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -170,9 +182,342 @@ def build_phase():
     if errors:
         raise errors[0]
     log(f"[build] kernels and host runtime built in {time.perf_counter() - t0:.1f} s")
-    for line in "".join(logs["kernels"]).splitlines():
-        if "registers" in line or "spill" in line or "error" in line:
-            log(f"[build] ptxas: {line.strip()}")
+    report = ptxas_report("".join(logs["kernels"]))
+    for name, regs, spills in report:
+        log(f"[build] ptxas {name}: {regs}; {spills}")
+    if not report:
+        log("[build] ptxas: no report (the kernel library was built before this run)")
+    return rounds_sass(_kernels.build())
+
+
+def ptxas_report(text):
+    """(kernel, registers line, spill line) for each entry function in
+    nvcc's -Xptxas -v output."""
+    out, name, spills = [], None, ""
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name, spills = m.group(1), ""
+        elif name and "spill" in line:
+            spills = line.strip()
+        elif name and "Used" in line and "registers" in line:
+            out.append((name, line.split(":", 1)[1].strip(), spills))
+            name = None
+    return out
+
+
+# ---------------------------------------------------------------------
+# SASS: the instructions one lane of K1/K2 executes (the issue bound)
+# ---------------------------------------------------------------------
+EVAL_PATHS = ("token_reset", "token_exist", "token_create", "leaky_exist", "leaky_create")
+# Lane results an SM delivers a clock on Hopper (CUDA C++ Programming
+# Guide, throughput of native arithmetic instructions, compute
+# capability 9.0): every instruction issues at 4 warps a clock (128),
+# 32-bit integer arithmetic at 64, FP64 at 64, conversions and the
+# special-function and bit-count units at 16.  An opcode of no class
+# here ("other") is held to the issue rate alone.
+ISSUE_LANES_PER_SM_CLOCK = 128
+PIPE_LANES_PER_SM_CLOCK = {"int": 64, "fp64": 64, "slow": 16}
+_PIPE_OPS = {
+    "int": ("IADD", "IMAD", "IMUL", "ISCADD", "LEA", "LOP", "SHF.", "SHL", "SHR", "ISETP",
+            "ICMP", "IMNMX", "VIMNMX", "IABS", "SEL", "SGXT", "BMSK", "PRMT"),
+    "fp64": ("DADD", "DMUL", "DFMA", "DSETP", "DMNMX"),
+    "slow": ("I2F.", "F2I.", "F2F", "I2I", "FRND", "MUFU", "POPC", "FLO", "BREV"),
+}
+_SASS_FUNC = re.compile(r"^\.text\.(\S+):\s*$")
+_SASS_LABEL = re.compile(r"^\s*(\.L_\w+|[^\s/.][^\s]*):\s*$")
+_SASS_INS = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;")
+_SASS_LOC = re.compile(r'//## File "([^"]+)", line (\d+)(?: inlined at "([^"]+)", line (\d+))?')
+_SASS_TARGET = re.compile(r"`\(([^)]+)\)")
+
+
+def parse_sass(text):
+    """nvdisasm -c -gi output by function: {name: {"ins": [(text,
+    frozenset of (file, line) it was compiled from, inlined callers
+    included)], "labels": {label: index of the next instruction}}}."""
+    funcs, cur, loc, in_loc = {}, None, frozenset(), False
+    for line in text.splitlines():
+        m = _SASS_FUNC.match(line)
+        if m:
+            cur = funcs.setdefault(m.group(1), {"ins": [], "labels": {}})
+            loc, in_loc = frozenset(), False
+            continue
+        if cur is None:
+            continue
+        m = _SASS_LOC.search(line)
+        if m:
+            pairs = {(os.path.basename(m.group(1)), int(m.group(2)))}
+            if m.group(3):
+                pairs.add((os.path.basename(m.group(3)), int(m.group(4))))
+            loc = (loc | pairs) if in_loc else frozenset(pairs)
+            in_loc = True
+            continue
+        m = _SASS_INS.search(line)
+        if m:
+            cur["ins"].append((m.group(2), loc))
+            in_loc = False
+            continue
+        m = _SASS_LABEL.match(line)
+        if m:
+            cur["labels"][m.group(1)] = len(cur["ins"])
+    return funcs
+
+
+def _opcode(text):
+    return (text.split(None, 1)[1] if text.startswith("@") else text).split()[0]
+
+
+def _pipe(op):
+    return next((p for p, ops in _PIPE_OPS.items() if op.startswith(ops)), "other")
+
+
+def lane_instructions(fn, anchors):
+    """The fewest instructions a thread executes from the function's
+    entry to an EXIT on a path that meets each of `anchors` (predicates
+    on an instruction's (text, locations)) in order, as a Counter by
+    pipe class (_PIPE_OPS; "other" for the rest): every branch not
+    pinned by an anchor takes its cheaper side (a division's 32-bit
+    form, a loop's exit, a jump past the rest of a function), so this is
+    a lower bound on the lane's count.  A CALL counts its subroutine's
+    fewest instructions to RET.  None when no such path exists."""
+    ins, labels = fn["ins"], fn["labels"]
+    succ, calls = [], {}
+    for i, (text, _) in enumerate(ins):
+        op = _opcode(text)
+        cond = text.startswith("@")
+        nxt = [i + 1] if i + 1 < len(ins) else []
+        m = _SASS_TARGET.search(text)
+        tgt = labels.get(m.group(1)) if m else None
+        if op.startswith(("EXIT", "RET")):
+            succ.append(nxt if cond else [])
+        elif op.startswith("BRA"):
+            succ.append(([] if tgt in (None, i) else [tgt]) + (nxt if cond else []))
+        else:
+            if op.startswith("CALL") and tgt is not None:
+                calls[i] = tgt
+            succ.append(nxt)
+
+    def fewest(start, done, stages):
+        s0 = (start, stages(start, 0))
+        dist, prev = {s0: sum(weigh(start).values())}, {s0: None}
+        heap = [(dist[s0], start, s0[1])]
+        while heap:
+            d, i, k = heapq.heappop(heap)
+            if d > dist[(i, k)]:
+                continue
+            if done(i, k):
+                out, st = collections.Counter(), (i, k)
+                while st is not None:
+                    out.update(weigh(st[0]))
+                    st = prev[st]
+                return out
+            for j in succ[i]:
+                nk, nd = stages(j, k), d + sum(weigh(j).values())
+                if nd < dist.get((j, nk), 1 << 62):
+                    dist[(j, nk)], prev[(j, nk)] = nd, (i, k)
+                    heapq.heappush(heap, (nd, j, nk))
+        return None
+
+    sub, memo = {}, {}
+
+    def weigh(i):
+        if i not in memo:
+            c = collections.Counter({_pipe(_opcode(ins[i][0])): 1})
+            if i in calls:
+                t = calls[i]
+                if t not in sub:
+                    sub[t] = collections.Counter()  # a recursive call costs nothing more
+                    sub[t] = fewest(t, lambda j, k: _opcode(ins[j][0]).startswith("RET"),
+                                    lambda j, k: 0) or collections.Counter()
+                c.update(sub[t])
+            memo[i] = c
+        return memo[i]
+
+    def stages(i, k):
+        return k + 1 if k < len(anchors) and anchors[k](*ins[i]) else k
+
+    return fewest(0, lambda i, k: k == len(anchors) and _opcode(ins[i][0]).startswith("EXIT"),
+                  stages)
+
+
+def function_span(path, name):
+    """(first, last) line of the definition of function `name` in
+    `path` (its body ends at the first line that starts with "}")."""
+    with open(path) as f:
+        lines = f.read().splitlines()
+    for a, line in enumerate(lines):
+        if re.search(r"\b%s\(" % name, line) and "__device__" in line:
+            for b in range(a, len(lines)):
+                if lines[b].startswith("}"):
+                    return a + 1, b + 1
+    raise ValueError(f"no definition of {name} in {path}")
+
+
+def disassemble(lib_path, unit):
+    """nvdisasm -c -gi of the cubin of source `unit` in the built
+    library."""
+    bindir = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin")
+    with tempfile.TemporaryDirectory() as d:
+        subprocess.run([os.path.join(bindir, "cuobjdump"), "-xelf", "all", lib_path],
+                       cwd=d, check=True, capture_output=True, timeout=120)
+        cubin = next(os.path.join(d, f) for f in os.listdir(d)
+                     if f.startswith(unit + ".") and f.endswith(".cubin"))
+        return subprocess.run([os.path.join(bindir, "nvdisasm"), "-c", "-gi", cubin],
+                              check=True, capture_output=True, text=True, timeout=300).stdout
+
+
+def rounds_sass(lib_path, root=None):
+    """Instructions one lane of K1/K2 executes, from the SASS of the
+    built library at `lib_path` (compiled from the sources under `root`,
+    this checkout by default): for each instantiation (source, wide) and
+    each branch of eval_lane, {"writer", "reader": Counter by pipe
+    class} of the fewest instructions from the kernel's entry to its
+    exit for a lane the thread holds, in a one-round batch: its head and
+    request words read, its rows gathered, its branch evaluated, its
+    output written, the grid barrier and, for a writer, its rows stored.
+    Lower bounds of this implementation (see lane_instructions), not of
+    the work the function needs.  The anchors are functions of
+    bucket_rounds.cuh found by name.  None, logged as not measured, when
+    the count cannot be taken."""
+    try:
+        counts = _rounds_sass(lib_path, root or os.path.dirname(os.path.abspath(__file__)))
+    except Exception as e:  # noqa: BLE001 — the count is a measurement, not a check
+        log(f"[sass] instruction count not measured: {type(e).__name__}: {e}")
+        return None
+    for (kind, wide), per in sorted(counts.items()):
+        log(f"[sass] {'K1' if kind == 'dict' else 'K2'} {kind} {'wide' if wide else 'narrow'}: "
+            "instructions a held lane executes, writer/reader (the reader's by pipe): "
+            + ", ".join(f"{p} {sum(c['writer'].values())}/{sum(c['reader'].values())} "
+                        f"{dict(sorted(c['reader'].items()))}" for p, c in per.items()))
+    return counts
+
+
+def _rounds_sass(lib_path, root):
+    cuh = os.path.join(root, "gubernator_tpu_torch", "csrc", "bucket_rounds.cuh")
+    cuh_name = os.path.basename(cuh)
+    spans = {p: function_span(cuh, p) for p in EVAL_PATHS}
+    ea, eb = function_span(cuh, "eval_lane")
+    ga, gb = function_span(cuh, "gather_eval")
+    sa, sb = function_span(cuh, "store_rows")
+
+    def within(loc, a, b):
+        return any(f == cuh_name and a <= ln <= b for f, ln in loc)
+
+    def store(text, loc):
+        return "STG" in text and within(loc, sa, sb)
+
+    funcs = parse_sass(disassemble(lib_path, "bucket_rounds"))
+    counts = {}
+    for name, fn in funcs.items():
+        if "bucket_rounds_kernel" not in name:
+            continue
+        key = ("dict" if "DictSource" in name else "cols", "ILb1E" in name)
+        per = {}
+        for path, (a, b) in spans.items():
+            # a held lane's branch: not the evaluation the excess lanes
+            # gather for themselves
+            def branch(text, loc, a=a, b=b):
+                return within(loc, a, b) and not within(loc, ga, gb)
+
+            if not any(branch(*x) for x in fn["ins"]):
+                # folded into eval_lane's selects: the fewest of any
+                # branch, still a lower bound
+                def branch(text, loc):
+                    return within(loc, ea, eb) and not within(loc, ga, gb)
+            per[path] = {"writer": lane_instructions(fn, [branch, store]),
+                         "reader": lane_instructions(fn, [branch])}
+        counts[key] = per
+    if len(counts) != 4 or any(v is None for per in counts.values() for c in per.values()
+                               for v in c.values()):
+        raise ValueError(f"count of K1/K2 incomplete: {counts}")
+    return counts
+
+
+def sm_clock_hz():
+    """The card's top SM clock (nvidia-smi clocks.max.sm)."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60, check=True).stdout
+    return float(out.strip().splitlines()[0]) * 1e6
+
+
+def lane_paths(hot, cold, req, now):
+    """The branch of eval_lane each lane of `req` takes against the rows
+    it reads in `hot`/`cold` (the state before the batch: a lane of a
+    later round that reads a row an earlier round wrote is classed by
+    the row as it was), and whether it stores its rows.  Returns
+    ({branch: bool [S, P]}, writer bool [S, P]); lanes with slot < 0 are
+    in no branch."""
+    import torch
+
+    S, P = req.slot.shape
+    C = hot.shape[1]
+    valid = req.slot >= 0
+    sh = torch.arange(S, device=hot.device)[:, None].expand(S, P)
+    sl = req.slot.clamp(0, C - 1).long()
+    h, c = hot[sh, sl].long(), cold[sh, sl].long()
+
+    def word64(t, i):
+        return (t[..., i + 1] << 32) | (t[..., i] & 0xFFFFFFFF)
+
+    g_algo, g_exp, g_stamp, g_dur = h[..., 0] & 3, word64(h, 5), word64(h, 3), word64(c, 2)
+    live = req.exists & (g_exp >= now)
+    exist = live & (g_algo == req.algorithm)
+    tok = req.algorithm == 0
+    reset = (req.behavior & 8) != 0
+    greg = (req.behavior & 4) != 0
+    t_reset = tok & live & reset
+    t_exp = torch.where(greg, req.greg_expire, g_stamp + req.duration)
+    t_exist = tok & ~t_reset & exist & ~reset & ((g_dur == req.duration) | (t_exp >= now))
+    paths = {"token_reset": t_reset, "token_exist": t_exist,
+             "token_create": tok & ~t_reset & ~t_exist, "leaky_exist": ~tok & exist,
+             "leaky_create": ~tok & ~exist}
+    return {k: v & valid for k, v in paths.items()}, req.write & valid & (req.slot < C)
+
+
+def rounds_bound(torch, sass, kind, hot0, cold0, args, nbytes):
+    """K1/K2's bound on one batch: the larger of the bytes bound
+    (`nbytes` over the HBM rate) and the issue bound — the instructions
+    the batch's lanes execute (each lane its branch's count from
+    rounds_sass, writer or reader, classed from the state before the
+    batch), each pipe class over its rate and all of them over the
+    issue rate (SMs x lanes a clock x the top SM clock), the slowest of
+    these.  Without a SASS count (`sass` None) the bytes bound alone.
+    Returns (bound_ms, bound_by, a line that gives both)."""
+    from gubernator_tpu_torch.ops import buckets
+
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    text = f"bytes bound {bytes_ms:.6g} ms ({nbytes} bytes)"
+    if sass is None:
+        return bytes_ms, "bytes", text + ", issue bound not measured; bound by bytes"
+    now, wide = int(args[-2]), bool(args[-1])
+    if kind == "dict":
+        req, _ = buckets._dict_request(args[0], now, wide)
+    else:
+        req, _ = buckets._cols_request(args[0], args[1], now, wide)
+    paths, writer = lane_paths(hot0, cold0, req, now)
+    per = sass[(kind, wide)]
+    instr, lanes = collections.Counter(), {}
+    for p, mask in paths.items():
+        w, r = int((mask & writer).sum()), int((mask & ~writer).sum())
+        lanes[p] = w + r
+        for pipe in set(per[p]["writer"]) | set(per[p]["reader"]):
+            instr[pipe] += w * per[p]["writer"][pipe] + r * per[p]["reader"][pipe]
+    clk = sm_clock_hz()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    pipe_ms = {"issue": sum(instr.values()) / (sms * ISSUE_LANES_PER_SM_CLOCK * clk) * 1e3}
+    for pipe, rate in PIPE_LANES_PER_SM_CLOCK.items():
+        pipe_ms[pipe] = instr[pipe] / (sms * rate * clk) * 1e3
+    slowest = max(pipe_ms, key=pipe_ms.get)
+    issue_ms = pipe_ms[slowest]
+    by = "bytes" if bytes_ms >= issue_ms else "operations"
+    rate = ("all at the issue rate" if slowest == "issue"
+            else f"its {slowest} instructions at their pipe's rate")
+    text += (f", issue bound {issue_ms:.6g} ms ({rate}; {sum(instr.values())} "
+             f"instructions, by pipe {dict(sorted(instr.items()))}, on {sms} SMs at "
+             f"{clk / 1e6:.0f} MHz; lanes by branch {lanes}); bound by "
+             f"{'bytes' if by == 'bytes' else 'issue'}")
+    return max(bytes_ms, issue_ms), by, text
 
 
 # ---------------------------------------------------------------------
@@ -229,10 +574,11 @@ def random_configs(rng, k, wide):
     return [np.asarray(c, np.int64) for c in (algo, behavior, hits, limit, duration, ge, gd)]
 
 
-def random_plan(rng, C, P, rounds, shards=S):
+def random_plan(rng, C, P, rounds, shards=S, reuse=0.0):
     """Per-shard lanes as the grouped planner emits them: unique slots
     per (round, shard), uniform groups with consecutive occ and one
-    writer, 20% padding, lanes shuffled."""
+    writer, 20% padding, lanes shuffled.  With `reuse`, that share of
+    each later round's groups takes slots the round before used."""
     cols = {k: np.zeros((shards, P), np.int64) for k in ("slot", "ex", "wr", "occ", "rid", "grp")}
     cols["slot"][:] = -1
     used = int(P * 0.8)
@@ -245,9 +591,18 @@ def random_plan(rng, C, P, rounds, shards=S):
         ends = np.cumsum(sizes)
         grid = rng.integers(0, rounds, g)
         slots = np.empty(g, np.int64)
+        prev = np.zeros(0, np.int64)
         for r in range(rounds):  # unique within a round, reused across rounds
             sel = grid == r
-            slots[sel] = rng.choice(C, int(sel.sum()), replace=False)
+            k = int(sel.sum())
+            again = min(int(k * reuse), prev.size) if r else 0
+            if again:
+                kept = rng.choice(prev, again, replace=False)
+                fresh = rng.choice(np.setdiff1d(np.arange(C), kept), k - again, replace=False)
+                slots[sel] = rng.permutation(np.concatenate([kept, fresh]))
+            else:
+                slots[sel] = rng.choice(C, k, replace=False)
+            prev = slots[sel]
         gid = np.repeat(np.arange(g), sizes)
         first = np.repeat(ends[:g] - sizes, sizes)
         occ = np.arange(used) - first
@@ -261,15 +616,16 @@ def random_plan(rng, C, P, rounds, shards=S):
     return cols
 
 
-def make_case(seed, C, P, rounds, wide, kind, n_cfg):
-    """Kernel inputs for one seeded case: (hot, cold, args) where args
-    follow (hot, cold) in bucket_rounds_dict / bucket_rounds_cols."""
+def make_case(seed, C, P, rounds, wide, kind, n_cfg, reuse=0.0):
+    """Kernel inputs for one seeded case: (hot, cold, args, n_rounds)
+    where args follow (hot, cold) in bucket_rounds_dict /
+    bucket_rounds_cols (`reuse`: see random_plan)."""
     from gubernator_tpu_torch.ops import buckets
 
     rng = np.random.default_rng(seed)
     hot, cold = random_state(rng, C, wide)
     cfgs = random_configs(rng, n_cfg, wide)
-    plan = random_plan(rng, C, P, rounds)
+    plan = random_plan(rng, C, P, rounds, reuse=reuse)
     cfg = rng.integers(0, n_cfg, (S, P))
     # lanes of one group share one config
     for s in range(S):
@@ -331,29 +687,50 @@ def distinct_rows(slot, mask) -> int:
     return int(np.unique((shard << 32 | slot.astype(np.int64))[mask]).size)
 
 
-def kernel_phase(torch, dev="cuda", full=(C_FULL, 32_768)):
+def kernel_phase(torch, dev="cuda", full=(C_FULL, 32_768), over=65_536):
+    """K1 and K2, narrow and wide, against their plain versions: seeded
+    cases of 1-3 rounds, one case at the main path's size (S = 8,
+    C = 262,144, P = 32,768), the same size in 5 rounds that reuse half
+    the slots of the round before, and a 3-round case of P = `over`
+    whose S * P lanes exceed what one launch holds (the rest re-read
+    each round)."""
     from gubernator_tpu_torch.ops import _kernels
 
+    if dev == "cuda":
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
     errs = {k: 0 for k in KERNELS}
-    n = 0
+    n, held = 0, {}
     for kind in KERNELS:
         for wide in (False, True):
-            cases = [(seed, 512, 256, 1 + seed % 3, 12 if kind == "dict" else 300)
-                     for seed in range(6)]
-            cases.append((100, *full, 1, 12 if kind == "dict" else 300))
-            for seed, C, P, rounds, n_cfg in cases:
-                hot, cold, args, nr = make_case(seed, C, P, rounds, wide, kind, n_cfg)
+            n_cfg = 12 if kind == "dict" else 300
+            cases = [(seed, 512, 256, 1 + seed % 3, 0.0) for seed in range(6)]
+            cases += [(100, *full, 1, 0.0), (101, *full, 5, 0.5), (102, full[0], over, 3, 0.5)]
+            if dev == "cuda":
+                held[(kind, wide)] = _kernels.held_lanes(kind == "dict", wide)
+                if S * over <= held[(kind, wide)]:
+                    raise AssertionError(f"the {S} x {over} case fits the "
+                                         f"{held[(kind, wide)]} held lanes")
+            for seed, C, P, rounds, reuse in cases:
+                hot, cold, args, nr = make_case(seed, C, P, rounds, wide, kind, n_cfg, reuse)
+                if rounds > 1 and nr != rounds:
+                    raise AssertionError(f"case {seed} planned {nr} rounds, not {rounds}")
                 got = run_kernel(torch, dev, kind, hot, cold, args, nr, wide, plain=False)
                 want = run_kernel(torch, dev, kind, hot, cold, args, nr, wide, plain=True)
                 err = max_abs_err(got, want)
                 if err != 0 or any(g.tobytes() != w.tobytes() for g, w in zip(got, want)):
                     raise AssertionError(
-                        f"{kind} wide={wide} seed={seed} C={C} P={P}: kernel != plain "
-                        f"(max abs err {err})")
+                        f"{kind} wide={wide} seed={seed} C={C} P={P} rounds={nr}: kernel != "
+                        f"plain (max abs err {err})")
                 errs[kind] = max(errs[kind], err)
                 n += 1
-    log(f"[kernels] {n} cases, kernel == plain bit for bit "
-        f"(launches {dict(_kernels.LAUNCHES)})")
+    peak = torch.cuda.max_memory_allocated() - base if dev == "cuda" else 0
+    log(f"[kernels] {n} cases, kernel == plain bit for bit, among them S={S} x P={full[1]} "
+        f"in 1 and in 5 rounds (half the slots reused from the round before) and S={S} x "
+        f"P={over} in 3 rounds past the {held} lanes one launch holds (launches "
+        f"{dict(_kernels.LAUNCHES)}); peak device memory of the phase {peak / 2**20:.1f} MiB "
+        f"(K1/K2 allocate no scratch)")
     return errs
 
 
@@ -981,7 +1358,96 @@ def main_phase(torch, dev="cuda"):
     over = sum(int((a["status"] == 1).sum()) for a in answers)
     log(f"[main] answers and final state == plain store (CPU) for all {len(batches)} "
         f"batches ({over} OVER_LIMIT lanes), checked in {time.perf_counter() - t0:.1f} s")
+    fused_backlog(torch, lambda d: MeshBucketStore(capacity_per_shard=C_FULL, n_shards=S,
+                                                   device=d),
+                  fuse_items("c2", N_KEYS, 7, lambda ids: np.ones_like(ids)), dev, "main path")
     return store, batches, launches
+
+
+FUSE_LANES = 16_384  # lanes of a batch in the launch-fusion legs
+FUSE_STALL_S = 0.5
+
+
+def fused_backlog(torch, make_store, items, dev, path):
+    """Launch fusion on the card: the first batch's stage step stalls
+    while the other batches, one dispatcher thread each, plan, stage and
+    wait at the launch gate, so the first launches them with it as one
+    group, K launches of K1 back to back on one stream (the JAX
+    package's tests/test_dispatch_pipeline.py
+    test_launch_fusion_under_backlog).  `items` [(keys, cols, now)] are
+    sent twice over; every answer, taken in ticket order, and the final
+    state and slot tables must equal a store on the plain versions
+    (`make_store("cpu")`) replayed in ticket order.  Returns the launch
+    group sizes."""
+    from gubernator_tpu_torch.ops import _kernels
+
+    card, ref = make_store(dev), make_store("cpu")
+    groups, results, errors = [], {}, []
+    real_launch, real_stage = card._launch_group, card._stage_columns
+    stall = threading.Event()  # set: the next stage step stalls
+
+    def launch_group(group):
+        groups.append(len(group))
+        return real_launch(group)
+
+    def stage(prep):
+        if stall.is_set():
+            stall.clear()
+            time.sleep(FUSE_STALL_S)
+        return real_stage(prep)
+
+    card._launch_group, card._stage_columns = launch_group, stage
+    before = _kernels.LAUNCHES["bucket_rounds_dict"]
+
+    def send(i, keys, cols, now):
+        try:
+            h = card.apply_columns_async(keys, now_ms=now, **cols)
+            results[h.ticket] = (i, now, h.result())
+        except BaseException as e:  # noqa: BLE001 — re-raised below
+            errors.append(e)
+
+    for rep in range(2):
+        stall.set()
+        threads = []
+        for i, (keys, cols, now) in enumerate(items):
+            threads.append(threading.Thread(target=send, args=(i, keys, cols, now + rep)))
+            threads[-1].start()
+            time.sleep(0.02)  # they plan in this order
+        for t in threads:
+            t.join()
+        if errors:
+            raise errors[0]
+    launched = _kernels.LAUNCHES["bucket_rounds_dict"] - before
+    for ticket in sorted(results):
+        i, now, got = results[ticket]
+        keys, cols, _ = items[i]
+        same_answers(f"fused batch {ticket}", got, ref.apply_columns(keys, now_ms=now, **cols),
+                     path)
+    same_stores(torch, "launch fusion", card, ref, path)
+    if max(groups) < 2 or sum(groups) != 2 * len(items) or \
+            (dev == "cuda" and launched != 2 * len(items)):
+        raise AssertionError(f"{path}: launch groups {groups}, K1 launches {launched} for "
+                             f"{2 * len(items)} batches: no fused group")
+    log(f"[fused] {path}: {2 * len(items)} batches of {FUSE_LANES} lanes, one dispatcher "
+        f"thread each, the first stalled {FUSE_STALL_S} s in its stage step: launch groups "
+        f"{groups}, {launched} K1 launches; answers in ticket order and final state == plain "
+        f"store (CPU)")
+    return groups
+
+
+def fuse_items(prefix, n_keys, seed, algorithm):
+    """Four FUSE_LANES-lane Zipf batches of keys `prefix:<id>`, hits 1,
+    limit 1,000,000, duration 3,600,000, the algorithm `algorithm(ids)`,
+    10 ms apart."""
+    rng = np.random.RandomState(seed)
+    items = []
+    for i in range(4):
+        ids = zipf_ids(rng, n_keys, FUSE_LANES)
+        items.append((native_keys([f"{prefix}:{k}" for k in ids]), dict(
+            algorithm=algorithm(ids).astype(np.int32), behavior=np.zeros(FUSE_LANES, np.int32),
+            hits=np.ones(FUSE_LANES, np.int64), limit=np.full(FUSE_LANES, 1_000_000, np.int64),
+            duration=np.full(FUSE_LANES, 3_600_000, np.int64)), NOW + 1000 + 10 * i))
+    return items
 
 
 # ---------------------------------------------------------------------
@@ -1960,10 +2426,10 @@ def shard_headline(store, keys, cols):
     return results, lats, timed_s
 
 
-def same_answers(what, got, want):
+def same_answers(what, got, want, path="one-shard path"):
     for f in ("status", "limit", "remaining", "reset_time"):
         if not np.array_equal(np.asarray(got[f]), np.asarray(want[f])):
-            raise AssertionError(f"one-shard path, {what}: {f} differs from the plain store")
+            raise AssertionError(f"{path}, {what}: {f} differs from the plain store")
 
 
 def shard_phase(torch, dev="cuda"):
@@ -2122,6 +2588,10 @@ def shard_phase(torch, dev="cuda"):
     same_stores(torch, "express", ex["card"], ex["cpu"], "one-shard path")
     log(f"[shard] express store: 40 one-lane batches, card (K1, scalar_applies "
         f"{ex['card'].scalar_applies}) == CPU (scalar_applies {ex['cpu'].scalar_applies})")
+    # (f) launch fusion: a stalled stage step queues batches at the gate
+    fused_backlog(torch, lambda d: ShardStore(capacity=SHARD_C, device=d),
+                  fuse_items("bench_account", SHARD_KEYS, 44, lambda ids: ids % 2), dev,
+                  "one-shard path")
     buckets.bucket_rounds_cols = real_k2
     launches = {k: _kernels.LAUNCHES[k] for k in (
         "bucket_rounds_dict", "bucket_rounds_cols", "gather_rows", "write_rows",
@@ -2138,7 +2608,7 @@ def shard_phase(torch, dev="cuda"):
     return card, {"headline": (keys, cols, NOW + 200), "configs": configs}, launches
 
 
-def shard_numbers_phase(torch, card, batches, launches, k10_err):
+def shard_numbers_phase(torch, card, batches, launches, k10_err, sass):
     """K1 and K2 (narrow and wide) at S = 1 on the one-shard store's
     batches, and K10 on the headline's single-round batch beside K1 on
     the same batch: one more batch of each planned and staged step by
@@ -2198,6 +2668,9 @@ def shard_numbers_phase(torch, card, batches, launches, k10_err):
         n_rows, n_write = distinct_rows(slot, valid), distinct_rows(slot, valid & write)
         nbytes = (n_valid * (lane_bytes + 4 * out.element_size()) + table_bytes
                   + 64 * n_rows + 32 * n_write + 32 * changed_cold)
+        bound_ms, bound_by, bounds = rounds_bound(
+            torch, sass, "dict" if kname == "bucket_rounds_dict" else "cols", hot0, cold0,
+            args, nbytes)
 
         hp, cp = hot0.clone(), cold0.clone()
         want = plain(hp, cp, *args)
@@ -2211,19 +2684,19 @@ def shard_numbers_phase(torch, card, batches, launches, k10_err):
 
         ms = time_launches(torch, run, 20)
         dev_ms = device_ms(torch, kname, run)
+        dev_cold = device_ms(torch, kname, run, cold=True)
         plain_ms = time_launches(torch, lambda: plain(hot, cold, *args), 3)
-        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
         rows.append({
             "name": f"{kname}/shard{'_wide' if staged.wide else ''}", "route": "cuda",
             "source": "gubernator_tpu_torch/csrc/bucket_rounds.cu", "replaces": replaces,
             "launches": (launches["k2"]["wide" if staged.wide else "narrow"]
                          if kname == "bucket_rounds_cols" else launches[kname]),
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
         })
         log(f"[numbers] {kname} at S=1 ({which} batch, C={hot.shape[1]} P={slot.shape[1]}, "
-            f"{width}, rounds {args[-3]}): {ms:.4f} ms/launch, device {dev_ms} ms, plain "
-            f"{plain_ms:.2f} ms, bound {bound_ms:.6g} ms ({nbytes} bytes: {n_valid} lanes, "
+            f"{width}, rounds {args[-3]}): {ms:.4f} ms/launch, device {dev_ms} ms warm / "
+            f"{dev_cold} ms L2 flushed, plain {plain_ms:.2f} ms; {bounds} ({n_valid} lanes, "
             f"{n_rows} rows, {n_write} written, {changed_cold} cold rows)")
         if kname != "bucket_rounds_dict":
             continue
@@ -2247,7 +2720,6 @@ def shard_numbers_phase(torch, card, batches, launches, k10_err):
 
         ms10 = time_launches(torch, k10, 20)
         dev10 = device_ms(torch, "bucket_compact", k10)
-        dev1 = device_ms(torch, kname, run, cold=True)
         dev10c = device_ms(torch, "bucket_compact", k10, cold=True)
         plain10 = time_launches(
             torch, lambda: buckets.apply_compact_packed_plain(h10, c10, wire, wlane, now), 3)
@@ -2264,7 +2736,7 @@ def shard_numbers_phase(torch, card, batches, launches, k10_err):
         log(f"[numbers] {kname10} (K10, headline batch, S=1, P={P}, {wl.size} write lanes): "
             f"{ms10:.4f} ms/launch, device {dev10} ms warm / {dev10c} ms L2 flushed, plain "
             f"{plain10:.2f} ms, bound {bound10:.6g} ms ({nbytes10} bytes); K1 on the same "
-            f"batch {ms:.4f} ms/launch, device {dev_ms} ms warm / {dev1} ms L2 flushed; "
+            f"batch {ms:.4f} ms/launch, device {dev_ms} ms warm / {dev_cold} ms L2 flushed; "
             f"launches on the one-shard path {launches[kname10]} (no store calls it)")
     return rows
 
@@ -2292,8 +2764,8 @@ def time_launches(torch, fn, iters):
 
 # device kernels (csrc/*.cu) behind each wrapper, for the profiler
 DEVICE_KERNELS = {
-    "bucket_rounds_dict": ("round_compute", "round_commit"),
-    "bucket_rounds_cols": ("round_compute", "round_commit"),
+    "bucket_rounds_dict": ("bucket_rounds_kernel",),
+    "bucket_rounds_cols": ("bucket_rounds_kernel",),
     "global_answer_rounds": ("answer_compute", "answer_commit"),
     "global_sync": ("sync_kernel",),
     "set_replica": ("set_replica_kernel",),
@@ -2306,36 +2778,44 @@ DEVICE_KERNELS = {
 }
 
 
-def device_ms(torch, kname, fn, iters=20, cold=False):
+def device_ms(torch, kname, fn, iters=20, cold=False, kernels=None):
     """Device time per wrapper call from torch.profiler: the summed
-    duration of the wrapper's kernels (DEVICE_KERNELS), which leaves out
-    the host's launch gaps that the event timing of back-to-back calls
-    includes.  With `cold`, a 64 MiB buffer is zeroed before each call
-    so the call finds the 50 MB L2 cache holding none of its rows (the
-    zeroing's own kernel is not summed).  None when the trace holds no
-    such kernel."""
+    duration of the wrapper's kernels (DEVICE_KERNELS, or the names in
+    `kernels`), which leaves out the host's launch gaps that the event
+    timing of back-to-back calls includes.  With `cold`, a 64 MiB buffer
+    is zeroed before each call so the call finds the 50 MB L2 cache
+    holding none of its rows (the zeroing's own kernel is not summed).
+    None when the trace holds no such kernel."""
     from torch.profiler import ProfilerActivity, profile
 
     flush = torch.empty(16 << 20, dtype=torch.int32, device="cuda") if cold else None
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            if flush is not None:
-                flush.zero_()
-            fn()
-        torch.cuda.synchronize()
-    us = [getattr(e, "device_time_total", 0) for e in prof.key_averages()
-          if any(k in e.key for k in DEVICE_KERNELS[kname])]
+    for _ in range(3):  # a trace that lost the kernels' records is taken again
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                if flush is not None:
+                    flush.zero_()
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if any(k in e.key for k in kernels or DEVICE_KERNELS[kname])]
+        us = [getattr(e, "device_time_total", 0) for e in events]
+        if sum(us):
+            break
     if not us or not sum(us):
         log(f"[profile] {kname}: no device time in the trace (not measured)")
         return None
+    if kernels is None and kname in ("bucket_rounds_dict", "bucket_rounds_cols") and \
+            sum(e.count for e in events) != iters:
+        raise AssertionError(f"{kname}: {sum(e.count for e in events)} device kernels in "
+                             f"{iters} calls, not one a call")
     ms = sum(us) / iters / 1e3
     log(f"[profile] {kname}: device {ms:.4f} ms per call{' (L2 flushed)' if cold else ''}")
     return ms
 
 
-def numbers_phase(torch, store, batches, launches, errs):
+def numbers_phase(torch, store, batches, launches, errs, sass):
     """Plan and stage one more main-path batch of each kind on the
     store, one step at a time (the host breakdown of a batch), then
     time the kernel and its plain version on those inputs against a
@@ -2372,7 +2852,9 @@ def numbers_phase(torch, store, batches, launches, errs):
         assert staged.kernel.__name__ == kname, (staged.kernel.__name__, kname)
         changed_cold = int((cold != cold0).any(dim=2).sum())
         ms = time_launches(torch, lambda: staged.kernel(hot, cold, *staged.args), 20)
-        device_ms(torch, kname, lambda: staged.kernel(hot, cold, *staged.args))
+        dev_ms = device_ms(torch, kname, lambda: staged.kernel(hot, cold, *staged.args))
+        dev_cold = device_ms(torch, kname, lambda: staged.kernel(hot, cold, *staged.args),
+                             cold=True)
         plain = (buckets.bucket_rounds_dict_plain if kind == "dict"
                  else buckets.bucket_rounds_cols_plain)
         plain_ms = time_launches(torch, lambda: plain(hot, cold, *staged.args), 3)
@@ -2398,18 +2880,18 @@ def numbers_phase(torch, store, batches, launches, errs):
         n_rows, n_write = distinct_rows(slot, valid), distinct_rows(slot, valid & write)
         nbytes = (n_valid * (lane_bytes + 4 * out.element_size()) + table_bytes
                   + 64 * n_rows + 32 * n_write + 32 * changed_cold)
-        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        bound_ms, bound_by, bounds = rounds_bound(torch, sass, kind, hot0, cold0, args, nbytes)
         rows.append({
             "name": kname, "route": "cuda",
             "source": "gubernator_tpu_torch/csrc/bucket_rounds.cu",
             "replaces": replaces, "launches": launches[kname],
             "max_abs_err": errs[kind], "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
         })
         log(f"[numbers] {kname} ({name} batch, S={slot.shape[0]} P={slot.shape[1]}, "
             f"{'wide' if staged.wide else 'narrow'}, rounds {args[-3]}): "
-            f"{ms:.4f} ms/launch, plain {plain_ms:.2f} ms, bound {bound_ms:.6g} ms "
-            f"({nbytes} bytes: {n_valid} lanes, {n_rows} rows, {n_write} written, "
+            f"{ms:.4f} ms/launch, device {dev_ms} ms warm / {dev_cold} ms L2 flushed, plain "
+            f"{plain_ms:.2f} ms; {bounds} ({n_valid} lanes, {n_rows} rows, {n_write} written, "
             f"{changed_cold} cold rows)")
     return rows
 
@@ -2713,7 +3195,7 @@ def main():
         return 2
     t_start = time.perf_counter()
     _, name = device_phase(torch)
-    build_phase()
+    sass = build_phase()
     errs = kernel_phase(torch)
     gerrs = global_kernel_phase(torch)
     rerrs = rows_kernel_phase(torch)
@@ -2726,11 +3208,11 @@ def main():
     tstore, titems, tlaunches, move_calls = two_tier_phase(torch)
     k1_inputs = two_tier_breakdown(torch, tstore, titems)
     sstore, sbatches, slaunches = shard_phase(torch)
-    rows = numbers_phase(torch, store, batches, launches, errs)
+    rows = numbers_phase(torch, store, batches, launches, errs, sass)
     rows += global_numbers_phase(torch, gstore, glaunches, gerrs, ginputs, gsum["now"])
     rows += rows_numbers_phase(torch, row_calls, plaunches, rerrs)
     rows += two_tier_numbers_phase(torch, tstore, tlaunches, move_calls, k1_inputs, merr)
-    rows += shard_numbers_phase(torch, sstore, sbatches, slaunches, cerr)
+    rows += shard_numbers_phase(torch, sstore, sbatches, slaunches, cerr, sass)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

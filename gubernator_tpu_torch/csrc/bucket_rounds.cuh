@@ -1,19 +1,23 @@
 // Per-lane token/leaky bucket evaluation and the round steps shared by
-// the bucket-rounds kernels (bucket_rounds.cu) and the GLOBAL-plane
-// kernels (global_ops.cu).
+// the bucket-rounds kernels (bucket_rounds.cu), the GLOBAL-plane kernels
+// (global_ops.cu) and the compact commit (compact.cu).
 //
-// A line-by-line transcription of the JAX package's
-// ops/buckets.py::_apply_compute (one lane instead of a vector of
-// lanes; see that module for the reference citations of every path).
-// All arithmetic is int64 on int32 storage:
-//   * jnp `//` floors and C++ `/` truncates, so every division here
-//     goes through fdiv() (divisor always >= 1) or, for the fixed-point
-//     scale, an arithmetic shift (floor as well);
-//   * the leaky leak elapsed*limit/duration is exact: an int64 fast
-//     form where the product fits, else a 128-bit product divided by
+// The JAX package's ops/buckets.py::_apply_compute, one lane instead of
+// a vector of lanes (see that module for the reference citations of
+// every path).  The vector form computes all five paths of every lane
+// and selects; here a lane computes only the path it takes.  All
+// arithmetic is int64 on int32 storage:
+//   * jnp `//` floors and C++ `/` truncates, so every division goes
+//     through fdiv() (divisor always >= 1) or, for the fixed-point
+//     scale, an arithmetic shift (floor as well); both operands below
+//     2**32 take a 32-bit division;
+//   * the leaky leak elapsed*limit/duration is exact: an int64 form
+//     where the product fits (its divisions in 32 bits, in double below
+//     2**53, else int64), else a 128-bit product divided by a corrected
+//     double-precision quotient or, for limits of 2**52 and more, by
 //     shift-subtract (the JAX package's _muldiv128).  JAX picks one
-//     branch for the whole batch with lax.cond; both are exact, so the
-//     per-lane choice gives the same bits.
+//     branch for the whole batch with lax.cond; every form is exact, so
+//     the per-lane choice gives the same bits.
 #pragma once
 
 #include <cstdint>
@@ -35,7 +39,8 @@ enum { kHotFlags = 0, kHotRem = 1, kHotStamp = 3, kHotExp = 5 };
 enum { kColdLim = 0, kColdDur = 2 };
 
 // Staging record of one lane between a round's compute and its commit
-// (16 words): new hot row, new cold row values, commit flags.
+// launches (K3, K10; 16 words): new hot row, new cold row values,
+// commit flags.
 constexpr int kStageWords = 16;
 constexpr int kStageFlag = 12;  // bit0 write hot row, bit1 write cold row
 
@@ -47,13 +52,31 @@ __device__ __forceinline__ int32_t hi32(int64_t v) { return int32_t(v >> 32); }
 __device__ __forceinline__ int64_t imax(int64_t a, int64_t b) { return a > b ? a : b; }
 __device__ __forceinline__ int64_t imin(int64_t a, int64_t b) { return a < b ? a : b; }
 
-// Floor division for a positive divisor (jnp `//`).
+// Floor division for a positive divisor (jnp `//`): a 32-bit division
+// where both operands lie in [0, 2**32), else the int64 one (truncating)
+// corrected to the floor.
 __device__ __forceinline__ int64_t fdiv(int64_t a, int64_t b) {
-  int64_t q = a / b;
-  return (a % b != 0 && a < 0) ? q - 1 : q;
+  if (((uint64_t(a) | uint64_t(b)) >> 32) == 0) return int64_t(uint32_t(a) / uint32_t(b));
+  const int64_t q = a / b;
+  return (q * b != a && a < 0) ? q - 1 : q;
 }
 // floor(v / LEAKY_SCALE): arithmetic right shift floors.
 __device__ __forceinline__ int64_t fscale(int64_t v) { return v >> kLeakyScaleBits; }
+
+// Exact (x / d, x % d) for x >= 0, d >= 1.  Below 2**32 a 32-bit
+// division; below 2**53 the truncated double quotient: both operands are
+// exact doubles, and a quotient k + f with 0 < f < 1 lies at least 1/d
+// below k + 1, more than half the doubles' spacing there (k * d < 2**53),
+// so it never rounds up to k + 1; else int64.
+__device__ __forceinline__ void udivmod(uint64_t x, uint64_t d, uint64_t& q, uint64_t& r) {
+  if (((x | d) >> 32) == 0)
+    q = uint32_t(x) / uint32_t(d);
+  else if (((x | d) >> 53) == 0)
+    q = uint64_t(double(x) / double(d));
+  else
+    q = x / d;
+  r = x - q * d;
+}
 
 // Exact (floor(a*b/d), a*b mod d) for 0 <= a, b < 2**63, 1 <= d < 2**63
 // with a quotient that fits int64 (the JAX package's _muldiv128): the
@@ -77,29 +100,88 @@ __device__ __forceinline__ void muldiv128(uint64_t a, uint64_t b, uint64_t d,
   r_out = int64_t(r);
 }
 
+// Exact (floor(a*b/d), a*b mod d) for a <= d, b < 2**63, 1 <= d <
+// 2**63.  The quotient is at most b; where b < 2**52 the double-precision
+// quotient is within 3 of it and is corrected on the 128-bit remainder,
+// else the shift-subtract loop.  (A month's Gregorian duration as the
+// reference reports it is about 1.7e18 ms, so every monthly leaky lane
+// comes here.)
+__device__ __forceinline__ void muldiv(uint64_t a, uint64_t b, uint64_t d, int64_t& q_out,
+                                       int64_t& r_out) {
+  if ((b >> 52) != 0) {
+    muldiv128(a, b, d, q_out, r_out);
+    return;
+  }
+  uint64_t q = uint64_t(double(a) * double(b) / double(d));
+  const uint64_t lo = a * b, qlo = q * d;
+  // a*b - q*d as a signed 128-bit number (rhi, rlo)
+  int64_t rhi = int64_t(__umul64hi(a, b) - __umul64hi(q, d) - (lo < qlo ? 1 : 0));
+  uint64_t rlo = lo - qlo;
+  while (rhi < 0) {
+    --q;
+    rlo += d;
+    rhi += rlo < d ? 1 : 0;
+  }
+  while (rhi > 0 || rlo >= d) {
+    ++q;
+    rhi -= rlo < d ? 1 : 0;
+    rlo -= d;
+  }
+  q_out = int64_t(q);
+  r_out = int64_t(rlo);
+}
+
 // Exact (floor(el*lim/rn), floor((el*lim mod rn) * SCALE / rn)) for
-// 0 <= el <= rn, lim >= 0, rn >= 1 (ops/buckets.py _leak_amounts).
+// 0 <= el <= rn, lim >= 0, rn >= 1 (ops/buckets.py _leak_amounts): with
+// lim = qL*rn + rL, el*lim/rn = el*qL + el*rL/rn, exact in int64 where
+// el*rL fits (the JAX package's `el <= INT64_MAX / rL`, here read off the
+// 128-bit product) and rn < 2**43, else the 128-bit division (muldiv).
 __device__ __forceinline__ void leak_amounts(int64_t el, int64_t lim, int64_t rn,
                                              int64_t& whole, int64_t& frac) {
-  const int64_t qL = lim / rn;  // operands >= 0: truncation == floor
-  const int64_t rL = lim % rn;
-  const int64_t max64 = INT64_MAX;
-  const bool ok = (rL == 0 || el <= max64 / imax(rL, 1)) && rn < (int64_t(1) << 43);
-  if (ok) {
-    const int64_t prod = el * rL;
-    whole = el * qL + prod / rn;
-    frac = ((prod % rn) * kLeakyScale) / rn;
+  uint64_t qL, rL;
+  udivmod(uint64_t(lim), uint64_t(rn), qL, rL);
+  const uint64_t prod = uint64_t(el) * rL;
+  if (__umul64hi(uint64_t(el), rL) == 0 && (prod >> 63) == 0 && rn < (int64_t(1) << 43)) {
+    uint64_t pq, pr, fq, fr;
+    udivmod(prod, uint64_t(rn), pq, pr);
+    udivmod(pr << kLeakyScaleBits, uint64_t(rn), fq, fr);
+    whole = el * int64_t(qL) + int64_t(pq);
+    frac = int64_t(fq);
   } else {
     int64_t lr, unused;
-    muldiv128(uint64_t(el), uint64_t(lim), uint64_t(rn), whole, lr);
-    muldiv128(uint64_t(lr), uint64_t(kLeakyScale), uint64_t(rn), frac, unused);
+    muldiv(uint64_t(el), uint64_t(lim), uint64_t(rn), whole, lr);
+    muldiv(uint64_t(lr), uint64_t(kLeakyScale), uint64_t(rn), frac, unused);
   }
 }
 
-// One lane's request, values widened to int64.
+// Pre-hit remaining of occurrence `occ` of a uniform duplicate group of
+// lanes taking `hits` each: base - hits * min(occ, floor(base / hits)).
+// The first occurrence of a group over base >= 0 takes nothing (the
+// floor is >= 0, so the min is 0) and skips the division.
+__device__ __forceinline__ int64_t occ_rem(int64_t base, int64_t hits, int64_t occ) {
+  if (hits <= 0 || (occ == 0 && base >= 0)) return base;
+  return base - hits * imin(occ, fdiv(base, hits));
+}
+
+// One lane's request: values widened to int64; the algorithm, behavior
+// and occurrence are int32 on every wire (K4's int64 config columns hold
+// the same small values).
 struct Lane {
-  int64_t algo, behavior, hits, limit, duration, greg_expire, greg_duration, occ;
+  int64_t hits, limit, duration, greg_expire, greg_duration;
+  int32_t algo, behavior, occ;
   bool exists, write;
+};
+
+// The stored row a lane reads, widened.
+struct Row {
+  int32_t algo, status;
+  int64_t limit, rem, dur, stamp, exp;
+};
+
+// What a lane's branch decides: its response and its slot's new row.
+struct Step {
+  int64_t status, rem, reset;
+  int64_t n_limit, n_rem, n_dur, n_stamp, n_exp, n_status;
 };
 
 // Response and new state of one VALID lane (slot >= 0).
@@ -111,137 +193,173 @@ struct Eval {
   bool write_hot, write_cold;
 };
 
-__device__ __forceinline__ void eval_lane(const int32_t* hg, const int32_t* cg,
-                                          const Lane& q, int64_t now, Eval& e) {
-  const int64_t g_flags = hg[kHotFlags];
-  const int64_t g_algo = g_flags & 3;
-  const int64_t g_status = (g_flags >> 2) & 1;
-  const int64_t g_limit = compose64(cg[kColdLim], cg[kColdLim + 1]);
-  const int64_t g_rem = compose64(hg[kHotRem], hg[kHotRem + 1]);
-  const int64_t g_dur = compose64(cg[kColdDur], cg[kColdDur + 1]);
-  const int64_t g_stamp = compose64(hg[kHotStamp], hg[kHotStamp + 1]);
-  const int64_t g_exp = compose64(hg[kHotExp], hg[kHotExp + 1]);
+// Token bucket, RESET_REMAINING on a live slot: answer the full limit,
+// leave the row's values and free the slot (expiry 0).
+__device__ __forceinline__ void token_reset(const Row& g, const Lane& q, Step& o) {
+  o.status = kUnder;
+  o.rem = q.limit;
+  o.reset = 0;
+  o.n_limit = g.limit;
+  o.n_rem = g.rem;
+  o.n_dur = g.dur;
+  o.n_stamp = g.stamp;
+  o.n_exp = 0;
+  o.n_status = kUnder;
+}
 
-  // Expiry-as-miss: a slot at exactly its expiry is still live.
-  const bool live = q.exists && g_exp >= now;
-  const bool exist = live && g_algo == q.algo;  // algo switch => recreate
-  const bool is_tok = q.algo == kTokenBucket;
-  const bool greg = (q.behavior & kGregorian) != 0;
-  const bool reset_b = (q.behavior & kResetRemaining) != 0;
-  const int64_t hits = q.hits, limit = q.limit, duration = q.duration, occ = q.occ;
-  const int64_t hs = imax(hits, 1);
-  // Pre-hit remaining of occurrence `occ` of a uniform duplicate group.
-  auto occ_rem = [&](int64_t base) {
-    const int64_t taken = imin(occ, fdiv(base, hs));
-    return hits > 0 ? base - hits * taken : base;
-  };
-
-  // ---------------- token bucket, existing item ----------------
-  const bool tok_reset = live && is_tok && reset_b;
-  int64_t t_rem0 = imax(g_rem + (limit - g_limit), 0);
-  const bool dur_changed = g_dur != duration;
-  const int64_t exp_from_cfg = greg ? q.greg_expire : g_stamp + duration;
-  const bool dur_expired = dur_changed && exp_from_cfg < now;
-  const int64_t t_exp = dur_changed ? exp_from_cfg : g_exp;
-  const bool tok_exist = exist && is_tok && !reset_b && !dur_expired;
+// Token bucket, existing item, whose expiry after a duration change is
+// `t_exp`.
+__device__ __forceinline__ void token_exist(const Row& g, const Lane& q, int64_t t_exp,
+                                            Step& o) {
+  const int64_t hits = q.hits;
+  const int64_t rem0 = occ_rem(imax(g.rem + (q.limit - g.limit), 0), hits, q.occ);
   const bool do_hit = hits > 0;
-  t_rem0 = occ_rem(t_rem0);
-  const bool can_take = do_hit && hits <= t_rem0;
-  const int64_t t_rem1 = can_take ? t_rem0 - hits : t_rem0;
-  const int64_t t_resp_status = (do_hit && (t_rem0 == 0 || hits > t_rem0)) ? kOver : g_status;
-  const int64_t t_new_status = (do_hit && t_rem0 == 0) ? kOver : g_status;
+  const bool can_take = do_hit && hits <= rem0;
+  const int64_t rem1 = can_take ? rem0 - hits : rem0;
+  o.status = (do_hit && (rem0 == 0 || hits > rem0)) ? kOver : g.status;
+  o.rem = rem1;
+  o.reset = t_exp;
+  o.n_limit = q.limit;
+  o.n_rem = rem1;
+  o.n_dur = g.dur;
+  o.n_stamp = g.stamp;
+  o.n_exp = t_exp;
+  o.n_status = (do_hit && rem0 == 0) ? kOver : g.status;
+}
 
-  // ---------------- token bucket, fresh create ----------------
-  const int64_t c_exp_tok = greg ? q.greg_expire : now + duration;
-  const int64_t remc = occ_rem(limit);
-  const bool c_over = hits > remc;
-  const int64_t c_rem_tok = c_over ? remc : remc - hits;
-  const int64_t c_status_store = (occ > 0 && do_hit && remc == 0) ? kOver : kUnder;
+// Token bucket, fresh create.
+__device__ __forceinline__ void token_create(const Lane& q, int64_t now, bool greg, Step& o) {
+  const int64_t exp = greg ? q.greg_expire : now + q.duration;
+  const int64_t remc = occ_rem(q.limit, q.hits, q.occ);
+  const bool over = q.hits > remc;
+  const int64_t rem = over ? remc : remc - q.hits;
+  o.status = over ? kOver : kUnder;
+  o.rem = rem;
+  o.reset = exp;
+  o.n_limit = q.limit;
+  o.n_rem = rem;
+  o.n_dur = q.duration;
+  o.n_stamp = now;
+  o.n_exp = exp;
+  o.n_status = (q.occ > 0 && q.hits > 0 && remc == 0) ? kOver : kUnder;
+}
 
-  // ---------------- leaky bucket, existing item ----------------
-  const bool lky_exist = exist && !is_tok;
-  int64_t l_rem = (lky_exist && reset_b) ? limit * kLeakyScale : g_rem;
-  const int64_t rate_num = greg ? q.greg_duration : duration;
-  const int64_t dur_eff = greg ? q.greg_expire - now : duration;
-  const int64_t lim_safe = imax(limit, 1);
+// Leaky bucket, existing item: leak since the stamp, then take.
+__device__ __forceinline__ void leaky_exist(const Row& g, const Lane& q, int64_t now, bool greg,
+                                            bool reset_b, Step& o) {
+  const int64_t hits = q.hits, limit = q.limit;
+  int64_t l_rem = reset_b ? limit * kLeakyScale : g.rem;
+  const int64_t rate_num = greg ? q.greg_duration : q.duration;
+  const int64_t dur_eff = greg ? q.greg_expire - now : q.duration;
   const int64_t rn = imax(rate_num, 1);
-  const int64_t el_c = imin(imax(now - g_stamp, 0), rn);
-  int64_t leak_whole, leak_frac;
-  leak_amounts(el_c, imax(limit, 0), rn, leak_whole, leak_frac);
-  const bool do_leak = leak_whole > 0;
-  if (do_leak) l_rem += leak_whole * kLeakyScale + leak_frac;
-  const int64_t l_stamp = do_leak ? now : g_stamp;
+  const int64_t el = imin(imax(now - g.stamp, 0), rn);
+  int64_t whole, frac;
+  leak_amounts(el, imax(limit, 0), rn, whole, frac);
+  const bool do_leak = whole > 0;
+  if (do_leak) l_rem += whole * kLeakyScale + frac;
   if (fscale(l_rem) > limit) l_rem = limit * kLeakyScale;
   const int64_t rem_int0 = fscale(l_rem);
-  const int64_t l_reset = now + fdiv(rate_num, lim_safe);
-  const int64_t rem_int = occ_rem(rem_int0);
-  const int64_t l_rem_base = l_rem - (rem_int0 - rem_int) * kLeakyScale;
+  const int64_t rem_int = occ_rem(rem_int0, hits, q.occ);
+  const int64_t rem_base = l_rem - (rem_int0 - rem_int) * kLeakyScale;
   const bool at_zero = rem_int == 0;
   const bool exact = !at_zero && rem_int == hits;
   const bool overflow = !at_zero && !exact && hits > rem_int;
   const bool take = exact || (!at_zero && !overflow && hits > 0);
-  const int64_t l_rem_f = take ? l_rem_base - hits * kLeakyScale : l_rem_base;
-  const int64_t l_resp_rem = exact ? 0 : (take ? fscale(l_rem_f) : rem_int);
-  const int64_t l_resp_status = (at_zero || overflow) ? kOver : kUnder;
+  const int64_t rem_f = take ? rem_base - hits * kLeakyScale : rem_base;
   const int64_t take64 = take ? 1 : 0;
-  const int64_t taken_cnt = (hits > 0 ? fdiv(rem_int0 - rem_int, hs) : 0) + take64;
-  const bool drained_exactly =
-      hits > 0 && taken_cnt > 0 && (rem_int - hits * take64 == 0);
-  const bool any_plain = (taken_cnt - (drained_exactly ? 1 : 0)) >= 1;
-  const int64_t l_exp = any_plain ? now + dur_eff : g_exp;
+  const int64_t taken = (hits > 0 ? fdiv(rem_int0 - rem_int, hits) : 0) + take64;
+  const bool drained = hits > 0 && taken > 0 && rem_int - hits * take64 == 0;
+  o.status = (at_zero || overflow) ? kOver : kUnder;
+  o.rem = exact ? 0 : (take ? fscale(rem_f) : rem_int);
+  o.reset = now + fdiv(rate_num, imax(limit, 1));
+  o.n_limit = limit;
+  o.n_rem = rem_f;
+  o.n_dur = q.duration;
+  o.n_stamp = do_leak ? now : g.stamp;
+  o.n_exp = taken - (drained ? 1 : 0) >= 1 ? now + dur_eff : g.exp;
+  o.n_status = kUnder;
+}
 
-  // ---------------- leaky bucket, fresh create ----------------
-  const bool lc_over_all = hits > limit;
-  int64_t remlc = occ_rem(limit);
-  if (lc_over_all && occ > 0) remlc = 0;
-  const bool lc_take = hits > 0 && hits <= remlc;
-  const bool lc_over = hits > remlc;
-  const int64_t lc_rem = lc_over_all ? 0 : (remlc - hits * (lc_take ? 1 : 0)) * kLeakyScale;
-  const int64_t lc_resp_rem = lc_take ? remlc - hits : (lc_over_all ? 0 : remlc);
-  const int64_t lc_exp = now + dur_eff;
-  const int64_t lc_reset = now + fdiv(dur_eff, lim_safe);
+// Leaky bucket, fresh create.
+__device__ __forceinline__ void leaky_create(const Lane& q, int64_t now, bool greg, Step& o) {
+  const int64_t hits = q.hits, limit = q.limit;
+  const int64_t dur_eff = greg ? q.greg_expire - now : q.duration;
+  const bool over_all = hits > limit;
+  const int64_t rem = (over_all && q.occ > 0) ? 0 : occ_rem(limit, hits, q.occ);
+  const bool take = hits > 0 && hits <= rem;
+  o.status = hits > rem ? kOver : kUnder;
+  o.rem = take ? rem - hits : (over_all ? 0 : rem);
+  o.reset = now + fdiv(dur_eff, imax(limit, 1));
+  o.n_limit = limit;
+  o.n_rem = over_all ? 0 : (rem - hits * (take ? 1 : 0)) * kLeakyScale;
+  o.n_dur = dur_eff;
+  o.n_stamp = now;
+  o.n_exp = now + dur_eff;
+  o.n_status = kUnder;
+}
 
-  // ---------------- merge the five paths ----------------
-  int64_t status, rem, reset, n_limit, n_rem, n_dur, n_stamp, n_exp, n_status;
-  if (is_tok && tok_reset) {
-    status = kUnder; rem = limit; reset = 0;
-    n_limit = g_limit; n_rem = g_rem; n_dur = g_dur; n_stamp = g_stamp;
-    n_exp = 0; n_status = kUnder;
-  } else if (is_tok && tok_exist) {
-    status = t_resp_status; rem = can_take ? t_rem1 : t_rem0; reset = t_exp;
-    n_limit = limit; n_rem = t_rem1; n_dur = g_dur; n_stamp = g_stamp;
-    n_exp = t_exp; n_status = t_new_status;
-  } else if (is_tok) {
-    status = c_over ? kOver : kUnder; rem = c_rem_tok; reset = c_exp_tok;
-    n_limit = limit; n_rem = c_rem_tok; n_dur = duration; n_stamp = now;
-    n_exp = c_exp_tok; n_status = c_status_store;
-  } else if (lky_exist) {
-    status = l_resp_status; rem = l_resp_rem; reset = l_reset;
-    n_limit = limit; n_rem = l_rem_f; n_dur = duration; n_stamp = l_stamp;
-    n_exp = l_exp; n_status = kUnder;
+// Evaluate lane q against its slot's rows: the five paths of the JAX
+// package's _apply_compute (token reset, token existing, token create,
+// leaky existing, leaky create), of which a lane computes only the one
+// it takes.
+__device__ __forceinline__ void eval_lane(const int32_t* hg, const int32_t* cg,
+                                          const Lane& q, int64_t now, Eval& e) {
+  Row g;
+  g.algo = hg[kHotFlags] & 3;
+  g.status = (hg[kHotFlags] >> 2) & 1;
+  g.limit = compose64(cg[kColdLim], cg[kColdLim + 1]);
+  g.rem = compose64(hg[kHotRem], hg[kHotRem + 1]);
+  g.dur = compose64(cg[kColdDur], cg[kColdDur + 1]);
+  g.stamp = compose64(hg[kHotStamp], hg[kHotStamp + 1]);
+  g.exp = compose64(hg[kHotExp], hg[kHotExp + 1]);
+
+  // Expiry-as-miss: a slot at exactly its expiry is still live.
+  const bool live = q.exists && g.exp >= now;
+  const bool exist = live && g.algo == q.algo;  // algo switch => recreate
+  const bool greg = (q.behavior & kGregorian) != 0;
+  const bool reset_b = (q.behavior & kResetRemaining) != 0;
+  const bool removed = live && reset_b && q.algo == kTokenBucket;
+  Step o;
+  if (q.algo == kTokenBucket) {
+    if (removed) {
+      token_reset(g, q, o);
+    } else {
+      // An existing item whose duration changed takes the expiry the new
+      // duration gives it, and is recreated if that has passed.
+      bool tok_exist = exist && !reset_b;
+      int64_t t_exp = g.exp;
+      if (tok_exist && g.dur != q.duration) {
+        t_exp = greg ? q.greg_expire : g.stamp + q.duration;
+        tok_exist = t_exp >= now;
+      }
+      if (tok_exist)
+        token_exist(g, q, t_exp, o);
+      else
+        token_create(q, now, greg, o);
+    }
+  } else if (exist) {
+    leaky_exist(g, q, now, greg, reset_b, o);
   } else {
-    status = lc_over ? kOver : kUnder; rem = lc_resp_rem; reset = lc_reset;
-    n_limit = limit; n_rem = lc_rem; n_dur = dur_eff; n_stamp = now;
-    n_exp = lc_exp; n_status = kUnder;
+    leaky_create(q, now, greg, o);
   }
 
-  e.row0 = status | (int64_t(tok_reset ? 1 : 0) << 1);
-  e.remaining = rem;
-  e.reset_time = reset;
-  e.new_expire = n_exp;
-  e.pre_expire = g_exp;
-  e.hot[0] = int32_t((q.algo & 3) | ((n_status & 1) << 2));
-  e.hot[1] = lo32(n_rem);
-  e.hot[2] = hi32(n_rem);
-  e.hot[3] = lo32(n_stamp);
-  e.hot[4] = hi32(n_stamp);
-  e.hot[5] = lo32(n_exp);
-  e.hot[6] = hi32(n_exp);
+  e.row0 = o.status | (int64_t(removed ? 1 : 0) << 1);
+  e.remaining = o.rem;
+  e.reset_time = o.reset;
+  e.new_expire = o.n_exp;
+  e.pre_expire = g.exp;
+  e.hot[0] = int32_t((q.algo & 3) | ((o.n_status & 1) << 2));
+  e.hot[1] = lo32(o.n_rem);
+  e.hot[2] = hi32(o.n_rem);
+  e.hot[3] = lo32(o.n_stamp);
+  e.hot[4] = hi32(o.n_stamp);
+  e.hot[5] = lo32(o.n_exp);
+  e.hot[6] = hi32(o.n_exp);
   e.hot[7] = 0;
-  e.limit = n_limit;
-  e.duration = n_dur;
+  e.limit = o.n_limit;
+  e.duration = o.n_dur;
   e.write_hot = q.write;
-  e.write_cold = q.write && (n_limit != g_limit || n_dur != g_dur);
+  e.write_cold = q.write && (o.n_limit != g.limit || o.n_dur != g.dur);
 }
 
 // Narrow time encoding (ops/buckets.py apply_rounds32): delta from now;
@@ -255,12 +373,39 @@ __device__ __forceinline__ int32_t narrow_time(int64_t v, int64_t now, int64_t p
   return int32_t(imin(imax(d, 0), kI32Max));
 }
 
+// Memory helpers of the bucket-rounds kernel: a 16-byte copy from device
+// memory into shared memory that bypasses L1 (cp.async.cg, so a row
+// another SM stored before a grid barrier is read afresh), the wait for
+// all of a thread's copies, and a non-binding prefetch into L2.  Built
+// for the CPU (the tests' stand-in runtime), a plain copy and no-ops.
+__device__ __forceinline__ void copy_async16(int4* smem, const int4* gmem) {
+#ifdef __CUDA_ARCH__
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   static_cast<unsigned>(__cvta_generic_to_shared(smem))),
+               "l"(gmem)
+               : "memory");
+#else
+  *smem = *gmem;
+#endif
+}
+__device__ __forceinline__ void copies_done() {
+#ifdef __CUDA_ARCH__
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+#endif
+}
+__device__ __forceinline__ void prefetch_l2(const void* p) {
+#ifdef __CUDA_ARCH__
+  asm volatile("prefetch.global.L2 [%0];\n" ::"l"(p));
+#endif
+}
+
 constexpr int64_t kTableRows = 256;
 
 // Single-buffer dict wire of one shard (ops/buckets.py pack_dict_wire):
 // slot[P], occ|flags<<16|cfg<<24 [P], round_id[P], then the table.
 template <bool WIDE>
 struct DictSource {
+  static constexpr bool kDict = true;
   const int32_t* wire;
   int64_t P, W;
 
@@ -269,6 +414,9 @@ struct DictSource {
     slot = w[p];
     rid = w[2 * P + p];
   }
+
+  // Start bringing the lane's request words toward the SM.
+  __device__ void prefetch(int64_t s, int64_t p) const { prefetch_l2(wire + s * W + P + p); }
 
   __device__ void lane(int64_t s, int64_t p, int64_t now, Lane& q) const {
     const int32_t* w = wire + s * W;
@@ -301,6 +449,7 @@ struct DictSource {
 // greg_duration as i32 (greg_expire a delta from now) or, WIDE, i64.
 template <bool WIDE>
 struct ColsSource {
+  static constexpr bool kDict = false;
   const int32_t* lanes;
   const void* values;
   int64_t P;
@@ -308,6 +457,13 @@ struct ColsSource {
   __device__ void head(int64_t s, int64_t p, int32_t& slot, int32_t& rid) const {
     slot = lanes[(s * 6 + 0) * P + p];
     rid = lanes[(s * 6 + 5) * P + p];
+  }
+
+  // Start bringing the lane's request words toward the SM.
+  __device__ void prefetch(int64_t s, int64_t p) const {
+    for (int k = 1; k < 5; ++k) prefetch_l2(lanes + (s * 6 + k) * P + p);
+    for (int k = 0; k < 5; ++k)
+      prefetch_l2(static_cast<const char*>(values) + ((s * 5 + k) * P + p) * (WIDE ? 8 : 4));
   }
 
   __device__ void lane(int64_t s, int64_t p, int64_t now, Lane& q) const {
@@ -363,19 +519,32 @@ struct BucketOut {
   }
 };
 
-// Gather the rows of `slot` in shard s (an out-of-range slot reads row
-// C - 1, as JAX's clamped gather) and evaluate lane q against them.
+// Evaluate lane q against a hot row (words 0-3, 4-7) and the first half
+// of a cold row.
+__device__ __forceinline__ void eval_words(int4 h0, int4 h1, int4 c0, const Lane& q,
+                                           int64_t now, Eval& e) {
+  const int32_t hg[8] = {h0.x, h0.y, h0.z, h0.w, h1.x, h1.y, h1.z, h1.w};
+  const int32_t cg[4] = {c0.x, c0.y, c0.z, c0.w};
+  eval_lane(hg, cg, q, now, e);
+}
+
+// Table row of `slot` in shard s: an out-of-range slot reads row C - 1,
+// as JAX's clamped gather.
+__device__ __forceinline__ int64_t table_row(int64_t C, int64_t s, int64_t slot) {
+  return s * C + (slot < C ? slot : C - 1);
+}
+
+// Gather the rows of `slot` in shard s and evaluate lane q against them.
 __device__ __forceinline__ void gather_eval(const int32_t* __restrict__ hot,
                                             const int32_t* __restrict__ cold, int64_t C,
                                             int64_t s, int64_t slot, const Lane& q,
                                             int64_t now, Eval& e) {
-  const int64_t row = s * C + (slot < C ? slot : C - 1);
+  const int64_t row = table_row(C, s, slot);
+  // Loads through L2 only: the bucket-rounds kernel rewrites rows that
+  // other SMs read after the round's grid barrier.
   const int4* hp = reinterpret_cast<const int4*>(hot + row * 8);
-  const int4 h0 = hp[0], h1 = hp[1];
-  const int4 c0 = reinterpret_cast<const int4*>(cold + row * 8)[0];
-  const int32_t hg[8] = {h0.x, h0.y, h0.z, h0.w, h1.x, h1.y, h1.z, h1.w};
-  const int32_t cg[4] = {c0.x, c0.y, c0.z, c0.w};
-  eval_lane(hg, cg, q, now, e);
+  eval_words(__ldcg(hp), __ldcg(hp + 1), __ldcg(reinterpret_cast<const int4*>(cold + row * 8)),
+             q, now, e);
 }
 
 // Which rows an evaluated lane writes (bit0 hot, bit1 cold); a lane
@@ -385,34 +554,35 @@ __device__ __forceinline__ int32_t write_flag(const Eval& e, int64_t slot, int64
   return (e.write_hot && in_table ? 1 : 0) | (e.write_cold && in_table ? 2 : 0);
 }
 
-// The new rows of an evaluated lane as 16-byte words: the hot row (2),
-// the cold row's limit and duration (1).
-__device__ __forceinline__ void row_words(const Eval& e, int4 w[3]) {
-  w[0] = make_int4(e.hot[0], e.hot[1], e.hot[2], e.hot[3]);
-  w[1] = make_int4(e.hot[4], e.hot[5], e.hot[6], e.hot[7]);
-  w[2] = make_int4(lo32(e.limit), hi32(e.limit), lo32(e.duration), hi32(e.duration));
+// The new rows of an evaluated lane as 16-byte words: the hot row (w0,
+// w1), the cold row's limit and duration (w2).
+__device__ __forceinline__ void row_words(const Eval& e, int4* w0, int4* w1, int4* w2) {
+  *w0 = make_int4(e.hot[0], e.hot[1], e.hot[2], e.hot[3]);
+  *w1 = make_int4(e.hot[4], e.hot[5], e.hot[6], e.hot[7]);
+  *w2 = make_int4(lo32(e.limit), hi32(e.limit), lo32(e.duration), hi32(e.duration));
 }
 
 // Store the rows `flag` names at table row `row` (the cold row's spare
 // words zeroed).
 __device__ __forceinline__ void store_rows(int32_t* __restrict__ hot,
                                            int32_t* __restrict__ cold, int64_t row,
-                                           int32_t flag, const int4* w) {
+                                           int32_t flag, int4 w0, int4 w1, int4 w2) {
   if (flag & 1) {
     int4* hp = reinterpret_cast<int4*>(hot + row * 8);
-    hp[0] = w[0];
-    hp[1] = w[1];
+    hp[0] = w0;
+    hp[1] = w1;
   }
   if (flag & 2) {
     int4* cp = reinterpret_cast<int4*>(cold + row * 8);
-    cp[0] = w[2];
+    cp[0] = w2;
     cp[1] = make_int4(0, 0, 0, 0);
   }
 }
 
-// Compute step of round `round` for lane p of shard s: every lane of
-// the round evaluates against the pre-round rows, writes its output
-// through `sink` and stages its new rows.  A lane of another round
+// The two-launch round of K3 and K10 (a compute launch, then a commit
+// launch on the same stream).  Compute step of round `round` for lane p
+// of shard s: every lane of the round evaluates against the pre-round
+// rows, writes its output through `sink` and stages its new rows.  A lane of another round
 // stages nothing; in round 0, lanes that no round will evaluate
 // (padding) write the all-zero output, as does a lane of the round with
 // slot -1.  A Sink with kFirstLook sees each lane of the round before
@@ -446,12 +616,8 @@ __device__ __forceinline__ void compute_lane(
   sink.evaluated(s, p, q, e);
   const int32_t flag = write_flag(e, slot, C);
   if (flag) {
-    int4 w[3];
-    row_words(e, w);
     int4* sp = reinterpret_cast<int4*>(st);
-    sp[0] = w[0];
-    sp[1] = w[1];
-    sp[2] = w[2];
+    row_words(e, sp, sp + 1, sp + 2);
     sp[3] = make_int4(flag, slot, 0, 0);
   } else {
     st[kStageFlag] = 0;
@@ -466,7 +632,7 @@ __device__ __forceinline__ void commit_lane(int32_t* __restrict__ hot,
                                             const int32_t* __restrict__ stage) {
   const int4* sp = reinterpret_cast<const int4*>(stage + (s * P + p) * kStageWords);
   const int4 tail = sp[3];
-  if (tail.x) store_rows(hot, cold, s * C + tail.y, tail.x, sp);
+  if (tail.x) store_rows(hot, cold, s * C + tail.y, tail.x, sp[0], sp[1], sp[2]);
 }
 
 }  // namespace gt

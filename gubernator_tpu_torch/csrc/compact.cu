@@ -15,19 +15,20 @@
 // question can be asked of this card (chip_smoke.py holds it against
 // K1 on the same single-round batch).
 //
-// What bounds it on this card: memory, as K1.  Per lane it reads 12
-// bytes of dict wire (44 of per-lane columns), gathers a 32-byte hot
-// and a 32-byte cold row, writes 16 bytes of output; per `wlane` entry
-// it reads 4 bytes and, for a write lane, scatters a 32-byte hot row
-// (and the cold row where its config changed).
+// What bounds it on this card: bytes and instructions, as K1 (see
+// bucket_rounds.cu).  Per lane it reads 12 bytes of dict wire (44 of
+// per-lane columns), gathers a 32-byte hot and a 32-byte cold row,
+// writes 16 bytes of output; per `wlane` entry it reads 4 bytes and,
+// for a write lane, scatters a 32-byte hot row (and the cold row where
+// its config changed).
 //
-// Design.  The same two launches on one stream as one round of K1, with
-// nothing forked: the compute launch runs compute_lane
-// (bucket_rounds.cuh) with every lane put in round 0 — the JAX form
-// ignores the wire's round ids — so each lane evaluates against the
-// pre-batch rows, writes its output and stages its new rows; the commit
-// launch then runs one thread per `wlane` entry, which stores the
-// staged rows of the lane it names through commit_lane.  The staged
+// Design.  Two launches on one stream, through the round steps of
+// bucket_rounds.cuh: the compute launch runs compute_lane with every
+// lane put in round 0 — the JAX form ignores the wire's round ids — so
+// each lane evaluates against the pre-batch rows, writes its output and
+// stages its new rows; the commit launch then runs one thread per
+// `wlane` entry, which stores the staged rows of the lane it names
+// through commit_lane.  The staged
 // record says whether the lane writes its hot row and its cold row
 // (write lane, config changed, slot inside the table), which is exactly
 // JAX's `wvalid` and `wvalid & cold_changed`.  The JAX quirks are kept:

@@ -23,16 +23,18 @@
 // reads of a cached lane and an 8-byte atomic add; K4 reads ghits and
 // the replica columns of every shard once, writes them once, and writes
 // 64 bytes of packed result per (shard, gslot); K5 and K6 scatter a few
-// words per gslot into every shard.  The integer work is far below the
-// card's rate.
+// words per gslot into every shard.  A lane that reaches its bucket runs
+// the evaluation of bucket_rounds.cuh, several hundred instructions
+// (see bucket_rounds.cu).
 //
 // Design.
-//   * K3 runs each round as the compute + commit launch pair of K1/K2,
-//     through the same compute_lane / commit_lane (stream order is the
-//     barrier between a round's reads and its writes); only its output
-//     sink differs, which first looks at each lane for the replica
-//     answer and the hit accumulation.  The replica columns do not change inside the program, so
-//     a lane's `cached` test does not depend on the round.  Hits go into
+//   * K3 runs each round as a compute + commit launch pair through
+//     compute_lane / commit_lane of bucket_rounds.cuh (stream order is
+//     the barrier between a round's reads and its writes), with an
+//     output sink that first looks at each lane for the replica answer
+//     and the hit accumulation.  The replica columns do not change
+//     inside the program, so a lane's `cached` test does not depend on
+//     the round.  Hits go into
 //     ghits with a 64-bit atomicAdd on the two's-complement bits: integer
 //     addition commutes, so duplicate gslots and negative hits give the
 //     JAX program's bits in any order.
@@ -150,8 +152,8 @@ sync_kernel(int32_t* __restrict__ hot, int32_t* __restrict__ cold, int64_t S,
   int64_t b_status = 0, b_limit = 0, b_rem = 0, b_reset = 0, removed = 0, nexp = 0;
   if (apply) {
     Lane q;
-    q.algo = cfg[2 * G + g];
-    q.behavior = cfg[3 * G + g];
+    q.algo = int32_t(cfg[2 * G + g]);
+    q.behavior = int32_t(cfg[3 * G + g]);
     q.hits = total;
     q.limit = cfg[4 * G + g];
     q.duration = cfg[5 * G + g];
@@ -170,9 +172,9 @@ sync_kernel(int32_t* __restrict__ hot, int32_t* __restrict__ cold, int64_t S,
     nexp = e.new_expire;
     const int32_t flag = write_flag(e, owner_slot, C);
     if (flag) {
-      int4 w[3];
-      row_words(e, w);
-      store_rows(hot, cold, owner * C + owner_slot, flag, w);
+      int4 w0, w1, w2;
+      row_words(e, &w0, &w1, &w2);
+      store_rows(hot, cold, owner * C + owner_slot, flag, w0, w1, w2);
     }
   }
   for (int64_t s = 0; s < S; ++s) {

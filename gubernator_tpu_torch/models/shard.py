@@ -645,13 +645,6 @@ class ColumnsHandle:
         return self._value
 
 
-# Widest batch the express slot serves.  Its lanes apply one after
-# another in submission order (the semantics the rounds and duplicate
-# groups reproduce), so the cap bounds the host loop's cost, not
-# correctness.
-SCALAR_MAX_LANES = 4
-
-
 def _drained_locked(fn):
     """Run a mutator with the pipeline drained and the plan and store
     locks held (ColumnarPipeline._drain_then_lock): it must observe every
@@ -745,6 +738,12 @@ class ColumnarPipeline:
         # The express slot's switch, off at the store level: a service
         # turns it on; bare stores launch every batch.
         self.scalar_fast_path = False
+        # Widest batch the express slot serves (a service sets it from
+        # GUBER_EXPRESS_MAX_LANES).  Its lanes apply one after another in
+        # submission order (the semantics the rounds and duplicate groups
+        # reproduce), so the cap bounds the host loop's cost, not
+        # correctness.
+        self.scalar_max_lanes = 4
         # Kernel launches of the persistence plane: one row gather per
         # snapshot_columns, gather + scatter per commit_transfer.
         self.transfer_drain_dispatches = 0
@@ -1340,7 +1339,7 @@ class ShardStore(ColumnarPipeline):
         switch is on; never on the card, whose batches take K1."""
         if not self.scalar_fast_path:
             return False
-        if not 1 <= len(cols.hits) <= SCALAR_MAX_LANES:
+        if not 1 <= len(cols.hits) <= self.scalar_max_lanes:
             return False
         if not (self._native and self.store is None):
             return False

@@ -7,8 +7,10 @@ sm_90a, one nvcc process per source started together, into one shared
 library with a plain C interface the first time a kernel is launched
 (or `build()` is called), and bound through ctypes.  Each wrapper checks
 device, dtype, shape and contiguity, allocates its output and scratch
-with torch.empty, launches on PyTorch's current stream, raises when the
-launch returns a CUDA error, and counts its launches in LAUNCHES.
+with torch.empty (K1 and K2 need no scratch: their one cooperative
+launch keeps a round's new rows on the SM), launches on PyTorch's current
+stream, raises when the launch returns a CUDA error, and counts its
+launches in LAUNCHES.
 
 Nothing here runs on import: the CPU tests import this module's package
 on a machine with no nvcc and no card.
@@ -33,7 +35,7 @@ SOURCES = [os.path.join(_CSRC, name)
 HEADERS = [os.path.join(_CSRC, "bucket_rounds.cuh")]
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-I", _CSRC,
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo", "-I", _CSRC,
 ]
 LINK_FLAGS = ["-shared"]
 
@@ -47,7 +49,7 @@ LAUNCHES = {
     "clear_gslots": 0, "gather_rows": 0, "write_rows": 0,
     "gather_back_rows": 0, "apply_moves": 0, "bucket_compact": 0,
 }
-_STAGE_WORDS = 16  # per-lane scratch record (bucket_rounds.cuh kStageWords)
+_STAGE_WORDS = 16  # K3/K10 per-lane scratch record (bucket_rounds.cuh kStageWords)
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -75,8 +77,9 @@ def build(log: "list | None" = None) -> str:
 
 _P, _I32, _I64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
 _SIGNATURES = {
-    "gt_bucket_rounds_dict": [_P, _P, _I64, _I64, _P, _I64, _I32, _I64, _I32, _P, _P, _P],
-    "gt_bucket_rounds_cols": [_P, _P, _I64, _I64, _P, _P, _I64, _I32, _I64, _I32, _P, _P, _P],
+    "gt_bucket_rounds_dict": [_P, _P, _I64, _I64, _P, _I64, _I32, _I64, _I32, _P, _P],
+    "gt_bucket_rounds_cols": [_P, _P, _I64, _I64, _P, _P, _I64, _I32, _I64, _I32, _P, _P],
+    "gt_bucket_rounds_held_lanes": [_I32, _I32, _P],
     "gt_global_answer_rounds": [_P, _P, _I64, _I64, _P, _P, _P, _I64, _P, _P, _P, _P,
                                 _P, _P, _I64, _I32, _I64, _P, _P, _P],
     "gt_global_sync": [_P, _P, _I64, _I64, _P, _P, _P, _P, _P, _P, _I64, _P, _P, _I64,
@@ -167,11 +170,10 @@ def bucket_rounds_dict(hot, cold, wire, n_rounds: int, now_ms: int, wide: bool,
     if n_rounds < 1:
         raise ValueError("n_rounds must be >= 1")
     out = _out(out, S, P, wide, hot.device)
-    stage = torch.empty((S, P, _STAGE_WORDS), dtype=torch.int32, device=hot.device)
     rc = _get_lib().gt_bucket_rounds_dict(
         hot.data_ptr(), cold.data_ptr(), S, C, wire.data_ptr(), P,
-        int(n_rounds), int(now_ms), 1 if wide else 0, stage.data_ptr(),
-        out.data_ptr(), _stream(hot.device),
+        int(n_rounds), int(now_ms), 1 if wide else 0, out.data_ptr(),
+        _stream(hot.device),
     )
     _finish("bucket_rounds_dict", rc)
     return out
@@ -191,14 +193,25 @@ def bucket_rounds_cols(hot, cold, lanes, values, n_rounds: int, now_ms: int,
     if n_rounds < 1:
         raise ValueError("n_rounds must be >= 1")
     out = _out(None, S, P, wide, hot.device)
-    stage = torch.empty((S, P, _STAGE_WORDS), dtype=torch.int32, device=hot.device)
     rc = _get_lib().gt_bucket_rounds_cols(
         hot.data_ptr(), cold.data_ptr(), S, C, lanes.data_ptr(),
         values.data_ptr(), P, int(n_rounds), int(now_ms), 1 if wide else 0,
-        stage.data_ptr(), out.data_ptr(), _stream(hot.device),
+        out.data_ptr(), _stream(hot.device),
     )
     _finish("bucket_rounds_cols", rc)
     return out
+
+
+def held_lanes(dict_wire: bool, wide: bool) -> int:
+    """The lanes one K1 (`dict_wire`) or K2 launch holds across its
+    round barriers on the current device (resident threads x lanes a
+    thread holds); a larger batch re-reads the rest each round."""
+    n = ctypes.c_int64(0)
+    rc = _get_lib().gt_bucket_rounds_held_lanes(1 if dict_wire else 0, 1 if wide else 0,
+                                                 ctypes.byref(n))
+    if rc != 0:
+        raise RuntimeError(f"held_lanes: occupancy query failed with CUDA error {rc}")
+    return n.value
 
 
 # ---------------------------------------------------------------------

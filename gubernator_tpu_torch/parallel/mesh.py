@@ -70,7 +70,6 @@ import torch
 
 from .. import native
 from ..models.shard import (
-    SCALAR_MAX_LANES,
     ColumnarPipeline,
     ColumnsHandle,
     RoundPlanner,
@@ -853,7 +852,7 @@ class MeshBucketStore(ColumnarPipeline):
         card."""
         if not self.scalar_fast_path:
             return False
-        if not 1 <= len(cols.hits) <= SCALAR_MAX_LANES:
+        if not 1 <= len(cols.hits) <= self.scalar_max_lanes:
             return False
         if self.store is not None or self.back is not None:
             return False

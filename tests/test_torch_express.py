@@ -211,3 +211,45 @@ def test_express_slot_is_never_taken_on_the_card():
     assert not m._scalar_eligible(cols)
     with pytest.raises(TypeError):  # no host view off the CPU, and no copy
         scalar.shard_view(torch.zeros((1, 2, 8), dtype=torch.int32, device="meta"), 0)
+
+
+def _drive_wide(store, seed: int, steps: int = 80):
+    """Batches of 1-8 lanes (duplicate groups among them) through the
+    columnar API; returns the answers."""
+    rng = random.Random(seed)
+    out, now = [], 1_000_000
+    for _ in range(steps):
+        n = rng.randint(1, 8)
+        ks = [f"w{rng.randrange(10)}" for _ in range(n)]
+        if rng.random() < 0.3:
+            ks = [ks[0]] * n
+        algo = np.array([rng.choice([0, 1]) for _ in range(n)], np.int32)
+        beh = np.array([rng.choice([0, 0, 0, 8]) for _ in range(n)], np.int32)
+        hits = np.array([rng.choice([0, 1, 1, 2, 5]) for _ in range(n)], np.int64)
+        limit = np.full(n, rng.choice([3, 10, 30]), np.int64)
+        dur = np.full(n, rng.choice([50, 100, 1000]), np.int64)
+        now += rng.choice([0, 1, 3, 60, 1500])
+        r = store.apply_columns(ks, algo, beh, hits, limit, dur, now)
+        out.append(tuple((int(r["status"][i]), int(r["remaining"][i]),
+                          int(r["reset_time"][i])) for i in range(n)))
+    return out
+
+
+@pytest.mark.parametrize("cap", [8, 2])
+@pytest.mark.parametrize("kind", ["shard", "mesh"])
+def test_express_cap_is_the_stores_field(kind, cap):
+    """`scalar_max_lanes` (the JAX service sets it from
+    GUBER_EXPRESS_MAX_LANES) caps the express slot of both packages'
+    stores alike: the same answers, state and `scalar_applies` for
+    1-8-lane batches at a cap other than the default 4."""
+    j = _express(JaxShard(capacity=64) if kind == "shard" else JaxMesh(capacity_per_shard=32))
+    t = _express(ShardStore(capacity=64, device="cpu") if kind == "shard"
+                 else MeshBucketStore(capacity_per_shard=32, device="cpu"))
+    assert t.scalar_max_lanes == j.scalar_max_lanes == 4
+    j.scalar_max_lanes = t.scalar_max_lanes = cap
+    want = _drive_wide(j, 50 + cap)
+    assert _drive_wide(t, 50 + cap) == want
+    assert t.scalar_applies == j.scalar_applies
+    assert 0 < t.scalar_applies < 80 if cap == 2 else t.scalar_applies == 80
+    rows = t.state.hot[0] if kind == "shard" else t.state.hot
+    assert _jax_rows(j.state.hot) == rows.numpy().tobytes()

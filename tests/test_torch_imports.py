@@ -62,7 +62,8 @@ def test_global_plane_modules_are_covered():
 
 
 def test_no_jax_or_reference_imports_in_sources():
-    files = [os.path.join(ROOT, "chip_smoke.py")]
+    files = [os.path.join(ROOT, "chip_smoke.py"),
+             os.path.join(ROOT, "scripts", "torch_rounds_ab.py")]
     for dirpath, _, names in os.walk(PKG):
         files += [os.path.join(dirpath, n) for n in names if n.endswith(".py")]
     assert len(files) > 10

@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
 card: seeded cases (chip_smoke.make_case, chip_smoke.global_case,
 chip_smoke.rows_case, chip_smoke.moves_case, chip_smoke.compact_case)
-through each kernel (K1 and K2 narrow and wide; K3-K6 of the GLOBAL
+through each kernel (K1 and K2 narrow and wide, also in rounds that
+reuse slots and past the lanes one launch holds; K3-K6 of the GLOBAL
 plane; the row gather K7 and row scatter K8; the tier move K9, its
 records in either order; the compact commit K10, every write lane
 listed or half of them) must give the plain version's outputs, state
@@ -34,6 +35,27 @@ def test_kernel_matches_plain(cuda_device, kind, wide, seed):
 
     hot, cold, args, n_rounds = make_case(seed, 512, 256, 1 + seed, wide, kind,
                                           12 if kind == "dict" else 300)
+    got = run_kernel(torch, cuda_device, kind, hot, cold, args, n_rounds, wide, plain=False)
+    want = run_kernel(torch, cuda_device, kind, hot, cold, args, n_rounds, wide, plain=True)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.tobytes() == w.tobytes()
+
+
+@pytest.mark.parametrize("kind", ["dict", "cols"])
+@pytest.mark.parametrize("wide", [False, True], ids=["narrow", "wide"])
+@pytest.mark.parametrize("P,rounds", [(256, 4), (65_536, 3)], ids=["rounds", "past_held"])
+def test_kernel_rounds_match_plain(cuda_device, kind, wide, P, rounds):
+    """Rounds that reuse half the slots of the round before, in one
+    launch; at P = 65,536 the 8 x P lanes pass what one launch holds."""
+    import torch
+
+    from chip_smoke import S, make_case, run_kernel
+    from gubernator_tpu_torch.ops import _kernels
+
+    if P > 256:
+        assert S * P > _kernels.held_lanes(kind == "dict", wide)
+    hot, cold, args, n_rounds = make_case(30 + rounds, 4096, P, rounds, wide, kind,
+                                          12 if kind == "dict" else 300, reuse=0.5)
     got = run_kernel(torch, cuda_device, kind, hot, cold, args, n_rounds, wide, plain=False)
     want = run_kernel(torch, cuda_device, kind, hot, cold, args, n_rounds, wide, plain=True)
     for g, w in zip(got, want):

@@ -5,14 +5,18 @@ PyTorch versions: the same seeded cases as tests/test_torch_kernels.py
 K7 and row scatter K8; the tier move K9; the compact commit K10),
 tolerance 0.
 
-This holds the kernels' device logic (the round steps, the replica
-answer, the sync, the scatters, the row composition and split, the
-tier move's gather and scatter, the compact commit over the listed
-write lanes) on a machine with no card, where the
-cuda-marked tests skip.  The stand-in runs the threads of a launch one
-after another, so it shows no race and nothing of what nvcc does; the
-card runs of tests/test_torch_kernels.py and chip_smoke.py remain the
-test of the built kernels."""
+This holds the kernels' device logic (the cooperative rounds kernel
+with its grid barriers, held lanes and re-read lanes, each branch of
+the lane evaluation at its edges, the replica answer, the sync, the
+scatters, the row composition and split, the tier move's gather and
+scatter, the compact commit over the listed write lanes) on a machine
+with no card, where the cuda-marked tests skip.  The stand-in runs the
+threads of a launch one after another (a cooperative launch as fibers
+that meet at each grid barrier; GT_EMU_SMS sets its grid), so it shows
+no race and nothing of what nvcc does; the card runs of
+tests/test_torch_kernels.py and chip_smoke.py remain the test of the
+built kernels.  It is built with -fwrapv: int64 arithmetic that
+overflows wraps, as on the card and in the plain versions."""
 
 import ctypes
 import os
@@ -46,8 +50,8 @@ def emulated(tmp_path_factory):
         path.write_text(text)
         sources.append(str(path))
     lib_path = str(out / "kernels_emu.so")
-    subprocess.run(["g++", "-std=c++17", "-O1", "-fno-strict-aliasing", "-shared", "-fPIC",
-                    "-I", EMU, "-I", CSRC, *sources, "-o", lib_path],
+    subprocess.run(["g++", "-std=c++17", "-O1", "-fno-strict-aliasing", "-fwrapv", "-shared",
+                    "-fPIC", "-I", EMU, "-I", CSRC, *sources, "-o", lib_path],
                    check=True, capture_output=True, text=True)
     lib = ctypes.CDLL(lib_path)
     for fn, argtypes in _kernels._SIGNATURES.items():
@@ -216,3 +220,136 @@ def test_emulated_compact_kernel_keeps_the_wlane_quirks(emulated):
         out = emulated.bucket_compact(h, c, torch.tensor(case[3]), NOW,
                                       wire=torch.tensor(args[0]))
         _same([t.numpy() for t in (out, h, c)], want)
+
+
+def _rounds(emulated, kind, hot, cold, args, n_rounds, wide):
+    """(out, hot, cold) of the emulated K1/K2 and of its plain version."""
+    import torch
+
+    from chip_smoke import NOW
+    from gubernator_tpu_torch.ops import buckets
+
+    kernel = emulated.bucket_rounds_dict if kind == "dict" else emulated.bucket_rounds_cols
+    plain = (buckets.bucket_rounds_dict_plain if kind == "dict"
+             else buckets.bucket_rounds_cols_plain)
+    runs = []
+    for fn in (kernel, plain):
+        h, c = torch.tensor(hot), torch.tensor(cold)
+        out = fn(h, c, *[torch.tensor(a) for a in args], n_rounds, NOW, wide)
+        runs.append([t.numpy() for t in (out, h, c)])
+    return runs
+
+
+@pytest.mark.parametrize("kind", ["dict", "cols"])
+@pytest.mark.parametrize("wide", [False, True], ids=["narrow", "wide"])
+@pytest.mark.parametrize("seed", [10, 11])
+def test_emulated_rounds_reuse_slots(emulated, kind, wide, seed):
+    """Four rounds in one launch, half of each round's slots written in
+    the round before: round r + 1 must read round r's rows, across the
+    grid barrier and across blocks."""
+    from chip_smoke import make_case
+
+    hot, cold, args, n_rounds = make_case(seed, 512, 256, 4, wide, kind,
+                                          12 if kind == "dict" else 300, reuse=0.5)
+    assert n_rounds == 4
+    _same(*_rounds(emulated, kind, hot, cold, args, n_rounds, wide))
+
+
+@pytest.mark.parametrize("kind", ["dict", "cols"])
+@pytest.mark.parametrize("wide", [False, True], ids=["narrow", "wide"])
+def test_emulated_grid_smaller_than_batch(emulated, monkeypatch, kind, wide):
+    """One resident block (256 threads) for 8 x 256 lanes: each thread
+    holds two lanes (K2 wide three) and re-reads the rest each round,
+    whose writers evaluate again in the write half."""
+    from chip_smoke import S, make_case
+
+    monkeypatch.setenv("GT_EMU_SMS", "1")
+    held = 3 if kind == "cols" and wide else 2
+    assert emulated.held_lanes(kind == "dict", wide) == 256 * held < S * 256
+    hot, cold, args, n_rounds = make_case(12, 512, 256, 3, wide, kind,
+                                          12 if kind == "dict" else 300, reuse=0.5)
+    _same(*_rounds(emulated, kind, hot, cold, args, n_rounds, wide))
+
+
+# A month's Gregorian duration as the reference's gregorian_duration
+# reports it from a December 2023 instant (ms): every monthly leaky lane
+# takes the 128-bit leak division.
+MONTH_MS = 1_701_387_101_203_199_999
+
+
+def _edge_case(edge, seed, wide):
+    """A dict-wire batch (S = 8, C = 512, P = 256, 2 rounds) whose
+    configs and rows sit at one edge of the lane evaluation."""
+    from chip_smoke import NOW, S, _split, random_plan, random_state
+    from gubernator_tpu_torch.ops import buckets
+
+    rng = np.random.default_rng(seed)
+    C, P, k = 512, 256, 64
+    hot, cold = random_state(rng, C, True)
+    n = S * C
+    algo = rng.integers(0, 2, k)
+    behavior = np.zeros(k, np.int64)
+    hits = rng.choice([0, 1, 2, 5], k)
+    limit = rng.choice([1, 10, 100, 1000], k)
+    duration = rng.choice([1000, 60_000, 3_600_000], k)
+    ge, gd = np.zeros(k, np.int64), np.zeros(k, np.int64)
+    h, c = hot.reshape(n, 8), cold.reshape(n, 8)
+    if edge == "int32_edges":  # operands at 2**31 and 2**32
+        edges = np.array([2**31 - 1, 2**31, 2**31 + 1, 2**32 - 1, 2**32, 2**32 + 1])
+        hits = rng.choice(np.concatenate([edges, [0, 1]]), k)
+        limit = rng.choice(np.concatenate([edges, [1, 7]]), k)
+        duration = rng.choice(np.concatenate([edges, [1000]]), k)
+        h[:, 1], h[:, 2] = _split(rng.choice(edges, n))
+        c[:, 0], c[:, 1] = _split(rng.choice(edges, n))
+        h[:, 3], h[:, 4] = _split(NOW - rng.choice(np.concatenate([edges, [5, 0]]), n))
+    elif edge == "negative":  # negative limits, hits and remaining
+        hits = rng.choice([-1, -5, -(2**31), 0, 3], k)
+        limit = rng.choice([-1, -100, 0, 5, -(2**33)], k)
+        duration = rng.choice([-1000, 1, 60_000], k)
+        h[:, 1], h[:, 2] = _split(rng.integers(-(2**40), 2**20, n))
+    elif edge == "muldiv":  # leaks whose product passes int64: the 128-bit division
+        algo = np.ones(k, np.int64)
+        limit = rng.choice([2**42, 2**41 + 3, 2**40 - 1, 2**52 - 1, 2**52, 2**60 + 9], k)
+        duration = rng.choice([2**43, 2**44 + 5, 2**45, MONTH_MS, 2**62 + 11], k)
+        hits = rng.choice([1, 2**20, 0], k)
+        h[:, 3], h[:, 4] = _split(NOW - rng.integers(0, 2**44, n))
+    elif edge == "double_division":  # leak divisions between 2**32 and 2**53 and past it
+        algo = np.ones(k, np.int64)
+        limit = rng.choice([10**9 + 7, 2**33 + 5, 2**40, 999_983], k)
+        duration = rng.choice([3_600_000, 86_400_000, 2**35 + 1, 2**42 - 3], k)
+        h[:, 3], h[:, 4] = _split(NOW - rng.integers(0, 2**42, n))
+    elif edge == "reset_remaining":
+        behavior = rng.choice([0, 8], k)
+        h[:, 5], h[:, 6] = _split(NOW + rng.integers(-5, 60_000, n))
+    elif edge == "algorithm_switch":  # live rows of the other algorithm
+        h[:, 0] = (1 - algo[rng.integers(0, k, n)]) | (h[:, 0] & 4)
+        h[:, 5], h[:, 6] = _split(NOW + rng.integers(0, 60_000, n))
+    elif edge == "gregorian":
+        behavior = rng.choice([4, 12, 0], k)
+        gd = np.where(behavior & 4, rng.choice([86_400_000, 2**33, MONTH_MS], k), 0)
+        ge = np.where(behavior & 4, rng.choice([1, 3_600_000, 2**31 + 5, 2**34], k), 0)
+    elif edge == "occ_groups":  # the plan's duplicate groups, at small limits
+        hits = rng.choice([1, 2, 3, 7], k)
+        limit = rng.choice([0, 1, 3, 8, 20], k)
+    cfgs = [np.asarray(v, np.int64) for v in (algo, behavior, hits, limit, duration, ge, gd)]
+    plan = random_plan(rng, C, P, 2, reuse=0.5)
+    cfg = rng.integers(0, k, (S, P))
+    for s in range(S):
+        cfg[s] = cfg[s][plan["grp"][s] % P]
+    table = [np.concatenate([v, np.zeros(256 - k, np.int64)]) for v in cfgs]
+    wire = buckets.pack_dict_wire(plan["slot"], plan["ex"], plan["wr"], cfg, plan["occ"],
+                                  plan["rid"], table)
+    return hot, cold, (wire,), int(plan["rid"].max()) + 1
+
+
+@pytest.mark.parametrize("wide", [False, True], ids=["narrow", "wide"])
+@pytest.mark.parametrize("edge", ["int32_edges", "negative", "muldiv", "double_division",
+                                  "reset_remaining", "algorithm_switch", "gregorian",
+                                  "occ_groups"])
+def test_emulated_eval_edges_match_plain(emulated, edge, wide):
+    """Each branch of the lane evaluation at its edges through the
+    emulated K1: the 32-bit and double division forms' limits, negative
+    operands, the 128-bit leak, RESET_REMAINING, algorithm switches,
+    Gregorian lanes and duplicate groups with occ > 0."""
+    hot, cold, args, n_rounds = _edge_case(edge, 20 + len(edge), wide)
+    _same(*_rounds(emulated, "dict", hot, cold, args, n_rounds, wide))
