@@ -16,10 +16,12 @@ Phases (any failure exits non-zero and prints no `ok` line):
               card and inputs: K1 (dict wire) and K2 (per-lane columns),
               narrow and wide (also in 5 rounds that reuse slots, and
               past the lanes one launch holds), and the GLOBAL kernels K3 (answer
-              rounds), K4 (sync), K5 (replica commit) and K6 (replica
-              clear), the row gather (K7) and row scatter (K8), the
-              tier move (K9, its records in both orders, with the
-              window's two hazards), and the compact commit (K10, on the
+              rounds, also past the lanes one launch holds), K4 (sync),
+              K5 (replica commit) and K6 (replica clear), the row gather
+              (K7) and row scatter (K8), the tier move (K9, its records
+              in both orders, with the window's two hazards, also on a
+              window past what one launch holds), and the compact
+              commit (K10, on the
               dict wire and on per-lane columns, every write lane listed
               or half of them; also held against K1/K2 on the same
               single-round batch); small seeded cases plus one at the
@@ -84,7 +86,13 @@ Phases (any failure exits non-zero and prints no `ok` line):
 8. numbers  — kernel time per launch at the paths' shapes, the plain
               version's, the library call's where one computes the same
               function, and the bound (bytes; for K1/K2 also the
-              instruction bound, the larger of the two), as one JSON line (after
+              instruction bound, the larger of the two); device times
+              from the profiler (one device kernel a call for K1, K2,
+              K3 and K9) and, for K3 and K9, queued behind a spin kernel;
+              K3 also on a seeded 5-round batch and on the path batch's
+              live lanes without the host's padding, and the launch
+              floor (an empty kernel, an empty cooperative kernel with
+              one grid barrier at K3's grid), as one JSON line (after
               phases 9 and 10, whose inputs it times K9 and K7 on the
               back tier with, K1 on a 32,768-slot front against a
               262,144-slot single tier, K1 and K2 at S = 1, and K10
@@ -837,16 +845,20 @@ def run_global(torch, dev, kind, case, plain):
     return [t.cpu().numpy() for t in (*out, h, c, *g)]
 
 
-def global_kernel_phase(torch, dev="cuda", full=(C_GLOBAL, G_FULL, GLOBAL_BATCH)):
+def global_kernel_phase(torch, dev="cuda", full=(C_GLOBAL, G_FULL, GLOBAL_BATCH),
+                        past=65_536):
     """K3-K6 against their plain versions: seeded small cases and one at
     the GLOBAL path's full size (S=8, 65,536 slots and gslots, 2,048
-    lanes per shard, a 16,384-gslot replica commit, a 1,024-index clear)."""
+    lanes per shard, a 16,384-gslot replica commit, a 1,024-index clear);
+    K3 also on 8 x `past` lanes in 3 rounds, more than its launch holds."""
     from gubernator_tpu_torch.ops import _kernels
 
     Cf, Gf, Pf = full
+    if dev != "cpu" and S * past <= _kernels.answer_launch_shape(S * past)[1]:
+        raise AssertionError(f"K3 holds all {S * past} lanes: no case past them")
     shapes = {
         "answer": [(seed, 256, 64, 128, 1 + seed % 3) for seed in range(4)]
-        + [(100, Cf, Gf, Pf, 1), (101, Cf, Gf, Pf, 3)],
+        + [(100, Cf, Gf, Pf, 1), (101, Cf, Gf, Pf, 3), (102, max(Cf, past), Gf, past, 3)],
         "sync": [(seed, 256, 64, 0, 1) for seed in range(4)] + [(100, Cf, Gf, 0, 1)],
         "replica": [(seed, 256, 64, 32, 1) for seed in range(4)]
         + [(100, Cf, Gf, min(Gf, PEER_KEYS), 1)],
@@ -1010,17 +1022,22 @@ def run_moves(torch, dev, case, plain, reverse=False):
     return [x.cpu().numpy() for x in t]
 
 
-def moves_kernel_phase(torch, dev="cuda", full=(TT_FRONT, TT_BACK, TT_MOVES)):
+def moves_kernel_phase(torch, dev="cuda", full=(TT_FRONT, TT_BACK, TT_MOVES),
+                       past=(65_536, 262_144, 22_000, 20_000)):
     """K9 against its plain version: seeded small cases with both
-    hazards, the records in both orders, and one case at the two-tier
+    hazards, the records in both orders, one case at the two-tier
     path's size (S=8 x 32,768 front and 217,232 back rows, ~226,000
-    live records)."""
+    live records) and one of ~300,000 records, more than its launch holds
+    in registers (`past`)."""
     from gubernator_tpu_torch.ops import _kernels
 
     err, n = 0, 0
     C, Cb, m = full
-    for seed, args in [(s, (64, 256, 20, 15)) for s in range(4)] + [(100, (C, Cb, m, m))]:
+    for seed, args in [(s, (64, 256, 20, 15)) for s in range(4)] + [(100, (C, Cb, m, m)),
+                                                                    (101, past)]:
         case = moves_case(seed, *args)
+        if seed == 101 and dev != "cpu" and not _kernels.moves_spill(case[-1].shape[1]):
+            raise AssertionError("K9 holds the whole window: no case past it")
         want = run_moves(torch, dev, case, plain=True)
         for reverse in (False, True):
             got = run_moves(torch, dev, case, plain=False, reverse=reverse)
@@ -2766,52 +2783,94 @@ def time_launches(torch, fn, iters):
 DEVICE_KERNELS = {
     "bucket_rounds_dict": ("bucket_rounds_kernel",),
     "bucket_rounds_cols": ("bucket_rounds_kernel",),
-    "global_answer_rounds": ("answer_compute", "answer_commit"),
+    "global_answer_rounds": ("bucket_rounds_kernel",),  # rounds.cuh, the AnswerOut sink
     "global_sync": ("sync_kernel",),
     "set_replica": ("set_replica_kernel",),
     "clear_gslots": ("clear_kernel",),
     "gather_rows": ("gather_rows_kernel",),
     "write_rows": ("write_rows_kernel",),
     "gather_back_rows": ("gather_rows_kernel",),
-    "apply_moves": ("moves_gather_kernel", "moves_scatter_kernel"),
+    "apply_moves": ("moves_kernel",),
     "bucket_compact": ("compact_compute", "compact_commit"),
+    "launch_floor": ("empty_kernel", "empty_barrier_kernel"),
 }
+# wrappers whose every call is one device kernel (device_ms asserts it)
+ONE_LAUNCH = ("bucket_rounds_dict", "bucket_rounds_cols", "global_answer_rounds", "apply_moves")
 
 
-def device_ms(torch, kname, fn, iters=20, cold=False, kernels=None):
-    """Device time per wrapper call from torch.profiler: the summed
-    duration of the wrapper's kernels (DEVICE_KERNELS, or the names in
-    `kernels`), which leaves out the host's launch gaps that the event
-    timing of back-to-back calls includes.  With `cold`, a 64 MiB buffer
-    is zeroed before each call so the call finds the 50 MB L2 cache
-    holding none of its rows (the zeroing's own kernel is not summed).
-    None when the trace holds no such kernel."""
+def device_profile(torch, fn, iters=20, cold=False, kernels=()):
+    """(ms, span_ms, per_call) of `iters` calls of `fn` from
+    torch.profiler: the summed duration of the device kernels whose names
+    hold one of `kernels`, per call; the time from a call's first such
+    kernel's start to its last one's end (the gaps between a call's
+    launches included), per call; and the kernels a call ran.  With
+    `cold`, a 64 MiB buffer is zeroed before each call so the call finds
+    the 50 MB L2 cache holding none of its rows (the zeroing's own kernel
+    is not summed).  (None, None, 0) when the trace holds no such
+    kernel."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     flush = torch.empty(16 << 20, dtype=torch.int32, device="cuda") if cold else None
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):  # a trace that lost the kernels' records is taken again
+    for _ in range(3):  # a trace that lost kernels' records is taken again
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 if flush is not None:
                     flush.zero_()
                 fn()
             torch.cuda.synchronize()
-        events = [e for e in prof.key_averages()
-                  if any(k in e.key for k in kernels or DEVICE_KERNELS[kname])]
-        us = [getattr(e, "device_time_total", 0) for e in events]
-        if sum(us):
+        evs = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                     if e.device_type == DeviceType.CUDA and any(k in e.name for k in kernels))
+        if evs and len(evs) % iters == 0 and sum(b - a for a, b in evs):
             break
-    if not us or not sum(us):
+    if not evs or not sum(b - a for a, b in evs):
+        return None, None, 0
+    ms = sum(b - a for a, b in evs) / iters / 1e3
+    span = None
+    if len(evs) % iters == 0:
+        k = len(evs) // iters
+        span = sum(evs[i + k - 1][1] - evs[i][0] for i in range(0, len(evs), k)) / iters / 1e3
+    return ms, span, len(evs) / iters
+
+
+def queued_ms(torch, fn, iters=20):
+    """Time per call on the card with the calls queued behind a 50 ms
+    spin kernel, so that the host's enqueue never leaves the card
+    waiting: CUDA events around `iters` calls, which include the gaps
+    between a call's launches as the card runs them (the profiler's sums
+    leave them out, and its own launch overhead widens them)."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(100_000_000)  # ~50 ms at the H100's 1,980 MHz
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def device_ms(torch, kname, fn, iters=20, cold=False, kernels=None):
+    """Device time per wrapper call (device_profile's summed kernel
+    time) of the wrapper's kernels (DEVICE_KERNELS, or the names in
+    `kernels`), which leaves out the host's launch gaps that the event
+    timing of back-to-back calls includes; logs it with the call's span.
+    None when the trace holds no such kernel.  A wrapper of ONE_LAUNCH
+    must run one device kernel a call."""
+    ms, span, per_call = device_profile(torch, fn, iters, cold,
+                                        kernels or DEVICE_KERNELS[kname])
+    if ms is None:
         log(f"[profile] {kname}: no device time in the trace (not measured)")
         return None
-    if kernels is None and kname in ("bucket_rounds_dict", "bucket_rounds_cols") and \
-            sum(e.count for e in events) != iters:
-        raise AssertionError(f"{kname}: {sum(e.count for e in events)} device kernels in "
-                             f"{iters} calls, not one a call")
-    ms = sum(us) / iters / 1e3
-    log(f"[profile] {kname}: device {ms:.4f} ms per call{' (L2 flushed)' if cold else ''}")
+    if kernels is None and kname in ONE_LAUNCH and per_call != 1:
+        raise AssertionError(f"{kname}: {per_call * iters:g} device kernels in {iters} calls, "
+                             f"not one a call")
+    span_s = "not measured" if span is None else f"{span:.4f} ms"
+    log(f"[profile] {kname}: device {ms:.4f} ms per call{' (L2 flushed)' if cold else ''}, "
+        f"{per_call:g} kernels a call, first start to last end {span_s}")
     return ms
 
 
@@ -2937,6 +2996,10 @@ def global_numbers_phase(torch, card, launches, errs, inputs, now):
         hot, cold, g, lanes, values, gslot, nr, now), 20)
     device_ms(torch, "global_answer_rounds", lambda: global_ops.answer_rounds(
         hot, cold, g, lanes, values, gslot, nr, now))
+    device_ms(torch, "global_answer_rounds", lambda: global_ops.answer_rounds(
+        hot, cold, g, lanes, values, gslot, nr, now), cold=True)
+    queued = queued_ms(torch, lambda: global_ops.answer_rounds(
+        hot, cold, g, lanes, values, gslot, nr, now))
     plain_ms = time_launches(torch, lambda: global_ops.answer_rounds_plain(
         hot, cold, g, lanes, values, gslot, nr, now), 3)
     cached = ((answer_np[:, 0] >> 2) & 1) == 1
@@ -2960,7 +3023,9 @@ def global_numbers_phase(torch, card, launches, errs, inputs, now):
         note=f": {int(live.sum())} live lanes of S*P={S_ * P}, {nr} rounds, "
              f"{int(cached.sum())} replica answers, {int(evaluated.sum())} bucket lanes; "
              f"with the padded arrays {padded} bytes, "
-             f"{padded / HBM_BYTES_PER_S * 1e3:.6g} ms")
+             f"{padded / HBM_BYTES_PER_S * 1e3:.6g} ms; queued behind a spin kernel "
+             f"{queued:.4f} ms a call")
+    k3_more(torch, card, (lanes, values, gslot), live, nr, now)
 
     # K4 on the step-by-step sync
     cfg, dirty = sync_staged
@@ -3007,6 +3072,74 @@ def global_numbers_phase(torch, card, launches, errs, inputs, now):
     row("clear", ms, plain_ms, idx_np.nbytes + int((idx_np < G).sum()) * S_ * 44, lib_ms,
         note=f": K={idx_np.size}")
     return rows
+
+
+def _ms(v):
+    return "not measured" if v is None else f"{v:.4f} ms"
+
+
+def deal_live_lanes(lanes, values, gslot, live):
+    """The live lanes of a padded [S, *, P] answer batch dealt round robin
+    over the S shards, each keeping its words (the same lanes' work, with
+    the padding that fills every shard to the fullest cut to the
+    fullest's share of the live lanes)."""
+    S_ = lanes.shape[0]
+    sh, p = np.nonzero(live)
+    Pn = max(1, -(-len(sh) // S_))
+    out_l = np.zeros((S_, 6, Pn), np.int32)
+    out_l[:, 0] = -1
+    out_v = np.zeros((S_, 5, Pn), np.int64)
+    out_g = np.full((S_, Pn), -1, np.int32)
+    k = np.arange(len(sh))
+    out_l[k % S_, :, k // S_] = lanes[sh, :, p]
+    out_v[k % S_, :, k // S_] = values[sh, :, p]
+    out_g[k % S_, k // S_] = gslot[sh, p]
+    return out_l, out_v, out_g
+
+
+def k3_more(torch, card, staged, live, nr, now):
+    """K3's device time on the GLOBAL path's batch beside the same live
+    lanes without the host's padding, on a seeded 5-round batch of the
+    path's shape, and the launch floor (empty kernels) at K3's grid."""
+    from gubernator_tpu_torch.ops import _kernels, global_ops
+
+    S_, _, P = staged[0].shape
+    dev = card.device
+
+    def copies():
+        return (card.state.hot.clone(), card.state.cold.clone(),
+                global_ops.GlobalColumns(*[c.clone() for c in card.gcols]))
+
+    def k3(args, rounds, now_ms):
+        h, c, g = copies()
+        return device_profile(torch, lambda: global_ops.answer_rounds(h, c, g, *args, rounds,
+                                                                      now_ms),
+                              kernels=DEVICE_KERNELS["global_answer_rounds"])
+
+    padded = k3(staged, nr, now)
+    dealt = [torch.tensor(a, device=dev) for a in deal_live_lanes(
+        *[t.cpu().numpy() for t in staged], live)]
+    flat = k3(dealt, nr, now)
+    cost = ("not measured" if padded[0] is None or flat[0] is None
+            else f"{(padded[0] / flat[0] - 1) * 100:.1f}%")
+    log(f"[numbers] K3 padding: the path's batch, S*P={S_ * P} lanes ({int(live.sum())} live), "
+        f"device {_ms(padded[0])} (span {_ms(padded[1])}); its live lanes dealt over "
+        f"{S_} x {dealt[0].shape[2]}, device {_ms(flat[0])} (span {_ms(flat[1])}): the "
+        f"padding costs {cost} of the dealt batch's time")
+    _, _, gc, (lanes5, values5, gslot5, n5) = global_case("answer", 105, card.state.hot.shape[1],
+                                                          card.gcols.ghits.shape[1], P, 5)
+    five = [torch.tensor(a, device=dev) for a in (lanes5, values5, gslot5)]
+    t5 = k3(five, n5, now)
+    log(f"[numbers] K3 seeded 5-round batch (S={S_} P={P}, slots of each round distinct, "
+        f"gslots repeated across rounds): device {_ms(t5[0])}, {t5[2]:g} kernels a call, "
+        f"span {_ms(t5[1])}")
+    blocks = _kernels.answer_launch_shape(S_ * P)[0]
+    floor = [device_profile(torch, lambda c=coop: _kernels.launch_floor(c, blocks, dev),
+                            kernels=(DEVICE_KERNELS["launch_floor"][coop],))[0]
+             for coop in (False, True)]
+    log(f"[numbers] launch floor (device, profiler): an empty kernel {_ms(floor[0])}; an "
+        f"empty cooperative kernel with one grid barrier at K3's grid ({blocks} blocks of "
+        f"256) {_ms(floor[1])}")
 
 
 def rows_numbers_phase(torch, rows, launches, errs):
@@ -3105,6 +3238,8 @@ def two_tier_numbers_phase(torch, card, launches, calls, k1_inputs, err):
     ms = time_launches(torch, k9, 20)
     device_ms(torch, "apply_moves", k9)
     device_ms(torch, "apply_moves", k9, cold=True)
+    queued = queued_ms(torch, k9)
+    n_spill = _kernels.moves_spill(records.shape[1])
     plain_ms = time_launches(
         torch, lambda: buckets.apply_moves_plain(hot, cold, bhot, bcold, records), 3)
     lib_ms = time_launches(torch, library_moves, 20)
@@ -3122,7 +3257,9 @@ def two_tier_numbers_phase(torch, card, launches, calls, k1_inputs, err):
     log(f"[numbers] {kname}: {ms:.4f} ms/launch, plain {plain_ms:.3f} ms, library "
         f"(index_select + index_copy_) {lib_ms:.4f} ms, bound {bound_ms:.6g} ms ({nbytes} "
         f"bytes: {n_live} live records of {records.shape[1]}: {nd} demotions, "
-        f"{int(k0.sum())} promotions from the back, {int(k1.sum())} from the front)")
+        f"{int(k0.sum())} promotions from the back, {int(k1.sum())} from the front); "
+        f"queued behind a spin kernel {queued:.4f} ms a call; {n_spill} quarters past "
+        f"what the launch holds")
 
     # K7 on the back tier: the lanes of snapshot_items' back gather
     lanes = calls.back_lanes

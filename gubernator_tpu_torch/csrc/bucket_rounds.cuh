@@ -39,7 +39,7 @@ enum { kHotFlags = 0, kHotRem = 1, kHotStamp = 3, kHotExp = 5 };
 enum { kColdLim = 0, kColdDur = 2 };
 
 // Staging record of one lane between a round's compute and its commit
-// launches (K3, K10; 16 words): new hot row, new cold row values,
+// launches (K10; 16 words): new hot row, new cold row values,
 // commit flags.
 constexpr int kStageWords = 16;
 constexpr int kStageFlag = 12;  // bit0 write hot row, bit1 write cold row
@@ -486,16 +486,16 @@ struct ColsSource {
   }
 };
 
-// Output of the bucket-rounds kernels (K1, K2): out [S, 4, P] narrow
-// i32 or wide i64 (row0, remaining, reset_time, new_expire).  Every
-// lane that reaches a slot is evaluated.
+// Output of the bucket-rounds kernels (K1, K2) and the compact commit
+// (K10): out [S, 4, P] narrow i32 or wide i64 (row0, remaining,
+// reset_time, new_expire).  Every lane that reaches a slot is evaluated
+// (no first look: rounds.cuh).
 template <bool WIDE>
 struct BucketOut {
   void* out;
   int64_t P, now;
   static constexpr bool kFirstLook = false;
-
-  __device__ bool first_look(int64_t, int64_t, const Lane&) const { return false; }
+  static constexpr bool kWide = WIDE;
 
   __device__ void put(int64_t s, int64_t p, int64_t row0, int64_t rem, int64_t reset,
                       int64_t nexp, int64_t pre) const {
@@ -579,15 +579,13 @@ __device__ __forceinline__ void store_rows(int32_t* __restrict__ hot,
   }
 }
 
-// The two-launch round of K3 and K10 (a compute launch, then a commit
-// launch on the same stream).  Compute step of round `round` for lane p
-// of shard s: every lane of the round evaluates against the pre-round
-// rows, writes its output through `sink` and stages its new rows.  A lane of another round
-// stages nothing; in round 0, lanes that no round will evaluate
-// (padding) write the all-zero output, as does a lane of the round with
-// slot -1.  A Sink with kFirstLook sees each lane of the round before
-// its slot is read, and answers it itself (no evaluation, no write)
-// when first_look returns true.
+// The two-launch round of K10 (a compute launch, then a commit launch on
+// the same stream).  Compute step of round `round` for lane p of shard
+// s: every lane of the round evaluates against the pre-round rows,
+// writes its output through `sink` and stages its new rows.  A lane of
+// another round stages nothing; in round 0, lanes that no round will
+// evaluate (padding) write the all-zero output, as does a lane of the
+// round with slot -1.
 template <class Source, class Sink>
 __device__ __forceinline__ void compute_lane(
     const int32_t* __restrict__ hot, const int32_t* __restrict__ cold, int64_t C,
@@ -596,21 +594,14 @@ __device__ __forceinline__ void compute_lane(
   int32_t* st = stage + (s * P + p) * kStageWords;
   int32_t slot, rid;
   src.head(s, p, slot, rid);
-  Lane q;
-  if (Sink::kFirstLook && rid == round) {
-    src.lane(s, p, now, q);
-    if (sink.first_look(s, p, q)) {
-      st[kStageFlag] = 0;
-      return;
-    }
-  }
   if (rid != round || slot < 0) {
     st[kStageFlag] = 0;
     const bool never_runs = rid < 0 || rid >= n_rounds;
     if (rid == round || (never_runs && round == 0)) sink.zero(s, p);
     return;
   }
-  if (!Sink::kFirstLook) src.lane(s, p, now, q);
+  Lane q;
+  src.lane(s, p, now, q);
   Eval e;
   gather_eval(hot, cold, C, s, slot, q, now, e);
   sink.evaluated(s, p, q, e);

@@ -20,7 +20,11 @@
 //
 // What bounds them on this card: memory.  K3 is K2 (bucket_rounds.cu)
 // plus, per lane, a gslot word, one 8-byte rep_expire read, the rep_*
-// reads of a cached lane and an 8-byte atomic add; K4 reads ghits and
+// reads of a cached lane and an 8-byte atomic add — on the GLOBAL path's
+// 2,048-lane batches well under a microsecond of bytes, so what it pays
+// is its launch, its grid barriers and each lane's chain of dependent
+// reads (round id and gslot, then replica words or rows, then the
+// evaluation); K4 reads ghits and
 // the replica columns of every shard once, writes them once, and writes
 // 64 bytes of packed result per (shard, gslot); K5 and K6 scatter a few
 // words per gslot into every shard.  A lane that reaches its bucket runs
@@ -28,16 +32,27 @@
 // (see bucket_rounds.cu).
 //
 // Design.
-//   * K3 runs each round as a compute + commit launch pair through
-//     compute_lane / commit_lane of bucket_rounds.cuh (stream order is
-//     the barrier between a round's reads and its writes), with an
-//     output sink that first looks at each lane for the replica answer
-//     and the hit accumulation.  The replica columns do not change
-//     inside the program, so a lane's `cached` test does not depend on
-//     the round.  Hits go into
-//     ghits with a 64-bit atomicAdd on the two's-complement bits: integer
-//     addition commutes, so duplicate gslots and negative hits give the
-//     JAX program's bits in any order.
+//   * K3 is one cooperative launch for every round of the batch: the
+//     rounds kernel of rounds.cuh (K2's, with its grid barriers between
+//     a round's reads and its writers' stores and between rounds, held
+//     lanes in shared memory and no staging) fed by the wide per-lane
+//     columns and the AnswerOut sink.  The sink's first look runs once
+//     per lane, in the read half of the lane's round: it adds a GLOBAL
+//     lane's hits to ghits and answers a lane whose replica entry is
+//     live from the rep_* columns, so that lane is not evaluated and
+//     writes no row.  To keep each lane's chain of dependent reads short,
+//     a held lane's gslot is read with its slot and round id when the
+//     launch starts, and in its round its rows (cp.async), its request
+//     words and its replica words are in flight together, the lane
+//     evaluated as soon as they are in (the K1/K2 sink instead puts all
+//     of a thread's held lanes' rows in flight first).  The replica
+//     columns do not change inside the launch, so
+//     whether a lane was answered (`answered`, which the write half asks
+//     for writers past the held lanes) does not depend on when it is
+//     asked.  Hits go into ghits with a 64-bit atomicAdd on the two's-
+//     complement bits: integer addition commutes, so duplicate gslots
+//     and negative hits give the JAX program's bits in any order.  A
+//     grid that cannot be resident fails the launch; nothing falls back.
 //   * K4 is one launch, one thread per gslot.  Each gslot has one owner
 //     shard and its key one slot there, so the owner row a thread reads
 //     and writes belongs to no other thread; the thread sums ghits over
@@ -53,6 +68,7 @@
 #include <cstdint>
 
 #include "bucket_rounds.cuh"
+#include "rounds.cuh"
 
 namespace gt {
 
@@ -79,6 +95,7 @@ struct AnswerOut {
   GCols gc;
   int64_t P, now;
   static constexpr bool kFirstLook = true;
+  static constexpr bool kWide = true;  // i64 values and output
 
   __device__ void put(int64_t s, int64_t p, int64_t row0, int64_t limit, int64_t rem,
                       int64_t reset, int64_t nexp) const {
@@ -90,18 +107,39 @@ struct AnswerOut {
     o[4 * P] = nexp;
   }
 
-  __device__ bool first_look(int64_t s, int64_t p, const Lane& q) const {
-    const int64_t gs = gslot[s * P + p];
-    if (gs < 0) return false;
-    const int64_t G = gc.G;
-    if (gs < G)  // out-of-range gslots drop their hits, as JAX's mode="drop"
-      atomicAdd(reinterpret_cast<unsigned long long*>(gc.ghits + s * G + gs),
+  // The lane's gslot: what the first look reads first.
+  __device__ int32_t key(int64_t s, int64_t p) const { return gslot[s * P + p]; }
+
+  // The lane's replica entry in the [S, G] columns (an out-of-range
+  // gslot reads the last, as JAX's clamped gather), or -1 for a lane
+  // that is not GLOBAL.
+  __device__ int64_t entry(int64_t s, int64_t gs) const {
+    return gs < 0 ? -1 : s * gc.G + (gs < gc.G ? gs : gc.G - 1);
+  }
+
+  // Adds the hits of lane p of shard s, request q, with gslot `gs`
+  // (out-of-range gslots drop theirs, as JAX's mode="drop") and answers
+  // it when its replica entry is live.  A lane that is not GLOBAL reads
+  // nothing; the replica words of a GLOBAL lane are read at once, before
+  // the test.
+  __device__ bool first_look(int64_t s, int64_t p, int64_t gs, const Lane& q) const {
+    const int64_t g = entry(s, gs);
+    if (g < 0) return false;
+    const int64_t expire = gc.rep_expire[g], limit = gc.rep_limit[g];
+    const int64_t remaining = gc.rep_remaining[g], reset = gc.rep_reset[g];
+    const int32_t status = gc.rep_status[g];
+    if (gs < gc.G)
+      atomicAdd(reinterpret_cast<unsigned long long*>(gc.ghits + s * gc.G + gs),
                 static_cast<unsigned long long>(q.hits));
-    const int64_t g = s * G + (gs < G ? gs : G - 1);  // JAX's clamped gather
-    if (gc.rep_expire[g] < now) return false;
-    put(s, p, int64_t(gc.rep_status[g]) | 4, gc.rep_limit[g], gc.rep_remaining[g],
-        gc.rep_reset[g], 0);
+    if (expire < now) return false;
+    put(s, p, int64_t(status) | 4, limit, remaining, reset, 0);
     return true;
+  }
+
+  // Whether first_look answered the lane, without its side effects.
+  __device__ bool answered(int64_t s, int64_t p) const {
+    const int64_t g = entry(s, key(s, p));
+    return g >= 0 && gc.rep_expire[g] >= now;
   }
 
   __device__ void zero(int64_t s, int64_t p) const { put(s, p, 0, 0, 0, 0, 0); }
@@ -111,23 +149,6 @@ struct AnswerOut {
     put(s, p, e.row0, q.limit, e.remaining, e.reset_time, e.new_expire);
   }
 };
-
-// Compute step of round `round` for lane p of shard s (K3).
-__global__ void __launch_bounds__(kGThreads)
-answer_compute(const int32_t* __restrict__ hot, const int32_t* __restrict__ cold,
-               int64_t C, ColsSource<true> src, AnswerOut sink, int64_t P, int32_t round,
-               int32_t n_rounds, int64_t now, int32_t* __restrict__ stage) {
-  const int64_t p = int64_t(blockIdx.x) * kGThreads + threadIdx.x;
-  if (p < P)
-    compute_lane(hot, cold, C, src, sink, blockIdx.y, p, P, round, n_rounds, now, stage);
-}
-
-__global__ void __launch_bounds__(kGThreads)
-answer_commit(int32_t* __restrict__ hot, int32_t* __restrict__ cold, int64_t C,
-              int64_t P, const int32_t* __restrict__ stage) {
-  const int64_t p = int64_t(blockIdx.x) * kGThreads + threadIdx.x;
-  if (p < P) commit_lane(hot, cold, C, blockIdx.y, p, P, stage);
-}
 
 // K4, one thread per gslot.  cfg i64[8, G] = owner_slot, owner_shard,
 // algorithm, behavior, limit, duration, greg_expire, greg_duration;
@@ -260,27 +281,27 @@ extern "C" {
 // the replica columns (rep_status i32[S, G], the rest i64[S, G]) are
 // updated in place; lanes i32[S, 6, P] (slot, exists | write << 1,
 // algorithm, behavior, occ, round_id), values i64[S, 5, P] (hits, limit,
-// duration, greg_expire, greg_duration), gslot i32[S, P], stage
-// i32[S, P, 16] scratch, out i64[S, 5, P].  Returns cudaGetLastError().
+// duration, greg_expire, greg_duration), gslot i32[S, P], out
+// i64[S, 5, P].  One cooperative launch on `stream`; returns its CUDA
+// error.
 int gt_global_answer_rounds(int32_t* hot, int32_t* cold, int64_t S, int64_t C,
                             const int32_t* lanes, const int64_t* values,
                             const int32_t* gslot, int64_t P, int32_t* rep_status,
                             int64_t* rep_limit, int64_t* rep_remaining,
                             int64_t* rep_reset, int64_t* rep_expire, int64_t* ghits,
-                            int64_t G, int32_t n_rounds, int64_t now_ms,
-                            int32_t* stage, int64_t* out, void* stream) {
-  if (P == 0) return 0;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+                            int64_t G, int32_t n_rounds, int64_t now_ms, int64_t* out,
+                            void* stream) {
   const gt::GCols gc{rep_status, rep_limit, rep_remaining, rep_reset, rep_expire, ghits, G};
-  const gt::ColsSource<true> src{lanes, values, P};
-  const gt::AnswerOut sink{out, gslot, gc, P, now_ms};
-  const dim3 grid(gt::blocks(P), unsigned(S));
-  for (int32_t r = 0; r < n_rounds; ++r) {
-    gt::answer_compute<<<grid, gt::kGThreads, 0, st>>>(
-        hot, cold, C, src, sink, P, r, n_rounds, now_ms, stage);
-    gt::answer_commit<<<grid, gt::kGThreads, 0, st>>>(hot, cold, C, P, stage);
-  }
-  return int(cudaGetLastError());
+  return gt::run_rounds(hot, cold, S, C, gt::ColsSource<true>{lanes, values, P},
+                        gt::AnswerOut{out, gslot, gc, P, now_ms}, n_rounds,
+                        static_cast<cudaStream_t>(stream));
+}
+
+// K3's launch for n lanes on the current device: its blocks (of 256
+// threads) and the lanes it holds across its barriers.  Returns the CUDA
+// error of the occupancy query.
+int gt_global_answer_launch_shape(int64_t n, int64_t* blocks, int64_t* held) {
+  return gt::launch_shape<gt::ColsSource<true>, gt::AnswerOut>(n, *blocks, *held);
 }
 
 // K4: one GLOBAL sync.  cfg i64[8, G], dirty u8[S, G], out i64[S, 8, G];

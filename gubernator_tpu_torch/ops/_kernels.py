@@ -1,16 +1,17 @@
 """Build, bind and launch the port's CUDA kernels.
 
 csrc/bucket_rounds.cu (K1, K2), csrc/global_ops.cu (K3-K6),
-csrc/rows.cu (K7, K8), csrc/moves.cu (K9) and csrc/compact.cu (K10) are
-compiled with nvcc for
-sm_90a, one nvcc process per source started together, into one shared
-library with a plain C interface the first time a kernel is launched
-(or `build()` is called), and bound through ctypes.  Each wrapper checks
-device, dtype, shape and contiguity, allocates its output and scratch
-with torch.empty (K1 and K2 need no scratch: their one cooperative
-launch keeps a round's new rows on the SM), launches on PyTorch's current
-stream, raises when the launch returns a CUDA error, and counts its
-launches in LAUNCHES.
+csrc/rows.cu (K7, K8), csrc/moves.cu (K9) and csrc/compact.cu (K10),
+with csrc/launch_floor.cu (empty kernels that measure a launch's fixed
+cost), are compiled with nvcc for sm_90a, one nvcc process per source
+started together, into one shared library with a plain C interface the
+first time a kernel is launched (or `build()` is called), and bound
+through ctypes.  Each wrapper checks device, dtype, shape and
+contiguity, allocates its output and scratch with torch.empty (K1-K3
+need no scratch: their one cooperative launch keeps a round's new rows
+on the SM; K9 only for a window past what its launch holds in
+shared memory), launches on PyTorch's current stream, raises when the
+launch returns a CUDA error, and counts its launches in LAUNCHES.
 
 Nothing here runs on import: the CPU tests import this module's package
 on a machine with no nvcc and no card.
@@ -31,8 +32,8 @@ from .buckets import DICT_WIRE_TABLE_WORDS
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 SOURCES = [os.path.join(_CSRC, name)
            for name in ("bucket_rounds.cu", "global_ops.cu", "rows.cu", "moves.cu",
-                        "compact.cu")]
-HEADERS = [os.path.join(_CSRC, "bucket_rounds.cuh")]
+                        "compact.cu", "launch_floor.cu")]
+HEADERS = [os.path.join(_CSRC, name) for name in ("bucket_rounds.cuh", "rounds.cuh")]
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo", "-I", _CSRC,
@@ -40,7 +41,8 @@ NVCC_FLAGS = [
 LINK_FLAGS = ["-shared"]
 
 # Launches per kernel since the last reset_launch_counts(): one per
-# wrapper call that reached the kernel (K9's call is its two launches).
+# wrapper call that reached the kernel (each is one device launch but
+# K10's, which is two).
 # The row gather counts under "gather_back_rows" when it reads the
 # two-tier table's back tier (ops/buckets.py read_back_rows).
 LAUNCHES = {
@@ -49,7 +51,7 @@ LAUNCHES = {
     "clear_gslots": 0, "gather_rows": 0, "write_rows": 0,
     "gather_back_rows": 0, "apply_moves": 0, "bucket_compact": 0,
 }
-_STAGE_WORDS = 16  # K3/K10 per-lane scratch record (bucket_rounds.cuh kStageWords)
+_STAGE_WORDS = 16  # K10 per-lane scratch record (bucket_rounds.cuh kStageWords)
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -81,16 +83,19 @@ _SIGNATURES = {
     "gt_bucket_rounds_cols": [_P, _P, _I64, _I64, _P, _P, _I64, _I32, _I64, _I32, _P, _P],
     "gt_bucket_rounds_held_lanes": [_I32, _I32, _P],
     "gt_global_answer_rounds": [_P, _P, _I64, _I64, _P, _P, _P, _I64, _P, _P, _P, _P,
-                                _P, _P, _I64, _I32, _I64, _P, _P, _P],
+                                _P, _P, _I64, _I32, _I64, _P, _P],
+    "gt_global_answer_launch_shape": [_I64, _P, _P],
     "gt_global_sync": [_P, _P, _I64, _I64, _P, _P, _P, _P, _P, _P, _I64, _P, _P, _I64,
                        _P, _P],
     "gt_set_replica": [_P, _P, _P, _P, _P, _P, _I64, _I64, _P, _I64, _P],
     "gt_clear_gslots": [_P, _P, _P, _P, _P, _P, _I64, _I64, _P, _I64, _P],
     "gt_gather_rows": [_P, _P, _I64, _I64, _P, _I64, _P, _P, _P],
     "gt_write_rows": [_P, _P, _I64, _I64, _P, _I64, _P, _P, _P],
-    "gt_apply_moves": [_P, _P, _I64, _I64, _P, _P, _I64, _P, _I64, _P, _P],
+    "gt_apply_moves": [_P, _P, _I64, _I64, _P, _P, _I64, _P, _I64, _P, _I64, _P],
+    "gt_apply_moves_spill": [_I64, _P],
     "gt_bucket_compact": [_P, _P, _I64, _I64, _I32, _P, _P, _I64, _P, _I64, _I64,
                           _P, _P, _P],
+    "gt_launch_floor": [_I32, _I64, _I32, _P],
 }
 
 
@@ -246,14 +251,25 @@ def global_answer_rounds(hot, cold, gcols, lanes, values, gslot, n_rounds: int,
     if n_rounds < 1:
         raise ValueError("n_rounds must be >= 1")
     out = torch.empty((S, 5, P), dtype=torch.int64, device=dev)
-    stage = torch.empty((S, P, _STAGE_WORDS), dtype=torch.int32, device=dev)
     rc = _get_lib().gt_global_answer_rounds(
         hot.data_ptr(), cold.data_ptr(), S, C, lanes.data_ptr(), values.data_ptr(),
-        gslot.data_ptr(), P, *gptrs, G, int(n_rounds), int(now_ms),
-        stage.data_ptr(), out.data_ptr(), _stream(dev),
+        gslot.data_ptr(), P, *gptrs, G, int(n_rounds), int(now_ms), out.data_ptr(),
+        _stream(dev),
     )
     _finish("global_answer_rounds", rc)
     return out
+
+
+def answer_launch_shape(n_lanes: int) -> tuple:
+    """K3's launch for a batch of `n_lanes` (S * P) lanes on the current
+    device: (blocks of 256 threads, lanes it holds across its round
+    barriers); a larger batch re-reads the rest each round."""
+    blocks, held = ctypes.c_int64(0), ctypes.c_int64(0)
+    rc = _get_lib().gt_global_answer_launch_shape(int(n_lanes), ctypes.byref(blocks),
+                                                  ctypes.byref(held))
+    if rc != 0:
+        raise RuntimeError(f"answer_launch_shape: occupancy query failed with CUDA error {rc}")
+    return blocks.value, held.value
 
 
 def global_sync(hot, cold, gcols, cfg, dirty, now_ms: int):
@@ -362,12 +378,26 @@ def apply_moves(hot, cold, back_hot, back_cold, records) -> None:
     _check("records", records, torch.int32, (3, N), hot.device)
     if not N:
         return
-    stage = torch.empty((N, 16), dtype=torch.int32, device=hot.device)
+    n_spill = moves_spill(N)
+    spill = (torch.empty((n_spill, 4), dtype=torch.int32, device=hot.device)
+             if n_spill else None)
     rc = _get_lib().gt_apply_moves(
         hot.data_ptr(), cold.data_ptr(), S, C, back_hot.data_ptr(),
-        back_cold.data_ptr(), Cb, records.data_ptr(), N, stage.data_ptr(),
-        _stream(hot.device))
+        back_cold.data_ptr(), Cb, records.data_ptr(), N,
+        spill.data_ptr() if spill is not None else None, n_spill, _stream(hot.device))
     _finish("apply_moves", rc)
+
+
+def moves_spill(n_records: int) -> int:
+    """The 16-byte quarters of a K9 window of `n_records` records (four
+    each: the hot and cold rows' halves) past what its one launch holds
+    in shared memory on the current device (0 up to 4 quarters a
+    resident thread): the scratch it stages them in."""
+    n = ctypes.c_int64(0)
+    rc = _get_lib().gt_apply_moves_spill(int(n_records), ctypes.byref(n))
+    if rc != 0:
+        raise RuntimeError(f"moves_spill: occupancy query failed with CUDA error {rc}")
+    return n.value
 
 
 # ---------------------------------------------------------------------
@@ -411,3 +441,18 @@ def bucket_compact(hot, cold, wlane, now_ms: int, wire=None, lanes=None, values=
         _stream(dev))
     _finish("bucket_compact", rc)
     return out
+
+
+# ---------------------------------------------------------------------
+# The launch floor (csrc/launch_floor.cu): not a kernel of any path
+# ---------------------------------------------------------------------
+def launch_floor(cooperative: bool, blocks: int, device, threads: int = 256) -> None:
+    """One empty launch on `device`'s current stream: a plain kernel, or
+    (`cooperative`) a cooperative kernel whose only work is one grid
+    barrier; what a launch costs the card with no work in it.  Not
+    counted in LAUNCHES."""
+    _require_card("launch_floor", torch.device(device))
+    rc = _get_lib().gt_launch_floor(1 if cooperative else 0, int(blocks), int(threads),
+                                    _stream(device))
+    if rc != 0:
+        raise RuntimeError(f"launch_floor: launch failed with CUDA error {rc}")

@@ -8,8 +8,9 @@ tolerance 0.
 This holds the kernels' device logic (the cooperative rounds kernel
 with its grid barriers, held lanes and re-read lanes, each branch of
 the lane evaluation at its edges, the replica answer, the sync, the
-scatters, the row composition and split, the tier move's gather and
-scatter, the compact commit over the listed write lanes) on a machine
+scatters, the row composition and split, the tier move's one
+cooperative launch with the quarters past its shared memory spilled, the
+compact commit over the listed write lanes) on a machine
 with no card, where the cuda-marked tests skip.  The stand-in runs the
 threads of a launch one after another (a cooperative launch as fibers
 that meet at each grid barrier; GT_EMU_SMS sets its grid), so it shows
@@ -30,7 +31,9 @@ import pytest
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                     "gubernator_tpu_torch", "csrc")
 EMU = os.path.join(os.path.dirname(os.path.abspath(__file__)), "cuda_emu")
-LAUNCH = re.compile(r"([\w:]+(?:<[\w:, ]+>)?)<<<(.+?)>>>\(", re.S)
+# `kernel<<<grid, block, 0, stream>>>(` and, for a kernel of no
+# arguments, `kernel<<<...>>>()`
+LAUNCH = re.compile(r"([\w:]+(?:<[\w:, ]+>)?)<<<(.+?)>>>\((\))?", re.S)
 
 
 @pytest.fixture(scope="module")
@@ -45,7 +48,8 @@ def emulated(tmp_path_factory):
     sources = []
     for src in _kernels.SOURCES:
         with open(src) as f:
-            text = LAUNCH.sub(lambda m: f"gt_emu_launch({m.group(2)}, {m.group(1)}, ", f.read())
+            text = LAUNCH.sub(lambda m: f"gt_emu_launch({m.group(2)}, {m.group(1)}"
+                              + (")" if m.group(3) else ", "), f.read())
         path = out / (os.path.basename(src) + ".cpp")
         path.write_text(text)
         sources.append(str(path))
@@ -162,6 +166,91 @@ def test_emulated_moves_kernel_matches_plain(emulated, reverse, seed, C, Cb, n_d
     emulated.apply_moves(*t, torch.tensor(records))
     _same([x.numpy() for x in t], want)
     assert emulated.LAUNCHES["apply_moves"] == before + 1
+
+
+@pytest.mark.parametrize("reverse", [False, True], ids=["in_order", "reversed"])
+@pytest.mark.parametrize("seed", [4, 5])
+def test_emulated_moves_kernel_past_held_quarters(emulated, monkeypatch, reverse, seed):
+    """K9 on one resident block (512 threads, 4 quarters each: 512
+    records held in shared memory) with a window of 886 records: the
+    quarters past the held ones go through the spill buffer, gathered
+    before the grid barrier and stored after it, with both hazards of a
+    window and the records in either order."""
+    import torch
+
+    from chip_smoke import moves_case, run_moves
+
+    monkeypatch.setenv("GT_EMU_SMS", "1")
+    case = moves_case(seed, 256, 1024, 60, 50)
+    *tiers, records = case
+    N = records.shape[1]
+    assert emulated.moves_spill(N) == 4 * N - 4 * 512 > 0
+    want = run_moves(torch, "cpu", case, plain=True)
+    if reverse:
+        records = np.ascontiguousarray(records[:, ::-1])
+    t = [torch.tensor(a) for a in tiers]
+    before = emulated.LAUNCHES["apply_moves"]
+    emulated.apply_moves(*t, torch.tensor(records))
+    _same([x.numpy() for x in t], want)
+    assert emulated.LAUNCHES["apply_moves"] == before + 1
+
+
+def _global_rounds_case(seed, G=64, P=256, n_rounds=4):
+    """chip_smoke.global_case's answer batch (S = 8, 256 slots, G
+    gslots, P lanes a shard, GLOBAL keys repeated across rounds, live,
+    expired and just-expiring replica entries, negative hits) with a
+    twentieth of its GLOBAL lanes sent to gslots past G (their hits
+    dropped, the cached test at gslot G - 1)."""
+    from chip_smoke import global_case
+
+    hot, cold, gc, (lanes, values, gslot, nr) = global_case("answer", seed, 256, G, P,
+                                                            n_rounds)
+    rng = np.random.default_rng(seed + 1000)
+    far = (gslot >= 0) & (rng.random(gslot.shape) < 0.05)
+    gslot = np.where(far, G + rng.integers(0, 3, gslot.shape), gslot).astype(np.int32)
+    assert far.any() and nr == n_rounds
+    return hot, cold, gc, (lanes, values, gslot, nr)
+
+
+@pytest.mark.parametrize("sms", ["1", "4"])
+@pytest.mark.parametrize("seed", [6, 7])
+def test_emulated_answer_rounds_past_held_lanes(emulated, monkeypatch, sms, seed):
+    """K3 in four rounds whose GLOBAL keys repeat across rounds; on one
+    resident block (GT_EMU_SMS=1: 512 lanes held of 2,048) most lanes
+    are read again each round and their writers evaluated again in the
+    write half.  Outputs, rows and replica columns equal the plain
+    version's, and each GLOBAL lane's hits are added to ghits exactly
+    once (in-range gslots only)."""
+    import torch
+
+    from chip_smoke import NOW, S, run_global
+    from gubernator_tpu_torch.ops import global_ops
+
+    monkeypatch.setenv("GT_EMU_SMS", sms)
+    case = _global_rounds_case(seed)
+    hot, cold, gc, (lanes, values, gslot, nr) = case
+    blocks, held = emulated.answer_launch_shape(lanes.shape[0] * lanes.shape[2])
+    assert (blocks, held) == (int(sms), int(sms) * 256 * 2)
+    want = run_global(torch, "cpu", "answer", case, plain=True)
+    h, c = torch.tensor(hot), torch.tensor(cold)
+    g = global_ops.global_columns_from_numpy(gc, "cpu")
+    out = emulated.global_answer_rounds(h, c, g, torch.tensor(lanes), torch.tensor(values),
+                                        torch.tensor(gslot), nr, NOW)
+    _same([t.numpy() for t in (out, h, c, *g)], want)
+    ghits = gc[5].copy()
+    live = (gslot >= 0) & (gslot < gc[5].shape[1]) & (lanes[:, 5] < nr)
+    for s in range(S):
+        np.add.at(ghits[s], gslot[s][live[s]], values[s, 0][live[s]])
+    assert np.array_equal(g.ghits.numpy(), ghits)
+
+
+def test_emulated_launch_floor(emulated):
+    """The empty kernels of the launch floor launch, plain and as a
+    cooperative launch with its grid barrier, and count nowhere."""
+    before = dict(emulated.LAUNCHES)
+    emulated.launch_floor(False, 2, "cpu")
+    emulated.launch_floor(True, 2, "cpu")
+    assert emulated.LAUNCHES == before
 
 
 def test_emulated_back_row_gather_counts_apart(emulated):
