@@ -23,7 +23,8 @@ Phases (any failure exits non-zero and prints no `ok` line):
               window past what one launch holds), and the compact
               commit (K10, on the
               dict wire and on per-lane columns, every write lane listed
-              or half of them; also held against K1/K2 on the same
+              or half of them, two calls back to back with disjoint
+              lists; also held against K1/K2 on the same
               single-round batch); small seeded cases plus one at the
               paths' full size; outputs, state and replica-column bytes
               must be identical (tolerance 0: all integer);
@@ -48,6 +49,10 @@ Phases (any failure exits non-zero and prints no `ok` line):
               remote owners; every answer, sync result, state row and
               replica column must equal a store on the plain versions
               (CPU), and the hot keys' counters must converge exactly;
+              then a churn batch of 2,048 new GLOBAL keys into the full
+              gslot table, whose recycled gslots take one K6 launch
+              (`[numbers]` line: its apply latency, and the clear done
+              one call a lane, as the JAX store does, beside it);
 7. persist  — the persistence path at the main path's deployment size
               (S = 8 x 262,144 slots), on the card and on the plain
               versions (CPU) side by side: a 1,000,000-lane snapshot
@@ -88,7 +93,8 @@ Phases (any failure exits non-zero and prints no `ok` line):
               function, and the bound (bytes; for K1/K2 also the
               instruction bound, the larger of the two); device times
               from the profiler (one device kernel a call for K1, K2,
-              K3 and K9) and, for K3 and K9, queued behind a spin kernel;
+              K3, K6, K9 and K10) and, for K3, K6, K9 and K10 (beside
+              K1), queued behind a spin kernel;
               K3 also on a seeded 5-round batch and on the path batch's
               live lanes without the host's padding, and the launch
               floor (an empty kernel, an empty cooperative kernel with
@@ -192,10 +198,27 @@ def build_phase():
     log(f"[build] kernels and host runtime built in {time.perf_counter() - t0:.1f} s")
     report = ptxas_report("".join(logs["kernels"]))
     for name, regs, spills in report:
-        log(f"[build] ptxas {name}: {regs}; {spills}")
+        log(f"[build] ptxas {rounds_label(name)}{name}: {regs}; {spills}")
     if not report:
         log("[build] ptxas: no report (the kernel library was built before this run)")
     return rounds_sass(_kernels.build())
+
+
+# the rounds kernel's instantiations (rounds.cuh): (Sink or Source in
+# the mangled name, kernel)
+_ROUNDS_KERNELS = (("CompactOut", "K10"), ("AnswerOut", "K3"), ("DictSource", "K1"),
+                   ("ColsSource", "K2"))
+
+
+def rounds_label(name):
+    """'K10 dict narrow ' etc. for an instantiation of the rounds
+    kernel named `name` (mangled), else ''."""
+    if "bucket_rounds_kernel" not in name:
+        return ""
+    kernel = next(k for key, k in _ROUNDS_KERNELS if key in name)
+    wire = "dict" if "DictSource" in name else "cols"
+    width = "wide" if re.search(r"Source(ILb1E)", name) else "narrow"
+    return f"{kernel} {wire} {width} "
 
 
 def ptxas_report(text):
@@ -817,6 +840,8 @@ def global_case(kind, seed, C, G, P=0, n_rounds=1):
         return hot, cold, gc, (upd.astype(np.int64),)
     idx = np.full(P, G, np.int64)  # pow2 padding with G
     idx[: P * 7 // 8] = rng.integers(0, G, P * 7 // 8)  # duplicates are harmless
+    if seed % 2 == 0:  # sorted, as the stores hand it over; odd seeds in any order
+        idx.sort()
     return hot, cold, gc, (idx,)
 
 
@@ -849,7 +874,8 @@ def global_kernel_phase(torch, dev="cuda", full=(C_GLOBAL, G_FULL, GLOBAL_BATCH)
                         past=65_536):
     """K3-K6 against their plain versions: seeded small cases and one at
     the GLOBAL path's full size (S=8, 65,536 slots and gslots, 2,048
-    lanes per shard, a 16,384-gslot replica commit, a 1,024-index clear);
+    lanes per shard, a 16,384-gslot replica commit, a 1,024-index clear
+    sorted and a 4,096-index one in any order);
     K3 also on 8 x `past` lanes in 3 rounds, more than its launch holds."""
     from gubernator_tpu_torch.ops import _kernels
 
@@ -862,7 +888,8 @@ def global_kernel_phase(torch, dev="cuda", full=(C_GLOBAL, G_FULL, GLOBAL_BATCH)
         "sync": [(seed, 256, 64, 0, 1) for seed in range(4)] + [(100, Cf, Gf, 0, 1)],
         "replica": [(seed, 256, 64, 32, 1) for seed in range(4)]
         + [(100, Cf, Gf, min(Gf, PEER_KEYS), 1)],
-        "clear": [(seed, 256, 64, 32, 1) for seed in range(4)] + [(100, Cf, Gf, 1024, 1)],
+        "clear": [(seed, 256, 64, 32, 1) for seed in range(4)]
+        + [(100, Cf, Gf, 1024, 1), (101, Cf, Gf, 2 * Pf, 1)],
     }
     errs = {}
     n = 0
@@ -1126,19 +1153,21 @@ def zipf_compact_case(seed, C, P, n_keys, kind):
             _pad_wlane(np.nonzero(wr)[0]))
 
 
-def run_compact(torch, dev, kind, case, plain):
-    """K10 (or its plain version) on copies of a case: (out, hot, cold)."""
+def _compact_fns():
+    """{wire: (K10's dispatcher, its plain version)}"""
     from gubernator_tpu_torch.ops import buckets
 
+    return {"dict": (buckets.compact_dict, buckets.apply_compact_packed_plain),
+            "cols": (buckets.compact_cols, buckets.apply_compact32_plain)}
+
+
+def run_compact(torch, dev, kind, case, plain):
+    """K10 (or its plain version) on copies of a case: (out, hot, cold)."""
     hot, cold, args, wlane = case
     h, c = torch.tensor(hot, device=dev), torch.tensor(cold, device=dev)
     targs = [torch.tensor(a, device=dev) for a in args]
     wl = torch.tensor(wlane, device=dev)
-    if kind == "dict":
-        fn = buckets.apply_compact_packed_plain if plain else buckets.compact_dict
-    else:
-        fn = buckets.apply_compact32_plain if plain else buckets.compact_cols
-    out = fn(h, c, *targs, wl, NOW)
+    out = _compact_fns()[kind][1 if plain else 0](h, c, *targs, wl, NOW)
     return out.cpu().numpy(), h.cpu().numpy(), c.cpu().numpy()
 
 
@@ -1173,8 +1202,24 @@ def compact_kernel_phase(torch, dev="cuda", full=(SHARD_C, BATCH, SHARD_KEYS)):
                                          f"kernel on the same batch")
             err = max(err, e)
             n += 1
+        # two calls back to back on one state with disjoint write lists
+        # (the full-size case's even and odd write lanes): a lane the
+        # first call listed must store nothing in the second
+        hot, cold, args, wlane = cases[-1][1]
+        listed = wlane[0][wlane[0] >= 0]
+        targs = [torch.tensor(a, device=dev) for a in args]
+        sides = [(fn, torch.tensor(hot, device=dev), torch.tensor(cold, device=dev))
+                 for fn in _compact_fns()[kind]]
+        for own in (listed[0::2], listed[1::2]):
+            wl = torch.tensor(_pad_wlane(own), device=dev)
+            (ok, h, c), (op, hp, cp) = [(fn(h, c, *targs, wl, NOW), h, c) for fn, h, c in sides]
+            if not (torch.equal(ok, op) and torch.equal(h, hp) and torch.equal(c, cp)):
+                raise AssertionError(f"compact {kind}: back-to-back calls with disjoint write "
+                                     f"lists != plain")
+            n += 1
     log(f"[kernels] {n} compact cases, K10 == plain bit for bit and == K1/K2 on the same "
-        f"single-round batch (launches {dict(_kernels.LAUNCHES)})")
+        f"single-round batch, also two calls back to back with disjoint write lists "
+        f"(launches {dict(_kernels.LAUNCHES)})")
     return err
 
 
@@ -1681,8 +1726,11 @@ def global_phase(torch, dev="cuda"):
         raise AssertionError(f"hot keys did not converge: {[r.remaining for r in got]} "
                              f"!= {want}")
     owners = {shard_of_key(f"c4_hot{k}", S) for k in range(HOT_KEYS)}
+
+    churn = global_churn(torch, card, apply, lat, now + 10)
     launches = {k: _kernels.LAUNCHES[k] for k in
                 ("global_answer_rounds", "global_sync", "set_replica", "clear_gslots")}
+    global_churn_clears(torch, card, churn)
     log(f"[global] launches on the GLOBAL path: {launches}")
     for kname, count in launches.items():
         if count <= 0:
@@ -1694,6 +1742,71 @@ def global_phase(torch, dev="cuda"):
     summary = dict(apply_p50_ms=float(np.percentile(np.concatenate([ramp_lat, skew_lat]), 50)),
                    last_sync_cost_s=ramp_sync_s, now=step_now)
     return card, launches, (answer_inputs, sync_inputs, (upd.astype(np.int64), idx)), summary
+
+
+def global_churn(torch, card, apply, lat, now):
+    """The GLOBAL churn batch: one batch of GLOBAL_BATCH keys never seen
+    before into the full gslot table (the replica commit filled it), so
+    every lane recycles a gslot, and the store clears them all with one
+    K6 launch; then the same keys again, which recycle nothing.  `apply`
+    checks both against the plain store.  Returns what
+    global_churn_clears needs."""
+    from gubernator_tpu_torch.ops import _kernels
+    from gubernator_tpu_torch.types import Algorithm, Behavior, RateLimitRequest
+
+    if card.gtable._free:
+        raise AssertionError("GLOBAL churn: the gslot table is not full")
+    reqs = [RateLimitRequest(name="churn", unique_key=f"n{k}", hits=1, limit=1_000,
+                             duration=60_000, algorithm=Algorithm(k % 2),
+                             behavior=Behavior.GLOBAL) for k in range(GLOBAL_BATCH)]
+    gcols_before = [c.clone() for c in card.gcols]
+    k6 = _kernels.LAUNCHES["clear_gslots"]
+    apply("GLOBAL churn batch", reqs, now, home_shard=1)
+    churn_ms, churn_k6 = lat[-1] * 1e3, _kernels.LAUNCHES["clear_gslots"] - k6
+    # in a full table lane i's key takes the gslot it recycled
+    ev = [card.gtable._key_to_gslot[r.hash_key()] for r in reqs]
+    if churn_k6 != 1 or len(set(ev)) != GLOBAL_BATCH:
+        raise AssertionError(f"GLOBAL churn: {len(set(ev))} gslots recycled with {churn_k6} "
+                             f"K6 launches, not {GLOBAL_BATCH} with 1")
+    k6 = _kernels.LAUNCHES["clear_gslots"]
+    apply("GLOBAL churn batch again", reqs, now + 1, home_shard=1)
+    again_ms = lat[-1] * 1e3
+    if _kernels.LAUNCHES["clear_gslots"] != k6:
+        raise AssertionError("GLOBAL churn: a batch that recycles nothing launched K6")
+    return gcols_before, ev, churn_ms, again_ms
+
+
+def global_churn_clears(torch, card, churn):
+    """The churn batch's clear both ways on copies of the replica
+    columns as the batch found them: one K6 call for the batch's sorted
+    list (the stores' way) and one clear_gslots call per recycling lane
+    (the JAX store's way); both must leave the same columns.  The
+    launches here are comparisons and happen after the path's counts
+    are read."""
+    from gubernator_tpu_torch.ops import global_ops
+
+    gcols_before, ev, churn_ms, again_ms = churn
+    one, per_lane = (global_ops.GlobalColumns(*[c.clone() for c in gcols_before])
+                     for _ in range(2))
+    idx = np.full(1 << max(3, (len(ev) - 1).bit_length()), card.g_capacity, np.int64)
+    idx[:len(ev)] = sorted(ev)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    global_ops.clear_gslots(one, idx)
+    torch.cuda.synchronize()
+    t_one = time.perf_counter()
+    for g in ev:
+        global_ops.clear_gslots(per_lane, [g])
+    torch.cuda.synchronize()
+    t_lanes = time.perf_counter()
+    if any(not torch.equal(a, b) for a, b in zip(one, per_lane)):
+        raise AssertionError("GLOBAL churn: one clear != a clear per lane")
+    log(f"[numbers] GLOBAL churn batch: {len(ev)} lanes of new GLOBAL keys into a full "
+        f"table of {card.g_capacity} gslots, {len(set(ev))} gslots recycled, K6 launches 1; "
+        f"apply {churn_ms:.2f} ms (the same keys again, nothing recycled: {again_ms:.2f} ms); "
+        f"its clear, host clock to a synchronize: one call (K={idx.size}) "
+        f"{(t_one - t) * 1e3:.3f} ms; the old way, one clear_gslots a lane, {len(ev)} "
+        f"launches, {(t_lanes - t_one) * 1e3:.2f} ms; columns identical")
 
 
 # ---------------------------------------------------------------------
@@ -2738,6 +2851,7 @@ def shard_numbers_phase(torch, card, batches, launches, k10_err, sass):
         ms10 = time_launches(torch, k10, 20)
         dev10 = device_ms(torch, "bucket_compact", k10)
         dev10c = device_ms(torch, "bucket_compact", k10, cold=True)
+        queued10, queued1 = queued_ms(torch, k10), queued_ms(torch, run)
         plain10 = time_launches(
             torch, lambda: buckets.apply_compact_packed_plain(h10, c10, wire, wlane, now), 3)
         nbytes10 = (n_valid * (lane_bytes + 16) + table_bytes + 4 * wl.size
@@ -2751,10 +2865,11 @@ def shard_numbers_phase(torch, card, batches, launches, k10_err, sass):
             "library_ms": None,
         })
         log(f"[numbers] {kname10} (K10, headline batch, S=1, P={P}, {wl.size} write lanes): "
-            f"{ms10:.4f} ms/launch, device {dev10} ms warm / {dev10c} ms L2 flushed, plain "
-            f"{plain10:.2f} ms, bound {bound10:.6g} ms ({nbytes10} bytes); K1 on the same "
-            f"batch {ms:.4f} ms/launch, device {dev_ms} ms warm / {dev_cold} ms L2 flushed; "
-            f"launches on the one-shard path {launches[kname10]} (no store calls it)")
+            f"{ms10:.4f} ms/launch, device {dev10} ms warm / {dev10c} ms L2 flushed / "
+            f"{queued10:.4f} ms queued, plain {plain10:.2f} ms, bound {bound10:.6g} ms "
+            f"({nbytes10} bytes); K1 on the same batch {ms:.4f} ms/launch, device {dev_ms} ms "
+            f"warm / {dev_cold} ms L2 flushed / {queued1:.4f} ms queued; launches on the "
+            f"one-shard path {launches[kname10]} (no store calls it)")
     return rows
 
 
@@ -2791,11 +2906,12 @@ DEVICE_KERNELS = {
     "write_rows": ("write_rows_kernel",),
     "gather_back_rows": ("gather_rows_kernel",),
     "apply_moves": ("moves_kernel",),
-    "bucket_compact": ("compact_compute", "compact_commit"),
+    "bucket_compact": ("bucket_rounds_kernel",),  # rounds.cuh, the CompactOut sink
     "launch_floor": ("empty_kernel", "empty_barrier_kernel"),
 }
 # wrappers whose every call is one device kernel (device_ms asserts it)
-ONE_LAUNCH = ("bucket_rounds_dict", "bucket_rounds_cols", "global_answer_rounds", "apply_moves")
+ONE_LAUNCH = ("bucket_rounds_dict", "bucket_rounds_cols", "global_answer_rounds",
+              "clear_gslots", "apply_moves", "bucket_compact")
 
 
 def device_profile(torch, fn, iters=20, cold=False, kernels=()):
@@ -3067,10 +3183,13 @@ def global_numbers_phase(torch, card, launches, errs, inputs, now):
 
     ms = time_launches(torch, lambda: _kernels.clear_gslots(g, idx), 20)
     device_ms(torch, "clear_gslots", lambda: _kernels.clear_gslots(g, idx))
+    device_ms(torch, "clear_gslots", lambda: _kernels.clear_gslots(g, idx), cold=True)
+    queued = queued_ms(torch, lambda: _kernels.clear_gslots(g, idx))
     plain_ms = time_launches(torch, lambda: global_ops.clear_gslots_plain(g, idx), 3)
     lib_ms = time_launches(torch, library_clear, 20)
     row("clear", ms, plain_ms, idx_np.nbytes + int((idx_np < G).sum()) * S_ * 44, lib_ms,
-        note=f": K={idx_np.size}")
+        note=f": K={idx_np.size}, {int((idx_np < G).sum())} gslots; queued behind a spin "
+             f"kernel {queued:.4f} ms a call")
     return rows
 
 

@@ -1,4 +1,4 @@
-// Per-lane token/leaky bucket evaluation and the round steps shared by
+// Per-lane token/leaky bucket evaluation and the row steps shared by
 // the bucket-rounds kernels (bucket_rounds.cu), the GLOBAL-plane kernels
 // (global_ops.cu) and the compact commit (compact.cu).
 //
@@ -37,12 +37,6 @@ constexpr int64_t kUnder = 0, kOver = 1;  // Status
 // 4 spare words.
 enum { kHotFlags = 0, kHotRem = 1, kHotStamp = 3, kHotExp = 5 };
 enum { kColdLim = 0, kColdDur = 2 };
-
-// Staging record of one lane between a round's compute and its commit
-// launches (K10; 16 words): new hot row, new cold row values,
-// commit flags.
-constexpr int kStageWords = 16;
-constexpr int kStageFlag = 12;  // bit0 write hot row, bit1 write cold row
 
 __device__ __forceinline__ int64_t compose64(int32_t lo, int32_t hi) {
   return (int64_t(hi) << 32) | int64_t(uint32_t(lo));
@@ -487,14 +481,15 @@ struct ColsSource {
 };
 
 // Output of the bucket-rounds kernels (K1, K2) and the compact commit
-// (K10): out [S, 4, P] narrow i32 or wide i64 (row0, remaining,
-// reset_time, new_expire).  Every lane that reaches a slot is evaluated
-// (no first look: rounds.cuh).
+// (K10, compact.cu CompactOut): out [S, 4, P] narrow i32 or wide i64
+// (row0, remaining, reset_time, new_expire).  Every lane that reaches a
+// slot is evaluated (no first look: rounds.cuh) and every writer stores.
 template <bool WIDE>
 struct BucketOut {
   void* out;
   int64_t P, now;
   static constexpr bool kFirstLook = false;
+  static constexpr bool kListed = false;
   static constexpr bool kWide = WIDE;
 
   __device__ void put(int64_t s, int64_t p, int64_t row0, int64_t rem, int64_t reset,
@@ -577,53 +572,6 @@ __device__ __forceinline__ void store_rows(int32_t* __restrict__ hot,
     cp[0] = w2;
     cp[1] = make_int4(0, 0, 0, 0);
   }
-}
-
-// The two-launch round of K10 (a compute launch, then a commit launch on
-// the same stream).  Compute step of round `round` for lane p of shard
-// s: every lane of the round evaluates against the pre-round rows,
-// writes its output through `sink` and stages its new rows.  A lane of
-// another round stages nothing; in round 0, lanes that no round will
-// evaluate (padding) write the all-zero output, as does a lane of the
-// round with slot -1.
-template <class Source, class Sink>
-__device__ __forceinline__ void compute_lane(
-    const int32_t* __restrict__ hot, const int32_t* __restrict__ cold, int64_t C,
-    const Source& src, const Sink& sink, int64_t s, int64_t p, int64_t P,
-    int32_t round, int32_t n_rounds, int64_t now, int32_t* __restrict__ stage) {
-  int32_t* st = stage + (s * P + p) * kStageWords;
-  int32_t slot, rid;
-  src.head(s, p, slot, rid);
-  if (rid != round || slot < 0) {
-    st[kStageFlag] = 0;
-    const bool never_runs = rid < 0 || rid >= n_rounds;
-    if (rid == round || (never_runs && round == 0)) sink.zero(s, p);
-    return;
-  }
-  Lane q;
-  src.lane(s, p, now, q);
-  Eval e;
-  gather_eval(hot, cold, C, s, slot, q, now, e);
-  sink.evaluated(s, p, q, e);
-  const int32_t flag = write_flag(e, slot, C);
-  if (flag) {
-    int4* sp = reinterpret_cast<int4*>(st);
-    row_words(e, sp, sp + 1, sp + 2);
-    sp[3] = make_int4(flag, slot, 0, 0);
-  } else {
-    st[kStageFlag] = 0;
-  }
-}
-
-// Commit step: scatter the staged rows of the round's writers.  Write
-// slots are unique within a round, so the stores never collide.
-__device__ __forceinline__ void commit_lane(int32_t* __restrict__ hot,
-                                            int32_t* __restrict__ cold, int64_t C,
-                                            int64_t s, int64_t p, int64_t P,
-                                            const int32_t* __restrict__ stage) {
-  const int4* sp = reinterpret_cast<const int4*>(stage + (s * P + p) * kStageWords);
-  const int4 tail = sp[3];
-  if (tail.x) store_rows(hot, cold, s * C + tail.y, tail.x, sp[0], sp[1], sp[2]);
 }
 
 }  // namespace gt

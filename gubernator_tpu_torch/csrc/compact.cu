@@ -18,88 +18,78 @@
 // What bounds it on this card: bytes and instructions, as K1 (see
 // bucket_rounds.cu).  Per lane it reads 12 bytes of dict wire (44 of
 // per-lane columns), gathers a 32-byte hot and a 32-byte cold row,
-// writes 16 bytes of output; per `wlane` entry it reads 4 bytes and,
-// for a write lane, scatters a 32-byte hot row (and the cold row where
-// its config changed).
+// writes 16 bytes of output; per `wlane` entry it reads 4 bytes and
+// marks its lane (4 bytes), and a write lane reads its mark and, where
+// listed, scatters a 32-byte hot row (and the cold row where its config
+// changed).
 //
-// Design.  Two launches on one stream, through the round steps of
-// bucket_rounds.cuh: the compute launch runs compute_lane with every
-// lane put in round 0 — the JAX form ignores the wire's round ids — so
-// each lane evaluates against the pre-batch rows, writes its output and
-// stages its new rows; the commit launch then runs one thread per
-// `wlane` entry, which stores the staged rows of the lane it names
-// through commit_lane.  The staged
-// record says whether the lane writes its hot row and its cold row
-// (write lane, config changed, slot inside the table), which is exactly
-// JAX's `wvalid` and `wvalid & cold_changed`.  The JAX quirks are kept:
-// an entry below 0 writes nothing, an entry >= P stands for lane P - 1
-// (its clip), and a repeated entry stores the same staged row twice
-// (the same bytes).  The host lists each write lane once, and write
-// slots are unique in a round, so no two threads store different rows
-// to one slot.
+// Design.  One cooperative launch of K1's rounds kernel (rounds.cuh)
+// with every lane in round 0 (OneRound: the JAX form ignores the wire's
+// round ids) and the CompactOut sink: the read half evaluates each lane
+// against the pre-batch rows and writes its output, a held writer keeps
+// its new rows in shared memory across the grid barrier, and the write
+// half stores them, with no staging buffer and no second launch.  While
+// the read half's rows are in flight, its threads walk `wlane` and stamp
+// the word of each listed lane in `mark` (i32[S * P], the wrapper's, one
+// per device and stream) with this call's generation `gen`; the write
+// half stores a writer's rows only where its word holds `gen`, read
+// through L2 after the barrier that orders the stamps before it.  A word
+// an earlier call stamped holds an older generation, so no call clears
+// the marks.  That is JAX's `wvalid = (wlane >= 0) & writes[clip(wlane)]`:
+// an entry below 0 marks nothing, an entry >= P marks lane P - 1 (its
+// clip), a repeated entry marks its lane again (JAX stores the same row
+// twice, the same bytes); a listed lane stores its hot row where it is a
+// write lane and its cold row where its config changed.  A writer past
+// the lanes the launch holds evaluates again in the write half, as in
+// K1, and asks the same mark.  The host lists each write lane once, and
+// write slots are unique in a round, so no two threads store different
+// rows to one slot.
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
 #include "bucket_rounds.cuh"
+#include "rounds.cuh"
 
 namespace gt {
-
-constexpr int kCompactThreads = 256;
 
 // A lane source whose every lane is in round 0 (the compact form reads
 // no round ids).
 template <class Source>
 struct OneRound {
+  static constexpr bool kDict = Source::kDict;
   Source src;
 
   __device__ void head(int64_t s, int64_t p, int32_t& slot, int32_t& rid) const {
     src.head(s, p, slot, rid);
     rid = 0;
   }
+  __device__ void prefetch(int64_t s, int64_t p) const { src.prefetch(s, p); }
   __device__ void lane(int64_t s, int64_t p, int64_t now, Lane& q) const {
     src.lane(s, p, now, q);
   }
 };
 
-// One thread per lane of all S*P lanes (grid.y = shard).
-template <class Source>
-__global__ void __launch_bounds__(kCompactThreads)
-compact_compute(const int32_t* __restrict__ hot, const int32_t* __restrict__ cold,
-                int64_t C, Source src, int64_t P, int64_t now,
-                int32_t* __restrict__ stage, int32_t* __restrict__ out) {
-  const int64_t p = int64_t(blockIdx.x) * kCompactThreads + threadIdx.x;
-  if (p < P)
-    compute_lane(hot, cold, C, OneRound<Source>{src}, BucketOut<false>{out, P, now},
-                 blockIdx.y, p, P, 0, 1, now, stage);
-}
+// K10's sink: K1's narrow output, and a writer stores only when `wlane`
+// lists it.
+struct CompactOut : BucketOut<false> {
+  static constexpr bool kListed = true;
+  const int32_t* wlane;  // i32[S, Pw]
+  int32_t* mark;         // i32[S * P]
+  int64_t Pw;
+  int32_t gen;
 
-// One thread per `wlane` entry of shard blockIdx.y.
-__global__ void __launch_bounds__(kCompactThreads)
-compact_commit(int32_t* __restrict__ hot, int32_t* __restrict__ cold, int64_t C,
-               int64_t P, const int32_t* __restrict__ wlane, int64_t Pw,
-               const int32_t* __restrict__ stage) {
-  const int64_t j = int64_t(blockIdx.x) * kCompactThreads + threadIdx.x;
-  if (j >= Pw) return;
-  const int64_t s = blockIdx.y;
-  const int64_t w = wlane[s * Pw + j];
-  if (w >= 0) commit_lane(hot, cold, C, s, w < P ? w : P - 1, P, stage);
-}
-
-template <class Source>
-int run_compact(int32_t* hot, int32_t* cold, int64_t S, int64_t C, Source src, int64_t P,
-                const int32_t* wlane, int64_t Pw, int64_t now, int32_t* stage, int32_t* out,
-                cudaStream_t stream) {
-  const dim3 grid(unsigned((P + kCompactThreads - 1) / kCompactThreads), unsigned(S));
-  compact_compute<Source><<<grid, kCompactThreads, 0, stream>>>(hot, cold, C, src, P, now,
-                                                                stage, out);
-  int rc = int(cudaGetLastError());
-  if (rc != 0 || Pw == 0) return rc;
-  const dim3 wgrid(unsigned((Pw + kCompactThreads - 1) / kCompactThreads), unsigned(S));
-  compact_commit<<<wgrid, kCompactThreads, 0, stream>>>(hot, cold, C, P, wlane, Pw, stage);
-  return int(cudaGetLastError());
-}
+  // Thread t of T stamps the lanes of its `wlane` entries (n = S * P).
+  __device__ void mark_listed(int32_t t, int32_t T, int32_t n) const {
+    const int64_t entries = int64_t(n / P) * Pw;
+    for (int64_t j = t; j < entries; j += T) {
+      const int32_t w = wlane[j];
+      if (w >= 0) mark[(j / Pw) * P + (w < P ? w : P - 1)] = gen;
+    }
+  }
+  __device__ bool listed(int64_t s, int64_t p) const { return __ldcg(mark + s * P + p) == gen; }
+};
 
 }  // namespace gt
 
@@ -108,21 +98,22 @@ extern "C" {
 // K10: hot/cold i32[S, C, 8] (updated in place); with `dict` the lanes
 // come from the wire i32[S, 3P + 3072] in `src`, else from per-lane
 // columns: lanes i32[S, 6, P] in `src` and values i32[S, 5, P]; wlane
-// i32[S, Pw]; stage i32[S, P, 16] scratch; out i32[S, 4, P].  Two
-// launches on `stream` (one when Pw is 0).  Returns cudaGetLastError()
-// of the first launch that failed, else 0.
+// i32[S, Pw]; mark i32[S * P], whose words never hold `gen` before the
+// call (see above); out i32[S, 4, P].  One cooperative launch on
+// `stream`; returns its CUDA error.
 int gt_bucket_compact(int32_t* hot, int32_t* cold, int64_t S, int64_t C, int32_t dict,
                       const int32_t* src, const void* values, int64_t P,
-                      const int32_t* wlane, int64_t Pw, int64_t now_ms, int32_t* stage,
-                      int32_t* out, void* stream) {
+                      const int32_t* wlane, int64_t Pw, int64_t now_ms, int32_t* mark,
+                      int32_t gen, int32_t* out, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const gt::CompactOut sink{{out, P, now_ms}, wlane, mark, Pw, gen};
   if (dict) {
     const int64_t W = 3 * P + 12 * gt::kTableRows;
-    return gt::run_compact(hot, cold, S, C, gt::DictSource<false>{src, P, W}, P, wlane, Pw,
-                           now_ms, stage, out, st);
+    return gt::run_rounds(hot, cold, S, C, gt::OneRound<gt::DictSource<false>>{{src, P, W}},
+                          sink, 1, st);
   }
-  return gt::run_compact(hot, cold, S, C, gt::ColsSource<false>{src, values, P}, P, wlane,
-                         Pw, now_ms, stage, out, st);
+  return gt::run_rounds(hot, cold, S, C,
+                        gt::OneRound<gt::ColsSource<false>>{{src, values, P}}, sink, 1, st);
 }
 
 }  // extern "C"

@@ -27,7 +27,9 @@
 // evaluation); K4 reads ghits and
 // the replica columns of every shard once, writes them once, and writes
 // 64 bytes of packed result per (shard, gslot); K5 and K6 scatter a few
-// words per gslot into every shard.  A lane that reaches its bucket runs
+// words per gslot into every shard, where what they pay is their launch
+// and, per store, the dependent read of its index.  A lane that reaches
+// its bucket runs
 // the evaluation of bucket_rounds.cuh, several hundred instructions
 // (see bucket_rounds.cu).
 //
@@ -61,10 +63,21 @@
 //     (non-owner shards, inactive gslots) are not evaluated: the JAX
 //     program's outputs for a lane with slot -1 are zeros, written here
 //     directly.
-//   * K5 and K6 are one thread per updated gslot.
+//   * K5 is one thread per updated gslot, which writes its five words in
+//     every shard.
+//   * K6 is one plain launch of a thread per (column, shard, entry) of
+//     the clear list: the entry is the fastest index (grid x), the shard
+//     and the column are grid y and z, so a thread makes one index load
+//     (shared through L1/L2 with the 6 S threads of the same entry) and
+//     one store, and the stores of a clear spread over every SM (a
+//     1,024-entry clear at S = 8 is 192 blocks).  The stores hand the
+//     list over sorted, so a warp writes consecutive words of one column
+//     of one shard wherever the gslots are adjacent, and clear a batch's
+//     recycled gslots with one launch (parallel/mesh.py `_clear_gslots`).
 
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <cstdint>
 
 #include "bucket_rounds.cuh"
@@ -95,7 +108,8 @@ struct AnswerOut {
   GCols gc;
   int64_t P, now;
   static constexpr bool kFirstLook = true;
-  static constexpr bool kWide = true;  // i64 values and output
+  static constexpr bool kListed = false;  // every writer stores
+  static constexpr bool kWide = true;     // i64 values and output
 
   __device__ void put(int64_t s, int64_t p, int64_t row0, int64_t limit, int64_t rem,
                       int64_t reset, int64_t nexp) const {
@@ -253,21 +267,23 @@ set_replica_kernel(GCols gc, int64_t S, const int64_t* __restrict__ upd, int64_t
   }
 }
 
-// K6: zero the six columns at idx i64[K] (>= 0; >= G is padding, dropped).
+// K6: zero the six columns at idx i64[K] (>= 0; >= G is padding,
+// dropped): entry k of the list (grid x), shard blockIdx.y, column
+// blockIdx.z (0 rep_status, 1-5 the i64 columns in GCols order).
 __global__ void __launch_bounds__(kGThreads)
-clear_kernel(GCols gc, int64_t S, const int64_t* __restrict__ idx, int64_t K) {
-  const int64_t k = int64_t(blockIdx.x) * kGThreads + threadIdx.x;
+clear_kernel(GCols gc, const int64_t* __restrict__ idx, int32_t K) {
+  const int32_t k = int32_t(blockIdx.x * blockDim.x + threadIdx.x);
   if (k >= K) return;
-  const int64_t g = idx[k];
-  if (g < 0 || g >= gc.G) return;
-  for (int64_t s = 0; s < S; ++s) {
-    const int64_t i = s * gc.G + g;
-    gc.rep_status[i] = 0;
-    gc.rep_limit[i] = 0;
-    gc.rep_remaining[i] = 0;
-    gc.rep_reset[i] = 0;
-    gc.rep_expire[i] = 0;
-    gc.ghits[i] = 0;
+  const uint64_t g = uint64_t(idx[k]);
+  if (g >= uint64_t(gc.G)) return;
+  const int64_t i = int64_t(blockIdx.y) * gc.G + int64_t(g);
+  switch (blockIdx.z) {
+    case 0: gc.rep_status[i] = 0; break;
+    case 1: gc.rep_limit[i] = 0; break;
+    case 2: gc.rep_remaining[i] = 0; break;
+    case 3: gc.rep_reset[i] = 0; break;
+    case 4: gc.rep_expire[i] = 0; break;
+    default: gc.ghits[i] = 0;
   }
 }
 
@@ -329,14 +345,18 @@ int gt_set_replica(int32_t* rep_status, int64_t* rep_limit, int64_t* rep_remaini
   return int(cudaGetLastError());
 }
 
-// K6: clear K gslots (idx i64[K]) in every shard.
+// K6: clear K gslots (idx i64[K]) in every shard: one plain launch of
+// 6 S K threads (blocks of K rounded up to a warp, at most 256).
 int gt_clear_gslots(int32_t* rep_status, int64_t* rep_limit, int64_t* rep_remaining,
                     int64_t* rep_reset, int64_t* rep_expire, int64_t* ghits,
                     int64_t S, int64_t G, const int64_t* idx, int64_t K, void* stream) {
-  if (K == 0) return 0;
+  if (K == 0 || S == 0) return 0;
+  if (K > INT32_MAX || S > 65535) return int(cudaErrorInvalidValue);
   const gt::GCols gc{rep_status, rep_limit, rep_remaining, rep_reset, rep_expire, ghits, G};
-  gt::clear_kernel<<<gt::blocks(K), gt::kGThreads, 0,
-                     static_cast<cudaStream_t>(stream)>>>(gc, S, idx, K);
+  const int64_t threads = std::min<int64_t>(gt::kGThreads, (K + 31) / 32 * 32);
+  const dim3 grid(unsigned((K + threads - 1) / threads), unsigned(S), 6);
+  gt::clear_kernel<<<grid, unsigned(threads), 0, static_cast<cudaStream_t>(stream)>>>(
+      gc, idx, int32_t(K));
   return int(cudaGetLastError());
 }
 

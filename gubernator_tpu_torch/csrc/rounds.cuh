@@ -1,6 +1,7 @@
 // The cooperative rounds kernel shared by the bucket-rounds kernels K1
-// and K2 (bucket_rounds.cu) and the GLOBAL answer rounds K3
-// (global_ops.cu): every round of one batch in one launch.
+// and K2 (bucket_rounds.cu), the GLOBAL answer rounds K3 (global_ops.cu)
+// and the compact commit K10 (compact.cu): every round of one batch in
+// one launch.
 //
 // Lanes interact only through their slot row: every lane of a round
 // must read the PRE-round row, the round's single writer of a slot then
@@ -25,7 +26,12 @@
 // another SM's stores before a barrier must be seen after it.
 //
 // The output goes through a Sink (bucket_rounds.cuh BucketOut for K1/K2,
-// global_ops.cu AnswerOut for K3).  A Sink with kFirstLook looks at each
+// global_ops.cu AnswerOut for K3, compact.cu CompactOut for K10).  A
+// Sink with kListed stores only the rows of the writers a list names:
+// while the first round's rows are in flight its threads mark the
+// listed lanes (`mark_listed`), and the write half asks `listed` of each
+// writer, after the barrier that orders the marks before it.  A Sink
+// with kFirstLook looks at each
 // lane once, in the read half of the lane's own round, before the lane
 // is evaluated (K3: the GLOBAL hit add and the replica answer); a lane
 // it answers is neither evaluated nor a writer, and a lane it does not
@@ -112,6 +118,8 @@ __global__ void __launch_bounds__(kThreads, (kMinBlocks<Source, Sink>))
 bucket_rounds_kernel(int32_t* __restrict__ hot, int32_t* __restrict__ cold, int64_t C,
                      Source src, Sink sink_arg, int32_t P, int32_t n, int32_t n_rounds,
                      int64_t now) {
+  static_assert(!(Sink::kFirstLook && Sink::kListed),
+                "a Sink's list is marked in the read half of Sinks without a first look");
   // The Sink's lane count and time are set from the kernel's own 32-bit
   // P and now, so the compiler sees one value of each: copies it cannot
   // prove equal cost K1/K2 registers, and spills.
@@ -190,6 +198,11 @@ bucket_rounds_kernel(int32_t* __restrict__ hot, int32_t* __restrict__ cold, int6
         copy_async16(&rows[k][1][tx], reinterpret_cast<const int4*>(hot + row * 8 + 4));
         copy_async16(&rows[k][2][tx], reinterpret_cast<const int4*>(cold + row * 8));
       }
+      // The list's marks go out while the rows are in flight, before the
+      // barrier that orders them before the write half.
+      if constexpr (Sink::kListed) {
+        if (r == 0) sink.mark_listed(t, T, n);
+      }
       copies_done();
 #pragma unroll 1
       for (int k = 0; k < kHeld; ++k) {
@@ -236,6 +249,9 @@ bucket_rounds_kernel(int32_t* __restrict__ hot, int32_t* __restrict__ cold, int6
       if (!flag[k][tx]) continue;
       int32_t s, p;
       split(held(k), P, s, p);
+      if constexpr (Sink::kListed) {
+        if (!sink.listed(s, p)) continue;
+      }
       store_rows(hot, cold, int64_t(s) * C + slot[k][tx], flag[k][tx], rows[k][0][tx],
                  rows[k][1][tx], rows[k][2][tx]);
     }
@@ -244,6 +260,9 @@ bucket_rounds_kernel(int32_t* __restrict__ hot, int32_t* __restrict__ cold, int6
       split(int32_t(i), P, s, p);
       src.head(s, p, sl, rd);
       if (rd != r || sl < 0 || sl >= C) continue;
+      if constexpr (Sink::kListed) {
+        if (!sink.listed(s, p)) continue;
+      }
       Lane q;
       src.lane(s, p, now, q);
       if (!q.write) continue;
@@ -267,15 +286,16 @@ bucket_rounds_kernel(int32_t* __restrict__ hot, int32_t* __restrict__ cold, int6
 // Internal linkage: two builds of this library loaded in one process
 // must not share it.
 namespace {
-std::atomic<int64_t> known_resident[5][16];
+std::atomic<int64_t> known_resident[7][16];
 }
 
 // Resident blocks of the kernel on the current device (SMs x blocks a
 // SM).
 template <class Source, class Sink>
 int resident_blocks(int64_t& blocks) {
-  constexpr int which =
-      Sink::kFirstLook ? 4 : (Source::kDict ? 2 : 0) + (Sink::kWide ? 1 : 0);
+  constexpr int which = Sink::kFirstLook ? 4
+                       : Sink::kListed   ? 5 + (Source::kDict ? 1 : 0)
+                                         : (Source::kDict ? 2 : 0) + (Sink::kWide ? 1 : 0);
   int dev = 0;
   int rc = int(cudaGetDevice(&dev));
   if (rc != 0) return rc;

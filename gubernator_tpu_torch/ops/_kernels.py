@@ -8,10 +8,12 @@ started together, into one shared library with a plain C interface the
 first time a kernel is launched (or `build()` is called), and bound
 through ctypes.  Each wrapper checks device, dtype, shape and
 contiguity, allocates its output and scratch with torch.empty (K1-K3
-need no scratch: their one cooperative launch keeps a round's new rows
-on the SM; K9 only for a window past what its launch holds in
-shared memory), launches on PyTorch's current stream, raises when the
-launch returns a CUDA error, and counts its launches in LAUNCHES.
+and K10 stage nothing: their one cooperative launch keeps a round's new
+rows on the SM; K9 needs scratch only for a window past what its launch
+holds in shared memory; K10 keeps one mark word a lane per device and
+stream, `_compact_marks`), launches on PyTorch's current stream, raises
+when the launch returns a CUDA error, and counts its launches in
+LAUNCHES.
 
 Nothing here runs on import: the CPU tests import this module's package
 on a machine with no nvcc and no card.
@@ -41,8 +43,7 @@ NVCC_FLAGS = [
 LINK_FLAGS = ["-shared"]
 
 # Launches per kernel since the last reset_launch_counts(): one per
-# wrapper call that reached the kernel (each is one device launch but
-# K10's, which is two).
+# wrapper call that reached the kernel, each one device launch.
 # The row gather counts under "gather_back_rows" when it reads the
 # two-tier table's back tier (ops/buckets.py read_back_rows).
 LAUNCHES = {
@@ -51,10 +52,15 @@ LAUNCHES = {
     "clear_gslots": 0, "gather_rows": 0, "write_rows": 0,
     "gather_back_rows": 0, "apply_moves": 0, "bucket_compact": 0,
 }
-_STAGE_WORDS = 16  # K10 per-lane scratch record (bucket_rounds.cuh kStageWords)
 
 _lib = None
 _lib_lock = threading.Lock()
+# K10's list marks, (device, stream) -> (i32 tensor, last generation):
+# each call stamps the lanes its write list names with a generation of
+# its own, so a word an earlier call stamped never counts and no call
+# clears them.
+_marks: dict = {}
+_marks_lock = threading.Lock()
 
 
 def reset_launch_counts() -> None:
@@ -94,7 +100,7 @@ _SIGNATURES = {
     "gt_apply_moves": [_P, _P, _I64, _I64, _P, _P, _I64, _P, _I64, _P, _I64, _P],
     "gt_apply_moves_spill": [_I64, _P],
     "gt_bucket_compact": [_P, _P, _I64, _I64, _I32, _P, _P, _I64, _P, _I64, _I64,
-                          _P, _P, _P],
+                          _P, _I32, _P, _P],
     "gt_launch_floor": [_I32, _I64, _I32, _P],
 }
 
@@ -408,7 +414,8 @@ def bucket_compact(hot, cold, wlane, now_ms: int, wire=None, lanes=None, values=
     i32[S, 3P + 3072]) or from per-lane columns (`lanes` i32[S, 6, P],
     `values` i32[S, 5, P]), round ids ignored; every lane evaluated,
     then only the rows of the lanes in `wlane` i32[S, Pw] written (see
-    ops/buckets.py apply_compact32_plain).  Returns i32[S, 4, P]."""
+    ops/buckets.py apply_compact32_plain), in one cooperative launch of
+    the rounds kernel.  Returns i32[S, 4, P]."""
     S, C = _state(hot, cold)
     dev = hot.device
     if (wire is None) == (lanes is None):
@@ -433,14 +440,30 @@ def bucket_compact(hot, cold, wlane, now_ms: int, wire=None, lanes=None, values=
     Pw = wlane.shape[1]
     _check("wlane", wlane, torch.int32, (S, Pw), dev)
     out = _out(None, S, P, False, dev)
-    stage = torch.empty((S, P, _STAGE_WORDS), dtype=torch.int32, device=dev)
+    stream = _stream(dev)
+    mark, gen = _compact_marks(S * P, dev, stream)
     rc = _get_lib().gt_bucket_compact(
         hot.data_ptr(), cold.data_ptr(), S, C, 1 if wire is not None else 0,
         src.data_ptr(), vals.data_ptr() if vals is not None else None, P,
-        wlane.data_ptr(), Pw, int(now_ms), stage.data_ptr(), out.data_ptr(),
-        _stream(dev))
+        wlane.data_ptr(), Pw, int(now_ms), mark.data_ptr(), gen, out.data_ptr(), stream)
     _finish("bucket_compact", rc)
     return out
+
+
+def _compact_marks(n: int, device, stream: int):
+    """K10's mark words for `n` lanes on `device`'s `stream` and this
+    call's generation.  The words are zeroed only when they are made (at
+    first use, on growth, and after 2**31 - 1 generations); calls on one
+    stream run in order, so each sees only its own stamps."""
+    key = (str(device), stream)
+    with _marks_lock:
+        mark, gen = _marks.get(key, (None, 0))
+        if mark is None or mark.numel() < n or gen == 2**31 - 1:
+            size = n if mark is None else max(n, mark.numel())
+            mark, gen = torch.zeros(size, dtype=torch.int32, device=device), 0
+        gen += 1
+        _marks[key] = (mark, gen)
+    return mark, gen
 
 
 # ---------------------------------------------------------------------

@@ -355,14 +355,15 @@ class MeshBucketStore(ColumnarPipeline):
         prepared = prepare_requests(requests, now_ms, responses)
         S = self.n_shards
         by_shard: List[list] = [[] for _ in range(S)]
+        evicted: List[int] = []
         for p in prepared:
             owner = shard_of_key(p.key, S)
             target = owner
             if has_behavior(p.req.behavior, Behavior.GLOBAL):
                 owner_mark = -1 if remote_global else owner
-                g, evicted = self.gtable.lookup_or_assign(p.key, owner_mark)
-                if evicted is not None:
-                    global_ops.clear_gslots(self.gcols, [evicted])
+                g, ev = self.gtable.lookup_or_assign(p.key, owner_mark)
+                if ev is not None:
+                    evicted.append(ev)
                 self.gtable.update_config(g, p.req, p.greg_expire, p.greg_duration)
                 non_owner = remote_global or (home_shard is not None and home_shard != owner)
                 if non_owner:
@@ -377,6 +378,13 @@ class MeshBucketStore(ColumnarPipeline):
                     # (getRateLimit's QueueUpdate, gubernator.go:339-341).
                     self.dirty[owner, g] = True
             by_shard[target].append(p)
+        if evicted:
+            # One clear for the batch's recycled gslots, where the JAX
+            # store clears each as its lane evicts it: the same bytes, as
+            # nothing on the device reads the replica columns before the
+            # answer kernel, a clear only writes zeros, and
+            # lookup_or_assign resets the host mirror at once.
+            self._clear_gslots(evicted)
         return responses, by_shard
 
     def _plan_answer(self, responses, by_shard, now_ms: int) -> _AnswerPrep:
@@ -524,6 +532,14 @@ class MeshBucketStore(ColumnarPipeline):
         one update: a 1-lane `set_replica_batch`."""
         self.set_replica_batch(GlobalsColumns.from_updates([update]), now_ms)
 
+    def _clear_gslots(self, gslots: List[int]) -> None:
+        """Zero every shard's replica rows of recycled gslots with one
+        clear: the sorted unique list, padded to a power of two with G."""
+        ev = sorted(set(gslots))
+        idx = np.full(_pad_pow2(len(ev)), self.g_capacity, np.int64)
+        idx[: len(ev)] = ev
+        global_ops.clear_gslots(self.gcols, idx)
+
     @_locked
     def set_replica_batch(self, cols: GlobalsColumns, now_ms: int) -> None:
         """Batched receive side of UpdatePeerGlobals: store the owner
@@ -555,10 +571,7 @@ class MeshBucketStore(ColumnarPipeline):
         if evicted:
             # Zero recycled rows BEFORE the scatter: a gslot evicted and
             # reassigned within this batch gets its new values next.
-            ev = sorted(set(evicted))
-            ev_a = np.full(_pad_pow2(len(ev)), self.g_capacity, np.int64)
-            ev_a[: len(ev)] = ev
-            global_ops.clear_gslots(self.gcols, ev_a)
+            self._clear_gslots(evicted)
             self.replica_commit_dispatches += 1
         if not idx.size:
             return

@@ -1,9 +1,9 @@
-"""K1/K2 (gubernator_tpu_torch/csrc/bucket_rounds.cu), K3
-(csrc/global_ops.cu) and K9 (csrc/moves.cu) of two checkouts on one
-card, on the same seeded inputs: device time per call, warm and with L2
-flushed, in turns (base, this, this, base).
+"""K1/K2 (gubernator_tpu_torch/csrc/bucket_rounds.cu), K3 and K6
+(csrc/global_ops.cu), K9 (csrc/moves.cu) and K10 (csrc/compact.cu) of
+two checkouts on one card, on the same seeded inputs: device time per
+call, warm and with L2 flushed, in turns (base, this, this, base).
 
-    python3 scripts/torch_rounds_ab.py BASE_DIR [--out FILE] [--only K3,K9]
+    python3 scripts/torch_rounds_ab.py BASE_DIR [--out FILE] [--only K6,K10]
 
 BASE_DIR is another checkout of this repository (for example the
 parent commit unpacked with `git archive`).  Each side builds its own
@@ -28,9 +28,13 @@ path's (K3 on S = 8 x 65,536 slots and gslots, 2,048 lanes a shard, in
 1 and 5 rounds, with every shard's lanes live or, as the path's skewed
 batches, one shard's and the rest padding) and the two-tier path's (K9
 on a seeded window of ~226,000 records over 8 x 32,768 front and 217,232 back
-slots); and the paths' own inputs, made by running chip_smoke.py's
-GLOBAL and two-tier phases here: K3 on the GLOBAL path's step-by-step
-batch and K9 on the two-tier path's largest window.
+slots), K6 on clear lists of the GLOBAL path's table (65,536 gslots x
+8 shards: 1,024 and 2,048 sorted entries, as the stores hand them over,
+and 1,024 in any order) and K10 on the one-shard headline's batch (a
+Zipf plan of the C++ planner, every write lane listed, dict wire and
+per-lane columns); and the paths' own inputs, made by running
+chip_smoke.py's GLOBAL and two-tier phases here: K3 on the GLOBAL path's
+step-by-step batch and K9 on the two-tier path's largest window.
 """
 
 import argparse
@@ -65,7 +69,8 @@ cs = importlib.util.module_from_spec(spec)
 spec.loader.exec_module(cs)
 # the cooperative kernels, and the kernels of the two-launch designs
 KERNELS = ("bucket_rounds_kernel", "round_compute", "round_commit", "answer_compute",
-           "answer_commit", "moves_kernel", "moves_gather_kernel", "moves_scatter_kernel")
+           "answer_commit", "moves_kernel", "moves_gather_kernel", "moves_scatter_kernel",
+           "compact_compute", "compact_commit", "clear_kernel")
 ITERS = int(sys.argv[2])
 cases = np.load(sys.argv[1])
 out = {}
@@ -86,16 +91,27 @@ for name in sorted({k.split("/")[0] for k in cases.files}):
         def run():
             global_ops.answer_rounds(t["hot"], t["cold"], g, a["lanes"], a["values"],
                                      a["gslot"], nr, now)
-    else:
+    elif kind == 3:
         def run():
             _kernels.apply_moves(t["hot"], t["cold"], t["back_hot"], t["back_cold"],
                                  a["records"])
+    elif kind == 4:
+        def run():
+            if "wire" in a:
+                buckets.compact_dict(t["hot"], t["cold"], a["wire"], a["wlane"], now)
+            else:
+                buckets.compact_cols(t["hot"], t["cold"], a["lanes"], a["values"], a["wlane"],
+                                     now)
+    else:
+        g = global_ops.GlobalColumns(*[t[f"g{i}"] for i in range(6)])
+        def run():
+            _kernels.clear_gslots(g, a["idx"])
     out[name] = [cs.device_profile(torch, run, ITERS, cold, KERNELS) for cold in (False, True)]
     out[name].append(cs.queued_ms(torch, run, ITERS))
 print(json.dumps(out))
 '''
 
-DICT, COLS, ANSWER, MOVES = range(4)
+DICT, COLS, ANSWER, MOVES, COMPACT, CLEAR = range(6)
 
 
 def one_shard_case(seed, kind, wide, C=cs.SHARD_C, P=cs.BATCH):
@@ -195,6 +211,18 @@ def cases():
         100, cs.TT_FRONT, cs.TT_BACK, cs.TT_MOVES, cs.TT_MOVES)
     out["K9 full window"] = (dict(hot=hot, cold=cold, back_hot=back_hot, back_cold=back_cold,
                                   records=records), (MOVES, 0, 0, NOW))
+    for name, (seed, K) in {"K6 1024 sorted": (100, 1024), "K6 1024 unsorted": (101, 1024),
+                            "K6 2048 sorted": (102, 2048)}.items():
+        _, _, gc, (idx,) = cs.global_case("clear", seed, 8, cs.G_FULL, K)
+        out[name] = (dict(idx=idx, **{f"g{i}": c for i, c in enumerate(gc)}),
+                     (CLEAR, 0, 0, NOW))
+    for kind in ("dict", "cols"):
+        hot, cold, args, wlane = cs.zipf_compact_case(100, cs.SHARD_C, cs.BATCH, cs.SHARD_KEYS,
+                                                      kind)
+        keys = ("wire",) if kind == "dict" else ("lanes", "values")
+        out[f"K10 headline batch {kind}"] = (
+            dict(hot=hot, cold=cold, wlane=wlane, **dict(zip(keys, args))),
+            (COMPACT, 1, 0, NOW))
     return out
 
 

@@ -85,13 +85,14 @@ template <class Kernel, class... Args>
 void gt_emu_launch(dim3 grid, dim3 block, int, cudaStream_t, Kernel kernel, Args... args) {
   gridDim = grid;
   blockDim = block;
-  for (unsigned y = 0; y < grid.y; ++y)
-    for (unsigned x = 0; x < grid.x; ++x)
-      for (unsigned t = 0; t < block.x; ++t) {
-        blockIdx = dim3(x, y);
-        threadIdx = dim3(t);
-        kernel(args...);
-      }
+  for (unsigned z = 0; z < grid.z; ++z)
+    for (unsigned y = 0; y < grid.y; ++y)
+      for (unsigned x = 0; x < grid.x; ++x)
+        for (unsigned t = 0; t < block.x; ++t) {
+          blockIdx = dim3(x, y, z);
+          threadIdx = dim3(t);
+          kernel(args...);
+        }
 }
 
 // ---------------------------------------------------------------------

@@ -336,17 +336,85 @@ def test_over_limit_propagates_to_replicas():
     assert r.status == Status.OVER_LIMIT
 
 
-def test_gslot_eviction_clears_device_rows():
-    st = Pair(64, 2)
+class ClearSpy:
+    """Counts the port's clear_gslots calls and records the gslots its
+    store's key table evicts, batch by batch."""
+
+    def __init__(self, monkeypatch, store):
+        self.calls = 0
+        self.evicted = []
+        real_clear = global_ops.clear_gslots
+        real_assign = store.gtable.lookup_or_assign
+
+        def clear(gcols, idx):
+            self.calls += 1
+            real_clear(gcols, idx)
+
+        def assign(key, owner):
+            g, ev = real_assign(key, owner)
+            if ev is not None:
+                self.evicted.append(ev)
+            return g, ev
+
+        monkeypatch.setattr(global_ops, "clear_gslots", clear)
+        monkeypatch.setattr(store.gtable, "lookup_or_assign", assign)
+
+    def take(self):
+        out = (self.calls, self.evicted)
+        self.calls, self.evicted = 0, []
+        return out
+
+
+def _lane_batches_case(st, spy):
+    """One GLOBAL lane a batch: a synced key's gslot is recycled by a
+    later key, whose first answer must not see the old replica entry."""
     owner1, _ = owner_and_other("e1")
     st.apply([mk("e1", hits=6, limit=10)], T0, home_shard=owner1)
     st.sync(T0 + 1)
     g_e1 = st.t.gtable.get("glob_e1")
-    for k in ["e2", "e3"]:
+    for k, clears in (("e2", 0), ("e3", 1)):
         st.apply([mk(k)], T0 + 2, home_shard=owner_and_other(k)[1])
+        assert spy.take()[0] == clears
     assert st.t.gtable.get("glob_e1") is None and st.t.gtable.get("glob_e3") == g_e1
     r = st.apply([mk("e3", hits=0)], T0 + 3, home_shard=owner_and_other("e3")[1])[0]
     assert r.remaining == 9
+    assert spy.take()[0] == 0
+
+
+def _one_batch_case(st, spy):
+    """A table of 8 gslots, full of synced keys with live replica
+    entries and pending hits, then one 64-lane dataclass batch of 30 new
+    keys with duplicates, owner and non-owner lanes: most lanes evict,
+    and gslots recycled early in the batch are evicted again by later
+    lanes.  The port clears them with one call after routing, the JAX
+    store with one a lane; answers, state, replica columns (ghits
+    included) and the key table must agree.  A batch that evicts nothing
+    clears nothing."""
+    rng = np.random.default_rng(12)
+    old = [f"o{k}" for k in range(8)]
+    st.apply([mk(k, hits=2, limit=50) for k in old], T0, home_shard=3)
+    st.sync(T0 + 1)
+    st.apply([mk(k, hits=1, limit=50) for k in old], T0 + 2, home_shard=5)
+    assert spy.take() == (0, [])
+    keys = [f"n{k}" for k in rng.integers(0, 30, 64)] + old[:2]
+    reqs = [mk(k, hits=int(rng.integers(0, 3)), limit=20) for k in keys]
+    st.apply(reqs, T0 + 3, home_shard=2)
+    calls, evicted = spy.take()
+    assert calls == 1 and len(evicted) > 8 and len(set(evicted)) < len(evicted)
+    st.sync(T0 + 4)
+    st.apply(reqs[-8:], T0 + 5, home_shard=6)
+    assert spy.take() == (0, [])
+
+
+@pytest.mark.parametrize("case", ["lane_batches", "one_batch"])
+def test_gslot_eviction_clears_device_rows(monkeypatch, case):
+    """Recycled gslots' replica rows are zeroed before the answer kernel
+    reads them: the port clears a batch's recycled gslots with one
+    clear_gslots call (none for a batch that recycles none), the JAX
+    store one a lane, with the same bytes."""
+    st = Pair(64, 2 if case == "lane_batches" else 8)
+    spy = ClearSpy(monkeypatch, st.t)
+    (_lane_batches_case if case == "lane_batches" else _one_batch_case)(st, spy)
 
 
 def test_sync_fast_path_survives_owner_slot_eviction():

@@ -12,6 +12,7 @@ all integer).  Skipped without a CUDA device; on a machine with one,
 run `python -m pytest -m cuda tests/test_torch_kernels.py`.
 `python3 chip_smoke.py` runs the same comparison at full size."""
 
+import numpy as np
 import pytest
 
 pytestmark = pytest.mark.cuda
@@ -154,3 +155,54 @@ def test_compact_kernel_matches_plain(cuda_device, kind, seed, subset):
     want = run_compact(torch, cuda_device, kind, case, plain=True)
     for g, w in zip(got, want):
         assert g.dtype == w.dtype and g.tobytes() == w.tobytes()
+
+
+@pytest.mark.parametrize("kind", ["dict", "cols"])
+def test_compact_kernel_past_held_lanes(cuda_device, kind):
+    """K10 on one shard of 300,000 lanes, past the 270,336 its launch
+    holds on an H100 (132 SMs x 4 blocks x 256 threads x 2): the
+    writers past them evaluate again in the write half and store only
+    where the list names them; then a second call on the same state
+    with the other half of the write lanes listed."""
+    import torch
+
+    from chip_smoke import NOW, _compact_fns, _pad_wlane, compact_case
+
+    hot, cold, args, wlane = compact_case(40, 600_000, 300_000, kind,
+                                          12 if kind == "dict" else 300)
+    listed = wlane[0][wlane[0] >= 0]
+    targs = [torch.tensor(a, device=cuda_device) for a in args]
+    sides = [(fn, torch.tensor(hot, device=cuda_device), torch.tensor(cold, device=cuda_device))
+             for fn in _compact_fns()[kind]]
+    for own in (listed[0::2], listed[1::2]):
+        wl = torch.tensor(_pad_wlane(own), device=cuda_device)
+        got, want = [[fn(h, c, *targs, wl, NOW), h, c] for fn, h, c in sides]
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("order", ["sorted", "unsorted"])
+@pytest.mark.parametrize("shards", [1, 8])
+def test_clear_kernel_lists(cuda_device, shards, order):
+    """K6 on a 3,000-entry list of a 65,536-gslot table, with repeated
+    entries and padding at G and past it, sorted or not, at S = 1 and
+    S = 8."""
+    import torch
+
+    from chip_smoke import random_gcols
+    from gubernator_tpu_torch.ops import _kernels, global_ops
+
+    rng = np.random.default_rng(50 + shards)
+    G, K = 65_536, 3_000
+    gc = [np.ascontiguousarray(c[:shards]) for c in random_gcols(rng, G)]
+    idx = rng.integers(0, G, K)
+    idx[rng.random(K) < 0.1] = G + rng.integers(0, 9)
+    idx[:4] = idx[4]
+    if order == "sorted":
+        idx.sort()
+    got, want = (global_ops.global_columns_from_numpy(gc, cuda_device) for _ in range(2))
+    idx_t = torch.tensor(idx, device=cuda_device)
+    _kernels.clear_gslots(got, idx_t)
+    global_ops.clear_gslots_plain(want, idx_t)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)

@@ -123,6 +123,37 @@ def test_emulated_global_kernel_matches_plain(emulated, kind, seed):
     _same([t.numpy() for t in (*out, h, c, *g)], want)
 
 
+@pytest.mark.parametrize("K", [37, 300])
+@pytest.mark.parametrize("order", ["sorted", "unsorted"])
+@pytest.mark.parametrize("shards", [1, 8])
+def test_emulated_clear_kernel_lists(emulated, shards, order, K):
+    """K6 (one thread per column, shard and entry) on clear lists sorted
+    as the stores hand them over and in any order, with repeated
+    entries, padding at G and past it, K not a multiple of the block
+    (37, and 300 over blocks of 256), at S = 1 and S = 8."""
+    import torch
+
+    from chip_smoke import random_gcols
+    from gubernator_tpu_torch.ops import global_ops
+
+    rng = np.random.default_rng(30 + K + shards)
+    G = 64
+    gc = [np.ascontiguousarray(c[:shards]) for c in random_gcols(rng, G)]
+    idx = rng.integers(0, G, K)
+    idx[rng.random(K) < 0.15] = G + rng.integers(0, 9)
+    idx[:4] = idx[4]
+    if order == "sorted":
+        idx.sort()
+    got, want = (global_ops.global_columns_from_numpy(gc, "cpu") for _ in range(2))
+    before = emulated.LAUNCHES["clear_gslots"]
+    emulated.clear_gslots(got, torch.tensor(idx))
+    global_ops.clear_gslots_plain(want, torch.tensor(idx))
+    _same([t.numpy() for t in got], [t.numpy() for t in want])
+    assert emulated.LAUNCHES["clear_gslots"] == before + 1
+    cleared = np.unique(idx[idx < G])
+    assert all(not t.numpy()[:, cleared].any() for t in got)
+
+
 @pytest.mark.parametrize("kind", ["gather", "write"])
 @pytest.mark.parametrize("seed", [0, 1, 2])
 def test_emulated_row_kernel_matches_plain(emulated, kind, seed):
@@ -309,6 +340,88 @@ def test_emulated_compact_kernel_keeps_the_wlane_quirks(emulated):
         out = emulated.bucket_compact(h, c, torch.tensor(case[3]), NOW,
                                       wire=torch.tensor(args[0]))
         _same([t.numpy() for t in (out, h, c)], want)
+
+
+def _compact_src(kind, args):
+    import torch
+
+    return dict(wire=torch.tensor(args[0])) if kind == "dict" else dict(
+        lanes=torch.tensor(args[0]), values=torch.tensor(args[1]))
+
+
+@pytest.mark.parametrize("kind", ["dict", "cols"])
+@pytest.mark.parametrize("subset", [False, True], ids=["every", "half"])
+def test_emulated_compact_kernel_past_held_lanes(emulated, monkeypatch, kind, subset):
+    """K10 on one resident block (GT_EMU_SMS=1: 256 threads holding 2
+    lanes each, 512 of the batch's 2,048): the listed writers past the
+    held lanes evaluate again in the write half and store only where
+    the list names them."""
+    import torch
+
+    from chip_smoke import NOW, compact_case, run_compact
+
+    monkeypatch.setenv("GT_EMU_SMS", "1")
+    case = compact_case(8 + subset, 4096, 2048, kind, 12 if kind == "dict" else 300,
+                        subset=subset)
+    want = run_compact(torch, "cpu", kind, case, plain=True)
+    hot, cold, args, wlane = case
+    assert (wlane[0] >= 512).sum() > 100
+    h, c = torch.tensor(hot), torch.tensor(cold)
+    out = emulated.bucket_compact(h, c, torch.tensor(wlane), NOW, **_compact_src(kind, args))
+    _same([t.numpy() for t in (out, h, c)], want)
+
+
+def test_emulated_compact_kernel_quirks_past_held_lanes(emulated, monkeypatch):
+    """The wlane quirks (entries at and past P stand for lane P - 1,
+    negative entries list nothing, repeated entries) on one resident
+    block, with listed lanes past the held ones.  Lane P - 1 is a write
+    lane listed only through the entries past P."""
+    import torch
+
+    from chip_smoke import NOW, compact_case, run_compact
+
+    monkeypatch.setenv("GT_EMU_SMS", "1")
+    hot, cold, args, wlane = compact_case(12, 4096, 2048, "dict", 12)
+    listed = wlane[0][wlane[0] >= 0]
+    assert listed[-1] == 2047
+    listed = listed[:-1]
+    odd = np.concatenate([listed[::-1], listed[-9:], listed[:3], [2048, 50_000, -1, -9]])
+    case = (hot, cold, args, np.ascontiguousarray(odd.astype(np.int32)[None]))
+    want = run_compact(torch, "cpu", "dict", case, plain=True)
+    h, c = torch.tensor(hot), torch.tensor(cold)
+    out = emulated.bucket_compact(h, c, torch.tensor(case[3]), NOW, **_compact_src("dict", args))
+    _same([t.numpy() for t in (out, h, c)], want)
+
+
+@pytest.mark.parametrize("sms", ["1", "4"])
+@pytest.mark.parametrize("kind", ["dict", "cols"])
+def test_emulated_compact_kernel_back_to_back_lists(emulated, monkeypatch, sms, kind):
+    """Two K10 calls back to back on one state with disjoint write lists
+    (the even and the odd write lanes): each equals the plain version
+    and changes only rows of the lanes its own list names, so a mark
+    left by the first call stores nothing in the second."""
+    import torch
+
+    from chip_smoke import NOW, _pad_wlane, compact_case
+    from gubernator_tpu_torch.ops import buckets
+
+    monkeypatch.setenv("GT_EMU_SMS", sms)
+    hot, cold, args, wlane = compact_case(11, 4096, 2048, kind, 12 if kind == "dict" else 300)
+    src = _compact_src(kind, args)
+    slot = (src["wire"][0, :2048] if kind == "dict" else src["lanes"][0, 0]).numpy()
+    plain = (buckets.apply_compact_packed_plain if kind == "dict"
+             else buckets.apply_compact32_plain)
+    listed = wlane[0][wlane[0] >= 0]
+    h, c = torch.tensor(hot), torch.tensor(cold)
+    hp, cp = torch.tensor(hot), torch.tensor(cold)
+    for own in (listed[0::2], listed[1::2]):
+        wl = torch.tensor(_pad_wlane(own))
+        before = h.numpy().copy()
+        out = emulated.bucket_compact(h, c, wl, NOW, **src)
+        want = plain(hp, cp, *src.values(), wl, NOW)
+        _same([t.numpy() for t in (out, h, c)], [t.numpy() for t in (want, hp, cp)])
+        changed = np.nonzero((h.numpy()[0] != before[0]).any(axis=1))[0]
+        assert changed.size and set(changed) <= set(slot[own])
 
 
 def _rounds(emulated, kind, hot, cold, args, n_rounds, wide):
