@@ -102,7 +102,30 @@ Phases (any failure exits non-zero and prints no `ok` line):
               phases 9 and 10, whose inputs it times K9 and K7 on the
               back tier with, K1 on a 32,768-slot front against a
               262,144-slot single tier, K1 and K2 at S = 1, and K10
-              beside K1 on the headline's single-round batch).
+              beside K1 on the headline's single-round batch);
+11. serve   — the one-node serving tier: a V1Service built from
+              setup_daemon_config (GUBER_CACHE_SIZE=2097152, the main
+              path's 8 x 262,144 slots; GUBER_BATCH_WAIT=500us; the
+              GLOBAL sync run by the phase), its kernels' first launches
+              in MeshBucketStore.warmup, then (a) BASELINE config 2 at
+              the service: 32 callers with disjoint keys, 16 requests of
+              1,000 leaky BATCHING lanes each over a 1,000,000-key Zipf
+              space, half through get_rate_limits_columns and half
+              through the async entry; (b) BASELINE config 1: 8 callers
+              x 200 NO_BATCHING token requests of 1 and 4 lanes, and
+              100 BATCHING requests of 1 and 4 lanes that take the
+              express bypass (a K1 each on the card); (c) GLOBAL lanes
+              beside more than four batched lanes, one key in both
+              groups, and a GLOBAL sync; (d) 3 requests at
+              GUBER_TRACE_SAMPLE=1 whose batch.window span links the
+              request and parents the five dispatch.* spans; (e) a
+              monthly-Gregorian batch of more than 256 configs (K2).
+              Every answer, the per-key rows, the replica columns and
+              the GLOBAL counters must equal a service on the plain
+              versions (CPU) fed each caller's requests serially;
+              `[serve]` lines give checks/s, request latency p50 / max,
+              flushes and lanes a flush, the pipeline's stage times, the
+              saturation reservoirs, occupancy and the K1-K6 launches.
 
 The last line is `{"ok": true, "device": {...}}`.  Exits 2 without a
 CUDA device.
@@ -1227,6 +1250,7 @@ def compact_kernel_phase(torch, dev="cuda", full=(SHARD_C, BATCH, SHARD_KEYS)):
 # phase 4: service on the card against the service on the CPU
 # ---------------------------------------------------------------------
 def service_phase(devices=("cuda", "cpu")):
+    from gubernator_tpu_torch.config import BehaviorConfig
     from gubernator_tpu_torch.service import IngressColumns, ServiceConfig, V1Service
     from gubernator_tpu_torch.types import (
         Algorithm, Behavior, GetRateLimitsRequest, RateLimitRequest, Status)
@@ -1237,8 +1261,9 @@ def service_phase(devices=("cuda", "cpu")):
         clock = Clock()
         clock.freeze(NOW)
         # GLOBAL syncs run only where this phase calls run_once
-        svcs.append((V1Service(ServiceConfig(cache_size=4096, clock=clock, device=device,
-                                             global_sync_wait_s=3600.0)), clock))
+        svcs.append((V1Service(ServiceConfig(
+            cache_size=4096, clock=clock, device=device,
+            behaviors=BehaviorConfig(global_sync_wait_s=3600.0))), clock))
 
     def req(key, hits=1, limit=5, algo=Algorithm.TOKEN_BUCKET, name="smoke", behavior=0):
         return RateLimitRequest(name=name, unique_key=key, hits=hits, limit=limit,
@@ -1978,6 +2003,7 @@ def persist_phase(torch, dev="cuda"):
     from gubernator_tpu_torch.models import shard
     from gubernator_tpu_torch.ops import _kernels, buckets
     from gubernator_tpu_torch.parallel.mesh import MeshBucketStore
+    from gubernator_tpu_torch.config import BehaviorConfig
     from gubernator_tpu_torch.service import ServiceConfig, V1Service
     from gubernator_tpu_torch.utils.clock import Clock
 
@@ -1989,7 +2015,9 @@ def persist_phase(torch, dev="cuda"):
         clock = Clock()
         clock.freeze(NOW)
         return V1Service(ServiceConfig(cache_size=cache, clock=clock, device=d,
-                                       global_sync_wait_s=3600.0, **kw))
+                                       behaviors=BehaviorConfig(global_sync_wait_s=3600.0,
+                                                                snapshot_interval_s=0.0),
+                                       **kw))
 
     def counts():
         return {k: _kernels.LAUNCHES[k] for k in
@@ -3443,6 +3471,312 @@ def two_tier_numbers_phase(torch, card, launches, calls, k1_inputs, err):
     return out
 
 
+# ---------------------------------------------------------------------
+# phase 11: the one-node serving tier at full width
+# ---------------------------------------------------------------------
+SERVE_ENV = {
+    "GUBER_CACHE_SIZE": "2097152",  # 8 x 262,144 slots: the main path's table
+    "GUBER_BATCH_WAIT": "500us",  # BASELINE.json config 2's BATCHING window
+    # The GLOBAL sync runs where the phase calls run_once, on the card and
+    # on the CPU alike (its answers must be the same on both).
+    "GUBER_GLOBAL_SYNC_WAIT": "1h",
+}
+SERVE_CALLERS = 32  # bench.py's service-ingress n_threads
+SERVE_REQS = 16  # requests of each caller
+SERVE_LANES = 1_000
+EXPRESS_CALLERS = 8
+EXPRESS_REQS = 200
+EXPRESS_KEYS = 1_000  # BASELINE.json config 1
+
+
+def serve_traffic():
+    """Phase 11's requests, by leg: {leg: [caller's [IngressColumns]]}.
+    Callers of a leg own disjoint keys."""
+    from gubernator_tpu_torch.service import IngressColumns
+    from gubernator_tpu_torch.types import Behavior
+    from gubernator_tpu_torch.utils import gregorian
+
+    GL, NB = int(Behavior.GLOBAL), int(Behavior.NO_BATCHING)
+    rng = np.random.RandomState(11)
+    legs = {}
+    # (a) BASELINE config 2: leaky, BATCHING, 1,000,000 keys Zipf 80/10,
+    # limit 1,000,000, an hour; caller c owns the ids = c mod 32.
+    per = N_KEYS // SERVE_CALLERS
+    legs["a"] = [[ingress("cfg2", zipf_ids(rng, per, SERVE_LANES) * SERVE_CALLERS + c)
+                  for _ in range(SERVE_REQS)] for c in range(SERVE_CALLERS)]
+
+    # (b) BASELINE config 1: token, NO_BATCHING, 1,000 keys, limit
+    # 100,000, a minute; requests of 1 and 4 lanes.
+    def small(name, c, n, beh):
+        ids = rng.randint(0, EXPRESS_KEYS // EXPRESS_CALLERS, n) * EXPRESS_CALLERS + c
+        return IngressColumns(
+            names=[name] * n, unique_keys=[str(k) for k in ids],
+            algorithm=np.zeros(n, np.int32), behavior=np.full(n, beh, np.int32),
+            hits=np.ones(n, np.int64), limit=np.full(n, 100_000, np.int64),
+            duration=np.full(n, 60_000, np.int64))
+
+    legs["b"] = [[small("cfg1", c, 1 + 3 * (k % 2), NB) for k in range(EXPRESS_REQS)]
+                 for c in range(EXPRESS_CALLERS)]
+    # The express bypass proper: BATCHING requests of 1 and 4 lanes to a
+    # shallow queue, from one caller.
+    legs["b_express"] = [[small("cfg1x", 0, 1 + 3 * (k % 2), 0) for k in range(100)]]
+
+    # (c) GLOBAL lanes beside more than four batched lanes, one key in
+    # both groups.
+    def mixed(k):
+        keys = ["shared"] + [f"b{(k * 7 + j) % 13}" for j in range(7)] + [
+            "shared", "gk0", "gk1"]
+        beh = np.array([0] * 8 + [GL, GL, GL | NB], np.int32)
+        n = len(keys)
+        return IngressColumns(
+            names=["cfgg"] * n, unique_keys=keys, algorithm=np.zeros(n, np.int32),
+            behavior=beh, hits=np.full(n, 1 + k % 3, np.int64),
+            limit=np.full(n, 1_000, np.int64), duration=np.full(n, 3_600_000, np.int64))
+
+    legs["c"] = [[mixed(k) for k in range(6)]]
+    # (d) traced requests: 3 of 100 lanes.
+    legs["d"] = [[ingress("cfgtr", rng.randint(0, 10_000, 100)) for _ in range(3)]]
+    # (e) more than 256 configs in one batch, monthly Gregorian: the
+    # per-lane column wire (K2).
+    n = SERVE_LANES
+    legs["e"] = [[IngressColumns(
+        names=["cfgm"] * n, unique_keys=[str(k) for k in rng.randint(0, 50_000, n)],
+        algorithm=np.ones(n, np.int32),
+        behavior=np.full(n, int(Behavior.DURATION_IS_GREGORIAN), np.int32),
+        hits=np.ones(n, np.int64),
+        limit=(1_000_000 + np.arange(n) % 300).astype(np.int64),
+        duration=np.full(n, gregorian.GREGORIAN_MONTHS, np.int64))]]
+    return legs
+
+
+def serve_callers(svc, scripts, async_callers=()):
+    """Each caller's requests in order, the callers concurrent; a caller
+    waits for each answer before its next request.  Returns (answers by
+    caller, latencies in s, wall s)."""
+    answers = [[None] * len(s) for s in scripts]
+    lat, errors = [], []
+    lat_lock = threading.Lock()
+
+    def run(c):
+        try:
+            for k, cols in enumerate(scripts[c]):
+                t0 = time.perf_counter()
+                if c in async_callers:
+                    box, done = [], threading.Event()
+                    svc.get_rate_limits_columns_async(
+                        cols, lambda r, e: (box.append((r, e)), done.set()))
+                    if not done.wait(300):
+                        raise TimeoutError(f"caller {c}: no callback in 300 s")
+                    res, exc = box[0]
+                    if exc is not None:
+                        raise exc
+                else:
+                    res = svc.get_rate_limits_columns(cols)
+                dt = time.perf_counter() - t0
+                with lat_lock:
+                    lat.append(dt)
+                answers[c][k] = result_bytes(res)
+        except BaseException as e:  # noqa: BLE001 — raised below, on the main thread
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=(c,), name=f"caller-{c}")
+               for c in range(len(scripts))]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    wall = time.perf_counter() - t0
+    if any(t.is_alive() for t in threads):
+        raise AssertionError("a phase 11 caller did not finish in 600 s")
+    if errors:
+        raise errors[0]
+    return answers, np.asarray(lat), wall
+
+
+def serve_phase(torch, dev="cuda"):
+    """Phase 11: a V1Service built from setup_daemon_config at the main
+    path's table size, driven through its coalescing windows, express
+    lane, async entry, GLOBAL lanes and tracing, held lane by lane and
+    key by key to a service on the plain versions fed each caller's
+    requests serially."""
+    from gubernator_tpu_torch import saturation, tracing
+    from gubernator_tpu_torch.config import setup_daemon_config
+    from gubernator_tpu_torch.ops import _kernels
+    from gubernator_tpu_torch.service import ServiceConfig, V1Service
+    from gubernator_tpu_torch.types import Behavior
+    from gubernator_tpu_torch.utils.clock import Clock
+
+    t_phase = time.perf_counter()
+    conf = setup_daemon_config(env=SERVE_ENV)
+    b = conf.behaviors
+    assert (b.batch_wait_s, b.express, b.express_max_lanes, b.ingress_queue_lanes) == (
+        0.0005, True, 4, 262_144), b
+
+    def service(device):
+        clock = Clock()
+        clock.freeze(NOW)
+        svc = V1Service(ServiceConfig(
+            cache_size=conf.cache_size, back_cache_size=conf.back_cache_size,
+            global_cache_size=conf.global_cache_size, behaviors=conf.behaviors,
+            clock=clock, device=device))
+        svc.store.warmup(NOW, conf.warmup_shapes)
+        return svc
+
+    legs = serve_traffic()
+    card = service(None if dev == "cuda" else dev)  # None: the current CUDA device
+    cpu = service("cpu")
+    if card.store.device.type != (dev if dev != "cuda" else "cuda"):
+        raise AssertionError(f"phase 11's service runs on {card.store.device}")
+    try:
+        got = {}
+        _kernels.reset_launch_counts()
+        saturation.reset()
+        card.store.take_pipeline_stats()
+        # (a) 32 callers, half sync, half async
+        got["a"], lat_a, wall_a = serve_callers(
+            card, legs["a"], async_callers=range(1, SERVE_CALLERS, 2))
+        stats_a, _, hwm_a = card.store.take_pipeline_stats()
+        phases_a = saturation.phase_snapshot()
+        express_a = saturation.express_snapshot()
+        launches_a = dict(_kernels.LAUNCHES)
+        occupancy = card.store.occupancy_stats()
+        # (b) 8 NO_BATCHING callers, then the express bypass
+        got["b"], lat_b, wall_b = serve_callers(card, legs["b"],
+                                                async_callers=range(1, EXPRESS_CALLERS, 2))
+        k1_before = _kernels.LAUNCHES["bucket_rounds_dict"]
+        got["b_express"], lat_x, _ = serve_callers(card, legs["b_express"])
+        bypass = saturation.express_snapshot()["lanes"]
+        k1_express = _kernels.LAUNCHES["bucket_rounds_dict"] - k1_before
+        # (c) GLOBAL and batched lanes, then a sync; the GLOBAL counters
+        got["c"], _, _ = serve_callers(card, legs["c"])
+        sync_card = card.global_mgr.run_once()
+        # (d) one sampled epoch
+        tracing.reset()
+        tracing.set_sample_rate(1.0)
+        try:
+            traced = []
+            for cols in legs["d"][0]:
+                root = tracing.ingress_span("grpc", "/pb.gubernator.V1/GetRateLimits")
+                with root:
+                    traced.append(result_bytes(card.get_rate_limits_columns(cols)))
+                root.end()
+                spans = tracing.spans_snapshot(root.ctx.trace_hex)
+                windows = [s for s in spans if s["name"] == "batch.window"]
+                if len(windows) != 1 or {"trace_id": root.ctx.trace_hex,
+                                         "span_id": root.ctx.span_hex} not in windows[0]["links"]:
+                    raise AssertionError(f"no batch.window span links the request: {spans}")
+                stages = sorted(s["name"] for s in spans
+                                if s["name"].startswith("dispatch.")
+                                and s["parent_id"] == windows[0]["span_id"])
+                want = sorted(f"dispatch.{s}" for s in
+                              ("prepare", "stage", "launch", "fetch", "commit"))
+                if stages != want:
+                    raise AssertionError(f"stage spans {stages} != {want}")
+            got["d"] = [traced]
+        finally:
+            tracing.set_sample_rate(0.0)
+        # (e) more than 256 configs, monthly Gregorian
+        got["e"], _, _ = serve_callers(card, legs["e"])
+        launches = {k: _kernels.LAUNCHES[k] for k in
+                    ("bucket_rounds_dict", "bucket_rounds_cols", "global_answer_rounds",
+                     "global_sync", "set_replica", "clear_gslots")}
+        if dev == "cuda":
+            for k in ("bucket_rounds_dict", "bucket_rounds_cols", "global_answer_rounds",
+                      "global_sync"):
+                if launches[k] == 0:
+                    raise AssertionError(f"phase 11 launched no {k}")
+            if k1_express == 0:
+                raise AssertionError("the express bypass launched no K1 on the card")
+        if bypass["bypass"] == 0:
+            raise AssertionError("no request took the express bypass")
+
+        # The CPU service, each caller's requests serially, in leg order.
+        want = {leg: [[result_bytes(cpu.get_rate_limits_columns(cols)) for cols in script]
+                      for script in scripts] for leg, scripts in legs.items()}
+        sync_cpu = cpu.global_mgr.run_once()
+        for leg in legs:
+            for c, (g, w) in enumerate(zip(got[leg], want[leg])):
+                if g != w:
+                    raise AssertionError(f"phase 11 ({leg}), caller {c}: card != CPU")
+        if (sync_card, sync_cpu) != (True, True):
+            raise AssertionError(f"GLOBAL sync broadcast nothing: {sync_card}, {sync_cpu}")
+        for a, b_ in zip(card.store.gcols, cpu.store.gcols):
+            if not torch.equal(a.cpu(), b_):
+                raise AssertionError("phase 11: replica columns differ after the sync")
+        # Exact GLOBAL counters: every hit of (c) counted once.
+        totals = collections.Counter()
+        for cols in legs["c"][0]:
+            for k, h in zip(cols.unique_keys, cols.hits):
+                totals[k] += int(h)
+        for svc in (card, cpu):
+            probe = ingress("cfgg", ["gk0", "gk1", "shared"],
+                            algorithm=np.zeros(3, np.int32),
+                            behavior=np.full(3, int(Behavior.GLOBAL), np.int32),
+                            limit=1_000)
+            probe.hits[:] = 0
+            res = svc.get_rate_limits_columns(probe)
+            for i, k in enumerate(("gk0", "gk1", "shared")):
+                r = res.response_at(i)
+                if r.error or r.remaining != 1_000 - totals[k]:
+                    raise AssertionError(f"GLOBAL counter of {k}: {r}, hits {totals[k]}")
+        # Final per-key state (slots depend on coalescing, rows must not).
+        sc, sp = card.store.snapshot_columns(NOW), cpu.store.snapshot_columns(NOW)
+
+        def per_key(cols):
+            rows = np.stack([np.asarray(getattr(cols, f), np.int64) for f in
+                             ("algorithm", "status", "limit", "remaining", "duration",
+                              "stamp", "expire_at")], axis=1)
+            return dict(zip(cols.keys, map(tuple, rows.tolist())))
+
+        if per_key(sc) != per_key(sp):
+            raise AssertionError("phase 11: per-key state on the card != the CPU replay")
+        n_keys = len(sc.keys)
+    finally:
+        card.close()
+        cpu.close()
+
+    lanes_a = SERVE_CALLERS * SERVE_REQS * SERVE_LANES
+    lat_a, lat_b, lat_x = lat_a * 1e3, lat_b * 1e3, lat_x * 1e3
+    log(f"[serve] (a) BASELINE config 2 at the service: {SERVE_CALLERS} callers x "
+        f"{SERVE_REQS} requests of {SERVE_LANES} lanes (half async): "
+        f"{lanes_a / wall_a:.0f} checks/s, request latency p50 {np.percentile(lat_a, 50):.3f} "
+        f"ms, max {lat_a.max():.3f} ms of {lat_a.size}")
+    flushes, lanes_w = express_a["dispatches"].get("windowed", 0), \
+        express_a["lanes"].get("windowed", 0)
+    log(f"[serve] (a) window: {flushes} flushes, {lanes_w / max(flushes, 1):.1f} lanes a "
+        f"flush; pipeline depth high-water {hwm_a}; launches {launches_a['bucket_rounds_dict']} "
+        f"K1")
+    for stage in ("prepare", "stage", "launch", "fetch", "commit"):
+        cnt, tot, mx = stats_a.get(stage, (0, 0.0, 0.0))
+        log(f"[serve] (a) stage {stage}: {cnt} x, total {tot * 1e3:.3f} ms, max "
+            f"{mx * 1e3:.3f} ms")
+    for ph in ("batch.window", "queue.wait", "dispatch.prepare", "dispatch.stage",
+               "dispatch.launch", "dispatch.fetch", "dispatch.commit"):
+        s = phases_a.get(ph)
+        if s:
+            log(f"[serve] (a) saturation {ph}: p50 {s['p50_ms']} ms, p99 {s['p99_ms']} ms "
+                f"of {s['n_samples']}, max {s['max_ms']} ms")
+    used = sum(r["used"] for r in occupancy)
+    cap = sum(r["capacity"] for r in occupancy)
+    log(f"[serve] (a) occupancy {used} / {cap} slots, evictions "
+        f"{sum(r['evictions'] for r in occupancy)}")
+    log(f"[serve] (b) BASELINE config 1, NO_BATCHING: {EXPRESS_CALLERS} callers x "
+        f"{EXPRESS_REQS} requests of 1 and 4 lanes: latency p50 "
+        f"{np.percentile(lat_b, 50):.3f} ms, max {lat_b.max():.3f} ms of {lat_b.size}, "
+        f"{wall_b:.2f} s; express bypass (100 BATCHING requests, one caller): p50 "
+        f"{np.percentile(lat_x, 50):.3f} ms, max {lat_x.max():.3f} ms, {bypass['bypass']} "
+        f"lanes bypassed, {k1_express} K1 launches")
+    log(f"[serve] phase 11 launches: K1 {launches['bucket_rounds_dict']}, K2 "
+        f"{launches['bucket_rounds_cols']}, K3 {launches['global_answer_rounds']}, K4 "
+        f"{launches['global_sync']}, K5 {launches['set_replica']}, K6 "
+        f"{launches['clear_gslots']}")
+    log(f"[serve] card == CPU serial replay: every answer of (a)-(e), {n_keys} keys' rows, "
+        f"replica columns, exact GLOBAL counters; trace spans batch.window + 5 dispatch.* "
+        f"on {len(legs['d'][0])} requests ({time.perf_counter() - t_phase:.1f} s)")
+    return launches
+
+
 def main():
     import torch
 
@@ -3469,6 +3803,9 @@ def main():
     rows += rows_numbers_phase(torch, row_calls, plaunches, rerrs)
     rows += two_tier_numbers_phase(torch, tstore, tlaunches, move_calls, k1_inputs, merr)
     rows += shard_numbers_phase(torch, sstore, sbatches, slaunches, cerr, sass)
+    del store, gstore, tstore, sstore, k1_inputs
+    gc.collect()
+    serve_phase(torch)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

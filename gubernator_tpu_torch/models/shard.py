@@ -13,12 +13,18 @@ CUDA stream that update the state tensors in place: the wire goes up
 from a pinned host buffer with a non-blocking copy, the packed result
 comes back into a pinned buffer with a CUDA event recorded behind it,
 and a handle's `result()` waits on that event before the C++ commit.
+
+Each stage reports its time to `_observe_stage` (saturation.py's
+`dispatch.<stage>` reservoirs and `take_pipeline_stats`), and a batch a
+batcher staged a trace for (tracing.stage_batch_trace) records one
+`dispatch.<stage>` span a stage.
 """
 
 from __future__ import annotations
 
 import datetime as _dt
 import threading
+import time
 from collections import deque
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
@@ -27,6 +33,8 @@ import numpy as np
 import torch
 
 from .. import native
+from .. import saturation
+from .. import tracing
 from ..ops import buckets
 from ..ops import scalar as scalar_ops
 from ..types import (
@@ -587,6 +595,10 @@ class ColumnsHandle:
         self._value = None
         self.ticket = -1  # plan-order reservation (set by the pipeline)
         self.done = False
+        # tracing.BatchTrace of the submitting batcher (None when the
+        # batch carried no sampled lanes): its stage spans parent under
+        # the batch's window span.
+        self._trace = None
 
     def _launch_ok(self, fetch_fn) -> None:
         self._fetch_fn = fetch_fn
@@ -612,8 +624,16 @@ class ColumnsHandle:
 
     def _do_resolve(self) -> None:
         try:
+            t0 = time.perf_counter()
             packed_np = self._fetch()
+            dt = time.perf_counter() - t0
+            self._store._observe_stage("fetch", dt)
+            tracing.stage_span("fetch", dt, self._trace)
+            t1 = time.perf_counter()
             status, remaining, reset = self._commit_fn(packed_np)
+            dt = time.perf_counter() - t1
+            self._store._observe_stage("commit", dt)
+            tracing.stage_span("commit", dt, self._trace)
         except Exception as e:  # noqa: BLE001 — surfaced at result()
             self._finish(exc=e)
             return
@@ -748,9 +768,61 @@ class ColumnarPipeline:
         # snapshot_columns, gather + scatter per commit_transfer.
         self.transfer_drain_dispatches = 0
         self.transfer_commit_dispatches = 0
+        # Per-stage (count, total s, max s) since the last
+        # take_pipeline_stats, and the in-flight depth's high-water mark.
+        self._stage_stats: Dict[str, list] = {}
+        self._stats_lock = threading.Lock()
+        self._depth_hwm = 0
 
+    # -- observability -------------------------------------------------
+    def _observe_stage(self, stage: str, dt: float) -> None:
+        saturation.observe_phase(f"dispatch.{stage}", dt)
+        with self._stats_lock:
+            st = self._stage_stats.setdefault(stage, [0, 0.0, 0.0])
+            st[0] += 1
+            st[1] += dt
+            st[2] = max(st[2], dt)
+
+    def pipeline_depth(self) -> int:
+        """Batches dispatched but not yet resolved."""
+        return len(self._inflight)
+
+    def occupancy_stats(self) -> List[dict]:
+        """Per-shard occupancy from the host slot tables (no launch):
+        used and capacity slots, evictions, and with a back tier its
+        used rows and capacity."""
+        back_cap = int(getattr(self, "back_capacity_per_shard", 0) or 0)
+        out = []
+        for s, t in enumerate(self._tables()):
+            row = {"shard": s, "used": len(t), "capacity": int(t.capacity),
+                   "evictions": int(t.evictions)}
+            if back_cap:
+                # tier_stats: (total, back_keys, demotions, promotions,
+                # back_evictions).
+                row["back_used"] = int(t.tier_stats[1])
+                row["back_capacity"] = back_cap
+            out.append(row)
+        return out
+
+    def take_pipeline_stats(self):
+        """Drain the per-stage aggregates since the last call:
+        ({stage: (count, total_s, max_s)}, depth, depth high-water mark)."""
+        with self._stats_lock:
+            out = {k: tuple(v) for k, v in self._stage_stats.items()}
+            self._stage_stats.clear()
+            hwm = self._depth_hwm
+            self._depth_hwm = len(self._inflight)
+        return out, len(self._inflight), hwm
+
+    def _padded_lanes(self, prep) -> int:
+        """Lanes one launch of `prep` covers (the mesh pads per shard)."""
+        return prep.padded
+
+    # -- the dispatch stages -------------------------------------------
     def _submit_pipelined(self, keys, cols, now_ms: int,
                           force_wire: Optional[str] = None) -> ColumnsHandle:
+        bt = tracing.take_batch_trace()  # staged by the batcher (if sampled)
+        t0 = time.perf_counter()
         # The express slot is decided before the plan, which it pins to
         # the wide decode.
         use_scalar = force_wire is None and self._scalar_eligible(cols)
@@ -758,11 +830,22 @@ class ColumnarPipeline:
             prep = self._prepare_columns(keys, cols, now_ms,
                                          "wide" if use_scalar else force_wire)
             handle = ColumnsHandle(self, prep.commit, cols.limit)
+            handle._trace = bt
             handle.ticket = self._next_ticket
             self._next_ticket += 1
             self._inflight.append(handle)
+            with self._stats_lock:
+                self._depth_hwm = max(self._depth_hwm, len(self._inflight))
+        dt = time.perf_counter() - t0
+        self._observe_stage("prepare", dt)
+        tracing.stage_span("prepare", dt, bt, ticket=handle.ticket, lanes=len(keys))
+        saturation.lane_util.add(len(keys), self._padded_lanes(prep))
         try:
+            t1 = time.perf_counter()
             staged = self._stage_scalar(prep) if use_scalar else self._stage_columns(prep)
+            dt = time.perf_counter() - t1
+            self._observe_stage("stage", dt)
+            tracing.stage_span("stage", dt, bt)
         except BaseException as e:
             self._abort_launch_turn(handle, e)
             raise
@@ -824,11 +907,17 @@ class ColumnarPipeline:
             self._abort_launch_turn(group or handle, e)
             raise
         exc: Optional[BaseException] = None
+        t0 = time.perf_counter()
         try:
             with self._lock:
                 self._launch_group(group)
         except BaseException as e:  # noqa: BLE001
             exc = e
+        dt = time.perf_counter() - t0
+        self._observe_stage("launch", dt)
+        for _, h in group:
+            # One launch span per batch (each batch of a group sees it).
+            tracing.stage_span("launch", dt, h._trace, fused=len(group))
         if exc is not None:
             for _, h in group:
                 h._launch_fail(exc)
@@ -865,6 +954,7 @@ class ColumnarPipeline:
             staged, h = group[0]
             packed = staged.scalar()
             self.scalar_applies += 1
+            saturation.note_express("scalar", len(h._limit))
             h._launch_ok(lambda: packed)
             return
         self._pre_launch()

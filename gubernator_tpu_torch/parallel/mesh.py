@@ -284,6 +284,10 @@ class MeshBucketStore(ColumnarPipeline):
         buckets.apply_moves(self.state, self.back, self._upload(records))
         self.move_dispatches += 1
 
+    def _padded_lanes(self, prep) -> int:
+        # The mesh pads per shard: one launch covers S * padded lanes.
+        return prep.padded * self.n_shards
+
     def _pre_launch(self) -> None:
         # Tier moves queued by the group's plans must land before its
         # launches read front rows.  One drain covers the group: moves
@@ -975,6 +979,70 @@ class MeshBucketStore(ColumnarPipeline):
             self._sync_gen = None  # fresh slot tables: verify every owner slot
         finally:
             self._unlock_drained()
+
+    def describe_topology(self) -> "tuple[str, str]":
+        """(device type, shard count): the store's build-info labels."""
+        return self.device.type, str(self.n_shards)
+
+    @_drained_locked
+    def load_item(self, item) -> None:
+        """Loader.Load path (gubernator.go:78-90), routed to the owner
+        shard: one single-lane row scatter."""
+        s = shard_of_key(item.key, self.n_shards)
+        slot, _ = self.tables[s].lookup_or_assign(item.key, 0)
+        # A promotion queued by the lookup would otherwise overwrite the
+        # injected row at the next drain.
+        self._drain_moves()
+        self._inject(s, slot, item)
+
+    def warmup(self, now_ms: int, warm_shapes: Optional[Sequence[int]] = None) -> None:
+        """Launch every kernel of the serving path once before traffic,
+        so the kernels' library load (the first launch builds or loads
+        it) and each kernel's first launch happen at startup rather than
+        inside a client's deadline.  Nothing compiles per shape: one
+        launch of each kernel covers every batch size.  Reserved
+        `__warmup__` keys with a 1 ms duration recycle at the next
+        eviction scan and stay out of snapshots.
+
+        Launches: a GLOBAL lane (answer rounds, K3), the GLOBAL sync
+        (K4), a one-lane replica commit (K5), with a back tier one empty
+        tier-move window (K9), and per shape of `warm_shapes` (lane
+        counts) one dict-wire batch (K1) and one wide per-lane-column
+        batch (K2)."""
+        req = RateLimitRequest(
+            name="__warmup__", unique_key="__warmup__", hits=0, limit=1,
+            duration=1, behavior=Behavior.GLOBAL,
+        )
+        self.apply([req], now_ms)
+        self.sync_globals(now_ms)
+        # reset_time in the past: the replica row never answers.
+        self.set_replica_batch(
+            GlobalsColumns(
+                keys=[req.hash_key()],
+                algorithm=np.zeros(1, np.int32),
+                status=np.zeros(1, np.int32),
+                limit=np.ones(1, np.int64),
+                remaining=np.zeros(1, np.int64),
+                reset_time=np.full(1, now_ms - 1, np.int64),
+            ),
+            now_ms,
+        )
+        if self.back is not None:
+            with self._lock:
+                noop = np.full((3, 1), -1, np.int32)  # one record, not live
+                buckets.apply_moves(self.state, self.back, self._upload(noop))
+                self.move_dispatches += 1
+        if self.store is not None:
+            return
+        for lanes in sorted({max(int(n), 1) for n in (warm_shapes or (1,))}):
+            keys = [f"__warmup__:{i}" for i in range(lanes)]
+            for wire in (None, "wide"):
+                self.apply_columns(
+                    keys,
+                    np.zeros(lanes, np.int32), np.zeros(lanes, np.int32),
+                    np.zeros(lanes, np.int64), np.ones(lanes, np.int64),
+                    np.ones(lanes, np.int64), now_ms, force_wire=wire,
+                )
 
     @_drained_locked
     def check_consistency(self) -> None:

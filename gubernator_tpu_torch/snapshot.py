@@ -63,6 +63,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 
+from . import tracing
 from .reshard import TransferColumns
 
 logger = logging.getLogger(__name__)
@@ -356,6 +357,9 @@ class SnapshotManager:
             cols, meta = read_snapshot(self.path)
         except (SnapshotError, OSError) as e:
             self.restore_result = "rejected"
+            tracing.record_event(
+                "snapshot-rejected", path=self.path, reason=str(e)
+            )
             logger.warning(
                 "snapshot %s REJECTED (cold start): %s", self.path, e
             )
@@ -364,6 +368,10 @@ class SnapshotManager:
         committed = self.service.store.commit_transfer(cols, now_ms)
         if committed > len(cols):
             # A commit that mints lanes breaks snapshot conservation.
+            tracing.record_event(
+                "audit-violation", invariant="snapshot_restore",
+                excess=committed - len(cols),
+            )
             logger.warning(
                 "snapshot restore VIOLATION: committed %d lanes from a "
                 "%d-lane file", committed, len(cols),

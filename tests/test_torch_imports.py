@@ -52,12 +52,15 @@ def _imported_roots(path):
 
 def test_global_plane_modules_are_covered():
     """The GLOBAL, persistence and one-shard store modules (the K10
-    binding lives in ops._kernels) are among those the two checks above
-    import with JAX absent and scan for imports."""
+    binding lives in ops._kernels) and the serving tier's leaf modules
+    are among those the two checks above import with JAX absent and
+    scan for imports."""
     mods = set(_modules())
     for m in ("ops.global_ops", "parallel.global_mgr", "utils.interval",
               "parallel.mesh", "service", "ops._kernels", "store", "reshard",
-              "snapshot", "models.shard", "models.slot_table", "ops.scalar"):
+              "snapshot", "models.shard", "models.slot_table", "ops.scalar",
+              "config", "utils.logging", "utils.batch_window", "tracing",
+              "saturation"):
         assert f"gubernator_tpu_torch.{m}" in mods, m
 
 

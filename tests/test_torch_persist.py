@@ -38,6 +38,7 @@ from gubernator_tpu_torch import store as spi
 from gubernator_tpu_torch.ops import _kernels, buckets
 from gubernator_tpu_torch.parallel.mesh import MeshBucketStore, shard_of_key
 from gubernator_tpu_torch.reshard import TransferColumns
+from gubernator_tpu_torch.config import BehaviorConfig as TBehaviors
 from gubernator_tpu_torch.service import ServiceConfig, V1Service
 from gubernator_tpu_torch.types import (
     Algorithm,
@@ -506,7 +507,8 @@ def _services(path="", loader=None, jloader=None, store=None, jstore=None):
     tclock = Clock()
     tclock.freeze(NOW)
     t = V1Service(ServiceConfig(cache_size=2048, clock=tclock, device="cpu",
-                                global_sync_wait_s=3600.0, loader=loader,
+                                behaviors=TBehaviors(global_sync_wait_s=3600.0),
+                                loader=loader,
                                 snapshot_path=path, persist_store=store))
     return j, t
 
@@ -647,11 +649,12 @@ def test_store_spi_service_routes_every_lane_through_apply():
         t.close()
 
 
-def _port_service(**kw):
+def _port_service(snapshot_interval_s=0.0, **kw):
     c = Clock()
     c.freeze(NOW)
+    beh = TBehaviors(global_sync_wait_s=3600.0, snapshot_interval_s=snapshot_interval_s)
     return V1Service(ServiceConfig(cache_size=2048, clock=c, device="cpu",
-                                   global_sync_wait_s=3600.0, **kw))
+                                   behaviors=beh, **kw))
 
 
 def test_interval_thread_writes_a_file(tmp_path):

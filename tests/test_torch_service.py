@@ -17,6 +17,7 @@ from gubernator_tpu.service import ServiceConfig as JaxConfig
 from gubernator_tpu.service import V1Service as JaxService
 from gubernator_tpu.types import PeerInfo
 from gubernator_tpu.utils.clock import Clock as JaxClock
+from gubernator_tpu_torch.config import BehaviorConfig as TBehaviors
 from gubernator_tpu_torch.service import (
     ApiError,
     IngressColumns,
@@ -47,7 +48,7 @@ def services():
     tclock = Clock()
     tclock.freeze(NOW)
     tsvc = V1Service(ServiceConfig(cache_size=4096, clock=tclock, device="cpu",
-                                   global_sync_wait_s=3600.0))
+                                   behaviors=TBehaviors(global_sync_wait_s=3600.0)))
     yield jsvc, tsvc, jclock, tclock
     jsvc.close()
     tsvc.close()

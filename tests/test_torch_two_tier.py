@@ -30,6 +30,7 @@ from gubernator_tpu.types import RateLimitRequest as JaxRequest
 from gubernator_tpu_torch import native
 from gubernator_tpu_torch.ops import buckets
 from gubernator_tpu_torch.parallel.mesh import MeshBucketStore, shard_of_key
+from gubernator_tpu_torch.config import BehaviorConfig
 from gubernator_tpu_torch.service import ServiceConfig, V1Service
 from gubernator_tpu_torch.types import Algorithm, Behavior, RateLimitRequest
 
@@ -407,7 +408,7 @@ def test_rejects_a_store_spi():
 @pytest.mark.parametrize("back,per_shard", [(0, 0), (1, 1), (4096, 512), (4097, 513)])
 def test_service_back_cache_size_reaches_the_store(back, per_shard):
     svc = V1Service(ServiceConfig(cache_size=64, back_cache_size=back, device="cpu",
-                                  global_sync_wait_s=3600.0))
+                                  behaviors=BehaviorConfig(global_sync_wait_s=3600.0)))
     try:
         store = svc.store
         assert store.back_capacity_per_shard == per_shard
