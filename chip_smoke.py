@@ -125,7 +125,26 @@ Phases (any failure exits non-zero and prints no `ok` line):
               versions (CPU) fed each caller's requests serially;
               `[serve]` lines give checks/s, request latency p50 / max,
               flushes and lanes a flush, the pipeline's stage times, the
-              saturation reservoirs, occupancy and the K1-K6 launches.
+              saturation reservoirs, occupancy and the K1-K6 launches;
+12. edge    — the HTTP edge of one node over real sockets: phase 11's
+              service with a ring of itself, served by the native epoll
+              edge with its ingress pump and by the stdlib gateway:
+              (a) BASELINE config 2 as GUBC kind-5 frames, 32
+              connections x 16 frames of 1,000 leaky lanes, through the
+              native pump (K1); (b) the same traffic as JSON on the
+              stdlib gateway; (c) BASELINE config 1, NO_BATCHING JSON of
+              1 and 4 lanes from 8 connections; a monthly batch of more
+              than 256 configs (K2); GLOBAL lanes (K3) and a sync (K4);
+              (d) the peer API's receiving half: a kind-1 frame of owned
+              lanes, a globals frame (K5), a transfer of 10,000 keys (one
+              K7 and one K8) and a fenced one (409); (e) HealthCheck and
+              the debug routes (200 with their keys; /debug/device shows
+              the card's memory).  Every body, the per-key rows and the
+              replica columns must equal a node on the plain versions
+              (CPU) fed each connection's bodies serially through the
+              same gateway handler; `[edge]` lines give checks/s, request
+              latency p50 / max, takes and lanes a take, the pump's
+              stats and the K1-K8 launches of each leg.
 
 The last line is `{"ok": true, "device": {...}}`.  Exits 2 without a
 CUDA device.
@@ -3777,6 +3796,388 @@ def serve_phase(torch, dev="cuda"):
     return launches
 
 
+# ---------------------------------------------------------------------
+# phase 12: the HTTP edge of one node
+# ---------------------------------------------------------------------
+EDGE_ADDR = "127.0.0.1:9981"  # the node's id in its ring of itself
+EDGE_CONNS = 32  # phase 11's callers, now client connections
+EDGE_REQS = 16
+EDGE_B_REQS = 4  # (b) repeats (a)'s shape as JSON: fewer bodies, same widths
+EDGE_LANES = 1_000
+EDGE_NB_CONNS = 8
+EDGE_NB_REQS = 100
+EDGE_PEER_LANES = 5_000
+EDGE_GLOBALS = 2_000
+EDGE_TRANSFER_KEYS = 10_000
+EDGE_TIMEOUT_S = 300.0
+
+
+def edge_read(s):
+    """One HTTP/1.1 response off socket `s`: (status, content type, body)."""
+    data = b""
+    while b"\r\n\r\n" not in data:
+        chunk = s.recv(1 << 20)
+        if not chunk:
+            raise ConnectionError(f"EOF mid-headers: {data[:200]!r}")
+        data += chunk
+    head, _, rest = data.partition(b"\r\n\r\n")
+    status = int(head.split(b" ", 2)[1])
+    headers = {}
+    for line in head.split(b"\r\n")[1:]:
+        k, _, v = line.partition(b":")
+        headers[k.strip().lower()] = v.strip()
+    n = int(headers.get(b"content-length", b"0"))
+    while len(rest) < n:
+        chunk = s.recv(1 << 20)
+        if not chunk:
+            raise ConnectionError("EOF mid-body")
+        rest += chunk
+    return status, headers.get(b"content-type", b"").decode(), rest[:n]
+
+
+def edge_request(s, method, path, body=b""):
+    s.sendall(f"{method} {path} HTTP/1.1\r\nHost: x\r\nContent-Length: {len(body)}\r\n\r\n"
+              .encode() + body)
+    return edge_read(s)
+
+
+def edge_connect(address):
+    import socket
+
+    host, _, port = address.partition(":")
+    s = socket.create_connection((host, int(port)), timeout=EDGE_TIMEOUT_S)
+    s.settimeout(EDGE_TIMEOUT_S)
+    return s
+
+
+def edge_traffic():
+    """Phase 12's bodies by leg: {leg: (path, [connection's [body]])}.
+    Legs and connections own disjoint keys."""
+    from gubernator_tpu_torch import wire
+    from gubernator_tpu_torch.utils import gregorian
+
+    rng = np.random.RandomState(12)
+    per = N_KEYS // EDGE_CONNS
+
+    def cols(name, keys, algorithm=1, behavior=0, limit=1_000_000, duration=3_600_000):
+        n = len(keys)
+        return ([name] * n, [str(k) for k in keys], np.full(n, algorithm, np.int32),
+                np.full(n, behavior, np.int32) if np.isscalar(behavior)
+                else np.asarray(behavior, np.int32),
+                np.ones(n, np.int64),
+                np.full(n, limit, np.int64) if np.isscalar(limit) else np.asarray(limit, np.int64),
+                np.full(n, duration, np.int64))
+
+    def as_json(c):
+        return json.dumps(wire.peer_columns_to_classic_json(c)).encode()
+
+    legs = {}
+    # (a) BASELINE config 2 through the native pump: kind-5 frames of
+    # 1,000 leaky lanes, connection c owning the ids = c mod 32 of a
+    # 1,000,000-key Zipf 80/10 space.
+    legs["a"] = ("/v1/GetRateLimits", [
+        [wire.encode_ingress_frame(cols("edge2", zipf_ids(rng, per, EDGE_LANES) * EDGE_CONNS + c))
+         for _ in range(EDGE_REQS)] for c in range(EDGE_CONNS)])
+    # (b) the same traffic as JSON on the stdlib gateway, fewer bodies
+    # a connection (the CPU node replays every one serially).
+    legs["b"] = ("/v1/GetRateLimits", [
+        [as_json(cols("edge2j", zipf_ids(rng, per, EDGE_LANES) * EDGE_CONNS + c))
+         for _ in range(EDGE_B_REQS)] for c in range(EDGE_CONNS)])
+    # (c) BASELINE config 1: NO_BATCHING token requests of 1 and 4 lanes.
+    legs["c"] = ("/v1/GetRateLimits", [
+        [as_json(cols("edge1", rng.randint(0, EXPRESS_KEYS // EDGE_NB_CONNS, 1 + 3 * (k % 2))
+                      * EDGE_NB_CONNS + c, algorithm=0, behavior=1, limit=100_000,
+                      duration=60_000))
+         for k in range(EDGE_NB_REQS)] for c in range(EDGE_NB_CONNS)])
+    # More than 256 configs, monthly Gregorian: the per-lane column wire (K2).
+    legs["k2"] = ("/v1/GetRateLimits", [[as_json(cols(
+        "edgem", rng.randint(0, 50_000, EDGE_LANES), behavior=4,
+        limit=1_000_000 + np.arange(EDGE_LANES) % 300, duration=gregorian.GREGORIAN_MONTHS))]])
+    # GLOBAL lanes beside batched ones (their keys apart): K3, then a sync (K4).
+    glob = []
+    for k in range(6):
+        glob.append(as_json(cols(
+            "edgeg", [f"b{(k * 7 + j) % 13}" for j in range(8)] + ["gk0", "gk1", "gk2"],
+            algorithm=0, behavior=[0] * 8 + [2, 2, 2], limit=1_000)))
+    legs["g"] = ("/v1/GetRateLimits", [glob])
+    # The peer API's receiving half: a kind-1 frame of owned lanes.
+    legs["peer"] = ("/v1/peer.GetPeerRateLimits", [[wire.encode_columns_frame(
+        cols("edgep", rng.randint(0, 1_000_000, EDGE_PEER_LANES)))]])
+    return legs
+
+
+def edge_globals_frame():
+    """A GLOBAL broadcast of EDGE_GLOBALS remote keys (kind 3)."""
+    from gubernator_tpu_torch import wire
+    from gubernator_tpu_torch.parallel.global_mgr import GlobalsColumns
+
+    rng = np.random.RandomState(13)
+    n = EDGE_GLOBALS
+    return wire.encode_globals_frame(GlobalsColumns(
+        keys=[f"edger_{i}" for i in range(n)], algorithm=rng.randint(0, 2, n).astype(np.int32),
+        status=rng.randint(0, 2, n).astype(np.int32), limit=np.full(n, 5_000, np.int64),
+        remaining=rng.randint(0, 5_000, n).astype(np.int64),
+        reset_time=np.full(n, NOW + 3_600_000, np.int64)))
+
+
+def edge_transfer_frame(ring_hash, n=None, seed=14):
+    """A transfer of n (EDGE_TRANSFER_KEYS) keys' rows fenced on
+    `ring_hash` (kind 4)."""
+    from gubernator_tpu_torch import wire
+    from gubernator_tpu_torch.reshard import TransferColumns
+
+    n = EDGE_TRANSFER_KEYS if n is None else n
+    rng = np.random.RandomState(seed)
+    return wire.encode_transfer_frame(TransferColumns(
+        keys=[f"edget_{seed}_{i}" for i in range(n)], algorithm=rng.randint(0, 2, n).astype(np.int32),
+        status=np.zeros(n, np.int32), limit=np.full(n, 1_000, np.int64),
+        remaining=rng.randint(0, 1_000, n).astype(np.int64),
+        duration=np.full(n, 3_600_000, np.int64), stamp=np.full(n, NOW - 1_000, np.int64),
+        expire_at=np.full(n, NOW + 3_599_000, np.int64), ring_hash=ring_hash))
+
+
+def edge_clients(address, path, scripts):
+    """Each connection sends its bodies in order on one keep-alive
+    socket, the connections concurrent.  Returns (answers by
+    connection, latencies in s, wall s)."""
+    answers = [[None] * len(s) for s in scripts]
+    lat, errors = [], []
+    lat_lock = threading.Lock()
+
+    def run(c):
+        try:
+            with edge_connect(address) as s:
+                for k, body in enumerate(scripts[c]):
+                    t0 = time.perf_counter()
+                    answers[c][k] = edge_request(s, "POST", path, body)
+                    with lat_lock:
+                        lat.append(time.perf_counter() - t0)
+        except BaseException as e:  # noqa: BLE001 — raised below, on the main thread
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=(c,), name=f"conn-{c}")
+               for c in range(len(scripts))]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=EDGE_TIMEOUT_S * 2)
+    wall = time.perf_counter() - t0
+    if any(t.is_alive() for t in threads):
+        raise AssertionError("a phase 12 connection did not finish")
+    if errors:
+        raise errors[0]
+    return answers, np.asarray(lat), wall
+
+
+EDGE_KERNELS = ("bucket_rounds_dict", "bucket_rounds_cols", "global_answer_rounds",
+                "global_sync", "set_replica", "clear_gslots", "gather_rows", "write_rows")
+
+
+def edge_phase(torch, dev="cuda"):
+    """Phase 12: the HTTP edge of one node over real sockets — the
+    native epoll edge with its ingress pump and the stdlib gateway over
+    one service at the main path's table size — held body by body to a
+    node on the plain versions (CPU) fed each connection's bodies
+    serially through the same gateway handler."""
+    from gubernator_tpu_torch import gateway
+    from gubernator_tpu_torch.config import setup_daemon_config
+    from gubernator_tpu_torch.ops import _kernels
+    from gubernator_tpu_torch.service import ServiceConfig, V1Service
+    from gubernator_tpu_torch.types import PeerInfo
+    from gubernator_tpu_torch.utils.clock import Clock
+
+    t_phase = time.perf_counter()
+    conf = setup_daemon_config(env=SERVE_ENV)
+
+    def node(device):
+        clock = Clock()
+        clock.freeze(NOW)
+        svc = V1Service(ServiceConfig(
+            cache_size=conf.cache_size, back_cache_size=conf.back_cache_size,
+            global_cache_size=conf.global_cache_size, behaviors=conf.behaviors,
+            clock=clock, device=device, advertise_address=EDGE_ADDR))
+        svc.set_peers([PeerInfo(grpc_address=EDGE_ADDR, is_owner=True)])
+        svc.store.warmup(NOW, conf.warmup_shapes)
+        return svc
+
+    legs = edge_traffic()
+    card = node(None if dev == "cuda" else dev)  # None: the current CUDA device
+    cpu = node("cpu")
+    native = gateway.NativeGatewayServer(card, "127.0.0.1:0")
+    pump = gateway.NativeIngressPump(card).start()
+    pump.update_ring()
+    native.pump = pump
+    native.start()
+    stdlib = gateway.GatewayServer(card, "127.0.0.1:0")
+    stdlib.start()
+    launches, got, numbers = {}, {}, {}
+
+    def counted(leg, fn):
+        _kernels.reset_launch_counts()
+        out = fn()
+        launches[leg] = {k: _kernels.LAUNCHES[k] for k in EDGE_KERNELS}
+        return out
+
+    try:
+        if card.store.device.type != (dev if dev != "cuda" else "cuda"):
+            raise AssertionError(f"phase 12's service runs on {card.store.device}")
+        st0 = pump.stats()
+        card.store.take_pipeline_stats()  # drain the warmup's
+        got["a"], lat_a, wall_a = counted("a", lambda: edge_clients(
+            native.address, *legs["a"]))
+        st_a = pump.stats()
+        stages_a, _, hwm_a = card.store.take_pipeline_stats()
+        got["b"], lat_b, wall_b = counted("b", lambda: edge_clients(
+            stdlib.address, *legs["b"]))
+        got["c"], lat_c, wall_c = counted("c", lambda: edge_clients(
+            native.address, *legs["c"]))
+        got["k2"], _, _ = counted("k2", lambda: edge_clients(native.address, *legs["k2"]))
+        got["g"], _, _ = counted("g", lambda: edge_clients(native.address, *legs["g"]))
+        sync_card = counted("sync", card.global_mgr.run_once)
+        got["peer"], lat_p, _ = counted("peer", lambda: edge_clients(
+            native.address, *legs["peer"]))
+        gframe = edge_globals_frame()
+        tframe = edge_transfer_frame(card.ring_hash)
+        fenced = edge_transfer_frame(card.ring_hash ^ 1, n=100, seed=15)
+        with edge_connect(native.address) as s:
+            t0 = time.perf_counter()
+            got_globals = counted("globals", lambda: edge_request(
+                s, "POST", "/v1/peer.UpdatePeerGlobals", gframe))
+            numbers["globals_ms"] = (time.perf_counter() - t0) * 1e3
+            t0 = time.perf_counter()
+            got_transfer = counted("transfer", lambda: edge_request(
+                s, "POST", "/v1/peer.TransferOwnership", tframe))
+            numbers["transfer_ms"] = (time.perf_counter() - t0) * 1e3
+            got_fenced = counted("fenced", lambda: edge_request(
+                s, "POST", "/v1/peer.TransferOwnership", fenced))
+            debug = {}
+            for path in ("/v1/HealthCheck", "/debug/status", "/debug/latency",
+                         "/debug/device", "/debug/audit", "/debug/tenants"):
+                t0 = time.perf_counter()
+                debug[path] = edge_request(s, "GET", path) + (
+                    (time.perf_counter() - t0) * 1e3,)
+        st_end = pump.stats()
+        if dev == "cuda":
+            need = {"a": ("bucket_rounds_dict",), "k2": ("bucket_rounds_cols",),
+                    "g": ("global_answer_rounds",), "sync": ("global_sync",),
+                    "peer": ("bucket_rounds_dict",), "globals": ("set_replica",)}
+            for leg, kernels in need.items():
+                for k in kernels:
+                    if launches[leg][k] == 0:
+                        raise AssertionError(f"phase 12 ({leg}) launched no {k}")
+            if (launches["transfer"]["gather_rows"], launches["transfer"]["write_rows"]) != (1, 1):
+                raise AssertionError(f"a transfer took {launches['transfer']} launches, "
+                                     "not one K7 and one K8")
+        if st_a["frames"] - st0["frames"] != EDGE_CONNS * EDGE_REQS or st_a["fallbacks"]:
+            raise AssertionError(f"the native pump did not take every frame of (a): {st_a}")
+        if got_transfer[:2] != (200, "application/json") or json.loads(got_transfer[2]) != {
+                "committed": EDGE_TRANSFER_KEYS, "rejected": 0}:
+            raise AssertionError(f"transfer answered {got_transfer}")
+        if got_fenced[0] != 409 or any(launches["fenced"].values()):
+            raise AssertionError(f"a fenced transfer answered {got_fenced[:2]}, "
+                                 f"launches {launches['fenced']}")
+        for path, (status, ctype, body, _ms) in debug.items():
+            keys = set(json.loads(body))
+            want = {"/v1/HealthCheck": {"status", "peerCount"},
+                    "/debug/status": {"health", "occupancy", "ring", "audit", "xla"},
+                    "/debug/latency": {"phases", "express", "slo"},
+                    "/debug/device": {"compiles", "devices", "programRuns"},
+                    "/debug/audit": {"ledger", "violations", "invariants"},
+                    "/debug/tenants": {"topk", "other", "totals"}}[path]
+            if status != 200 or not want <= keys:
+                raise AssertionError(f"{path}: {status}, keys {sorted(keys)}")
+        devices = json.loads(debug["/debug/device"][2])["devices"]
+        if dev == "cuda" and not (devices and devices[0]["bytes_in_use"] > 0):
+            raise AssertionError(f"/debug/device shows no CUDA memory: {devices}")
+        audit_doc = json.loads(debug["/debug/audit"][2])
+
+        # The CPU node, each connection's bodies serially, in leg order,
+        # through the same gateway handler.
+        def replay(path, body, method="POST"):
+            return gateway.handle_request(cpu, method, path, body)
+
+        for leg, (path, scripts) in legs.items():
+            for c, script in enumerate(scripts):
+                want = [replay(path, body) for body in script]
+                if got[leg][c] != want:
+                    k = next(i for i, (g, w) in enumerate(zip(got[leg][c], want)) if g != w)
+                    raise AssertionError(f"phase 12 ({leg}) connection {c} body {k}: card "
+                                         f"{got[leg][c][k][:2]} != CPU {want[k][:2]}")
+            if leg == "g":
+                sync_cpu = cpu.global_mgr.run_once()
+        if (sync_card, sync_cpu) != (True, True):
+            raise AssertionError(f"GLOBAL sync broadcast nothing: {sync_card}, {sync_cpu}")
+        for got_, body, path in ((got_globals, gframe, "/v1/peer.UpdatePeerGlobals"),
+                                 (got_transfer, tframe, "/v1/peer.TransferOwnership"),
+                                 (got_fenced, fenced, "/v1/peer.TransferOwnership")):
+            if got_ != replay(path, body):
+                raise AssertionError(f"phase 12 {path}: card {got_[:2]} != CPU")
+        for a, b_ in zip(card.store.gcols, cpu.store.gcols):
+            if not torch.equal(a.cpu(), b_):
+                raise AssertionError("phase 12: replica columns differ")
+        sc, sp = card.store.snapshot_columns(NOW), cpu.store.snapshot_columns(NOW)
+
+        def per_key(cols):
+            rows = np.stack([np.asarray(getattr(cols, f), np.int64) for f in
+                             ("algorithm", "status", "limit", "remaining", "duration",
+                              "stamp", "expire_at")], axis=1)
+            return dict(zip(cols.keys, map(tuple, rows.tolist())))
+
+        if per_key(sc) != per_key(sp):
+            raise AssertionError("phase 12: per-key state on the card != the CPU replay")
+        n_keys = len(sc.keys)
+    finally:
+        native.close()
+        stdlib.close()
+        card.close()
+        cpu.close()
+
+    def lat_line(lat):
+        lat = lat * 1e3
+        return (f"request latency p50 {np.percentile(lat, 50):.3f} ms, max {lat.max():.3f} ms "
+                f"of {lat.size}")
+
+    lanes = EDGE_CONNS * EDGE_REQS * EDGE_LANES
+    takes = st_a["batches"] - st0["batches"]
+    log(f"[edge] (a) BASELINE config 2 at the native edge: {EDGE_CONNS} connections x "
+        f"{EDGE_REQS} kind-5 frames of {EDGE_LANES} leaky lanes: {lanes / wall_a:.0f} checks/s, "
+        f"{lat_line(lat_a)}; {takes} takes, {(st_a['lanes'] - st0['lanes']) / max(takes, 1):.1f} "
+        f"lanes a take; K1 {launches['a']['bucket_rounds_dict']}")
+    log(f"[edge] (a) pump stats after (a): {json.dumps(st_a)}; pipeline depth high-water "
+        f"{hwm_a}")
+    for stage in ("prepare", "stage", "launch", "fetch", "commit"):
+        cnt, tot, mx = stages_a.get(stage, (0, 0.0, 0.0))
+        log(f"[edge] (a) take stage {stage}: {cnt} x, mean {tot / max(cnt, 1) * 1e3:.3f} ms, "
+            f"max {mx * 1e3:.3f} ms")
+    log(f"[edge] (b) the same traffic as JSON on the stdlib gateway ({EDGE_B_REQS} bodies a "
+        f"connection): {EDGE_CONNS * EDGE_B_REQS * EDGE_LANES / wall_b:.0f} checks/s, "
+        f"{lat_line(lat_b)}; K1 {launches['b']['bucket_rounds_dict']}")
+    log(f"[edge] (c) BASELINE config 1, NO_BATCHING JSON of 1 and 4 lanes at the native edge: "
+        f"{EDGE_NB_CONNS} connections x {EDGE_NB_REQS}: {lat_line(lat_c)}, {wall_c:.2f} s; "
+        f"K1 {launches['c']['bucket_rounds_dict']}")
+    log(f"[edge] (d) peer routes: a kind-1 frame of {EDGE_PEER_LANES} owned lanes "
+        f"{lat_p.max() * 1e3:.3f} ms (K1 {launches['peer']['bucket_rounds_dict']}); a globals "
+        f"frame of {EDGE_GLOBALS} keys {numbers['globals_ms']:.3f} ms (K5 "
+        f"{launches['globals']['set_replica']}, K6 {launches['globals']['clear_gslots']}); a "
+        f"transfer of {EDGE_TRANSFER_KEYS} keys {numbers['transfer_ms']:.3f} ms (K7 "
+        f"{launches['transfer']['gather_rows']}, K8 {launches['transfer']['write_rows']}); a "
+        f"fenced transfer answered {got_fenced[0]}")
+    log("[edge] (e) " + ", ".join(f"{p} {v[0]} in {v[3]:.3f} ms" for p, v in debug.items()))
+    log(f"[edge] pump stats at the end: {json.dumps(st_end)}; audit violations "
+        f"{audit_doc['violationTotal']}")
+    total = collections.Counter()
+    for leg in launches.values():
+        total.update(leg)
+    log(f"[edge] phase 12 launches: K1 {total['bucket_rounds_dict']}, K2 "
+        f"{total['bucket_rounds_cols']}, K3 {total['global_answer_rounds']}, K4 "
+        f"{total['global_sync']}, K5 {total['set_replica']}, K6 {total['clear_gslots']}, K7 "
+        f"{total['gather_rows']}, K8 {total['write_rows']}")
+    log(f"[edge] card == CPU serial replay: every body of (a)-(d), the globals commit, the "
+        f"transfers, {n_keys} keys' rows, replica columns ({time.perf_counter() - t_phase:.1f} s)")
+    return dict(total)
+
+
 def main():
     import torch
 
@@ -3784,7 +4185,7 @@ def main():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
     t_start = time.perf_counter()
-    _, name = device_phase(torch)
+    smi, name = device_phase(torch)
     sass = build_phase()
     errs = kernel_phase(torch)
     gerrs = global_kernel_phase(torch)
@@ -3806,6 +4207,9 @@ def main():
     del store, gstore, tstore, sstore, k1_inputs
     gc.collect()
     serve_phase(torch)
+    gc.collect()
+    edge_phase(torch)
+    log(smi)  # again, so the tail of a long log names the card and limit
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -31,10 +31,15 @@ from .types import PeerInfo
 
 MAX_BATCH_SIZE = 1000  # gubernator.go:36
 
+# Lane cap for ONE columnar peer RPC: the hop coalesces many ingress
+# batches into one RPC, so it carries more than the classic
+# per-request cap (~600 KB of frame, a quarter of a launch's 64,000).
+PEER_COLUMNS_MAX_LANES = 16_384
+
 # Lane cap for ONE public columnar ingress request: a columnar client
 # coalesces many callers' checks into one frame, so it carries more
 # than the classic per-request cap (the columnar peer hop's cap).
-INGRESS_COLUMNS_MAX_LANES = 16_384
+INGRESS_COLUMNS_MAX_LANES = PEER_COLUMNS_MAX_LANES
 
 
 @dataclass

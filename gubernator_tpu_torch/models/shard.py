@@ -32,8 +32,11 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import audit
 from .. import native
+from .. import profiling
 from .. import saturation
+from .. import telemetry
 from .. import tracing
 from ..ops import buckets
 from ..ops import scalar as scalar_ops
@@ -582,7 +585,7 @@ class ColumnsHandle:
     strictly in dispatch order — result() drains every older in-flight
     batch — but the readback waits run outside the ordering lock."""
 
-    def __init__(self, store, commit_fn, limit_col):
+    def __init__(self, store, commit_fn, limit_col, hits_col=None):
         self._store = store
         self._fetch_fn: Optional[Callable] = None  # set by the launch
         self._commit_fn = commit_fn
@@ -592,6 +595,9 @@ class ColumnsHandle:
         self._launch_exc: Optional[BaseException] = None
         self._exc: Optional[BaseException] = None
         self._limit = limit_col
+        # The batch's hits: the commit decode notes the granted ones in
+        # the conservation ledger (audit.py applied_hits).
+        self._hits = hits_col
         self._value = None
         self.ticket = -1  # plan-order reservation (set by the pipeline)
         self.done = False
@@ -625,18 +631,30 @@ class ColumnsHandle:
     def _do_resolve(self) -> None:
         try:
             t0 = time.perf_counter()
-            packed_np = self._fetch()
+            with profiling.scope("dispatch.fetch"):
+                packed_np = self._fetch()
             dt = time.perf_counter() - t0
             self._store._observe_stage("fetch", dt)
             tracing.stage_span("fetch", dt, self._trace)
             t1 = time.perf_counter()
-            status, remaining, reset = self._commit_fn(packed_np)
+            with profiling.scope("dispatch.commit"):
+                status, remaining, reset = self._commit_fn(packed_np)
             dt = time.perf_counter() - t1
             self._store._observe_stage("commit", dt)
             tracing.stage_span("commit", dt, self._trace)
         except Exception as e:  # noqa: BLE001 — surfaced at result()
             self._finish(exc=e)
             return
+        # Conservation ledger, from the decode the commit produced: hits
+        # GRANTED (UNDER_LIMIT lanes) and the negative-remaining tripwire.
+        hits, self._hits = self._hits, None  # may view a caller's buffer
+        if hits is not None:
+            st = np.asarray(status)
+            n = min(len(hits), len(st))
+            audit.note("applied_hits", int(np.asarray(hits[:n])[st[:n] == 0].sum()))
+            neg = int((np.asarray(remaining) < 0).sum())
+            if neg:
+                audit.note("negative_remaining", neg)
         self._value = {
             "status": status,
             "limit": self._limit,
@@ -740,6 +758,8 @@ class ColumnarPipeline:
 
     # Largest launch group; groups are 1, 2 or 4 batches.
     MAX_FUSE = 4
+    # Store topology in the telemetry labels of its launches.
+    _PROGRAM_KIND = "shard"
 
     def _init_pipeline(self) -> None:
         self._inflight: "deque[ColumnsHandle]" = deque()
@@ -823,13 +843,16 @@ class ColumnarPipeline:
                           force_wire: Optional[str] = None) -> ColumnsHandle:
         bt = tracing.take_batch_trace()  # staged by the batcher (if sampled)
         t0 = time.perf_counter()
+        # Conservation ledger: hits entering the launch pipeline (the
+        # earlier-layer twin of applied_hits at commit).
+        audit.note("dispatched_hits", int(cols.hits.sum()))
         # The express slot is decided before the plan, which it pins to
         # the wide decode.
         use_scalar = force_wire is None and self._scalar_eligible(cols)
-        with self._plan_lock:
+        with self._plan_lock, profiling.scope("dispatch.prepare"):
             prep = self._prepare_columns(keys, cols, now_ms,
                                          "wide" if use_scalar else force_wire)
-            handle = ColumnsHandle(self, prep.commit, cols.limit)
+            handle = ColumnsHandle(self, prep.commit, cols.limit, cols.hits)
             handle._trace = bt
             handle.ticket = self._next_ticket
             self._next_ticket += 1
@@ -842,7 +865,8 @@ class ColumnarPipeline:
         saturation.lane_util.add(len(keys), self._padded_lanes(prep))
         try:
             t1 = time.perf_counter()
-            staged = self._stage_scalar(prep) if use_scalar else self._stage_columns(prep)
+            with profiling.scope("dispatch.stage"):
+                staged = self._stage_scalar(prep) if use_scalar else self._stage_columns(prep)
             dt = time.perf_counter() - t1
             self._observe_stage("stage", dt)
             tracing.stage_span("stage", dt, bt)
@@ -909,12 +933,15 @@ class ColumnarPipeline:
         exc: Optional[BaseException] = None
         t0 = time.perf_counter()
         try:
-            with self._lock:
+            with self._lock, profiling.scope("dispatch.launch"):
                 self._launch_group(group)
         except BaseException as e:  # noqa: BLE001
             exc = e
         dt = time.perf_counter() - t0
         self._observe_stage("launch", dt)
+        # Lane-time pool (profiling.py): these lanes rode a launch of
+        # this wall cost, the tenant ledger's proportional share.
+        profiling.note_lane_time(sum(len(h._limit) for _, h in group), dt)
         for _, h in group:
             # One launch span per batch (each batch of a group sees it).
             tracing.stage_span("launch", dt, h._trace, fused=len(group))
@@ -959,15 +986,24 @@ class ColumnarPipeline:
             return
         self._pre_launch()
         self.device_dispatches += 1
-        if len(group) == 1:
-            staged, h = group[0]
-            h._launch_ok(_readback(staged.launch(self.state)))
-            return
-        stacked = self._fused_launch_fn(len(group), group[0][0].wide)(
-            self.state, [s for s, _ in group])
+        with telemetry.program(self._program_label(group)):
+            if len(group) == 1:
+                staged, h = group[0]
+                h._launch_ok(_readback(staged.launch(self.state)))
+                return
+            stacked = self._fused_launch_fn(len(group), group[0][0].wide)(
+                self.state, [s for s, _ in group])
         shared = _SharedFetch(_readback(stacked))
         for i, (_, h) in enumerate(group):
             h._launch_ok(lambda i=i: shared.get(i))
+
+    def _program_label(self, group) -> str:
+        """Telemetry label of one launch group (the JAX package's
+        program identity): store topology, solo or fused-K, and wire
+        width."""
+        shape = "solo" if len(group) == 1 else f"fused{len(group)}"
+        width = "wide" if group[0][0].wide else "narrow"
+        return f"{self._PROGRAM_KIND}:dispatch:{shape}:{width}"
 
     # -- host <-> device transfers and the row plane (both stores) -----
     def _upload(self, a: np.ndarray) -> torch.Tensor:

@@ -12,8 +12,8 @@ and K10 stage nothing: their one cooperative launch keeps a round's new
 rows on the SM; K9 needs scratch only for a window past what its launch
 holds in shared memory; K10 keeps one mark word a lane per device and
 stream, `_compact_marks`), launches on PyTorch's current stream, raises
-when the launch returns a CUDA error, and counts its launches in
-LAUNCHES.
+when the launch returns a CUDA error, counts its launches in LAUNCHES
+and reports each kernel's first launch to telemetry.py.
 
 Nothing here runs on import: the CPU tests import this module's package
 on a machine with no nvcc and no card.
@@ -28,6 +28,7 @@ import threading
 
 import torch
 
+from .. import telemetry
 from ..utils.build import build_library
 from .buckets import DICT_WIRE_TABLE_WORDS
 
@@ -166,6 +167,7 @@ def _finish(name: str, rc: int) -> None:
     if rc != 0:
         raise RuntimeError(f"{name}: launch failed with CUDA error {rc}")
     LAUNCHES[name] += 1
+    telemetry.note_launch(name)
 
 
 def bucket_rounds_dict(hot, cold, wire, n_rounds: int, now_ms: int, wide: bool,

@@ -204,6 +204,8 @@ class MeshBucketStore(ColumnarPipeline):
     `sync_globals()`.  Non-GLOBAL requests always route to the owner.
     """
 
+    _PROGRAM_KIND = "mesh"
+
     def __init__(self, capacity_per_shard: int = 50_000, n_shards: int = 8,
                  device=None, g_capacity: int = 4096, store=None,
                  back_capacity_per_shard: int = 0):

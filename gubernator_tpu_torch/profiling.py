@@ -1,0 +1,974 @@
+"""Cost observatory: always-on host profiling + per-tenant attribution.
+
+saturation.py says how slow the service is (latency attribution),
+audit.py whether accounting holds and telemetry.py what the DEVICE is
+doing (kernel builds, launches, device memory).  This module answers
+the two remaining operator questions:
+
+* **Where does the host CPU actually go?** — `Sampler`, a
+  dependency-free continuous sampling profiler: one daemon thread wakes
+  ~`GUBER_PROFILE_HZ` times per second (seeded jitter so the tick can
+  never phase-lock with a periodic workload), snapshots every thread's
+  stack via `sys._current_frames()`, and folds each stack into
+  flamegraph "collapsed" form.  Each sample is TAGGED with the phase of
+  the request waterfall the thread was executing (saturation.py's taxonomy —
+  `ingress.parse`, `dispatch.launch`, `peer.rpc`, ... — declared by
+  lightweight `scope()` hooks at the existing attribution sites) and
+  with the telemetry program label when one is in scope, so "Python decode"
+  vs "device scatter" vs "GIL-idle in epoll" is answerable per phase.
+  Samples land in a ring of one-second windows; `GET /debug/pprof
+  ?seconds=N` merges the last N windows into collapsed text (default)
+  or a JSON top-N view.  `GUBER_PROFILE=0` is the compiled-out mode:
+  the sampler tick is one branch, every scope hook is one comparison
+  returning a shared no-op, and the bench gate pins the enabled-vs-out
+  throughput ratio at >= 0.95 (the tracing/telemetry discipline).
+
+* **Who is spending the capacity?** — `TenantLedger`, cardinality-
+  bounded per-tenant cost attribution keyed by rate-limit NAME (the
+  tenant unit).  A count-min sketch over vectorized FNV-1 name hashes
+  (the `hash_ring.get_batch_codes` machinery) ranks tenants; the
+  top `GUBER_TENANT_TOPK` keep EXACT accumulator rows (hits, lanes,
+  over-limit, shed lanes, ingress bytes) and everyone else rolls into
+  ONE `other` bucket — so 10k distinct names cost K+1 metric series,
+  and `rows + other == totals` holds exactly (the audit-style
+  conservation the tests pin).  Lane-time and queue-residency are
+  PROPORTIONAL shares: the dispatch pipeline and the batchers feed
+  process-wide (lanes, seconds) accumulators, and a tenant's share is
+  `its lanes x the per-lane cost` — zero per-lane bookkeeping on the
+  hot path.  Served at `GET /debug/tenants`, summarized in
+  `/debug/status`, exported as bounded `gubernator_tenant_*` families,
+  and aggregated fleet-wide by `scripts/cluster_status.py --tenants`.
+
+The SAMPLER and the share accumulators are MODULE-GLOBAL (the
+tracing/saturation convention: one daemon per process in production;
+in-process multi-daemon tests share one plane).  Each `TenantLedger`
+is PER-SERVICE — "which tenant is hot on THIS daemon" is the question
+the hot-key defense needs answered — and every fold site sits beside
+the matching conservation-ledger note (audit.py), so the sum of a
+process's ledgers reconciles exactly against the audit's
+`ingress_hits + peer_ingress_hits` at quiesce (the soak asserts it).
+"""
+
+from __future__ import annotations
+
+import itertools
+import os
+import random
+import sys
+import threading
+import time
+from collections import deque
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+
+# ---------------------------------------------------------------------
+# Knobs (module-level env reads cover library embeddings; daemons
+# re-apply their parsed config via set_enabled/set_hz — config-file ->
+# env -> default precedence, like telemetry.set_storm).
+# ---------------------------------------------------------------------
+
+DEFAULT_HZ = 67.0  # deliberately not a divisor of common periodic work
+RING_SECONDS = 120  # of one-second sample windows kept
+MAX_STACK_DEPTH = 48
+NUMERIC_LANE_BYTES = 32  # algo/beh i32 + hits/limit/duration i64
+
+
+def _env_flag(name: str, default: bool) -> bool:
+    v = os.environ.get(name, "")
+    if not v:
+        return default
+    return v.strip().lower() in ("1", "true", "yes", "on")
+
+
+def _env_float(name: str, default: float) -> float:
+    v = os.environ.get(name, "")
+    try:
+        return float(v) if v else default
+    except ValueError:
+        return default
+
+
+_ENABLED: bool = _env_flag("GUBER_PROFILE", True)
+_HZ: float = min(max(_env_float("GUBER_PROFILE_HZ", DEFAULT_HZ), 1.0), 1000.0)
+
+# ---------------------------------------------------------------------
+# Per-thread tags (read cross-thread by the sampler; plain dict writes
+# are GIL-atomic, the tracing._Ring trick)
+# ---------------------------------------------------------------------
+
+# thread ident -> active phase tag (scope() hooks at the attribution sites)
+_scopes: Dict[int, str] = {}
+# thread ident -> active program label (mirrored by telemetry.program)
+_programs: Dict[int, str] = {}
+# thread ident -> static role tag (long-lived daemon threads register
+# once at start: epoll loop, batch-window flusher, handle drainer, ...)
+_static: Dict[int, str] = {}
+
+
+class _NoopScope:
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+_NOOP = _NoopScope()
+
+
+class _Scope:
+    __slots__ = ("tag", "_ident", "_prev")
+
+    def __init__(self, tag: str):
+        self.tag = tag
+
+    def __enter__(self):
+        ident = threading.get_ident()
+        self._ident = ident
+        self._prev = _scopes.get(ident)
+        _scopes[ident] = self.tag
+        # NO piggyback here (Sampler.maybe_tick): dispatch-stage scopes
+        # enter INSIDE the pipeline's locked launch/commit critical
+        # sections, and stretching those by even a tick's fold widens
+        # the donated-device-array window enough to flake tier-1.  The
+        # piggyback sites are the lock-free service-level folds.
+        return self
+
+    def __exit__(self, *exc):
+        if self._prev is None:
+            # pop, don't park a None: thread idents recycle, and a dict
+            # of dead idents would otherwise grow with pool churn.
+            _scopes.pop(self._ident, None)
+        else:
+            _scopes[self._ident] = self._prev
+        return False
+
+
+def scope(tag: str):
+    """Phase scope for the current thread: while active, profiler
+    samples of this thread attribute to `tag` (saturation.py's phase
+    taxonomy).  Disabled path is one branch returning a shared no-op —
+    the tracing/telemetry compiled-out discipline."""
+    if not _ENABLED:
+        return _NOOP
+    return _Scope(tag)
+
+
+def tag_thread(tag: str) -> None:
+    """Register a STATIC role tag for the calling thread (long-lived
+    daemon threads: the epoll loop, the batch-window flusher, the
+    auditor).  Unlike scope(), the tag covers idle time too — which is
+    the point: "GIL-idle in epoll" is an answer, not noise."""
+    _static[threading.get_ident()] = tag
+
+
+def set_program(label: Optional[str]) -> None:
+    """Mirror of the telemetry program label for the calling thread
+    (telemetry._Program calls this on enter/exit when the profiler is
+    on), so samples carry program identity beside the phase."""
+    ident = threading.get_ident()
+    if label is None:
+        _programs.pop(ident, None)
+    else:
+        _programs[ident] = label
+
+
+# ---------------------------------------------------------------------
+# The sampler
+# ---------------------------------------------------------------------
+
+
+def _strip_worker_suffix(name: str) -> str:
+    """ThreadPoolExecutor names workers 'prefix_N' / 'prefix-N';
+    collapse the pool index so one pool folds to one tag."""
+    base = name.rstrip("0123456789")
+    return base.rstrip("-_") or name
+
+
+class _Window:
+    """One second of samples: collapsed-stack counts plus the phase /
+    program marginals (so the JSON view never re-parses stacks)."""
+
+    __slots__ = ("sec", "samples", "stacks", "phases", "programs")
+
+    def __init__(self, sec: int):
+        self.sec = sec
+        self.samples = 0
+        self.stacks: Dict[Tuple[str, tuple], int] = {}
+        self.phases: Dict[str, int] = {}
+        self.programs: Dict[str, int] = {}
+
+
+class Sampler(threading.Thread):
+    """The continuous profiler thread.  Runs forever once started (a
+    daemon thread); `GUBER_PROFILE=0` leaves it ticking but each tick
+    is ONE branch — so enable/disable is a live toggle, not a thread
+    lifecycle."""
+
+    def __init__(self):
+        super().__init__(name="cost-profiler", daemon=True)
+        self._stop = threading.Event()
+        self._lock = threading.Lock()
+        self._ring: "deque[_Window]" = deque(maxlen=RING_SECONDS)
+        self._code_labels: Dict[object, str] = {}
+        # Idle-stack fold cache: ident -> (frame id, f_lasti, code id,
+        # folded).  Most daemon threads are PARKED in a wait between
+        # ticks — same frame object, same instruction — so their fold
+        # is byte-identical to last tick's; revalidating three ints
+        # replaces a 48-frame walk and keeps the per-tick GIL hold
+        # near-constant as thread pools grow.  A recycled frame id is
+        # paired with f_lasti + code id, and a one-tick stale fold in a
+        # statistical profile is noise, not corruption.
+        self._fold_cache: Dict[int, tuple] = {}
+        self._names: Dict[int, str] = {}
+        self._names_at = 0.0
+        self.total_samples = 0
+        self.total_ticks = 0
+        # Seeded jitter: the tick must not phase-lock with periodic
+        # work (a 15ms flush timer sampled at exactly 67Hz aliases);
+        # seeded so two runs fold comparable profiles.
+        self._rng = random.Random(0x9E3779B9)
+        # Piggyback pacing (maybe_tick): monotonic deadline for the
+        # next sample + a try-acquire gate so exactly one thread folds.
+        # Own RNG: the run loop's _rng draws concurrently.
+        self._next_due = 0.0
+        self._tick_gate = threading.Lock()
+        self._due_rng = random.Random(0x85EBCA6B)
+
+    # -- write side ----------------------------------------------------
+    def run(self) -> None:  # pragma: no cover - timing loop; body is tested
+        while not self._stop.is_set():
+            period = 1.0 / max(_HZ, 1.0)
+            self._stop.wait(period * (0.7 + 0.6 * self._rng.random()))
+            if not _ENABLED:
+                continue  # the compiled-out tick: one branch
+            try:
+                # Pacing fallback, not the primary ticker: under load
+                # the scope hooks piggyback the due sample on a thread
+                # that already holds the GIL (maybe_tick), and this
+                # wake finds the deadline already pushed — it only
+                # samples when the process is too idle to piggyback,
+                # exactly when a dedicated thread's wake is free.
+                self.maybe_tick()
+            except Exception:  # noqa: BLE001 — the profiler must never kill itself
+                continue
+
+    def maybe_tick(self) -> None:
+        """Run the due sample on the CALLING thread, if one is due.
+        Called from the LOCK-FREE hot-path folds (the per-batch ledger
+        admission fold, the batcher flush's queue-wait note — sites
+        that hold no store/pipeline lock) and the run-loop fallback.
+        A dedicated sampler thread waking
+        at 67 Hz on a saturated box costs ~3x the fold itself in GIL
+        handoffs and coalescing disruption (measured on the 2-core
+        bench); a thread that is ALREADY running folds for free and
+        lands the pause at a phase boundary, where no batch window is
+        mid-flush.  Cost when not due: one clock read + one compare.
+        The sample skips the calling thread's own stack (sample_once's
+        self-exclusion), so trigger timing cannot bias the triggering
+        thread's attribution."""
+        if not _ENABLED:
+            return
+        now = time.monotonic()
+        if now < self._next_due:
+            return
+        if not self._tick_gate.acquire(blocking=False):
+            return  # another thread is folding this tick
+        try:
+            if time.monotonic() < self._next_due:
+                return
+            # Seeded jitter (the run-loop rule): the piggyback cadence
+            # must not phase-lock with periodic work either.
+            self._next_due = now + (
+                (0.7 + 0.6 * self._due_rng.random()) / max(_HZ, 1.0)
+            )
+            self.sample_once()
+        finally:
+            self._tick_gate.release()
+
+    def stop(self) -> None:
+        self._stop.set()
+
+    def sample_once(self) -> None:
+        """One profiling tick: snapshot every thread's stack and fold.
+        Public so tests (and the bench) can drive deterministic ticks
+        without sleeping."""
+        now = time.time()
+        if now - self._names_at > 1.0:
+            # Thread names refresh at 1Hz, not per tick: enumerate()
+            # walks a lock; names only feed the fallback tag.
+            self._names = {
+                t.ident: t.name for t in threading.enumerate()
+                if t.ident is not None
+            }
+            self._names_at = now
+        frames = sys._current_frames()
+        own = threading.get_ident()
+        sec = int(now)
+        with self._lock:
+            self.total_ticks += 1
+            win = self._ring[-1] if self._ring else None
+            if win is None or win.sec != sec:
+                win = _Window(sec)
+                self._ring.append(win)
+            for ident, frame in frames.items():
+                if ident == own:
+                    continue
+                tag = _scopes.get(ident) or _static.get(ident)
+                if tag is None:
+                    name = self._names.get(ident)
+                    tag = (
+                        f"thread:{_strip_worker_suffix(name)}"
+                        if name else "unknown"
+                    )
+                cached = self._fold_cache.get(ident)
+                sig = (id(frame), frame.f_lasti, id(frame.f_code))
+                if cached is not None and cached[0] == sig:
+                    stack = cached[1]
+                else:
+                    stack = self._fold(frame)
+                    self._fold_cache[ident] = (sig, stack)
+                key = (tag, stack)
+                win.stacks[key] = win.stacks.get(key, 0) + 1
+                win.phases[tag] = win.phases.get(tag, 0) + 1
+                prog = _programs.get(ident)
+                if prog is not None:
+                    win.programs[prog] = win.programs.get(prog, 0) + 1
+                win.samples += 1
+                self.total_samples += 1
+            if len(self._fold_cache) > 4 * max(len(frames), 1):
+                # Pool churn parks dead idents in the cache; prune to
+                # the live set once it dominates.
+                self._fold_cache = {
+                    k: v for k, v in self._fold_cache.items() if k in frames
+                }
+
+    def _fold(self, frame) -> tuple:
+        """Collapse one stack to a root→leaf TUPLE of frame labels.
+        Frame labels cache per code object, so in steady state the walk
+        allocates one tuple of already-interned strings — hashing it
+        mixes cached per-string hashes (pointer-cheap), where the old
+        joined-string key built and hashed ~1KB of fresh text per busy
+        thread per tick.  Readers join with ';' at render time
+        (flamegraph collapsed order)."""
+        labels: List[str] = []
+        depth = 0
+        while frame is not None and depth < MAX_STACK_DEPTH:
+            code = frame.f_code
+            label = self._code_labels.get(code)
+            if label is None:
+                label = self._code_labels[code] = (
+                    f"{os.path.basename(code.co_filename)}:{code.co_name}"
+                )
+            labels.append(label)
+            frame = frame.f_back
+            depth += 1
+        labels.reverse()
+        return tuple(labels)
+
+    # -- read side -----------------------------------------------------
+    def merged(self, seconds: int) -> _Window:
+        """Merge the windows covering the last `seconds` (clamped to
+        the ring) into one aggregate window."""
+        seconds = min(max(int(seconds), 1), RING_SECONDS)
+        cutoff = int(time.time()) - seconds
+        out = _Window(cutoff)
+        with self._lock:
+            for win in self._ring:
+                if win.sec < cutoff:
+                    continue
+                out.samples += win.samples
+                for k, v in win.stacks.items():
+                    out.stacks[k] = out.stacks.get(k, 0) + v
+                for k, v in win.phases.items():
+                    out.phases[k] = out.phases.get(k, 0) + v
+                for k, v in win.programs.items():
+                    out.programs[k] = out.programs.get(k, 0) + v
+        return out
+
+
+_sampler: Optional[Sampler] = None
+_sampler_lock = threading.Lock()
+
+
+def _get_sampler(start: bool = False) -> Optional[Sampler]:
+    global _sampler
+    with _sampler_lock:
+        if _sampler is None and start:
+            _sampler = Sampler()
+            _sampler.start()
+        return _sampler
+
+
+def ensure_started() -> None:
+    """Start the module-global sampler thread if it is not running.
+    Called by daemon/service startup when the plane is enabled — module
+    import never starts threads (library safety)."""
+    _get_sampler(start=True)
+
+
+def set_enabled(flag: bool) -> None:
+    """Process-wide switch (the daemon applies its parsed GUBER_PROFILE
+    at startup, both directions — the tracing.set_sample_rate rule)."""
+    global _ENABLED
+    _ENABLED = bool(flag)
+    if _ENABLED:
+        ensure_started()
+
+
+def set_hz(hz: float) -> None:
+    global _HZ
+    _HZ = min(max(float(hz), 1.0), 1000.0)
+
+
+def enabled() -> bool:
+    return _ENABLED
+
+
+def hz() -> float:
+    return _HZ
+
+
+def sample_count() -> int:
+    s = _get_sampler()
+    return s.total_samples if s is not None else 0
+
+
+def profile_snapshot(seconds: int = 10, top: int = 30) -> dict:
+    """The JSON view of GET /debug/pprof: phase/program marginals, the
+    top-N collapsed stacks, and the named-attribution fraction (the
+    integration gate asserts >= 0.8 of samples attribute to a phase
+    that is not 'unknown' on a loaded daemon)."""
+    s = _get_sampler()
+    if s is None:
+        return {
+            "enabled": _ENABLED, "hz": _HZ, "seconds": seconds,
+            "samples": 0, "phases": {}, "programs": {}, "topStacks": [],
+            "namedFraction": 0.0,
+        }
+    win = s.merged(seconds)
+    ranked = sorted(win.stacks.items(), key=lambda kv: kv[1], reverse=True)
+    named = sum(v for k, v in win.phases.items() if k != "unknown")
+    return {
+        "enabled": _ENABLED,
+        "hz": _HZ,
+        "seconds": seconds,
+        "samples": win.samples,
+        "totalSamples": s.total_samples,
+        "phases": dict(
+            sorted(win.phases.items(), key=lambda kv: kv[1], reverse=True)
+        ),
+        "programs": dict(
+            sorted(win.programs.items(), key=lambda kv: kv[1], reverse=True)
+        ),
+        "topStacks": [
+            {"phase": tag, "stack": ";".join(stack), "count": count}
+            for (tag, stack), count in ranked[: max(int(top), 1)]
+        ],
+        "namedFraction": round(named / win.samples, 4) if win.samples else 0.0,
+    }
+
+
+def collapsed(seconds: int = 10) -> str:
+    """Flamegraph collapsed text ('phase;frame;...;frame count' per
+    line): pipe straight into flamegraph.pl / speedscope."""
+    s = _get_sampler()
+    if s is None:
+        return ""
+    win = s.merged(seconds)
+    lines = [
+        f"{tag};{';'.join(stack)} {count}" if stack else f"{tag} {count}"
+        for (tag, stack), count in sorted(
+            win.stacks.items(), key=lambda kv: kv[1], reverse=True
+        )
+    ]
+    return "\n".join(lines) + ("\n" if lines else "")
+
+
+# ---------------------------------------------------------------------
+# Proportional-share accumulators (process-wide, fed per BATCH)
+# ---------------------------------------------------------------------
+
+
+class _ShareAccumulator:
+    """(lanes, seconds) totals for one cost pool; a tenant's share of
+    the pool is its lanes x (seconds / lanes) — proportional
+    attribution with zero per-lane work on the hot path."""
+
+    __slots__ = ("_lock", "lanes", "seconds")
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self.lanes = 0
+        self.seconds = 0.0
+
+    def add(self, lanes: int, seconds: float) -> None:
+        with self._lock:
+            self.lanes += int(lanes)
+            self.seconds += float(seconds)
+
+    def per_lane(self) -> float:
+        with self._lock:
+            return self.seconds / self.lanes if self.lanes else 0.0
+
+
+lane_time = _ShareAccumulator()   # device launch wall x lanes (pipeline)
+queue_time = _ShareAccumulator()  # coalescing-window wait x lanes (batchers)
+
+
+def note_lane_time(lanes: int, seconds: float) -> None:
+    """One device launch: `lanes` rode a program whose enqueue wall was
+    `seconds` (models/shard.py's launch stage feeds this — the same
+    per-launch timing telemetry drains)."""
+    lane_time.add(lanes, seconds)
+
+
+def note_queue_wait(lanes: int, seconds: float) -> None:
+    """One batcher submission flushed after waiting `seconds` in the
+    coalescing window (queue residency; both batchers feed this beside
+    their existing batch.window attribution)."""
+    queue_time.add(lanes, seconds * lanes)
+    # Flushes are frequent and spread across the window timeline — a
+    # good piggyback site (Sampler.maybe_tick's rationale).
+    if _ENABLED:
+        s = _sampler
+        if s is not None:
+            s.maybe_tick()
+
+
+# ---------------------------------------------------------------------
+# Per-tenant cost ledger
+# ---------------------------------------------------------------------
+
+# The count-min row-index derivation: d independent multiply-shift rows
+# from ONE 64-bit FNV-1 name hash (the saturation.HotKeySketch salts).
+_CMS_SALTS = np.array(
+    [0x9E3779B97F4A7C15, 0xC2B2AE3D27D4EB4F, 0x165667B19E3779F9,
+     0x27D4EB2F165667C5],
+    dtype=np.uint64,
+)
+
+_STATS = ("hits", "lanes", "over_limit", "shed", "ingress_bytes")
+
+
+class _TenantRow:
+    __slots__ = ("name", "est", "hits", "lanes", "over_limit", "shed",
+                 "ingress_bytes")
+
+    def __init__(self, name: str):
+        self.name = name
+        self.est = 0
+        self.hits = 0
+        self.lanes = 0
+        self.over_limit = 0
+        self.shed = 0
+        self.ingress_bytes = 0
+
+
+class _TenantCtx:
+    """Per-batch fold context: the vectorized name aggregation computed
+    once at admit and reused by the outcome/shed folds (same arrays,
+    zero re-hashing)."""
+
+    __slots__ = ("inv", "uh", "first", "name_at", "m")
+
+    def __init__(self, inv, uh, first, name_at):
+        self.inv = inv
+        self.uh = uh
+        self.first = first
+        self.name_at = name_at
+        self.m = len(uh)
+
+
+def _name_columns(cols):
+    """(name FNV-1 hashes, name_at, name_lens, uk_lens) per lane for any
+    ingress column shape — list-backed IngressColumns, the native-JSON
+    LazyIngressColumns (spans into the request body), or a
+    FrameIngressColumns (blob + offsets) — WITHOUT materializing
+    per-lane strings on the packed shapes."""
+    from . import native
+
+    def fnv1(names):
+        return native.fnv1_batch(names, variant_1a=False)
+
+    pj = getattr(cols, "_pj", None)
+    if pj is not None:  # LazyIngressColumns: (off, len) spans into body
+        body = np.frombuffer(pj.body, dtype=np.uint8)
+        nspan = np.asarray(pj.nspan, dtype=np.int64)
+        starts, lens = nspan[0::2], nspan[1::2]
+        off = np.zeros(len(lens) + 1, dtype=np.int64)
+        np.cumsum(lens, out=off[1:])
+        total = int(off[-1])
+        pos = (
+            np.repeat(starts - off[:-1], lens)
+            + np.arange(total, dtype=np.int64)
+        )
+        packed = native.PackedKeys(body[pos], off)
+        ukspan = np.asarray(pj.ukspan, dtype=np.int64)
+        return fnv1(packed), pj.name_at, lens, ukspan[1::2]
+    nb = getattr(cols, "_nb", None)
+    if nb is not None:  # FrameIngressColumns: name blob + offsets
+        no = np.asarray(cols._no, dtype=np.int64)
+        uo = np.asarray(cols._uo, dtype=np.int64)
+        packed = native.PackedKeys(np.frombuffer(nb, dtype=np.uint8), no)
+        return fnv1(packed), cols._name_at, np.diff(no), np.diff(uo)
+    names = cols.names  # plain lists (classic JSON / proto decode)
+    # A batch's lanes repeat a few tenants: hash and measure each
+    # distinct name once, then spread the results over the lanes.
+    distinct = list(dict.fromkeys(names))
+    ids = {s: i for i, s in enumerate(distinct)}
+    lane_id = np.fromiter(map(ids.__getitem__, names), dtype=np.int64,
+                          count=len(names))
+    lens = np.fromiter(map(len, distinct), dtype=np.int64, count=len(distinct))
+    uk_lens = np.fromiter(
+        map(len, cols.unique_keys), dtype=np.int64, count=len(names)
+    )
+    return (fnv1(distinct)[lane_id], names.__getitem__, lens[lane_id],
+            uk_lens)
+
+
+class TenantLedger:
+    """Cardinality-bounded per-tenant cost accounting (see module
+    docstring).  All folds are per BATCH and vectorized over lanes;
+    Python touches at most `topk` tenants per fold.  Conservation holds
+    exactly for every stat: `sum(rows) + other == totals` — promotion
+    moves a tenant's CURRENT batch out of `other` into its new row, and
+    eviction folds the loser's whole row back into `other`."""
+
+    def __init__(self, topk: int = 16, width: int = 8192, depth: int = 4):
+        self.topk = max(int(topk), 1)
+        self.width = int(width)
+        self.depth = min(int(depth), len(_CMS_SALTS))
+        self._lock = threading.Lock()
+        self._tab = np.zeros((self.depth, self.width), dtype=np.int64)
+        self._salts = _CMS_SALTS[: self.depth]
+        self._rows: Dict[int, _TenantRow] = {}  # name hash -> row
+        self._row_hashes = np.zeros(0, dtype=np.uint64)  # sorted, for isin
+        self._other = dict.fromkeys(_STATS, 0)
+        self._totals = dict.fromkeys(_STATS, 0)
+        self.batches = 0
+
+    # -- admit-side folds (beside every audit ingress note) ------------
+    def fold_admit(self, cols) -> Optional[_TenantCtx]:
+        """Fold one ingress batch's admission: per-tenant hits, lanes
+        and ingress bytes.  Returns the fold context the outcome/shed
+        folds reuse (or None on an empty batch)."""
+        n = len(cols)
+        if n == 0:
+            return None
+        # Per-ingress-batch piggyback site (Sampler.maybe_tick): the
+        # ledger fold is always-on, so under any load the profiler's
+        # cadence rides threads already holding the GIL.
+        if _ENABLED:
+            s = _sampler
+            if s is not None:
+                s.maybe_tick()
+        hashes, name_at, name_lens, uk_lens = _name_columns(cols)
+        uh, first, inv = np.unique(
+            hashes, return_index=True, return_inverse=True
+        )
+        ctx = _TenantCtx(inv, uh, first, name_at)
+        lanes_u = np.bincount(inv, minlength=ctx.m).astype(np.int64)
+        hits_u = np.bincount(
+            inv, weights=np.asarray(cols.hits, dtype=np.float64),
+            minlength=ctx.m,
+        ).astype(np.int64)
+        lane_bytes = name_lens + uk_lens + NUMERIC_LANE_BYTES
+        bytes_u = np.bincount(
+            inv, weights=lane_bytes.astype(np.float64), minlength=ctx.m
+        ).astype(np.int64)
+        with self._lock:
+            self.batches += 1
+            idx = (
+                (uh[None, :] * self._salts[:, None]) >> np.uint64(17)
+            ) % np.uint64(self.width)
+            for r in range(self.depth):
+                np.add.at(self._tab[r], idx[r].astype(np.intp), hits_u)
+            est = self._tab[
+                np.arange(self.depth)[:, None], idx.astype(np.intp)
+            ].min(axis=0)
+            self._totals["hits"] += int(hits_u.sum())
+            self._totals["lanes"] += int(lanes_u.sum())
+            self._totals["ingress_bytes"] += int(bytes_u.sum())
+            tracked = np.isin(uh, self._row_hashes)
+            for j in np.nonzero(tracked)[0]:
+                row = self._rows[int(uh[j])]
+                row.est = int(est[j])
+                row.hits += int(hits_u[j])
+                row.lanes += int(lanes_u[j])
+                row.ingress_bytes += int(bytes_u[j])
+            un = np.nonzero(~tracked)[0]
+            if un.size:
+                self._other["hits"] += int(hits_u[un].sum())
+                self._other["lanes"] += int(lanes_u[un].sum())
+                self._other["ingress_bytes"] += int(bytes_u[un].sum())
+                self._promote_locked(
+                    un, est, uh, first, name_at,
+                    hits_u, lanes_u, bytes_u,
+                )
+        return ctx
+
+    def _promote_locked(self, un, est, uh, first, name_at,
+                        hits_u, lanes_u, bytes_u) -> None:
+        """Promote untracked candidates whose count-min estimate beats
+        the current top-K floor.  At most `topk` candidates loop in
+        Python per batch (the HotKeySketch bound): uniform traffic
+        concentrates estimates near the floor, and without the cap a
+        10k-unique batch would loop 10k lanes."""
+        if len(self._rows) >= self.topk:
+            floor = min(r.est for r in self._rows.values())
+            cand = un[est[un] > floor]
+        else:
+            cand = un
+        if cand.size > self.topk:
+            cand = cand[np.argsort(est[cand])[-self.topk:]]
+        changed = False
+        for j in cand:
+            j = int(j)
+            if len(self._rows) >= self.topk:
+                # Evict the weakest row; its EXACT stats conserve into
+                # `other` (the rollup is a ledger, not a loss).
+                evict_h = min(self._rows, key=lambda h: self._rows[h].est)
+                if self._rows[evict_h].est >= int(est[j]):
+                    continue
+                loser = self._rows.pop(evict_h)
+                for k in _STATS:
+                    self._other[k] += getattr(loser, k)
+            row = _TenantRow(str(name_at(int(first[j]))))
+            row.est = int(est[j])
+            # This batch's contribution moves other -> row (it was
+            # summed into `other` above; conservation stays exact).
+            row.hits = int(hits_u[j])
+            row.lanes = int(lanes_u[j])
+            row.ingress_bytes = int(bytes_u[j])
+            self._other["hits"] -= row.hits
+            self._other["lanes"] -= row.lanes
+            self._other["ingress_bytes"] -= row.ingress_bytes
+            self._rows[int(uh[j])] = row
+            changed = True
+        if changed or len(self._rows) != len(self._row_hashes):
+            self._row_hashes = np.sort(
+                np.fromiter(self._rows, dtype=np.uint64, count=len(self._rows))
+            )
+
+    def fold_requests(self, requests) -> Optional[list]:
+        """Dataclass-router twin of fold_admit (the slow path already
+        pays per-request Python).  Returns the per-request name list as
+        the outcome context."""
+        if not requests:
+            return None
+        names = [r.name for r in requests]
+        cols = _RequestView(names, requests)
+        self.fold_admit(cols)
+        return names
+
+    def fold_one(self, name: str, hits: int, nbytes: int) -> None:
+        """Single-lane fold (the async single-key fast path, which
+        bypasses both routers): scalar twin of fold_admit — identical
+        accounting under the same lock, none of the vector machinery
+        (unique/bincount/padding string) that exists to amortize over
+        a batch this path deliberately skips."""
+        from .utils import hashing
+
+        if _ENABLED:
+            s = _sampler
+            if s is not None:
+                s.maybe_tick()
+        hits = int(hits)
+        nbytes = int(nbytes)
+        uh = np.uint64(hashing.fnv1_64(name.encode("utf-8")))
+        idx = (uh * self._salts) >> np.uint64(17)
+        with self._lock:
+            self.batches += 1
+            est = None
+            for r in range(self.depth):
+                j = int(idx[r]) % self.width
+                v = int(self._tab[r, j]) + hits
+                self._tab[r, j] = v
+                est = v if est is None or v < est else est
+            self._totals["hits"] += hits
+            self._totals["lanes"] += 1
+            self._totals["ingress_bytes"] += nbytes
+            row = self._rows.get(int(uh))
+            if row is not None:
+                row.est = est
+                row.hits += hits
+                row.lanes += 1
+                row.ingress_bytes += nbytes
+                return
+            self._other["hits"] += hits
+            self._other["lanes"] += 1
+            self._other["ingress_bytes"] += nbytes
+            self._promote_locked(
+                np.arange(1), np.array([est], dtype=np.int64),
+                np.array([uh], dtype=np.uint64),
+                np.zeros(1, dtype=np.int64), lambda _i: name,
+                np.array([hits], dtype=np.int64),
+                np.ones(1, dtype=np.int64),
+                np.array([nbytes], dtype=np.int64),
+            )
+
+    # -- outcome-side folds --------------------------------------------
+    def fold_outcome(self, ctx: Optional[_TenantCtx], result) -> None:
+        """Per-tenant OVER_LIMIT attribution from a resolved columnar
+        result (arrays + sparse overrides)."""
+        if ctx is None:
+            return
+        over = (np.asarray(result.status) == 1).astype(np.float64)
+        for i, ov in result.overrides.items():
+            over[i] = 1.0 if (
+                getattr(ov, "status", 0) == 1 and not getattr(ov, "error", "")
+            ) else 0.0
+        if not over.any():
+            return
+        over_u = np.bincount(ctx.inv, weights=over, minlength=ctx.m)
+        self._route_stat_locked("over_limit", ctx, over_u.astype(np.int64))
+
+    def fold_outcome_responses(self, names: Optional[list],
+                               responses) -> None:
+        """Dataclass-router outcome twin: `names` is fold_requests'
+        return, `responses` the per-request RateLimitResponse list."""
+        if not names:
+            return
+        over_names = [
+            nm for nm, r in zip(names, responses)
+            if r is not None and r.status == 1 and not r.error
+        ]
+        if not over_names:
+            return
+        from . import native
+
+        hashes = native.fnv1_batch(over_names, variant_1a=False)
+        uh, first, inv = np.unique(
+            hashes, return_index=True, return_inverse=True
+        )
+        ctx = _TenantCtx(inv, uh, first, over_names.__getitem__)
+        self._route_stat_locked(
+            "over_limit", ctx,
+            np.bincount(inv, minlength=len(uh)).astype(np.int64),
+        )
+
+    def fold_shed(self, ctx: Optional[_TenantCtx], lanes) -> None:
+        """Per-tenant shed attribution: `lanes` is the index array of
+        the batch's lanes the bounded ingress gate refused."""
+        if ctx is None:
+            return
+        lanes = np.asarray(lanes, dtype=np.int64)
+        if not lanes.size:
+            return
+        shed_u = np.bincount(ctx.inv[lanes], minlength=ctx.m).astype(np.int64)
+        self._route_stat_locked("shed", ctx, shed_u)
+
+    def _route_stat_locked(self, stat: str, ctx: _TenantCtx, vals) -> None:
+        """Add per-unique `vals` to `stat`, routed tenant-row vs other
+        by the CURRENT top-K (outcome folds happen after admit; a row
+        churn in between shifts attribution, never totals)."""
+        total = int(vals.sum())
+        if total == 0:
+            return
+        with self._lock:
+            self._totals[stat] += total
+            tracked = np.isin(ctx.uh, self._row_hashes)
+            for j in np.nonzero(tracked & (vals > 0))[0]:
+                row = self._rows.get(int(ctx.uh[j]))
+                if row is not None:
+                    setattr(row, stat, getattr(row, stat) + int(vals[j]))
+            un = tracked == False  # noqa: E712 — elementwise
+            self._other[stat] += int(vals[un].sum())
+
+    # -- read side -----------------------------------------------------
+    def snapshot(self, top: Optional[int] = None) -> dict:
+        """The GET /debug/tenants document.  Lane-time / queue-
+        residency are proportional shares computed here (per-lane
+        factors from the process-wide accumulators) — the hot path
+        never touches them per tenant."""
+        lane_s = lane_time.per_lane()
+        queue_s = queue_time.per_lane()
+
+        def _render(src, name=None, est=None):
+            row = {
+                "hits": src["hits"] if isinstance(src, dict) else src.hits,
+                "lanes": src["lanes"] if isinstance(src, dict) else src.lanes,
+                "overLimit": (
+                    src["over_limit"] if isinstance(src, dict)
+                    else src.over_limit
+                ),
+                "shed": src["shed"] if isinstance(src, dict) else src.shed,
+                "ingressBytes": (
+                    src["ingress_bytes"] if isinstance(src, dict)
+                    else src.ingress_bytes
+                ),
+            }
+            row["overLimitRate"] = (
+                round(row["overLimit"] / row["lanes"], 4)
+                if row["lanes"] else 0.0
+            )
+            row["laneTimeS"] = round(row["lanes"] * lane_s, 6)
+            row["queueS"] = round(row["lanes"] * queue_s, 6)
+            if name is not None:
+                row["tenant"] = name
+            if est is not None:
+                row["estimate"] = est
+            return row
+
+        with self._lock:
+            rows = sorted(
+                self._rows.values(), key=lambda r: r.est, reverse=True
+            )
+            if top is not None:
+                rows = rows[: int(top)]
+            doc = {
+                "topk": [_render(r, name=r.name, est=r.est) for r in rows],
+                "other": _render(dict(self._other)),
+                "totals": _render(dict(self._totals)),
+                "trackedTenants": len(self._rows),
+                "topkLimit": self.topk,
+                "batches": self.batches,
+                "laneTimeSPerLane": round(lane_s, 9),
+                "queueSPerLane": round(queue_s, 9),
+            }
+        return doc
+
+    def totals(self) -> dict:
+        with self._lock:
+            return dict(self._totals)
+
+
+class _RequestView:
+    """Minimal column view over a dataclass request list so
+    fold_requests reuses the one vectorized fold."""
+
+    __slots__ = ("names", "unique_keys", "hits")
+
+    def __init__(self, names, requests):
+        self.names = names
+        self.unique_keys = [r.unique_key for r in requests]
+        self.hits = np.fromiter(
+            (int(r.hits) for r in requests), dtype=np.int64,
+            count=len(requests),
+        )
+
+    def __len__(self) -> int:
+        return len(self.names)
+
+
+# ---------------------------------------------------------------------
+def reset() -> None:
+    """Test hook: clear the module-global accumulators and the sampler
+    ring (mirrors saturation.reset; per-service TenantLedgers are
+    per-instance and need no global reset)."""
+    global lane_time, queue_time
+    lane_time = _ShareAccumulator()
+    queue_time = _ShareAccumulator()
+    _scopes.clear()
+    _programs.clear()
+    _static.clear()
+    s = _get_sampler()
+    if s is not None:
+        with s._lock:
+            s._ring.clear()
+            s.total_samples = 0
+            s.total_ticks = 0

@@ -1,12 +1,15 @@
-"""Columnar state handoff: the transfer batch and its monotone merge.
+"""Columnar state handoff: the transfer batch, its monotone merge, the
+ring fingerprint and the receive side of the resharding manager.
 
-The part of the JAX package's reshard.py that the port's persistence
-plane needs: `TransferColumns`, one batch of full bucket rows in column
-form (what `MeshBucketStore.snapshot_columns` gathers and
-`commit_transfer` commits, and the row payload of a snapshot file), and
+The part of the JAX package's reshard.py that one node needs:
+`TransferColumns`, one batch of full bucket rows in column form (what
+`MeshBucketStore.snapshot_columns` gathers and `commit_transfer`
+commits, the row payload of a snapshot file and of a transfer frame);
 `merge_transfer_rows`, the monotone merge a commit applies against the
-rows already resident.  The resharding manager and the ring fingerprint
-come with peers.
+rows already resident; `ring_fingerprint`, the epoch a transfer is
+fenced on; and `ReshardManager`'s receive-side bookkeeping
+(`V1Service.transfer_ownership`).  The sending half (the drain ->
+transfer handoff a ring change schedules) comes with the peer client.
 
 Merge semantics (architecture.md "Membership & resharding"): for a live
 resident row of the same algorithm, the side with the lower remaining
@@ -19,10 +22,30 @@ hit.
 
 from __future__ import annotations
 
+import threading
+import time
+from concurrent.futures import Future
 from dataclasses import dataclass
-from typing import List
+from typing import List, Sequence
 
 import numpy as np
+
+from . import audit
+from .utils import hashing
+
+
+def ring_fingerprint(peer_ids: Sequence[str], replicas: int = 512) -> int:
+    """Order-independent 64-bit identity of a ring MEMBERSHIP — the
+    shared epoch stamp for transfer fencing.  Computed identically on
+    every daemon from the peer-id strings (gRPC addresses) alone, so no
+    coordination is needed for two daemons to agree on "the same ring".
+    XOR-fold of per-peer FNV-1 hashes (order-free), mixed with the
+    vnode count (a replicas change moves ownership without changing
+    membership, so it must change the epoch too)."""
+    h = hashing.fnv1_64(f"replicas={replicas}".encode("utf-8"))
+    for pid in peer_ids:
+        h ^= hashing.fnv1_64(pid.encode("utf-8"))
+    return h & 0xFFFFFFFFFFFFFFFF
 
 
 @dataclass
@@ -143,3 +166,77 @@ def merge_transfer_rows(cur, incoming: TransferColumns, idx, now_ms: int,
         ).astype(np.int64),
     }
     return out
+
+
+class ReshardManager:
+    """The receive side of the state-migration plane: counters of the
+    transfers this node accepted or fenced, served in /debug/status.
+    The JAX manager also runs the sender's drain -> transfer handoff and
+    dropped peers' shutdowns on a bounded pool; the port has no peers
+    yet, so nothing is ever submitted and `wait_idle` finds no task."""
+
+    def __init__(self, service):
+        self.service = service
+        self._lock = threading.Lock()
+        self._tasks: List[Future] = []
+        self._closed = False
+        self.transfers_started = 0
+        self.transfers_committed = 0
+        self.transfers_aborted = 0
+        self.transfers_fenced_in = 0  # receive-side epoch rejections
+        self.lanes_moved = 0
+        self.lanes_received = 0
+        self.lanes_rejected = 0  # receive-side not-owned-here lanes
+        self.last_handoff_seconds = 0.0
+
+    # -- receive-side bookkeeping (V1Service.transfer_ownership) -------
+    def note_received(self, committed: int, rejected: int) -> None:
+        self.lanes_received += committed
+        self.lanes_rejected += rejected
+        audit.note("reshard_committed_lanes", committed)
+        audit.note("reshard_rejected_lanes", rejected)
+        m = self.service.metrics
+        if m is not None:
+            if committed:
+                m.reshard_lanes.labels(direction="in").inc(committed)
+            if rejected:
+                m.reshard_lanes.labels(direction="rejected").inc(rejected)
+
+    def note_fenced(self, lanes: int) -> None:
+        self.transfers_fenced_in += 1
+        m = self.service.metrics
+        if m is not None:
+            m.reshard_transfers.labels(result="fenced").inc()
+
+    def snapshot(self) -> dict:
+        """The /debug/status "reshard" section."""
+        return {
+            "transfersStarted": self.transfers_started,
+            "transfersCommitted": self.transfers_committed,
+            "transfersAborted": self.transfers_aborted,
+            "transfersFencedIn": self.transfers_fenced_in,
+            "lanesMoved": self.lanes_moved,
+            "lanesReceived": self.lanes_received,
+            "lanesRejected": self.lanes_rejected,
+            "lastHandoffSeconds": round(self.last_handoff_seconds, 4),
+        }
+
+    def wait_idle(self, timeout_s: float = 10.0) -> bool:
+        """Block until every tracked task finished (tests + close())."""
+        deadline = time.monotonic() + timeout_s
+        with self._lock:
+            tasks = list(self._tasks)
+        for t in tasks:
+            remaining = deadline - time.monotonic()
+            if remaining <= 0:
+                return False
+            try:
+                t.result(timeout=remaining)
+            except Exception:  # noqa: BLE001 — task errors logged at site
+                pass
+        return True
+
+    def close(self, timeout_s: float = 10.0) -> None:
+        with self._lock:
+            self._closed = True
+        self.wait_idle(timeout_s)

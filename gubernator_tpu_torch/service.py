@@ -25,10 +25,25 @@ Persistence: a Loader (`loader`) is loaded at boot and saved at close;
 a snapshot file (`snapshot_path`) is restored at boot and written at
 close and every `behaviors.snapshot_interval_s` (snapshot.py).
 
+Membership is one node: `set_peers` takes a list naming this node
+alone (its ring fingerprint fences transfers; a list naming any other
+peer raises NotImplementedError until the peer client is ported).  A
+service that was never given a list owns every key too.  The owner
+side of the peer API is here: `get_peer_rate_limits[_columns][_async]`
+(lanes owned here go to the columnar kernel through the shared
+window), `update_peer_globals[_columns]` (one batched replica commit)
+and `transfer_ownership` (the epoch fence, then one merge-commit).
+The gateway (gateway.py) reads the members built here: the flight
+recorder, the SLO engine, the hot-key sketch, the tenant ledger, the
+conservation auditor and the native ingress pump's hook.  `metrics` is
+None: every metrics call of the JAX service is skipped, as in a JAX
+service built without Prometheus.
+
 Not here (they need peers): forwarding, the handoff peek, MULTI_REGION,
-the peer endpoints, transfer_ownership, and the GlobalManager's
-broadcast and hit-forward legs.  Responses are the JAX V1Service's
-(tests/test_torch_service.py, tests/test_torch_batchers.py).
+the sending half of resharding, and the GlobalManager's broadcast and
+hit-forward legs.  Responses are the JAX V1Service's
+(tests/test_torch_service.py, tests/test_torch_batchers.py,
+tests/test_torch_gateway.py).
 """
 
 from __future__ import annotations
@@ -43,19 +58,28 @@ from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 
+from . import audit as audit_mod
+from . import profiling
 from . import saturation
 from . import snapshot as snapshot_mod
+from . import telemetry
 from . import tracing
-from .config import MAX_BATCH_SIZE, BehaviorConfig
+from .config import MAX_BATCH_SIZE, PEER_COLUMNS_MAX_LANES, BehaviorConfig
 from .models.shard import GregResolver
+from .parallel.global_mgr import GlobalsColumns
+from .parallel.hash_ring import ReplicatedConsistentHash
 from .parallel.mesh import MeshBucketStore
+from .parallel.region import RegionPicker
+from .reshard import ReshardManager, TransferColumns
 from .types import (
     Behavior,
     GetRateLimitsRequest,
     GetRateLimitsResponse,
     HealthCheckResponse,
+    PeerInfo,
     RateLimitRequest,
     RateLimitResponse,
+    UpdatePeerGlobal,
     has_behavior,
 )
 from .utils import gregorian
@@ -81,6 +105,17 @@ class ApiError(Exception):
         self.code = code
         self.message = message
         self.http_status = http_status
+
+
+class _SelfPeer:
+    """This node as the one member of its ring.  The JAX service keeps
+    a PeerClient there; a node that is its only peer never sends to
+    it, so the port keeps what the ring's readers ask: the PeerInfo."""
+
+    __slots__ = ("info",)
+
+    def __init__(self, info: PeerInfo):
+        self.info = info
 
 
 class BatcherClosedError(Exception):
@@ -182,6 +217,9 @@ class ServiceConfig:
     # merge-commit and written on close() and every
     # behaviors.snapshot_interval_s seconds (0 = on close() only).
     snapshot_path: str = ""
+    # This node's address (its id in the ring) and data center.
+    advertise_address: str = ""
+    data_center: str = ""
 
 
 class _ExpressPolicy:
@@ -288,6 +326,9 @@ class LocalBatcher:
             st = getattr(fut, "_submit_t", None)
             if st is not None:
                 saturation.observe_phase("batch.window", t_flush - st)
+                # Queue-residency pool (profiling.py): one lane waited
+                # this long; tenants take proportional shares.
+                profiling.note_queue_wait(1, t_flush - st)
         try:
             resps = self.store.apply([r for r, _ in batch], self.clock.now_ms())
             for (_, fut), resp in zip(batch, resps):
@@ -314,6 +355,9 @@ class IngressColumns:
     hits: np.ndarray  # i64[n]
     limit: np.ndarray  # i64[n]
     duration: np.ndarray  # i64[n]
+    # Wire trace-context column of a peer batch (tracing.py):
+    # (lane_lo, lane_hi, trace_id, span_id) ranges, or None.
+    trace_ctx: Optional[list] = None
 
     def __len__(self) -> int:
         return len(self.names)
@@ -334,7 +378,9 @@ class IngressColumns:
 class ColumnarResult:
     """Column-form GetRateLimits responses: arrays for the evaluated
     lanes plus sparse per-lane overrides (validation and other errors,
-    GLOBAL lanes)."""
+    GLOBAL lanes).  A forwarded lane's owner rides `owner_of` (an index
+    per lane into `owner_addrs`, -1 = local); a one-node service never
+    sets it, but the wire's kind-6 frame carries the columns."""
 
     n: int
     status: np.ndarray
@@ -342,6 +388,8 @@ class ColumnarResult:
     remaining: np.ndarray
     reset_time: np.ndarray
     overrides: Dict[int, RateLimitResponse] = field(default_factory=dict)
+    owner_addrs: List[str] = field(default_factory=list)
+    owner_of: Optional[np.ndarray] = None  # i32[n], -1 = local lane
 
     @classmethod
     def empty(cls, n: int) -> "ColumnarResult":
@@ -351,15 +399,33 @@ class ColumnarResult:
             remaining=z.copy(), reset_time=z.copy(),
         )
 
+    def set_owner(self, lanes, addr: str) -> None:
+        """Annotate `lanes` (index array) as forwarded to `addr`."""
+        if self.owner_of is None:
+            self.owner_of = np.full(self.n, -1, dtype=np.int32)
+        try:
+            k = self.owner_addrs.index(addr)
+        except ValueError:
+            self.owner_addrs.append(addr)
+            k = len(self.owner_addrs) - 1
+        self.owner_of[lanes] = k
+
+    def owner_at(self, i: int) -> Optional[str]:
+        if self.owner_of is None or self.owner_of[i] < 0:
+            return None
+        return self.owner_addrs[self.owner_of[i]]
+
     def response_at(self, i: int) -> RateLimitResponse:
         ov = self.overrides.get(i)
         if ov is not None:
             return ov
+        owner = self.owner_at(i)
         return RateLimitResponse(
             status=int(self.status[i]),
             limit=int(self.limit[i]),
             remaining=int(self.remaining[i]),
             reset_time=int(self.reset_time[i]),
+            metadata={"owner": owner} if owner is not None else {},
         )
 
     def to_response(self) -> GetRateLimitsResponse:
@@ -376,7 +442,10 @@ class _ColumnsPlan:
     pendings: list  # [(batcher Future | (handle, lo, hi), fast lane idx)]
     slow_idx: list  # GLOBAL lanes, for the dataclass router
     slow_fn: Optional[Callable[[], list]]  # their blocking resolver
-    hash_keys: List[str]
+    hash_keys: object  # List[str] or native.PackedKeys
+    # Tenant-ledger fold context (profiling.py): computed once at
+    # admission, reused by the shed and outcome folds.
+    tenant_ctx: object = None
 
 
 def _lane_response(out: dict, lo: int) -> RateLimitResponse:
@@ -588,7 +657,11 @@ class _ColumnsJoin:
                     for i, r in zip(plan.slow_idx, self._slow_resps):
                         result.overrides[int(i)] = r
                 for fast_idx, out, sl, exc in self._fast_outs:
+                    if isinstance(exc, IngressShedError):
+                        # Tenant shed attribution (the _resolve_fast twin).
+                        self.svc.tenants.fold_shed(plan.tenant_ctx, fast_idx)
                     _merge_fast_result(result, plan.hash_keys, fast_idx, out, sl, exc)
+                self.svc.tenants.fold_outcome(plan.tenant_ctx, result)
             except Exception as e:  # noqa: BLE001 — handed to the callback
                 result, err = None, e
         self.callback(result if err is None else None, err)
@@ -683,10 +756,13 @@ class ColumnarBatcher:
         self._gate.release(lanes)
         saturation.note_express("windowed", lanes)
         t_flush = time.monotonic()
-        for _, fut in batch:
+        for item, fut in batch:
             st = getattr(fut, "_submit_t", None)
             if st is not None:
                 saturation.observe_phase("batch.window", t_flush - st)
+                # Queue-residency pool: this submission's lanes waited
+                # out the window; tenants take proportional shares.
+                profiling.note_queue_wait(len(item[0]), t_flush - st)
         # The window admits the submission that crosses the lane limit,
         # so one flush can overshoot MAX_LANES by a submission: re-chunk.
         chunk, lanes = [], 0
@@ -718,9 +794,15 @@ class ColumnarBatcher:
                 (cols, _fut), = batch
                 keys, arrays = cols[0], cols[1:]
             else:
-                keys = []
-                for c, _ in batch:
-                    keys.extend(c[0])
+                from .native import PackedKeys
+
+                if all(isinstance(c[0], PackedKeys) for c, _ in batch):
+                    # Packed keys coalesce without per-lane strings.
+                    keys = PackedKeys.concat([c[0] for c, _ in batch])
+                else:
+                    keys = []
+                    for c, _ in batch:
+                        keys.extend(c[0])
                 arrays = tuple(np.concatenate([c[i] for c, _ in batch]) for i in range(1, 8))
             algo, beh, hits, limit, duration, ge, gd = arrays
             # queue.wait: flush start -> launch submit (the backstop wait
@@ -802,10 +884,33 @@ class V1Service:
         )
         self._closed = False
         self._started_monotonic = time.monotonic()
+        # No Prometheus registry in the port yet: every metrics call of
+        # the JAX service is skipped (a JAX service without metrics).
+        self.metrics = None
+        # Membership: the ring of this node alone once set_peers ran
+        # (empty before it: the node owns every key either way).  The
+        # ring fields are guarded by _peer_mutex.
+        self.local_picker = ReplicatedConsistentHash()
+        self.region_picker = RegionPicker()
+        self._peer_mutex = threading.RLock()
+        self.ring_generation = 0
+        self.ring_hash = 0
+        self._prev_picker = None  # the handoff window's old ring (none yet)
+        self._handoff_deadline = 0.0
+        self.reshard = ReshardManager(self)
+        # Per-service flight recorder: threads this service owns bind it.
+        self.recorder = tracing.Recorder(
+            name=conf.advertise_address or f"service-{id(self):x}")
+        # Native service loop attachments (gateway.NativeIngressPump and
+        # NativeGatewayServer register themselves; set_peers pushes the
+        # ring to the pump).
+        self.native_ingress = None
+        self.native_edges: list = []
         # Async GLOBAL lanes and declined single-lane shapes block on the
         # dataclass router: they run on this pool, never on a drainer.
-        self._slow_pool = ThreadPoolExecutor(max_workers=128,
-                                             thread_name_prefix="columns-slow")
+        self._slow_pool = ThreadPoolExecutor(
+            max_workers=128, thread_name_prefix="columns-slow",
+            initializer=tracing.bind_recorder, initargs=(self.recorder,))
         self._drainer: Optional[_HandleDrainer] = None
         self._drainer_lock = threading.Lock()
         if conf.loader is not None:
@@ -830,8 +935,106 @@ class V1Service:
         if conf.behaviors.express and conf.behaviors.express_scalar:
             self.store.scalar_fast_path = True
             self.store.scalar_max_lanes = int(conf.behaviors.express_max_lanes)
+        # Saturation & SLO plane: the latency-SLO burn engine
+        # (GUBER_LATENCY_TARGET_MS; off at 0) and the hot-key sketch
+        # served at GET /debug/hotkeys.
+        b = conf.behaviors
+        self.slo = saturation.SloEngine(b.latency_target_ms, b.slo_objective)
+        self.hotkeys = saturation.HotKeySketch()
+        # Cost observatory: the per-tenant cost ledger, folded beside
+        # every audit ingress note.  The host sampler is process-wide
+        # (profiling.set_enabled / ensure_started).
+        self.tenants = profiling.TenantLedger(topk=b.tenant_topk)
+        # Always-on conservation audit (audit.py), armed here.
+        self.auditor = audit_mod.Auditor(
+            metrics=self.metrics, interval_s=b.audit_interval_s,
+            enabled=b.audit, recorder=self.recorder)
+        self.auditor.start()
         # A store without a GLOBAL sync (a ShardStore) gets no sync ticks.
         self.global_mgr = GlobalManager(self) if hasattr(self.store, "sync_globals") else None
+
+    # ------------------------------------------------------------------
+    @property
+    def advertise_address(self) -> str:
+        return self.conf.advertise_address
+
+    @property
+    def serves_peer_columns(self) -> bool:
+        """Whether this node advertises the columnar peer encodings (the
+        gateway's frame sniff on /v1/peer.GetPeerRateLimits); off under
+        GUBER_PEER_COLUMNS=0 and for stores without columns."""
+        return self.conf.behaviors.peer_columns and self.store.supports_columns
+
+    @property
+    def serves_ingress_columns(self) -> bool:
+        """Whether this node advertises the public columnar ingress (the
+        kind-5 frame sniff on /v1/GetRateLimits); off under
+        GUBER_INGRESS_COLUMNS=0, where a frame answers 400 as a
+        pre-columns build does."""
+        return self.conf.behaviors.ingress_columns and self.store.supports_columns
+
+    @property
+    def serves_global_columns(self) -> bool:
+        """Whether this node speaks the columnar GLOBAL plane (the
+        globals-frame sniff and the batched replica commit); off under
+        GUBER_GLOBAL_COLUMNS=0 and for stores without the batched
+        commit."""
+        return self.conf.behaviors.global_columns and hasattr(
+            self.store, "set_replica_batch")
+
+    @property
+    def serves_reshard(self) -> bool:
+        """Whether this node serves /v1/peer.TransferOwnership; off under
+        GUBER_RESHARD=0 (the route then answers 404, as a pre-reshard
+        build does)."""
+        return self.conf.behaviors.reshard and hasattr(self.store, "commit_transfer")
+
+    @property
+    def serves_region_columns(self) -> bool:
+        """Whether this node serves /v1/peer.UpdateRegionColumns.  The
+        port has no federation plane yet, so it never does: the route
+        falls through to 404, as on a JAX node with
+        GUBER_REGION_COLUMNS=0."""
+        return False
+
+    def get_peer_list(self) -> list:
+        with self._peer_mutex:
+            return list(self.local_picker.peers())
+
+    def get_region_picker(self) -> RegionPicker:
+        return self.region_picker
+
+    def set_peers(self, peer_infos: Sequence[PeerInfo]) -> None:
+        """Install the ring (gubernator.go:357-437) for a node that is
+        its only peer.  A membership change bumps the ring generation
+        and fingerprint (the transfer epoch fence); a re-push of the
+        same list changes nothing.  The native ingress pump gets the new
+        ring.  A list naming another peer, or a peer of another data
+        center, raises NotImplementedError: peers come with the peer
+        client (peer_client.py)."""
+        infos = list(peer_infos)
+        for info in infos:
+            if not info.is_owner or (info.data_center
+                                     and info.data_center != self.conf.data_center):
+                raise NotImplementedError(
+                    f"peer {info.grpc_address!r} is not this node: peers come "
+                    "with the peer client (peer_client.py), not ported yet")
+        if len(infos) > 1:
+            raise NotImplementedError(
+                "a ring of more than this node needs the peer client "
+                "(peer_client.py), not ported yet")
+        with self._peer_mutex:
+            old_ids = set(self.local_picker.peer_ids())
+            new_local = self.local_picker.new()
+            for info in infos:
+                new_local.add(info.grpc_address, _SelfPeer(info))
+            self.local_picker = new_local
+            if set(new_local.peer_ids()) != old_ids:
+                self.ring_generation += 1
+                self.ring_hash = new_local.fingerprint()
+        pump = self.native_ingress
+        if pump is not None:
+            pump.update_ring()
 
     # ------------------------------------------------------------------
     def get_rate_limits(self, req: GetRateLimitsRequest) -> GetRateLimitsResponse:
@@ -872,31 +1075,51 @@ class V1Service:
         submission, no blocking on a readback (shared by the blocking
         and the async entry points)."""
         n = len(cols)
+        # Conservation ledger and tenant ledger: hits entering the public
+        # front door on the columnar path (the dataclass router notes
+        # its own in _route).
+        audit_mod.note("ingress_hits", int(cols.hits.sum()))
+        tenant_ctx = self.tenants.fold_admit(cols)
         beh = np.asarray(cols.behavior, dtype=np.int32)
         # GLOBAL lanes take the dataclass router (replica answers, hit
         # accumulation); the rest launch columnar.
         slow = (beh & int(Behavior.GLOBAL)) != 0
         fast = ~slow
-        hash_keys: List[str] = [""] * n
-        for i in range(n):
-            # Validation (gubernator.go:142-152; note the reference's
-            # 'namespace' wording for an empty name).
-            if not cols.unique_keys[i]:
-                result.overrides[i] = RateLimitResponse(error=ERR_EMPTY_KEY)
+        # Validation (gubernator.go:142-152; note the reference's
+        # 'namespace' wording for an empty name).  The native JSON parse
+        # and the frame decode hand the hash keys over packed, with a
+        # validation code per lane (gateway LazyIngressColumns,
+        # wire.FrameIngressColumns).
+        pre = getattr(cols, "prevalidated", None)
+        if pre is not None:
+            hash_keys, errc = pre
+            for i in np.nonzero(errc)[0]:
+                i = int(i)
+                result.overrides[i] = RateLimitResponse(
+                    error=ERR_EMPTY_KEY if errc[i] == 1 else ERR_EMPTY_NAME)
                 fast[i] = slow[i] = False
-            elif not cols.names[i]:
-                result.overrides[i] = RateLimitResponse(error=ERR_EMPTY_NAME)
-                fast[i] = slow[i] = False
-            else:
-                hash_keys[i] = f"{cols.names[i]}_{cols.unique_keys[i]}"
+        else:
+            hash_keys = [""] * n
+            for i in range(n):
+                if not cols.unique_keys[i]:
+                    result.overrides[i] = RateLimitResponse(error=ERR_EMPTY_KEY)
+                    fast[i] = slow[i] = False
+                elif not cols.names[i]:
+                    result.overrides[i] = RateLimitResponse(error=ERR_EMPTY_NAME)
+                    fast[i] = slow[i] = False
+                else:
+                    hash_keys[i] = f"{cols.names[i]}_{cols.unique_keys[i]}"
         pendings = self._dispatch_fast(cols, beh, fast, hash_keys, result)
         slow_idx = [int(i) for i in np.nonzero(slow)[0]]
         slow_reqs = [cols.request_at(i) for i in slow_idx]
         return _ColumnsPlan(
             pendings=pendings,
             slow_idx=slow_idx,
-            slow_fn=(lambda: self._route(slow_reqs).responses) if slow_idx else None,
+            # _counted: the funnel above noted these lanes' hits already.
+            slow_fn=((lambda: self._route(slow_reqs, _counted=True).responses)
+                     if slow_idx else None),
             hash_keys=hash_keys,
+            tenant_ctx=tenant_ctx,
         )
 
     def _finalize_columns(self, plan: _ColumnsPlan, result: ColumnarResult) -> ColumnarResult:
@@ -905,7 +1128,9 @@ class V1Service:
         if plan.slow_idx:
             for i, r in zip(plan.slow_idx, plan.slow_fn()):
                 result.overrides[int(i)] = r
-        self._resolve_fast(plan.pendings, plan.hash_keys, result)
+        self._resolve_fast(plan.pendings, plan.hash_keys, result, plan.tenant_ctx)
+        # Tenant ledger: per-tenant OVER_LIMIT from the resolved arrays.
+        self.tenants.fold_outcome(plan.tenant_ctx, result)
         return result
 
     def _resolve_greg_fast(self, cols, beh, fast, result):
@@ -946,7 +1171,12 @@ class V1Service:
         def dispatch(idx, direct):
             full = idx.size == n
             sl = slice(None) if full else idx
-            keys_sel = hash_keys if full else [hash_keys[i] for i in idx]
+            if full:
+                keys_sel = hash_keys
+            elif isinstance(hash_keys, list):
+                keys_sel = [hash_keys[i] for i in idx]
+            else:
+                keys_sel = hash_keys.subset(idx)  # PackedKeys, no per-lane strings
             args = (
                 keys_sel, cols.algorithm[sl], beh[sl], cols.hits[sl],
                 cols.limit[sl], cols.duration[sl],
@@ -972,7 +1202,7 @@ class V1Service:
             return [dispatch(fast_idx, True)]
         return [dispatch(fast_idx[nb], True), dispatch(fast_idx[~nb], False)]
 
-    def _resolve_fast(self, pendings, hash_keys, result) -> None:
+    def _resolve_fast(self, pendings, hash_keys, result, tenant_ctx=None) -> None:
         """Block on each launch and scatter its arrays into the result;
         a failed launch becomes per-lane errors."""
         for pending, fast_idx in pendings:
@@ -983,13 +1213,21 @@ class V1Service:
                 sl = slice(lo, hi)
             except Exception as e:  # noqa: BLE001 — per-lane errors, batch survives
                 exc = e
+            if isinstance(exc, IngressShedError):
+                # Tenant ledger: the ingress gate refused these lanes.
+                self.tenants.fold_shed(tenant_ctx, fast_idx)
             _merge_fast_result(result, hash_keys, fast_idx, out, sl, exc)
 
-    def _route(self, requests: Sequence[RateLimitRequest]) -> GetRateLimitsResponse:
+    def _route(self, requests: Sequence[RateLimitRequest],
+               _counted: bool = False) -> GetRateLimitsResponse:
         """The dataclass router of a node that owns every key: a
         multi-lane request (or a NO_BATCHING lane) is its own batch; a
-        single BATCHING lane rides a window."""
+        single BATCHING lane rides a window.  `_counted` marks lanes the
+        columnar funnel already noted in the audit and tenant ledgers."""
         n = len(requests)
+        if not _counted:
+            audit_mod.note("ingress_hits", sum(int(r.hits) for r in requests))
+        tenant_names = None if _counted else self.tenants.fold_requests(requests)
         out: List[Optional[RateLimitResponse]] = [None] * n
         local: List[int] = []
         for i, r in enumerate(requests):
@@ -1024,6 +1262,8 @@ class V1Service:
                 except Exception as e:  # noqa: BLE001 — per-lane error
                     out[i] = RateLimitResponse(
                         error=f"while applying rate limit '{local_reqs[0].hash_key()}' - '{e}'")
+        if tenant_names is not None:
+            self.tenants.fold_outcome_responses(tenant_names, out)
         return GetRateLimitsResponse(
             responses=[r if r is not None else RateLimitResponse() for r in out])
 
@@ -1130,11 +1370,19 @@ class V1Service:
         result = ColumnarResult.empty(1)
 
         def deliver_resp(resp: RateLimitResponse) -> None:
+            if resp.status == 1 and not resp.error:
+                self.tenants.fold_outcome_responses([r.name], [resp])
             result.overrides[0] = resp
             callback(result, None)
 
         def to_error(e: BaseException) -> RateLimitResponse:
             return RateLimitResponse(error=f"while applying rate limit '{r.hash_key()}' - '{e}'")
+
+        # This lane bypasses both router funnels: note it here.
+        audit_mod.note("ingress_hits", int(r.hits))
+        self.tenants.fold_one(
+            r.name, int(r.hits),
+            len(r.name) + len(r.unique_key) + profiling.NUMERIC_LANE_BYTES)
 
         try:
             w = self._submit_single_local(
@@ -1172,23 +1420,202 @@ class V1Service:
         return True
 
     # ------------------------------------------------------------------
+    # The owner side of the peer API (PeersV1)
+    # ------------------------------------------------------------------
+    def get_peer_rate_limits(self, req: GetRateLimitsRequest) -> GetRateLimitsResponse:
+        """Owner-authoritative batch (gubernator.go:275-292); never
+        re-forwards."""
+        if len(req.requests) > MAX_BATCH_SIZE:
+            raise ApiError(
+                "OutOfRange",
+                f"'PeerRequest.rate_limits' list too large; max size is '{MAX_BATCH_SIZE}'",
+            )
+        audit_mod.note("peer_ingress_hits", sum(int(r.hits) for r in req.requests))
+        tenant_names = self.tenants.fold_requests(list(req.requests))
+        resps = self.store.apply(list(req.requests), self.clock.now_ms())
+        self.tenants.fold_outcome_responses(tenant_names, resps)
+        return GetRateLimitsResponse(responses=resps)
+
+    def get_peer_rate_limits_columns(
+        self, cols: IngressColumns, max_lanes: int = MAX_BATCH_SIZE
+    ) -> ColumnarResult:
+        """Column-form PeersV1 receive: every lane is owned here (the
+        sender routed it), so non-GLOBAL lanes go straight to the
+        columnar kernel through the shared window, where concurrent
+        peers' batches merge into one launch; GLOBAL lanes take the
+        dataclass path.  `max_lanes` is the encoding's cap
+        (PEER_COLUMNS_MAX_LANES for a frame)."""
+        n = len(cols)
+        if n > max_lanes:
+            raise ApiError(
+                "OutOfRange",
+                f"'PeerRequest.rate_limits' list too large; max size is '{max_lanes}'",
+            )
+        result = ColumnarResult.empty(n)
+        if n == 0:
+            return result
+        if not self.store.supports_columns:
+            req = GetRateLimitsRequest(requests=[cols.request_at(i) for i in range(n)])
+            result.overrides = dict(enumerate(self.get_peer_rate_limits(req).responses))
+            return result
+        audit_mod.note("peer_ingress_hits", int(cols.hits.sum()))
+        return self._finalize_columns(self._submit_peer_columns(cols, result), result)
+
+    def _submit_peer_columns(self, cols, result) -> _ColumnsPlan:
+        """Phase 1 of the PeersV1 columnar receive (shared by the sync
+        and async entry points).  A frame-decoded batch hands its hash
+        keys over packed: the sender's ingress validated them."""
+        tenant_ctx = self.tenants.fold_admit(cols)
+        beh = np.asarray(cols.behavior, dtype=np.int32)
+        slow = (beh & int(Behavior.GLOBAL)) != 0
+        fast = np.logical_not(slow)
+        pre = getattr(cols, "prevalidated", None)
+        if pre is not None:
+            hash_keys, _errc = pre
+        else:
+            hash_keys = [f"{nm}_{uk}" for nm, uk in zip(cols.names, cols.unique_keys)]
+        pendings = self._dispatch_fast(cols, beh, fast, hash_keys, result)
+        slow_idx = [int(i) for i in np.nonzero(slow)[0]]
+        slow_reqs = [cols.request_at(i) for i in slow_idx]
+        return _ColumnsPlan(
+            pendings=pendings,
+            slow_idx=slow_idx,
+            slow_fn=((lambda: self.store.apply(slow_reqs, self.clock.now_ms()))
+                     if slow_idx else None),
+            hash_keys=hash_keys,
+            tenant_ctx=tenant_ctx,
+        )
+
+    def get_peer_rate_limits_columns_async(self, cols: IngressColumns, callback: Callable,
+                                           max_lanes: int = MAX_BATCH_SIZE) -> None:
+        """Async twin of get_peer_rate_limits_columns (the other
+        launch-bound endpoint a native-edge worker must not block on)."""
+        try:
+            if len(cols) > max_lanes:
+                raise ApiError(
+                    "OutOfRange",
+                    f"'PeerRequest.rate_limits' list too large; max size is '{max_lanes}'",
+                )
+            n = len(cols)
+            result = ColumnarResult.empty(n)
+            if n == 0:
+                callback(result, None)
+                return
+            if not self.store.supports_columns:
+                fut = self._slow_pool.submit(self.get_peer_rate_limits_columns, cols)
+                _attach_done(fut, partial(_deliver_future, callback))
+                return
+            audit_mod.note("peer_ingress_hits", int(cols.hits.sum()))
+            plan = self._submit_peer_columns(cols, result)
+        except Exception as e:  # noqa: BLE001 — handed to the callback
+            callback(None, e)
+            return
+        _ColumnsJoin(self, plan, result, callback).start()
+
+    def update_peer_globals(self, updates: Sequence[UpdatePeerGlobal]) -> None:
+        """gubernator.go:259-272.  With the columnar GLOBAL plane on,
+        even a classic (per-item) broadcast commits as ONE batched
+        replica commit; GUBER_GLOBAL_COLUMNS=0 keeps one commit an
+        item."""
+        now = self.clock.now_ms()
+        if updates and self.serves_global_columns:
+            self.store.set_replica_batch(GlobalsColumns.from_updates(list(updates)), now)
+            return
+        for u in updates:
+            self.store.set_replica(u, now)
+
+    def update_peer_globals_columns(self, cols: GlobalsColumns) -> None:
+        """Columnar receive of a GLOBAL broadcast: one batched replica
+        commit (one K6 launch where gslots recycle, then K5), capped
+        like the peer hop."""
+        if len(cols) > PEER_COLUMNS_MAX_LANES:
+            raise ApiError(
+                "OutOfRange",
+                f"'UpdatePeerGlobals' columns list too large; "
+                f"max size is '{PEER_COLUMNS_MAX_LANES}'",
+            )
+        now = self.clock.now_ms()
+        batch = getattr(self.store, "set_replica_batch", None)
+        if batch is not None:
+            batch(cols, now)
+            return
+        for u in cols.to_updates():
+            self.store.set_replica(u, now)
+
+    def transfer_ownership(self, cols: TransferColumns) -> "tuple[int, int]":
+        """Receive side of an ownership transfer (reshard.py): fence the
+        epoch, then merge-commit the lanes with one row gather (K7) and
+        one row write (K8).  Returns (committed, rejected); this node
+        owns every key of its one-node ring, so none is rejected."""
+        n = len(cols)
+        if n > PEER_COLUMNS_MAX_LANES:
+            raise ApiError(
+                "OutOfRange",
+                f"'TransferOwnership' columns list too large; "
+                f"max size is '{PEER_COLUMNS_MAX_LANES}'",
+            )
+        if n == 0:
+            return 0, 0
+        audit_mod.note("reshard_received_lanes", n)
+        with self._peer_mutex:
+            cur_hash = self.ring_hash
+        if cols.ring_hash and cur_hash and cols.ring_hash != cur_hash:
+            # Epoch fence: the batch was routed under a ring this node no
+            # longer runs; the sender sees a non-retryable answer.
+            self.reshard.note_fenced(n)
+            raise ApiError(
+                "FailedPrecondition",
+                f"transfer fenced: batch ring {cols.ring_hash:#018x} != "
+                f"current ring {cur_hash:#018x}",
+                http_status=409,
+            )
+        # set_peers admits no peer but this node, so it owns every key;
+        # lanes owned elsewhere are rejected once peers exist.
+        committed = self.store.commit_transfer(cols, self.clock.now_ms())
+        rejected = 0
+        self.reshard.note_received(committed, rejected)
+        return committed, rejected
+
+    # ------------------------------------------------------------------
     def health_check(self) -> HealthCheckResponse:
-        """gubernator.go:295-333 for a node that is its only peer."""
+        """gubernator.go:295-333 for a node that is its only peer (no
+        transport to fail, no breaker to open); a service never given a
+        ring counts itself as its one peer."""
         from . import __version__
 
-        return HealthCheckResponse(status=HEALTHY, peer_count=1, version=__version__)
+        with self._peer_mutex:
+            peer_count = self.local_picker.size() or 1
+        return HealthCheckResponse(status=HEALTHY, peer_count=peer_count,
+                                   version=__version__)
 
     def ingress_queued_lanes(self) -> int:
         """Lanes admitted into the bounded ingress gates (both batchers
         share the GUBER_INGRESS_QUEUE_LANES budget, counted apart)."""
         return self.local_batcher._gate.queued + self.columnar_batcher._gate.queued
 
+    _BREAKER_NAMES = {0: "closed", 1: "half-open", 2: "open"}
+
     def debug_status(self) -> dict:
-        """The store half of the JAX service's GET /debug/status: health,
-        table occupancy, ingress queue, pipeline depth, express lane and
-        snapshot counters.  Host-side state only: no launch."""
+        """GET /debug/status: health, peers, table occupancy, ingress
+        queue, pipeline depth, SLO burn, express lane, hot keys, tenants,
+        profiler, ring and resharding counters, audit, device telemetry
+        and snapshots.  Host-side state only: no launch.  The JAX
+        document's `blackbox` and `region` sections wait for their
+        modules."""
         from . import __version__
 
+        hc = self.health_check()
+        with self._peer_mutex:
+            peer_list = list(self.local_picker.peers()) + list(self.region_picker.peers())
+            ring = {
+                "generation": self.ring_generation,
+                "hash": format(self.ring_hash, "016x"),
+                "handoffActive": False,
+                "handoffRemainingS": 0.0,
+                "reshardEnabled": self.serves_reshard,
+            }
+        peers = [{"peer": p.info.grpc_address, "isOwner": bool(p.info.is_owner),
+                  "breaker": "closed"} for p in peer_list]
         store = self.store
         shards = store.occupancy_stats()
         used_total = sum(r["used"] for r in shards)
@@ -1197,8 +1624,10 @@ class V1Service:
         return {
             "version": __version__,
             "uptimeS": round(time.monotonic() - self._started_monotonic, 1),
-            "health": {"status": HEALTHY, "message": "", "peerCount": 1,
-                       "breakerOpenCount": 0},
+            "health": {"status": hc.status, "message": hc.message,
+                       "peerCount": hc.peer_count,
+                       "breakerOpenCount": hc.breaker_open_count},
+            "peers": peers,
             "occupancy": {
                 "used": used_total,
                 "capacity": cap_total,
@@ -1218,12 +1647,33 @@ class V1Service:
                 "inflight": int(store.pipeline_depth()),
                 "deviceDispatches": int(store.device_dispatches),
             },
+            "slo": self.slo.snapshot(),
             "express": {
                 "enabled": bool(b.express),
                 "queueDepth": int(b.express_queue_depth),
                 "maxLanes": int(b.express_max_lanes),
                 "scalarApplies": int(store.scalar_applies),
                 **saturation.express_snapshot(),
+            },
+            "hotkeys": self.hotkeys.snapshot()["topk"][:5],
+            "tenants": self.tenants.snapshot(top=5),
+            "profile": {
+                "enabled": profiling.enabled(),
+                "hz": profiling.hz(),
+                "samples": profiling.sample_count(),
+            },
+            "ring": {**ring, "reshard": self.reshard.snapshot()},
+            "audit": {
+                "enabled": self.auditor.enabled,
+                "checks": self.auditor.checks,
+                "violations": dict(self.auditor.violations),
+                "violationTotal": sum(self.auditor.violations.values()),
+            },
+            # The JAX key: builds and first launches stand for compiles.
+            "xla": {
+                "enabled": telemetry.enabled(),
+                "compiles": telemetry.compile_count(),
+                "steadyRecompiles": telemetry.steady_recompile_count(),
             },
             "snapshot": self.snapshots.snapshot(),
         }
@@ -1237,6 +1687,11 @@ class V1Service:
         if self._closed:
             return
         self._closed = True
+        # The native ingress pump first: its in-flight launches resolve
+        # against a live store, and its queued frames get their 503s.
+        pump = self.native_ingress
+        if pump is not None:
+            pump.stop()
         self.local_batcher.stop()
         self.columnar_batcher.stop()
         with self._drainer_lock:
@@ -1245,6 +1700,8 @@ class V1Service:
             drainer.stop()
         if self.global_mgr is not None:
             self.global_mgr.stop()
+        self.auditor.stop()
+        self.reshard.close(timeout_s=5.0)
         self._slow_pool.shutdown(wait=False)
         self.store._drain_all()
         self.snapshots.stop()
@@ -1274,6 +1731,9 @@ class GlobalManager:
     SYNC_WAIT_MAX_S = 1.0
     SYNC_WAIT_FALLBACK_S = 0.1
     SYNC_COST_SAMPLES = 8
+    # Cap of the remote-hit requeue carry (audit.py's global_slack
+    # bound); the carry itself comes with the peer legs.
+    HIT_CARRY_MAX = 16_384
 
     @classmethod
     def window_for_cost(cls, cost_s: float) -> float:

@@ -19,10 +19,11 @@ into the port and one written by the port restores into a JAX daemon:
     row gather of the current rows, the monotone merge
     (reshard.merge_transfer_rows), one row scatter.  The merge never
     un-spends a hit admitted after the snapshot was taken.
-  * RING FENCING — the header carries a membership fingerprint.  The
-    port's service has no ring yet and writes 0 (unfenced); a fenced
-    file is still decoded, and `read_snapshot(expected_ring=...)`
-    rejects one whose fingerprint differs.
+  * RING FENCING — the header carries the service's membership
+    fingerprint (`V1Service.ring_hash`, 0 = unfenced before set_peers);
+    `read_snapshot(expected_ring=...)` rejects a fenced file whose
+    fingerprint differs.  The conservation ledger (audit.py) notes the
+    lanes saved, loaded and committed.
 
 Corrupt, truncated, bit-flipped or wrong-version files are rejected
 loudly at boot (logged, `restore_result == "rejected"`) and the daemon
@@ -63,6 +64,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 
+from . import audit
 from . import tracing
 from .reshard import TransferColumns
 
@@ -364,8 +366,10 @@ class SnapshotManager:
                 "snapshot %s REJECTED (cold start): %s", self.path, e
             )
             return 0
+        audit.note("snapshot_loaded_lanes", len(cols))
         now_ms = self.service.clock.now_ms()
         committed = self.service.store.commit_transfer(cols, now_ms)
+        audit.note("snapshot_committed_lanes", committed)
         if committed > len(cols):
             # A commit that mints lanes breaks snapshot conservation.
             tracing.record_event(
@@ -401,8 +405,10 @@ class SnapshotManager:
             try:
                 now_ms = self.service.clock.now_ms()
                 cols = self.service.store.snapshot_columns(now_ms)
-                # No ring yet: every file is unfenced (ring_hash 0).
-                size = write_snapshot(self.path, cols, now_ms, ring_hash=0)
+                # Fenced on the ring's fingerprint (0 before set_peers:
+                # an unfenced file).
+                size = write_snapshot(self.path, cols, now_ms,
+                                      ring_hash=getattr(self.service, "ring_hash", 0))
             except Exception as e:  # noqa: BLE001 — a failed dump must
                 # never take the serving path (or shutdown) down.
                 self.saves_failed += 1
@@ -416,6 +422,7 @@ class SnapshotManager:
             self.last_save_bytes = size
             self.saves_ok += 1
             self.saved_lanes += len(cols)
+            audit.note("snapshot_saved_lanes", len(cols))
             logger.debug(
                 "snapshot save (%s): %d lanes, %d bytes, %.1fms",
                 reason, len(cols), size, self.last_save_seconds * 1e3,

@@ -5,7 +5,8 @@ CUDA kernels (nvcc) — are compiled from the package's own sources into
 `gubernator_tpu_torch/_build/` (listed in .gitignore) the first time a
 process needs them.  The output name carries a digest of the sources
 and the command, so an edited source or flag builds a new library and
-a stale one is never loaded.  An exclusive file lock serialises
+a stale one is never loaded; each build that runs is reported to
+telemetry.py with its wall time.  An exclusive file lock serialises
 concurrent builds (test workers, two stores in one process); each
 writes to a unique temporary name and renames it into place.
 """
@@ -16,6 +17,7 @@ import fcntl
 import hashlib
 import os
 import subprocess
+import time
 from typing import Sequence
 
 BUILD_DIR = os.path.join(
@@ -81,6 +83,7 @@ def build_library(name: str, sources: Sequence[str], cmd: Sequence[str],
             objects = [f"{tmp}.{i}.o" for i in range(len(sources))]
             steps = [[[*cmd, "-c", src, "-o", obj] for src, obj in zip(sources, objects)],
                      [[*link, *objects, "-o", tmp]]]
+        t0 = time.perf_counter()
         try:
             for step in steps:
                 outs = _run_all(name, step, timeout_s)
@@ -91,4 +94,7 @@ def build_library(name: str, sources: Sequence[str], cmd: Sequence[str],
                 if os.path.exists(obj):
                     os.remove(obj)
         os.replace(tmp, path)
+    from .. import telemetry
+
+    telemetry.note_compile(f"build:{name}", time.perf_counter() - t0)
     return path

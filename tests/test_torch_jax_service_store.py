@@ -10,7 +10,16 @@ matching JAX store.  The same seeded traffic goes through
 `get_rate_limits_columns_async`; every answer must be identical
 (tolerance 0), and so must the hooks the JAX service reads from its
 store: `occupancy_stats`, `pipeline_depth`, `describe_topology`, the
-stage counts of `take_pipeline_stats`, and the Store SPI's calls.
+stage counts of `take_pipeline_stats`, the batches launched, and the
+Store SPI's calls.
+
+Batches staged at the same time may meet at a store's launch gate and
+launch as one fused group, whose launch stage counts once; whether two
+batches meet depends on thread timing (a request's NO_BATCHING lanes
+launch at once beside its windowed ones), on either package.  So the
+launch stage is held by the batches launched (the sum of the groups'
+sizes, counted at `_launch_group`), which no timing can move; every
+other stage count is compared as it is.
 
 The JAX batcher stages its sampled batch traces in the JAX package's
 tracing module, which the port store does not read: spans are not
@@ -120,9 +129,25 @@ def _answers(svc, clock, traffic):
     return got
 
 
+def _count_launched(store):
+    """Count the batches each launch group carries (both packages'
+    stores launch a group through `_launch_group(group)`)."""
+    counts = {"batches": 0, "groups": 0}
+    launch = store._launch_group
+
+    def counted(group):
+        counts["groups"] += 1
+        counts["batches"] += len(group)
+        return launch(group)
+
+    store._launch_group = counted
+    return counts
+
+
 @pytest.mark.parametrize("form", FORMS)
 def test_jax_service_answers_over_port_stores(form):
     jstore, tstore, jmock, tmock = _stores(form)
+    jlaunched, tlaunched = _count_launched(jstore), _count_launched(tstore)
     jsvc, jclock = _service(jstore)
     tsvc, tclock = _service(tstore)
     try:
@@ -135,7 +160,14 @@ def test_jax_service_answers_over_port_stores(form):
         assert tstore.pipeline_depth() == jstore.pipeline_depth() == 0
         jstats, _, _ = jstore.take_pipeline_stats()
         tstats, depth, _ = tstore.take_pipeline_stats()
+        # Every stage but the launch counts once a batch; the launch
+        # counts once a group, so both sides are held by the batches
+        # their groups carried.
+        for stats, launched in ((jstats, jlaunched), (tstats, tlaunched)):
+            assert stats.get("launch", (0,))[0] == launched["groups"]
+            stats["launch"] = (launched["batches"],)
         assert {k: v[0] for k, v in tstats.items()} == {k: v[0] for k, v in jstats.items()}
+        assert tlaunched["batches"] == jlaunched["batches"] == tstats.get("prepare", (0,))[0]
         assert depth == 0
         if form.startswith("mesh"):
             assert tstore.describe_topology() == jstore.describe_topology() == ("cpu", "8")
