@@ -144,7 +144,34 @@ Phases (any failure exits non-zero and prints no `ok` line):
               (CPU) fed each connection's bodies serially through the
               same gateway handler; `[edge]` lines give checks/s, request
               latency p50 / max, takes and lanes a take, the pump's
-              stats and the K1-K8 launches of each leg.
+              stats and the K1-K8 launches of each leg;
+13. daemon  — the port's server binary as its own process on the card
+              (`python3 -m gubernator_tpu_torch.cmd.server -config
+              FILE -frozen-clock-ms NOW`; GUBER_CACHE_SIZE=2097152,
+              GUBER_BATCH_WAIT=500us, static discovery of itself, the
+              native edge with its pump, a snapshot file): (a) BASELINE
+              config 2 as kind-5 frames through 32 ColumnsV1Clients x
+              16 frames of 1,000 leaky lanes; (b) the same shape over
+              gRPC, 8 GrpcV1Client channels x 8 GetRateLimitsColumns;
+              (c) config 1 NO_BATCHING JSON of 1 and 4 lanes, 8 x 50,
+              GLOBAL lanes with the daemon's own sync between two
+              requests, a monthly batch of 300 configs (K2), a globals
+              frame (K5); (d) GET /metrics: its families == the sets of
+              scripts/check_metrics_parity.py, hits, misses and request
+              counts == the CPU replay's (and the counts == the requests
+              sent); (e) SIGTERM writes the snapshot (K7), a restart
+              from the same file restores it (one K7, one K8) and
+              answers one more request of each kind; (f) a TLS daemon
+              (GUBER_TLS_AUTO=1 on a CA made here, the stdlib gateway)
+              answers JSON over HTTPS and gRPC over TLS.  Every answer
+              of (a)-(f), the snapshot's header and every key's row must
+              equal a port daemon on the plain versions (CPU) in this
+              process fed each connection's requests serially on the
+              same frozen clock; the launches come from the daemon's
+              POST /debug/launches (zeroed before (a), read after (d))
+              and its stop line; `[daemon]` lines give startup s,
+              checks/s and p50 / max of (a) and (b), (c)'s p50, the
+              scrape, save and restore s and each kernel's launches.
 
 The last line is `{"ok": true, "device": {...}}`.  Exits 2 without a
 CUDA device.
@@ -156,6 +183,7 @@ import heapq
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -4178,6 +4206,558 @@ def edge_phase(torch, dev="cuda"):
     return dict(total)
 
 
+# ---------------------------------------------------------------------
+# phase 13: the daemon, as its own process
+# ---------------------------------------------------------------------
+DAEMON_ADDR = "127.0.0.1:9983"  # the daemon's advertised id, its ring of itself
+DAEMON_ENV = {
+    "GUBER_CACHE_SIZE": "2097152",  # the main path's 8 x 262,144 slots
+    "GUBER_BATCH_WAIT": "500us",
+    "GUBER_GLOBAL_SYNC_WAIT": "100ms",  # the daemon's own sync timer
+    "GUBER_PEER_DISCOVERY_TYPE": "static",
+    "GUBER_ADVERTISE_ADDRESS": DAEMON_ADDR,
+    "GUBER_STATIC_PEERS": DAEMON_ADDR,  # static discovery of itself
+}
+DAEMON_CONNS = 32  # (a): phase 12's connections, through ColumnsV1Client
+DAEMON_REQS = 16
+DAEMON_LANES = 1_000
+DAEMON_CHANNELS = 8  # (b): gRPC channels
+DAEMON_CALLS = 8
+DAEMON_NB_CONNS = 8  # (c): NO_BATCHING JSON
+DAEMON_NB_REQS = 50
+DAEMON_SYNC_GAP_S = 1.0  # (c): ten sync periods between the GLOBAL requests
+DAEMON_START_S = 600.0
+DAEMON_TIMEOUT_S = 300.0
+
+
+def parity_families():
+    """REFERENCE_PARITY | EXTENSIONS of scripts/check_metrics_parity.py,
+    read from its source (the script imports the JAX package)."""
+    import ast
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts",
+                        "check_metrics_parity.py")
+    sets = {}
+    for node in ast.parse(open(path).read()).body:
+        if isinstance(node, ast.Assign) and isinstance(node.value, ast.Call) and \
+                node.targets[0].id in ("REFERENCE_PARITY", "EXTENSIONS"):
+            sets[node.targets[0].id] = set(ast.literal_eval(node.value.args[0]))
+    if set(sets) != {"REFERENCE_PARITY", "EXTENSIONS"}:
+        raise AssertionError(f"metric sets not found in {path}")
+    return sets["REFERENCE_PARITY"] | sets["EXTENSIONS"]
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def write_env(path, env):
+    with open(path, "w") as f:
+        f.write("".join(f"{k}={v}\n" for k, v in env.items()))
+
+
+class DaemonProcess:
+    """The port's server binary as a subprocess: stdout read line by
+    line on a thread, stderr to a file."""
+
+    def __init__(self, env_file, err_path, device):
+        import queue
+
+        env = {k: v for k, v in os.environ.items() if not k.startswith("GUBER_")}
+        root = os.path.dirname(os.path.abspath(__file__))
+        env["PYTHONPATH"] = root
+        if device == "cpu":
+            env["GUBER_TORCH_DEVICE"] = "cpu"
+        self.err_path = err_path
+        self._err = open(err_path, "w")
+        self.lines = queue.Queue()
+        t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "gubernator_tpu_torch.cmd.server", "-config", env_file,
+             "-frozen-clock-ms", str(NOW)],
+            cwd=root, env=env, stdout=subprocess.PIPE, stderr=self._err, text=True)
+        threading.Thread(target=self._read, daemon=True).start()
+        line = self.wait_line("listening on http://", DAEMON_START_S)
+        self.startup_s = time.perf_counter() - t0
+        self.http = line.split("http://")[1].split()[0]
+        self.grpc = line.split("grpc ")[1].split(",")[0]
+
+    def _read(self):
+        for line in self.proc.stdout:
+            self.lines.put(line)
+        self.lines.put(None)
+
+    def wait_line(self, needle, timeout_s):
+        import queue
+
+        deadline = time.monotonic() + timeout_s
+        while True:
+            try:
+                line = self.lines.get(timeout=max(deadline - time.monotonic(), 0.01))
+            except queue.Empty:
+                line = None
+            if line is not None and needle in line:
+                return line
+            if line is None or time.monotonic() > deadline:
+                self.kill()
+                with open(self.err_path) as f:
+                    tail = f.read()[-4000:]
+                raise AssertionError(f"the daemon never printed {needle!r} "
+                                     f"(exit {self.proc.poll()}):\n{tail}")
+
+    def stop(self):
+        """SIGTERM; returns (the stop line, seconds to it)."""
+        import signal
+
+        t0 = time.perf_counter()
+        self.proc.send_signal(signal.SIGTERM)
+        line = self.wait_line("stopped", DAEMON_TIMEOUT_S)
+        if self.proc.wait(timeout=DAEMON_TIMEOUT_S) != 0:
+            raise AssertionError(f"the daemon exited {self.proc.returncode}")
+        self._err.close()
+        return line, time.perf_counter() - t0
+
+    def kill(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait(timeout=30)
+        self._err.close()
+
+
+def daemon_traffic():
+    """Phase 13's requests by leg, disjoint keys per leg and connection."""
+    from gubernator_tpu_torch.types import GetRateLimitsRequest, RateLimitRequest
+    from gubernator_tpu_torch.utils import gregorian
+
+    rng = np.random.RandomState(13)
+    per = N_KEYS // DAEMON_CONNS
+
+    def cols(name, keys, algorithm=1, behavior=0, limit=1_000_000, duration=3_600_000):
+        n = len(keys)
+        return ([name] * n, [str(k) for k in keys], np.full(n, algorithm, np.int32),
+                np.full(n, behavior, np.int32) if np.isscalar(behavior)
+                else np.asarray(behavior, np.int32),
+                np.ones(n, np.int64),
+                np.full(n, limit, np.int64) if np.isscalar(limit) else np.asarray(limit, np.int64),
+                np.full(n, duration, np.int64))
+
+    def request(c):
+        return GetRateLimitsRequest(requests=[
+            RateLimitRequest(name=c[0][i], unique_key=c[1][i], algorithm=int(c[2][i]),
+                             behavior=int(c[3][i]), hits=int(c[4][i]), limit=int(c[5][i]),
+                             duration=int(c[6][i])) for i in range(len(c[0]))])
+
+    legs = {}
+    # (a) BASELINE config 2: 1,000 leaky lanes a frame, connection c on
+    # the ids = c mod 32 of a 1,000,000-key Zipf 80/10 space.
+    legs["a"] = [[cols("dmn2", zipf_ids(rng, per, DAEMON_LANES) * DAEMON_CONNS + c)
+                  for _ in range(DAEMON_REQS)] for c in range(DAEMON_CONNS)]
+    # (b) the same shape over gRPC GetRateLimitsColumns.
+    legs["b"] = [[cols("dmn2g", zipf_ids(rng, per, DAEMON_LANES) * DAEMON_CHANNELS + c)
+                  for _ in range(DAEMON_CALLS)] for c in range(DAEMON_CHANNELS)]
+    # (c) BASELINE config 1: NO_BATCHING token requests of 1 and 4 lanes.
+    legs["c"] = [[request(cols("dmn1", rng.randint(0, EXPRESS_KEYS // DAEMON_NB_CONNS,
+                                                     1 + 3 * (k % 2)) * DAEMON_NB_CONNS + c,
+                               algorithm=0, behavior=1, limit=100_000, duration=60_000))
+                  for k in range(DAEMON_NB_REQS)] for c in range(DAEMON_NB_CONNS)]
+    # GLOBAL lanes beside batched ones, twice, a sync between them.
+    legs["g"] = [request(cols("dmng", [f"b{j}" for j in range(8)] + ["gk0", "gk1", "gk2"],
+                              algorithm=0, behavior=[0] * 8 + [2, 2, 2], limit=1_000))
+                 for _ in range(2)]
+    # More than 256 configs, monthly Gregorian: the per-lane column wire (K2).
+    legs["k2"] = request(cols("dmnm", rng.randint(0, 50_000, DAEMON_LANES), behavior=4,
+                              limit=1_000_000 + np.arange(DAEMON_LANES) % 300,
+                              duration=gregorian.GREGORIAN_MONTHS))
+    return legs
+
+
+def result_rows(rc, lo=0, hi=None):
+    """A ColumnarResult's lanes [lo, hi) as comparable bytes."""
+    hi = rc.n if hi is None else hi
+    arrays = b"".join(np.ascontiguousarray(np.asarray(getattr(rc, f))[lo:hi], np.int64).tobytes()
+                      for f in ("status", "limit", "remaining", "reset_time"))
+    over = sorted((i - lo, r.to_json()) for i, r in rc.overrides.items() if lo <= i < hi)
+    return arrays + json.dumps(over).encode()
+
+
+def daemon_legs(http, grpc_addr, legs, concurrent, sleep=time.sleep):
+    """Phase 13 (a)-(c) against the daemon at `http` / `grpc_addr`:
+    concurrent connections (the card) or each connection's requests
+    serially (the replay).  Returns (answers by leg, latencies, walls)."""
+    from gubernator_tpu_torch.client import ColumnsV1Client, GrpcV1Client, V1Client
+
+    answers, lat, wall = {}, collections.defaultdict(list), {}
+    lat_lock = threading.Lock()
+
+    def run(leg, conns, open_client, call):
+        out = [[None] * len(s) for s in conns]
+        errors = []
+
+        def one(c):
+            client = open_client()
+            try:
+                for k, item in enumerate(conns[c]):
+                    t0 = time.perf_counter()
+                    out[c][k] = call(client, item)
+                    with lat_lock:
+                        lat[leg].append(time.perf_counter() - t0)
+            except BaseException as e:  # noqa: BLE001 — raised below, on this thread
+                errors.append(e)
+            finally:
+                client.close()
+
+        t0 = time.perf_counter()
+        if concurrent:
+            threads = [threading.Thread(target=one, args=(c,)) for c in range(len(conns))]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=DAEMON_TIMEOUT_S * 2)
+            if any(t.is_alive() for t in threads):
+                raise AssertionError(f"a phase 13 ({leg}) connection did not finish")
+        else:
+            for c in range(len(conns)):
+                one(c)
+        wall[leg] = time.perf_counter() - t0
+        if errors:
+            raise errors[0]
+        answers[leg] = out
+
+    def frame(client, cols):
+        rc, lo, hi = client.submit_columns(cols).result(timeout=DAEMON_TIMEOUT_S)
+        return result_rows(rc, lo, hi)
+
+    def json_req(client, req):
+        return json.dumps([r.to_json() for r in client.get_rate_limits(req).responses])
+
+    run("a", legs["a"], lambda: ColumnsV1Client(http, timeout_s=DAEMON_TIMEOUT_S,
+                                                connections=1), frame)
+    run("b", legs["b"], lambda: GrpcV1Client(grpc_addr, timeout_s=DAEMON_TIMEOUT_S),
+        lambda client, cols: result_rows(client.get_rate_limits_columns(cols)))
+    run("c", legs["c"], lambda: V1Client(http, timeout_s=DAEMON_TIMEOUT_S), json_req)
+    client = V1Client(http, timeout_s=DAEMON_TIMEOUT_S)
+    try:
+        answers["g"] = [json_req(client, legs["g"][0])]
+        sleep(DAEMON_SYNC_GAP_S)  # the daemon's sync timer runs in the gap
+        answers["g"].append(json_req(client, legs["g"][1]))
+        answers["k2"] = json_req(client, legs["k2"])
+    finally:
+        client.close()
+    with edge_connect(http) as s:
+        answers["globals"] = edge_request(s, "POST", "/v1/peer.UpdatePeerGlobals",
+                                          edge_globals_frame())
+        answers["health"] = edge_request(s, "GET", "/v1/HealthCheck")
+    return answers, lat, wall
+
+
+def daemon_more(http, grpc_addr, legs):
+    """One more request of each kind, after the restart."""
+    from gubernator_tpu_torch.client import ColumnsV1Client, GrpcV1Client, V1Client
+
+    out = []
+    c = ColumnsV1Client(http, timeout_s=DAEMON_TIMEOUT_S, connections=1)
+    try:
+        rc, lo, hi = c.submit_columns(legs["a"][0][0]).result(timeout=DAEMON_TIMEOUT_S)
+        out.append(result_rows(rc, lo, hi))
+    finally:
+        c.close()
+    g = GrpcV1Client(grpc_addr, timeout_s=DAEMON_TIMEOUT_S)
+    try:
+        out.append(result_rows(g.get_rate_limits_columns(legs["b"][0][0])))
+        out.append(g.health_check().to_json())
+    finally:
+        g.close()
+    v = V1Client(http, timeout_s=DAEMON_TIMEOUT_S)
+    try:
+        out.append([r.to_json() for r in v.get_rate_limits(legs["c"][0][1]).responses])
+        out.append([r.to_json() for r in v.get_rate_limits(legs["g"][1]).responses])
+    finally:
+        v.close()
+    return out
+
+
+def same_snapshot(a, b):
+    """Two snapshot files hold the same header and the same row for
+    every key.  Their lane order is the slot tables' key order, which
+    the concurrent connections' arrival order fixes on the card and
+    the serial replay fixes on the CPU, so equal bytes are reported, not
+    required.  Returns whether the bytes are equal."""
+    from gubernator_tpu_torch import snapshot
+
+    if len(a) < 64 or len(a) != len(b):
+        raise AssertionError(f"phase 13: the snapshot file ({len(a)} B) != the CPU "
+                             f"replay's ({len(b)} B)")
+    docs = []
+    for raw in (a, b):
+        with tempfile.NamedTemporaryFile(suffix=".snap") as f:
+            f.write(raw)
+            f.flush()
+            cols, meta = snapshot.read_snapshot(f.name)
+        rows = np.stack([np.asarray(getattr(cols, k), np.int64) for k in
+                         ("algorithm", "status", "limit", "remaining", "duration",
+                          "stamp", "expire_at")], axis=1)
+        docs.append((meta, dict(zip(cols.keys, map(tuple, rows.tolist())))))
+    if docs[0] != docs[1]:
+        raise AssertionError("phase 13: the snapshot's header or a key's row != the CPU "
+                             "replay's")
+    return a == b
+
+
+def metric_values(page, families):
+    """{(sample, labels): value} of `families` on an exposition page."""
+    from prometheus_client.parser import text_string_to_metric_families
+
+    out = {}
+    for fam in text_string_to_metric_families(page):
+        if fam.name in families:
+            for s in fam.samples:
+                if not s.name.endswith("_created"):
+                    out[(s.name, tuple(sorted(s.labels.items())))] = s.value
+    return out
+
+
+def http_json(address, method, path, body=b""):
+    with edge_connect(address) as s:
+        status, _, raw = edge_request(s, method, path, body)
+    if status != 200:
+        raise AssertionError(f"{method} {path}: {status} {raw[:200]!r}")
+    return json.loads(raw)
+
+
+def tls_legs(http, grpc_addr, ca_file):
+    """(f): JSON over HTTPS and gRPC over TLS, trusting `ca_file` (None:
+    the plain replay)."""
+    import grpc
+
+    from gubernator_tpu_torch.client import GrpcV1Client, V1Client
+    from gubernator_tpu_torch.tls import client_context
+    from gubernator_tpu_torch.types import GetRateLimitsRequest, RateLimitRequest
+
+    ctx = client_context(ca_file=ca_file) if ca_file else None
+    creds = None
+    if ca_file:
+        with open(ca_file, "rb") as f:
+            creds = grpc.ssl_channel_credentials(root_certificates=f.read())
+    out = []
+    v = V1Client(http, timeout_s=DAEMON_TIMEOUT_S, tls_context=ctx)
+    g = GrpcV1Client(grpc_addr, timeout_s=DAEMON_TIMEOUT_S, credentials=creds)
+    try:
+        for k in range(4):
+            req = GetRateLimitsRequest(requests=[RateLimitRequest(
+                name="dmnt", unique_key=f"t{(k * 3 + j) % 5}", hits=1, limit=6,
+                duration=60_000, algorithm=k % 2) for j in range(4)])
+            out.append([r.to_json() for r in v.get_rate_limits(req).responses])
+            out.append([r.to_json() for r in g.get_rate_limits(req).responses])
+        out.append(v.health_check().to_json())
+        out.append(g.health_check().to_json())
+    finally:
+        v.close()
+        g.close()
+    return out
+
+
+DAEMON_KERNELS = ("bucket_rounds_dict", "bucket_rounds_cols", "global_answer_rounds",
+                  "global_sync", "set_replica", "clear_gslots", "gather_rows", "write_rows")
+
+
+def daemon_phase(torch, dev="cuda"):
+    """Phase 13: the port's server binary as its own process on the card
+    (BASELINE config 2 frames through ColumnsV1Client, the same shape
+    over gRPC, config 1 NO_BATCHING JSON, GLOBAL lanes and a sync, a K2
+    batch, a globals frame, a /metrics scrape, SIGTERM with its snapshot,
+    a restart that restores it, and a TLS daemon), held answer by answer
+    to a port daemon on the plain versions (CPU) in this process fed each
+    connection's requests serially, both on a frozen clock."""
+    from gubernator_tpu_torch import tls
+    from gubernator_tpu_torch.config import setup_daemon_config
+    from gubernator_tpu_torch.daemon import Daemon
+    from gubernator_tpu_torch.utils.clock import Clock
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-daemon-")
+    legs = daemon_traffic()
+    snap = os.path.join(tmp, "card.snap")
+    env = dict(DAEMON_ENV, GUBER_HTTP_ADDRESS=f"127.0.0.1:{free_port()}",
+               GUBER_GRPC_ADDRESS=f"127.0.0.1:{free_port()}", GUBER_NATIVE_HTTP="1",
+               GUBER_SNAPSHOT=snap)
+    env_file = os.path.join(tmp, "daemon.env")
+    write_env(env_file, env)
+    numbers = {}
+    d = DaemonProcess(env_file, os.path.join(tmp, "daemon.err"), dev)
+    try:
+        numbers["startup_s"] = d.startup_s
+        boot = http_json(d.http, "POST", "/debug/launches")["launches"]  # counts now 0
+        got, lat, wall = daemon_legs(d.http, d.grpc, legs, concurrent=True)
+        t0 = time.perf_counter()
+        with edge_connect(d.http) as s:
+            status, ctype, page = edge_request(s, "GET", "/metrics")
+        numbers["scrape_ms"] = (time.perf_counter() - t0) * 1e3
+        run = http_json(d.http, "POST", "/debug/launches")["launches"]
+        stop_line, numbers["stop_s"] = d.stop()
+    except BaseException:
+        d.kill()
+        raise
+    with open(snap, "rb") as f:
+        card_snap = f.read()
+    save = json.loads(stop_line.split("kernel launches ", 1)[1].rsplit(")", 1)[0])
+    numbers["save_s"] = float(stop_line.split("snapshot save ")[1].split(" s")[0])
+    if status != 200 or not ctype.startswith("text/plain"):
+        raise AssertionError(f"GET /metrics answered {status} {ctype}")
+    page = page.decode()
+    from prometheus_client.parser import text_string_to_metric_families
+
+    families = {f.name for f in text_string_to_metric_families(page)}
+    families = {f for f in families if not f.endswith("_created")}
+    if families != parity_families():
+        raise AssertionError(f"/metrics families != scripts/check_metrics_parity.py: "
+                             f"missing {sorted(parity_families() - families)}, "
+                             f"unexpected {sorted(families - parity_families())}")
+    # The restart restores the snapshot (K7 + K8 at boot) and answers.
+    d = DaemonProcess(env_file, os.path.join(tmp, "daemon2.err"), dev)
+    try:
+        numbers["restart_s"] = d.startup_s
+        restore = http_json(d.http, "POST", "/debug/launches")["launches"]
+        status_doc = http_json(d.http, "GET", "/debug/status")
+        more = daemon_more(d.http, d.grpc, legs)
+        d.stop()
+    except BaseException:
+        d.kill()
+        raise
+    snap_doc = status_doc["snapshot"]
+    numbers["restore_s"] = snap_doc["lastRestoreSeconds"]
+    # (f) a second daemon, TLS on its own certificates from a CA made
+    # here, the stdlib gateway.
+    ca_crt, ca_key = tls.self_ca(tmp)
+    tls_env = dict(DAEMON_ENV, GUBER_HTTP_ADDRESS=f"127.0.0.1:{free_port()}",
+                   GUBER_GRPC_ADDRESS=f"127.0.0.1:{free_port()}", GUBER_TLS_AUTO="1",
+                   GUBER_TLS_CA=ca_crt, GUBER_TLS_CA_KEY=ca_key)
+    tls_file = os.path.join(tmp, "tls.env")
+    write_env(tls_file, tls_env)
+    d = DaemonProcess(tls_file, os.path.join(tmp, "tls.err"), dev)
+    try:
+        numbers["tls_startup_s"] = d.startup_s
+        got_tls = tls_legs(d.http, d.grpc, ca_crt)
+        d.stop()
+    except BaseException:
+        d.kill()
+        raise
+
+    # The replay: a port daemon on the plain versions in this process,
+    # each connection's requests serially, the same frozen clock.
+    t_replay = time.perf_counter()
+
+    def cpu_daemon(extra):
+        conf = setup_daemon_config(env=dict(DAEMON_ENV, GUBER_HTTP_ADDRESS="127.0.0.1:0",
+                                            GUBER_GRPC_ADDRESS="127.0.0.1:0",
+                                            GUBER_TORCH_DEVICE="cpu", **extra))
+        clock = Clock()
+        clock.freeze(NOW)
+        return Daemon(conf, clock=clock).start()
+
+    cpu_snap = os.path.join(tmp, "cpu.snap")
+    ref = cpu_daemon({"GUBER_NATIVE_HTTP": "1", "GUBER_SNAPSHOT": cpu_snap})
+    try:
+        want, _, _ = daemon_legs(ref.gateway.address, ref.grpc.address, legs, concurrent=False)
+        with edge_connect(ref.gateway.address) as s:
+            want_page = edge_request(s, "GET", "/metrics")[2].decode()
+    finally:
+        ref.close()
+    with open(cpu_snap, "rb") as f:
+        cpu_snap_bytes = f.read()
+    ref = cpu_daemon({"GUBER_NATIVE_HTTP": "1", "GUBER_SNAPSHOT": cpu_snap})
+    try:
+        want_more = daemon_more(ref.gateway.address, ref.grpc.address, legs)
+    finally:
+        ref.close()
+    ref = cpu_daemon({})
+    try:
+        want_tls = tls_legs(ref.gateway.address, ref.grpc.address, None)
+    finally:
+        ref.close()
+    numbers["replay_s"] = time.perf_counter() - t_replay
+    shutil.rmtree(tmp, ignore_errors=True)
+
+    for leg in ("a", "b", "c"):
+        for c, (g, w) in enumerate(zip(got[leg], want[leg])):
+            if g != w:
+                k = next(i for i, (x, y) in enumerate(zip(g, w)) if x != y)
+                raise AssertionError(f"phase 13 ({leg}) connection {c} request {k}: "
+                                     "card != CPU replay")
+    for leg in ("g", "k2", "globals", "health"):
+        if got[leg] != want[leg]:
+            raise AssertionError(f"phase 13 ({leg}): card != CPU replay")
+    if more != want_more:
+        raise AssertionError("phase 13 (e): the restarted daemon's answers != CPU replay")
+    if got_tls != want_tls:
+        raise AssertionError("phase 13 (f): the TLS daemon's answers != CPU replay")
+    snap_same = same_snapshot(card_snap, cpu_snap_bytes)
+    if snap_doc["restore"] != "ok" or snap_doc["restoredLanes"] <= 0:
+        raise AssertionError(f"phase 13 (e): the restart restored {snap_doc}")
+    fams = ("gubernator_cache_access_count", "gubernator_cache_size",
+            "gubernator_grpc_request_counts", "gubernator_snapshot_restores",
+            "gubernator_ingress_columns_batches")
+    mine, theirs = metric_values(page, fams), metric_values(want_page, fams)
+    if mine != theirs:
+        raise AssertionError(f"phase 13 (d): /metrics {mine} != the CPU replay's {theirs}")
+    sent = {"/pb.gubernator.V1/GetRateLimits": DAEMON_CONNS * DAEMON_REQS
+            + DAEMON_NB_CONNS * DAEMON_NB_REQS + 3,
+            "/pb.gubernator.V1/GetRateLimitsColumns": DAEMON_CHANNELS * DAEMON_CALLS,
+            "/pb.gubernator.PeersV1/UpdatePeerGlobals": 1,
+            "/pb.gubernator.V1/HealthCheck": 1}
+    counted = {dict(lab)["method"]: v for (name, lab), v in mine.items()
+               if name == "gubernator_grpc_request_counts_total"}
+    if counted != sent:
+        raise AssertionError(f"phase 13 (d): request counts {counted} != sent {sent}")
+    hits = mine[("gubernator_cache_access_count_total", (("type", "hit"),))]
+    misses = mine[("gubernator_cache_access_count_total", (("type", "miss"),))]
+    if dev == "cuda":
+        for k in ("bucket_rounds_dict", "bucket_rounds_cols", "global_answer_rounds",
+                  "global_sync", "set_replica"):
+            if run[k] == 0:
+                raise AssertionError(f"phase 13's run launched no {k}: {run}")
+        if save["gather_rows"] < 1:
+            raise AssertionError(f"the snapshot save launched no K7: {save}")
+        if (restore["gather_rows"], restore["write_rows"]) != (1, 1):
+            raise AssertionError(f"the restore took {restore}, not one K7 and one K8")
+
+    def lat_line(leg):
+        v = np.asarray(lat[leg]) * 1e3
+        return f"request p50 {np.percentile(v, 50):.3f} ms, max {v.max():.3f} ms of {v.size}"
+
+    def k(c):
+        return ", ".join(f"K{i} {c[n]}" for i, n in zip((1, 2, 3, 4, 5, 6, 7, 8), DAEMON_KERNELS))
+
+    log(f"[daemon] startup {numbers['startup_s']:.2f} s (process start to listening: "
+        f"imports, kernel load, warmup; {k(boot)}); restart {numbers['restart_s']:.2f} s; "
+        f"TLS daemon {numbers['tls_startup_s']:.2f} s")
+    log(f"[daemon] (a) BASELINE config 2 through ColumnsV1Client: {DAEMON_CONNS} connections x "
+        f"{DAEMON_REQS} kind-5 frames of {DAEMON_LANES} lanes: "
+        f"{DAEMON_CONNS * DAEMON_REQS * DAEMON_LANES / wall['a']:.0f} checks/s, {lat_line('a')}")
+    log(f"[daemon] (b) the same shape over gRPC GetRateLimitsColumns: {DAEMON_CHANNELS} channels "
+        f"x {DAEMON_CALLS} calls: "
+        f"{DAEMON_CHANNELS * DAEMON_CALLS * DAEMON_LANES / wall['b']:.0f} checks/s, "
+        f"{lat_line('b')}")
+    log(f"[daemon] (c) BASELINE config 1, NO_BATCHING JSON of 1 and 4 lanes, {DAEMON_NB_CONNS} "
+        f"connections x {DAEMON_NB_REQS}: {lat_line('c')}; GLOBAL lanes with a sync between, "
+        f"a 300-config monthly batch, a globals frame")
+    log(f"[daemon] (d) GET /metrics {numbers['scrape_ms']:.3f} ms: {len(families)} families == "
+        f"scripts/check_metrics_parity.py; cache hits {hits:.0f}, misses {misses:.0f}, request "
+        f"counts {json.dumps(counted)} == sent == CPU replay")
+    log(f"[daemon] (e) SIGTERM: snapshot save {numbers['save_s']:.3f} s ({len(card_snap)} B, "
+        f"stop {numbers['stop_s']:.2f} s; {k(save)}); restart restored "
+        f"{snap_doc['restoredLanes']} lanes in {numbers['restore_s']:.3f} s ({k(restore)})")
+    log(f"[daemon] (a)-(d) launches: {k(run)}")
+    log(f"[daemon] card == CPU serial replay: every answer of (a)-(f), the snapshot file's "
+        f"header and every key's row (bytes {'equal' if snap_same else 'equal but for lane order'}"
+        f"), hits/misses and request counts (replay {numbers['replay_s']:.1f} s, phase "
+        f"{time.perf_counter() - t_phase:.1f} s)")
+    return run
+
+
 def main():
     import torch
 
@@ -4209,6 +4789,8 @@ def main():
     serve_phase(torch)
     gc.collect()
     edge_phase(torch)
+    gc.collect()
+    daemon_phase(torch)
     log(smi)  # again, so the tail of a long log names the card and limit
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}), flush=True)

@@ -15,9 +15,8 @@ the reference's own test harness does (cluster/cluster.go:104-110 uses
 The port parses and validates every knob of the JAX package's
 config.py, so one environment yields the same DaemonConfig in both
 (tests/test_torch_config.py).  Knobs of planes the port does not have
-yet (peers, discovery, TLS, the native edge, telemetry, profiling,
-audit, federation, the black box) are parsed and carried; nothing in
-the port reads them.
+yet (peers, discovery beyond static and file, federation, the black
+box) are parsed and carried; nothing in the port reads them.
 """
 
 from __future__ import annotations
@@ -416,9 +415,9 @@ class DaemonConfig:
     # fresh unseeded RNG per node.  Env: GUBER_GOSSIP_SEED.
     gossip_seed: "int | None" = None
     debug: bool = False
-    # TLS (reference tls.go); wraps the gateway listener and the peer
-    # transport when set (TLSConfig above).
-    tls: object = None  # Optional[TLSConfig]
+    # TLS (reference tls.go); wraps the gateway listener, the gRPC port
+    # and the peer transport when set.  See tls.TLSConfig.
+    tls: object = None  # Optional[tls.TLSConfig]
     # The store's device: None = the current CUDA device (raises
     # without one); "cpu" runs the plain versions.
     device: object = None
@@ -443,27 +442,6 @@ def watch_mechanism_from_string(mechanism: str) -> str:
     if mechanism == WATCH_PODS:
         return WATCH_PODS
     raise ValueError(f"unknown watch mechanism specified: {mechanism}")
-
-
-@dataclass
-class TLSConfig:
-    """tls.go:30-104 file paths and switches, as the JAX package's
-    tls.py holds them; the port has no TLS transport yet."""
-
-    ca_file: str = ""
-    ca_key_file: str = ""
-    cert_file: str = ""
-    key_file: str = ""
-    auto_tls: bool = False
-    client_auth: str = ""  # "", "request", "require-and-verify"
-    client_auth_ca_file: str = ""
-    client_auth_cert_file: str = ""
-    client_auth_key_file: str = ""
-    insecure_skip_verify: bool = False
-
-    @property
-    def enabled(self) -> bool:
-        return bool(self.auto_tls or self.cert_file or self.ca_file)
 
 
 def _env_bool(merged: "Dict[str, str]", key: str, default: bool) -> bool:
@@ -579,6 +557,9 @@ def setup_daemon_config(
         )
     conf.uds_path = merged.get("GUBER_UDS_PATH", conf.uds_path)
     conf.data_center = merged.get("GUBER_DATA_CENTER", "")
+    # The store's device (the port's own knob, GUBER_TORCH_DEVICE):
+    # unset = the current CUDA device, "cpu" = the plain versions.
+    conf.device = merged.get("GUBER_TORCH_DEVICE", "").strip() or None
     if merged.get("GUBER_WARMUP_SHAPES"):
         conf.warmup_shapes = [
             int(s) for s in merged["GUBER_WARMUP_SHAPES"].split(",") if s.strip()
@@ -884,6 +865,8 @@ def setup_daemon_config(
         "GUBER_TLS_INSECURE_SKIP_VERIFY",
     )
     if any(merged.get(k) for k in tls_keys):
+        from .tls import TLSConfig
+
         conf.tls = TLSConfig(
             ca_file=merged.get("GUBER_TLS_CA", ""),
             ca_key_file=merged.get("GUBER_TLS_CA_KEY", ""),

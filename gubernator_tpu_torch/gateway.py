@@ -5,22 +5,22 @@ mux (daemon.go:194-239) — POST /v1/GetRateLimits (JSON or a GUBC
 kind-5 frame), GET /v1/HealthCheck, the receiving half of the peer data
 plane (PeersV1: POST /v1/peer.GetPeerRateLimits,
 /v1/peer.UpdatePeerGlobals, /v1/peer.TransferOwnership) and the debug
-routes — answered byte for byte like a JAX node.  Errors render
+routes and GET /metrics — answered byte for byte like a JAX node.  Errors render
 grpc-gateway style: {"code": N, "message": "..."}.  Two edges share
 `handle_request`: the stdlib `GatewayServer` (TLS when configured) and
 the C++ epoll `NativeGatewayServer`, whose `NativeIngressPump` takes
 kind-5 frames natively and dispatches them a coalesced batch at a
 time.
 
-Not served yet, answered as any unknown route (404): GET /metrics (no
-Prometheus registry in the port; `service.metrics` is None, and every
-metrics call is skipped), POST /debug/incident (the black box) and
-POST /v1/peer.UpdateRegionColumns (the federation plane).
+Not served yet, answered as any unknown route (404): POST
+/debug/incident (the black box) and POST /v1/peer.UpdateRegionColumns
+(the federation plane).  The port's own route, which a JAX node answers
+404: GET /debug/launches (each CUDA kernel's launches in the process;
+POST returns them and sets them to 0).
 """
 
 from __future__ import annotations
 
-import contextlib
 import itertools
 import json
 import os
@@ -243,13 +243,6 @@ def handle_request(service: V1Service, method: str, path: str, raw: bytes,
     return _handle_request(service, method, path, raw, headers)
 
 
-def _observe_rpc(service, rpc: str):
-    """The metrics timer of one RPC; nothing while the service has no
-    metrics (the port has no Prometheus registry yet)."""
-    m = service.metrics
-    return m.observe_rpc(rpc) if m is not None else contextlib.nullcontext()
-
-
 def _handle_request(service: V1Service, method: str, path: str, raw: bytes,
                     headers=None):
     try:
@@ -259,9 +252,33 @@ def _handle_request(service: V1Service, method: str, path: str, raw: bytes,
             # breakerOpenCount (peers currently fast-failed by their
             # circuit breaker, faults.py).
             if path in ("/v1/HealthCheck", "/healthz"):
-                with _observe_rpc(service, "/pb.gubernator.V1/HealthCheck"):
+                with service.metrics.observe_rpc("/pb.gubernator.V1/HealthCheck"):
                     hc = service.health_check()
                 return 200, "application/json", _json_bytes(hc.to_json())
+            if path == "/metrics":
+                # Collect-on-scrape: refresh every observer's families
+                # from the live state, then render.  The whole refresh
+                # and render run under the scrape lock: two racing
+                # scrapers must not interleave one's take_pipeline_stats
+                # drain with the other's clear()/set().
+                m = service.metrics
+                with m.scrape_lock:
+                    m.observe_cache(service.store)
+                    m.observe_dispatch(service.store)
+                    m.observe_saturation(service)
+                    m.observe_telemetry(getattr(service.store, "device", None))
+                    m.observe_audit(service)
+                    m.observe_cost(service)
+                    m.observe_native_ingress(service)
+                    m.observe_blackbox(service)
+                    m.observe_peers(
+                        service.get_peer_list()
+                        + list(service.get_region_picker().peers())
+                    )
+                    ctype, payload = m.render_negotiated(
+                        headers.get("Accept", "") if headers else ""
+                    )
+                return 200, ctype, payload
             qpath = urlsplit(path).path
             if qpath in ("/debug/traces", "/debug/events"):
                 return _debug_dump(service, path)
@@ -311,6 +328,8 @@ def _handle_request(service: V1Service, method: str, path: str, raw: bytes,
                 )
             if qpath == "/debug/pprof":
                 return _debug_pprof(path)
+            if qpath == "/debug/launches":
+                return _debug_launches(reset=False)
             return 404, "application/json", _json_bytes(
                 {"code": 5, "message": f"no handler for {path}"}
             )
@@ -318,12 +337,14 @@ def _handle_request(service: V1Service, method: str, path: str, raw: bytes,
             return 404, "application/json", _json_bytes(
                 {"code": 5, "message": f"no handler for {method} {path}"}
             )
+        if path == "/debug/launches":
+            return _debug_launches(reset=True)
         tp = headers.get("traceparent") if headers else None
         if path == "/v1/GetRateLimits":
             # Span OUTSIDE the metrics timer: observe_rpc's exit hook
             # attaches a trace exemplar from the still-active context.
             with tracing.ingress_span("http", path, tp):
-                with _observe_rpc(service, "/pb.gubernator.V1/GetRateLimits"):
+                with service.metrics.observe_rpc("/pb.gubernator.V1/GetRateLimits"):
                     if service.serves_ingress_columns and wire.is_ingress_frame(raw):
                         # Columnar front door: GUBC kind-5 frame in,
                         # kind-6 frame out (no JSON either way).  With
@@ -346,10 +367,9 @@ def _handle_request(service: V1Service, method: str, path: str, raw: bytes,
                         saturation.observe_phase(
                             "response.encode", time.perf_counter() - t_enc
                         )
-                        if service.metrics is not None:
-                            service.metrics.ingress_columns_batches.labels(
-                                encoding="frame"
-                            ).inc()
+                        service.metrics.ingress_columns_batches.labels(
+                            encoding="frame"
+                        ).inc()
                         return 200, wire.COLUMNS_CONTENT_TYPE, rendered
                     t_parse = time.perf_counter()
                     with profiling.scope("ingress.parse"):
@@ -380,7 +400,7 @@ def _handle_request(service: V1Service, method: str, path: str, raw: bytes,
             # the async edge (architecture.md "Columnar pipeline: the
             # peer hop" documents the parity rule).
             with tracing.ingress_span("http", path, tp):
-                with _observe_rpc(service, 
+                with service.metrics.observe_rpc(
                     "/pb.gubernator.PeersV1/GetPeerRateLimits"
                 ):
                     if service.serves_peer_columns and wire.is_columns_frame(raw):
@@ -410,7 +430,7 @@ def _handle_request(service: V1Service, method: str, path: str, raw: bytes,
             # it falls through to the 404 below, exactly what a
             # pre-reshard build answers, which is the sender's version
             # probe (sticky classic fallback).
-            with _observe_rpc(service, 
+            with service.metrics.observe_rpc(
                 "/pb.gubernator.PeersV1/TransferOwnership"
             ):
                 if not wire.is_transfer_frame(raw):
@@ -429,7 +449,7 @@ def _handle_request(service: V1Service, method: str, path: str, raw: bytes,
                 {"committed": committed, "rejected": rejected}
             )
         if path == "/v1/peer.UpdatePeerGlobals":
-            with _observe_rpc(service, 
+            with service.metrics.observe_rpc(
                 "/pb.gubernator.PeersV1/UpdatePeerGlobals"
             ):
                 if service.serves_global_columns and wire.is_globals_frame(raw):
@@ -504,6 +524,20 @@ def _debug_dump(service, path: str):
             ),
         }
     )
+
+
+def _debug_launches(reset: bool):
+    """The port's own diagnostic (a JAX node answers 404): each CUDA
+    kernel's launches in this process, `ops._kernels.LAUNCHES`.  POST
+    returns the counts and sets them to 0, so a caller can count the
+    launches of one stretch of traffic in a daemon it runs as another
+    process."""
+    from .ops import _kernels
+
+    counts = dict(_kernels.LAUNCHES)
+    if reset:
+        _kernels.reset_launch_counts()
+    return 200, "application/json", _json_bytes({"launches": counts})
 
 
 def _debug_pprof(path: str):
@@ -733,10 +767,9 @@ def handle_request_async(service: V1Service, method: str, path: str,
         # Manual observe_rpc: the span covers parse -> response-ready,
         # like the sync context manager covers parse -> render.
         dt = time.perf_counter() - start
-        if metrics is not None:
-            metrics.request_counts.labels(status=status_label, method=rpc).inc()
-            metrics.request_duration.labels(method=rpc).observe(dt)
-            metrics.observe_latency(rpc, dt, ctx=span.ctx if span else None)
+        metrics.request_counts.labels(status=status_label, method=rpc).inc()
+        metrics.request_duration.labels(method=rpc).observe(dt)
+        metrics.observe_latency(rpc, dt, ctx=span.ctx if span else None)
         span.end(status=status_label)
         respond(*triplet)
 
@@ -781,10 +814,9 @@ def handle_request_async(service: V1Service, method: str, path: str,
                         saturation.observe_phase(
                             "response.encode", time.perf_counter() - t_enc
                         )
-                        if metrics is not None:
-                            metrics.ingress_columns_batches.labels(
-                                encoding="frame"
-                            ).inc()
+                        metrics.ingress_columns_batches.labels(
+                            encoding="frame"
+                        ).inc()
                         finish("0", (200, wire.COLUMNS_CONTENT_TYPE, rendered))
                         return
                     with profiling.scope("response.encode"):
@@ -1133,14 +1165,13 @@ class NativeIngressPump:
                     (time.perf_counter() - t_enc) / max(nf, 1),
                 )
                 dt_disp = time.perf_counter() - t0
-                if m is not None:
-                    m.ingress_columns_batches.labels(encoding="frame").inc(nf)
-                    m.request_counts.labels(status="0", method=rpc).inc(nf)
-                    duration = m.request_duration.labels(method=rpc)
-                    for age in ages_s:
-                        dt = float(age) + dt_disp
-                        duration.observe(dt)
-                        m.observe_latency(rpc, dt)
+                m.ingress_columns_batches.labels(encoding="frame").inc(nf)
+                m.request_counts.labels(status="0", method=rpc).inc(nf)
+                duration = m.request_duration.labels(method=rpc)
+                for age in ages_s:
+                    dt = float(age) + dt_disp
+                    duration.observe(dt)
+                    m.observe_latency(rpc, dt)
             except BaseException as e:  # noqa: BLE001
                 self._fail(tb, e)
         finally:
@@ -1152,10 +1183,9 @@ class NativeIngressPump:
         self.batcher.fail(
             tb, status, _HTTP_REASONS.get(status, "Error"), ctype, body
         )
-        if self.service.metrics is not None:
-            self.service.metrics.request_counts.labels(
-                status="1", method="/pb.gubernator.V1/GetRateLimits"
-            ).inc(nf)
+        self.service.metrics.request_counts.labels(
+            status="1", method="/pb.gubernator.V1/GetRateLimits"
+        ).inc(nf)
 
     def stop(self) -> None:
         if self._stopped.is_set():
@@ -1225,7 +1255,7 @@ class NativeGatewayServer:
         # freed server.
         self.pump: "Optional[NativeIngressPump]" = None
         # The service's list of live edges (the /metrics scrape reads
-        # it once metrics.py is ported).
+        # their acceptor stats).
         service.native_edges = getattr(service, "native_edges", [])
         service.native_edges.append(self._edge)
         # Responses not yet handed back to the C++ edge: free() must

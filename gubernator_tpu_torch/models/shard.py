@@ -510,6 +510,13 @@ def _readback(out: torch.Tensor) -> Callable[[], np.ndarray]:
     return fetch
 
 
+def readback_retries_total() -> int:
+    """Readbacks retried (gubernator_readback_retries_total).  The JAX
+    package retries a jax CPU readback flake once; a CUDA readback has
+    no such flake and is never retried, so the count stays 0."""
+    return 0
+
+
 class _SharedFetch:
     """One readback for a fused launch group: the K batches' results
     ride one stacked tensor, copied once; each handle reads its slice."""

@@ -45,6 +45,7 @@ def _load() -> ctypes.CDLL:
     lib.gt_table_free.argtypes = [p]
     lib.gt_table_len.restype = c.c_int64
     lib.gt_table_len.argtypes = [p]
+    lib.gt_table_stats.argtypes = [p, p]
     lib.gt_table_evictions.restype = c.c_int64
     lib.gt_table_evictions.argtypes = [p]
     lib.gt_table_generation.restype = c.c_uint64
@@ -275,7 +276,24 @@ class NativeSlotTable:
     def __len__(self) -> int:
         return int(self._lib.gt_table_len(self._ptr))
 
-    # -- counters (eviction, mapping generation) ---------------------
+    # -- counters (hits, misses, eviction, mapping generation) -------
+    @property
+    def _stats(self) -> Tuple[int, int, int]:
+        out = np.zeros(3, dtype=np.int64)
+        self._lib.gt_table_stats(self._ptr, out.ctypes.data)
+        return int(out[0]), int(out[1]), int(out[2])
+
+    @property
+    def hits(self) -> int:
+        """Lookups that found a live row (a promotion from the back tier
+        included)."""
+        return self._stats[0]
+
+    @property
+    def misses(self) -> int:
+        """Lookups that created a row or recycled an expired one."""
+        return self._stats[1]
+
     @property
     def generation(self) -> int:
         """Key->slot mapping-change counter (Table::map_generation);

@@ -78,7 +78,10 @@ struct Table {
   int32_t lru_head = -1, lru_tail = -1;
   std::vector<int32_t> free_slots;  // stack, top = back
   std::unordered_map<std::string, int32_t> key_to_slot;
-  int64_t evictions = 0;  // read by the grouped planners
+  // Cache hits and misses of lookup_or_assign (the /metrics
+  // gubernator_cache_access_count source), counted where the JAX
+  // runtime counts them; evictions are read by the grouped planners.
+  int64_t hits = 0, misses = 0, evictions = 0;
   // Bumped on every key->slot MAPPING change (assign, remap, evict,
   // remove).  NOT bumped by in-place expiry reuse (same key, same slot)
   // or value/expire writes.  Lets the GLOBAL sync skip owner-slot
@@ -302,8 +305,12 @@ struct Table {
       // Strict expiry (cache.go:151); an uncommitted in-flight write
       // makes the device row authoritative regardless of the stale
       // host expire (pipelined batches — the kernel revalidates).
-      if (expire_ms[s] >= now_ms || pending_write[s] > 0) return {s, true};
-      return {s, false};  // expired: recycle same slot in place
+      if (expire_ms[s] >= now_ms || pending_write[s] > 0) {
+        ++hits;
+        return {s, true};
+      }
+      ++misses;  // expired: recycle same slot in place
+      return {s, false};
     }
     // Two-tier: a live row demoted to the back tier promotes (a
     // logical cache hit: the state survives the round trip).
@@ -320,6 +327,7 @@ struct Table {
         }
       }
     }
+    if (promo_b >= 0) ++hits; else ++misses;
     promo_in_flight = promo_b;  // shield the source from FIFO reuse
     int32_t s;
     if (!free_slots.empty()) {
@@ -441,6 +449,12 @@ int32_t gt_table_get_slot(void* tv, const char* key, int64_t len) {
   GT_LOCK(t);
   auto it = t->key_to_slot.find(std::string(key, (size_t)len));
   return it == t->key_to_slot.end() ? -1 : it->second;
+}
+
+void gt_table_stats(void* tv, int64_t* out) {  // hits, misses, evictions
+  Table* t = (Table*)tv;
+  GT_LOCK(t);
+  out[0] = t->hits; out[1] = t->misses; out[2] = t->evictions;
 }
 
 // Evictions so far: plan_grouped_python reads it around every lookup to

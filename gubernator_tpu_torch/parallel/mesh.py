@@ -1009,8 +1009,8 @@ class MeshBucketStore(ColumnarPipeline):
         Launches: a GLOBAL lane (answer rounds, K3), the GLOBAL sync
         (K4), a one-lane replica commit (K5), with a back tier one empty
         tier-move window (K9), and per shape of `warm_shapes` (lane
-        counts) one dict-wire batch (K1) and one wide per-lane-column
-        batch (K2)."""
+        counts) two dict-wire batches (K1) and two wide per-lane-column
+        batches (K2), one of distinct keys and one of a key repeated."""
         req = RateLimitRequest(
             name="__warmup__", unique_key="__warmup__", hits=0, limit=1,
             duration=1, behavior=Behavior.GLOBAL,
@@ -1036,15 +1036,19 @@ class MeshBucketStore(ColumnarPipeline):
                 self.move_dispatches += 1
         if self.store is not None:
             return
+        # Each shape twice, distinct keys and one key repeated, as the
+        # JAX warmup does: the tables then count the same hits and
+        # misses as a JAX daemon's (gubernator_cache_access_count).
         for lanes in sorted({max(int(n), 1) for n in (warm_shapes or (1,))}):
-            keys = [f"__warmup__:{i}" for i in range(lanes)]
-            for wire in (None, "wide"):
-                self.apply_columns(
-                    keys,
-                    np.zeros(lanes, np.int32), np.zeros(lanes, np.int32),
-                    np.zeros(lanes, np.int64), np.ones(lanes, np.int64),
-                    np.ones(lanes, np.int64), now_ms, force_wire=wire,
-                )
+            for keys in ([f"__warmup__:{i}" for i in range(lanes)],
+                         ["__warmup__:0"] * lanes):
+                for wire in (None, "wide"):
+                    self.apply_columns(
+                        keys,
+                        np.zeros(lanes, np.int32), np.zeros(lanes, np.int32),
+                        np.zeros(lanes, np.int64), np.ones(lanes, np.int64),
+                        np.ones(lanes, np.int64), now_ms, force_wire=wire,
+                    )
 
     @_drained_locked
     def check_consistency(self) -> None:

@@ -36,8 +36,9 @@ and `transfer_ownership` (the epoch fence, then one merge-commit).
 The gateway (gateway.py) reads the members built here: the flight
 recorder, the SLO engine, the hot-key sketch, the tenant ledger, the
 conservation auditor and the native ingress pump's hook.  `metrics` is
-None: every metrics call of the JAX service is skipped, as in a JAX
-service built without Prometheus.
+the config's `Metrics` or a new one (metrics.py), never None: the
+gateway's /metrics route and the gRPC interceptor read it, and the SLO
+engine gets its latency samples through it.
 
 Not here (they need peers): forwarding, the handoff peek, MULTI_REGION,
 the sending half of resharding, and the GlobalManager's broadcast and
@@ -54,7 +55,7 @@ from collections import deque
 from concurrent.futures import Future, ThreadPoolExecutor
 from dataclasses import dataclass, field
 from functools import partial
-from typing import Callable, Dict, List, Optional, Sequence
+from typing import TYPE_CHECKING, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 
@@ -93,6 +94,9 @@ N_SHARDS = 8  # the JAX service's shard count on an 8-device mesh
 ERR_BATCHER_CLOSED = "local batcher is closed"
 ERR_EMPTY_KEY = "field 'unique_key' cannot be empty"
 ERR_EMPTY_NAME = "field 'namespace' cannot be empty"
+
+if TYPE_CHECKING:  # metrics.py imports prometheus_client: only a service needs it
+    from .metrics import Metrics
 
 logger = category_logger("gubernator")
 
@@ -150,10 +154,10 @@ class _IngressGate:
     the bound off: the express bypass reads `queued` as its
     shallow-queue signal."""
 
-    def __init__(self, cap: int, track: bool = False):
+    def __init__(self, cap: int, metrics: Optional[Metrics], track: bool = False):
         self.cap = cap
         self.track = track
-        self.shed_lanes = 0
+        self.metrics = metrics
         self._queued = 0
         self._mu = threading.Lock()
 
@@ -168,7 +172,6 @@ class _IngressGate:
         with self._mu:
             if self.cap > 0 and self._queued + lanes > self.cap:
                 queued = self._queued
-                self.shed_lanes += lanes
                 shed = True
             else:
                 self._queued += lanes
@@ -177,6 +180,8 @@ class _IngressGate:
         # Post-admit depth (a shed samples the at-capacity depth).
         saturation.observe_queue_depth(queued)
         if shed:
+            if self.metrics is not None:
+                self.metrics.ingress_shed.inc(lanes)
             tracing.record_event("shed", lanes=lanes, queued=queued, cap=self.cap)
             raise IngressShedError(queued, self.cap)
 
@@ -220,6 +225,18 @@ class ServiceConfig:
     # This node's address (its id in the ring) and data center.
     advertise_address: str = ""
     data_center: str = ""
+    # Prometheus families (metrics.py); None = a new Metrics of its own.
+    metrics: Optional[Metrics] = None
+    # Peer transport credentials (an ssl.SSLContext for the HTTP
+    # transport, grpc.ChannelCredentials for gRPC), stored for the peer
+    # clients of slice A2; a node alone dials no peer.
+    peer_tls_context: object = None
+    peer_channel_credentials: object = None
+    # A faults.FaultPlan for the peer clients (slice A2) and the
+    # incident black box's bundle directory (slice A6): the port has
+    # neither plane yet, so any value but None / "" raises.
+    fault_plan: object = None
+    blackbox_dir: str = ""
 
 
 class _ExpressPolicy:
@@ -266,11 +283,12 @@ class LocalBatcher:
     `store.apply`.  Under the express lane a shallow queue's submission
     evaluates at once on the caller's thread."""
 
-    def __init__(self, store, behaviors: BehaviorConfig, clock: Clock):
+    def __init__(self, store, behaviors: BehaviorConfig, clock: Clock,
+                 metrics: Optional[Metrics] = None):
         self.store = store
         self.clock = clock
         self._express = _ExpressPolicy(behaviors)
-        self._gate = _IngressGate(behaviors.ingress_queue_lanes,
+        self._gate = _IngressGate(behaviors.ingress_queue_lanes, metrics,
                                   track=self._express.enabled)
         self._window = BatchWindow(
             self._flush, behaviors.batch_wait_s, behaviors.batch_limit,
@@ -681,11 +699,12 @@ class ColumnarBatcher:
     # when this many of its own launches are unresolved.
     MAX_INFLIGHT = 8
 
-    def __init__(self, store, behaviors: BehaviorConfig, clock: Clock):
+    def __init__(self, store, behaviors: BehaviorConfig, clock: Clock,
+                 metrics: Optional[Metrics] = None):
         self.store = store
         self.clock = clock
         self._express = _ExpressPolicy(behaviors)
-        self._gate = _IngressGate(behaviors.ingress_queue_lanes,
+        self._gate = _IngressGate(behaviors.ingress_queue_lanes, metrics,
                                   track=self._express.enabled)
         self._own_inflight: deque = deque()
         # _flush can run on two threads at once (a worker stuck past
@@ -869,8 +888,19 @@ class ColumnarBatcher:
 
 class V1Service:
     def __init__(self, conf: ServiceConfig):
+        if conf.fault_plan is not None:
+            raise NotImplementedError(
+                "ServiceConfig.fault_plan drives the peer clients' fault "
+                "injection (faults.py), which comes with slice A2 (peers)")
+        if conf.blackbox_dir:
+            raise NotImplementedError(
+                "ServiceConfig.blackbox_dir needs the incident black box "
+                "(blackbox.py), which comes with slice A6")
+        from .metrics import Metrics
+
         self.conf = conf
         self.clock = conf.clock
+        self.metrics = conf.metrics or Metrics()
         self.store = conf.store or MeshBucketStore(
             capacity_per_shard=max(conf.cache_size // N_SHARDS, 1),
             device=conf.device,
@@ -882,11 +912,11 @@ class V1Service:
             back_capacity_per_shard=-(-conf.back_cache_size // N_SHARDS)
             if conf.back_cache_size > 0 else 0,
         )
+        # gubernator_build_info: the store's topology is fixed for the
+        # service's lifetime.
+        self.metrics.set_build_info(self.store)
         self._closed = False
         self._started_monotonic = time.monotonic()
-        # No Prometheus registry in the port yet: every metrics call of
-        # the JAX service is skipped (a JAX service without metrics).
-        self.metrics = None
         # Membership: the ring of this node alone once set_peers ran
         # (empty before it: the node owns every key either way).  The
         # ring fields are guarded by _peer_mutex.
@@ -928,8 +958,10 @@ class V1Service:
             interval_s=conf.behaviors.snapshot_interval_s)
         self.snapshots.restore()
         self.snapshots.start()
-        self.local_batcher = LocalBatcher(self.store, conf.behaviors, self.clock)
-        self.columnar_batcher = ColumnarBatcher(self.store, conf.behaviors, self.clock)
+        self.local_batcher = LocalBatcher(self.store, conf.behaviors, self.clock,
+                                          metrics=self.metrics)
+        self.columnar_batcher = ColumnarBatcher(self.store, conf.behaviors, self.clock,
+                                                metrics=self.metrics)
         # The express lane's host scalar slot is a service policy (bare
         # stores keep it off); the store serves it only on the CPU.
         if conf.behaviors.express and conf.behaviors.express_scalar:
@@ -940,6 +972,9 @@ class V1Service:
         # served at GET /debug/hotkeys.
         b = conf.behaviors
         self.slo = saturation.SloEngine(b.latency_target_ms, b.slo_objective)
+        # The SLO engine judges every GetRateLimits through
+        # metrics.observe_latency.
+        self.metrics.slo = self.slo
         self.hotkeys = saturation.HotKeySketch()
         # Cost observatory: the per-tenant cost ledger, folded beside
         # every audit ingress note.  The host sampler is process-wide
@@ -1638,8 +1673,7 @@ class V1Service:
             "ingress": {
                 "queuedLanes": self.ingress_queued_lanes(),
                 "capLanes": b.ingress_queue_lanes,
-                "shedLanes": self.local_batcher._gate.shed_lanes
-                + self.columnar_batcher._gate.shed_lanes,
+                "shedLanes": int(self.metrics.ingress_shed._value.get()),  # noqa: SLF001
                 "depth": saturation.queue_depth_snapshot(),
                 "windowWaitS": round(self.columnar_batcher._window.effective_wait_s(), 6),
             },

@@ -351,14 +351,19 @@ class SnapshotManager:
         if not self.enabled:
             return 0
         self._sweep_orphan_temps()
+        m = getattr(self.service, "metrics", None)
         if not os.path.exists(self.path):
             self.restore_result = "absent"
+            if m is not None:
+                m.snapshot_restores.labels(result="absent").inc()
             return 0
         t0 = time.perf_counter()
         try:
             cols, meta = read_snapshot(self.path)
         except (SnapshotError, OSError) as e:
             self.restore_result = "rejected"
+            if m is not None:
+                m.snapshot_restores.labels(result="rejected").inc()
             tracing.record_event(
                 "snapshot-rejected", path=self.path, reason=str(e)
             )
@@ -372,6 +377,10 @@ class SnapshotManager:
         audit.note("snapshot_committed_lanes", committed)
         if committed > len(cols):
             # A commit that mints lanes breaks snapshot conservation.
+            # Counted here, not by the windowed Auditor: it is built
+            # after the boot restore and baselines these notes away.
+            if m is not None:
+                m.audit_violations.labels(invariant="snapshot_restore").inc()
             tracing.record_event(
                 "audit-violation", invariant="snapshot_restore",
                 excess=committed - len(cols),
@@ -384,6 +393,9 @@ class SnapshotManager:
         self.restored_lanes = committed
         self.restore_result = "ok"
         self.restored_ring_hash = meta["ring_hash"] or None
+        if m is not None:
+            m.snapshot_restores.labels(result="ok").inc()
+            m.snapshot_lanes.labels(direction="restored").inc(committed)
         logger.info(
             "restored %d/%d snapshot lanes from %s "
             "(saved_at_ms=%d ring=%016x, %.1fms)",
@@ -400,6 +412,7 @@ class SnapshotManager:
         success."""
         if not self.enabled:
             return False
+        m = getattr(self.service, "metrics", None)
         with self._save_lock:
             t0 = time.perf_counter()
             try:
@@ -412,6 +425,8 @@ class SnapshotManager:
             except Exception as e:  # noqa: BLE001 — a failed dump must
                 # never take the serving path (or shutdown) down.
                 self.saves_failed += 1
+                if m is not None:
+                    m.snapshot_writes.labels(result="error").inc()
                 logger.warning(
                     "snapshot save (%s) to %s failed: %s",
                     reason, self.path, e,
@@ -423,6 +438,9 @@ class SnapshotManager:
             self.saves_ok += 1
             self.saved_lanes += len(cols)
             audit.note("snapshot_saved_lanes", len(cols))
+            if m is not None:
+                m.snapshot_writes.labels(result="ok").inc()
+                m.snapshot_lanes.labels(direction="saved").inc(len(cols))
             logger.debug(
                 "snapshot save (%s): %d lanes, %d bytes, %.1fms",
                 reason, len(cols), size, self.last_save_seconds * 1e3,

@@ -99,6 +99,10 @@ _steady_recompiles: Dict[str, int] = {}
 # label -> [count, total_s, max_s] execution (enqueue) wall; drained
 # per metrics scrape (the dispatch-stage gauge convention)
 _exec_stats: Dict[str, list] = {}
+# label -> count of programs created: builds (`build:<name>`) and
+# first launches (`first-launch:<kernel>`), the port's counterpart of
+# the JAX program caches' creations
+_programs_created: Dict[str, int] = {}
 _steady = False
 _recent_steady_compiles: "deque[float]" = deque()
 _storms = 0
@@ -124,6 +128,17 @@ def set_storm(threshold: int, window_s: float) -> None:
 
 def enabled() -> bool:
     return _ENABLED
+
+
+def note_program_created(label: str) -> None:
+    """One device program came into being: a library build
+    (`utils/build.py`) or a kernel's first launch (`ops/_kernels.py`),
+    counted so the program population is visible beside the compile
+    counters."""
+    if not _ENABLED:
+        return
+    with _lock:
+        _programs_created[label] = _programs_created.get(label, 0) + 1
 
 
 def note_compile(label: str, dur_s: float) -> None:
@@ -174,7 +189,9 @@ def note_launch(kernel: str) -> None:
         if kernel in _launched:
             return
         _launched.add(kernel)
-    note_compile(f"first-launch:{kernel}", 0.0)
+    label = f"first-launch:{kernel}"
+    note_program_created(label)
+    note_compile(label, 0.0)
 
 
 # ---------------------------------------------------------------------
@@ -239,6 +256,14 @@ def program(label: str):
 # ---------------------------------------------------------------------
 # Warmup fencing
 # ---------------------------------------------------------------------
+def begin_warmup() -> None:
+    """Re-open the warmup window (daemon startup; each daemon start in
+    one process re-opens it)."""
+    global _steady
+    with _lock:
+        _steady = False
+
+
 def mark_steady() -> None:
     """Warmup complete: from here on every backend compile counts as a
     steady-state recompile (shape churn)."""
@@ -246,6 +271,10 @@ def mark_steady() -> None:
     with _lock:
         _steady = True
         _recent_steady_compiles.clear()
+
+
+def is_steady() -> bool:
+    return _steady
 
 
 # ---------------------------------------------------------------------
@@ -296,6 +325,7 @@ def snapshot() -> dict:
             for label, st in sorted(_exec_stats.items())
         }
         storms = _storms
+        created = dict(sorted(_programs_created.items()))
     return {
         "enabled": _ENABLED,
         "steady": _steady,
@@ -306,9 +336,9 @@ def snapshot() -> dict:
         "stormThreshold": STORM_THRESHOLD,
         "stormWindowS": STORM_WINDOW_S,
         "programRuns": exec_view,
-        # The JAX package's program-cache creations; the port's fused
-        # launch groups reuse K1 and create no program.
-        "programsCreated": {},
+        # Builds and first launches (note_program_created); the port's
+        # fused launch groups reuse K1 and create no program.
+        "programsCreated": created,
     }
 
 
@@ -348,6 +378,7 @@ def reset(steady: bool = False) -> None:
         _steady_recompiles.clear()
         _exec_stats.clear()
         _recent_steady_compiles.clear()
+        _programs_created.clear()
         _steady = steady
         _storms = 0
         _last_storm[0] = -float("inf")

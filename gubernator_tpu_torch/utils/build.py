@@ -96,5 +96,6 @@ def build_library(name: str, sources: Sequence[str], cmd: Sequence[str],
         os.replace(tmp, path)
     from .. import telemetry
 
+    telemetry.note_program_created(f"build:{name}")
     telemetry.note_compile(f"build:{name}", time.perf_counter() - t0)
     return path

@@ -44,6 +44,9 @@ setup(
             "gubernator-tpu=gubernator_tpu.cmd.server:main",
             "gubernator-tpu-cli=gubernator_tpu.cmd.cli:main",
             "gubernator-tpu-cluster=gubernator_tpu.cmd.cluster_main:main",
+            "gubernator-tpu-torch=gubernator_tpu_torch.cmd.server:main",
+            "gubernator-tpu-torch-cli=gubernator_tpu_torch.cmd.cli:main",
+            "gubernator-tpu-torch-cluster=gubernator_tpu_torch.cmd.cluster_main:main",
         ]
     },
 )

@@ -53,7 +53,12 @@ def _unsampled():
 
 
 def _nodes(clock, snapshot_dir):
-    kw = dict(global_sync_wait_s=3600.0, audit_interval_s=3600.0, tenant_topk=4)
+    # A 50 ms window: a request's GLOBAL lanes (the dataclass router)
+    # then finish before its batched lanes' window flushes on both
+    # services, so a key in both groups answers in one order on both
+    # (with the 500 µs default that order follows the host's load).
+    kw = dict(global_sync_wait_s=3600.0, audit_interval_s=3600.0, tenant_topk=4,
+              batch_wait_s=0.05)
     js = JService(JConfig(cache_size=2048, clock=clock, advertise_address=ADDR,
                           behaviors=JBehaviors(**kw),
                           snapshot_path=str(snapshot_dir / "jax.snap")))

@@ -12,9 +12,10 @@ same status, content type and body (tolerance 0), through
 and the native `NativeGatewayServer` with its ingress pump.  The debug
 routes answer 200 with the same keys.
 
-Known differences, pinned here: GET /metrics and POST /debug/incident
-answer 404 on the port (no Prometheus registry and no black box yet),
-and /debug/status has no `blackbox` or `region` section.
+GET /metrics answers 200 with the same families (their values are
+held to JAX's in tests/test_torch_metrics.py).  Known differences,
+pinned here: POST /debug/incident answers 404 on the port (no black box
+yet), and /debug/status has no `blackbox` or `region` section.
 
 Every socket operation has a timeout, and no test orders on a sleep.
 """
@@ -353,11 +354,19 @@ def test_region_columns_route_falls_through_alike():
 
 
 def test_routes_the_port_does_not_serve_yet(nodes):
-    """The documented differences: no /metrics and no incident bundle."""
+    """The documented difference: no incident bundle.  GET /metrics is
+    served since the daemon slice, with JAX's content type and
+    families."""
     js, ts, _ = nodes
-    assert jgw.handle_request(js, "GET", "/metrics", b"")[0] == 200
-    assert tgw.handle_request(ts, "GET", "/metrics", b"") == (
-        404, "application/json", b'{"code": 5, "message": "no handler for /metrics"}')
+    a = jgw.handle_request(js, "GET", "/metrics", b"")
+    b = tgw.handle_request(ts, "GET", "/metrics", b"")
+    assert a[:2] == b[:2] == (200, "text/plain; version=0.0.4")
+
+    def families(page):
+        return {line.split()[2] for line in page.decode().splitlines()
+                if line.startswith("# TYPE ") and not line.split()[2].endswith("_created")}
+
+    assert families(b[2]) == families(a[2])
     assert tgw.handle_request(ts, "POST", "/debug/incident", b"{}") == (
         404, "application/json", b'{"code": 5, "message": "no handler for /debug/incident"}')
 
@@ -622,3 +631,24 @@ def test_pump_ring_follows_set_peers():
     finally:
         srv.close()
         ts.close()
+
+
+def test_debug_launches_is_the_ports_own_route(nodes):
+    """GET /debug/launches answers each CUDA kernel's launch count in the
+    process (a JAX node: 404); POST answers them and sets them to 0."""
+    from gubernator_tpu_torch.ops import _kernels
+
+    js, ts, _ = nodes
+    assert jgw.handle_request(js, "GET", "/debug/launches", b"")[0] == 404
+    saved = dict(_kernels.LAUNCHES)
+    try:
+        _kernels.reset_launch_counts()
+        _kernels.LAUNCHES["gather_rows"] = 2
+        st, ctype, body = tgw.handle_request(ts, "GET", "/debug/launches", b"")
+        assert (st, ctype) == (200, "application/json")
+        assert json.loads(body)["launches"] == dict(_kernels.LAUNCHES)
+        got = tgw.handle_request(ts, "POST", "/debug/launches", b"")
+        assert json.loads(got[2])["launches"]["gather_rows"] == 2
+        assert not any(_kernels.LAUNCHES.values())
+    finally:
+        _kernels.LAUNCHES.update(saved)

@@ -54,8 +54,9 @@ def test_global_plane_modules_are_covered():
     """The GLOBAL, persistence and one-shard store modules (the K10
     binding lives in ops._kernels), the serving tier's leaf modules and
     the HTTP edge's (ring, audit, profiling, telemetry, the pb modules,
-    wire, gateway) are among those the two checks above import with JAX
-    absent and scan for imports."""
+    wire, gateway) and the daemon's (metrics, tls, grpc_server, peers,
+    daemon, client, the cmd binaries) are among those the two checks
+    above import with JAX absent and scan for imports."""
     mods = set(_modules())
     for m in ("ops.global_ops", "parallel.global_mgr", "utils.interval",
               "parallel.mesh", "service", "ops._kernels", "store", "reshard",
@@ -63,13 +64,18 @@ def test_global_plane_modules_are_covered():
               "config", "utils.logging", "utils.batch_window", "tracing",
               "saturation", "utils.net", "parallel.hash_ring", "parallel.region",
               "audit", "profiling", "telemetry", "proto", "proto.gubernator_pb2",
-              "proto.peers_pb2", "proto.peers_columns_pb2", "wire", "gateway"):
+              "proto.peers_pb2", "proto.peers_columns_pb2", "wire", "gateway",
+              "metrics", "tls", "grpc_server", "peers", "daemon", "client",
+              "cmd", "cmd.server", "cmd.cli", "cmd.cluster_main"):
         assert f"gubernator_tpu_torch.{m}" in mods, m
 
 
 def test_no_jax_or_reference_imports_in_sources():
-    files = [os.path.join(ROOT, "chip_smoke.py"),
-             os.path.join(ROOT, "scripts", "torch_rounds_ab.py")]
+    scripts = os.path.join(ROOT, "scripts")
+    files = [os.path.join(ROOT, "chip_smoke.py")] + sorted(
+        os.path.join(scripts, n) for n in os.listdir(scripts)
+        if n.startswith("torch_") and n.endswith(".py"))
+    assert {"torch_rounds_ab.py", "torch_serve_ab.py"} <= {os.path.basename(f) for f in files}
     for dirpath, _, names in os.walk(PKG):
         files += [os.path.join(dirpath, n) for n in names if n.endswith(".py")]
     assert len(files) > 10

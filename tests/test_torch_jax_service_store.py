@@ -193,9 +193,10 @@ def test_two_tier_with_a_store_spi_is_refused_by_both():
 @pytest.mark.parametrize("back", [0, 16])
 def test_mesh_load_item_and_warmup_match(back, monkeypatch):
     """load_item routes an item to its owner shard with one row write;
-    warmup launches every serving kernel once (a dict-wire and a
-    per-lane-column batch per shape) on reserved keys that stay out of
-    snapshots.  Both stores must end with the same rows."""
+    warmup launches every serving kernel (a dict-wire and a
+    per-lane-column batch per shape, of distinct keys and of a key
+    repeated) on reserved keys that stay out of snapshots.  Both stores
+    must end with the same rows and the same table hits and misses."""
     from gubernator_tpu_torch.ops import buckets, global_ops
 
     calls = {}
@@ -228,10 +229,12 @@ def test_mesh_load_item_and_warmup_match(back, monkeypatch):
     jstore.warmup(NOW, [1, 5])
     tstore.warmup(NOW, [1, 5])
     assert calls == {"answer_rounds": 1, "global_sync": 1, "set_replica": 1,
-                     "bucket_rounds_dict": 2, "bucket_rounds_cols": 2,
+                     "bucket_rounds_dict": 4, "bucket_rounds_cols": 4,
                      **({"apply_moves": 1} if back else {})}
     jcols, tcols = jstore.snapshot_columns(NOW), tstore.snapshot_columns(NOW)
     assert tcols.keys == jcols.keys and sorted(tcols.keys) == sorted(i.key for i in items)
     for f in ("algorithm", "status", "limit", "remaining", "duration", "stamp", "expire_at"):
         np.testing.assert_array_equal(getattr(tcols, f), np.asarray(getattr(jcols, f)), f)
     assert tstore.occupancy_stats() == jstore.occupancy_stats()
+    assert [(t.hits, t.misses) for t in tstore.tables] == [
+        (t.hits, t.misses) for t in jstore.tables]
