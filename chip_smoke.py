@@ -171,7 +171,36 @@ Phases (any failure exits non-zero and prints no `ok` line):
               POST /debug/launches (zeroed before (a), read after (d))
               and its stop line; `[daemon]` lines give startup s,
               checks/s and p50 / max of (a) and (b), (c)'s p50, the
-              scrape, save and restore s and each kernel's launches.
+              scrape, save and restore s and each kernel's launches;
+14. cluster — four of the port's server binaries as one cluster on the
+              card (the reference's docker-compose.yaml gubernator-1 to
+              -4, with file discovery; phase 13's size each): nodes 1-3
+              start from a peers file listing the three, node 4 from one
+              listing all four; (a) BASELINE config 2 frames through 32
+              ColumnsV1Clients x 16 over nodes 1-3, about two thirds of
+              each frame forwarded to its owners, and a 300-config
+              monthly batch of keys node 1 owns (K2); (b) config 4's 64
+              hot keys as GLOBAL lanes from nodes 1-3, the daemons' own
+              sync timers, until every node reads the owner's exact
+              count; (c) nodes 1-3's file rewritten to list all four:
+              the old owners drain the keys they no longer own (K7) and
+              transfer them to node 4 (K8); once every reshard plane is
+              idle and the double-dispatch window closed, 32 x 4 more
+              frames over all four; (d) each node's /metrics (every
+              breaker closed, its forwarded frames), its launches
+              (POST /debug/launches, zeroed before (a) and read after
+              each leg) and SIGTERM with its snapshot.  Every answer of
+              (a) and (c) and the K2 batch equal a port node on the
+              plain versions (CPU) in this process fed each
+              connection's requests serially; each answer's owner is
+              the ring's; each key's row lives in exactly one node's
+              snapshot, its owner's under the four-node ring, and
+              equals the replay's; `[cluster]` lines, each beside the
+              card's name and power limit, give each node's startup,
+              (a)'s and (c)'s checks/s and p50 / max, the lanes and
+              frames forwarded, (b)'s GLOBAL apply p50 and time to
+              convergence, the handoff's seconds, keys and bytes, and
+              each node's K1-K8 launches by leg.
 
 The last line is `{"ok": true, "device": {...}}`.  Exits 2 without a
 CUDA device.
@@ -4758,6 +4787,490 @@ def daemon_phase(torch, dev="cuda"):
     return run
 
 
+# ---------------------------------------------------------------------
+# phase 14: a cluster of four server binaries on the one card
+# ---------------------------------------------------------------------
+# The reference's own cluster (docker-compose.yaml, gubernator-1 to
+# gubernator-4), with file discovery in place of its member list.  Each
+# node at phase 13's size.
+CLUSTER_NODES = 4
+CLUSTER_ENV = {
+    "GUBER_CACHE_SIZE": "2097152",  # 8 x 262,144 slots a node
+    "GUBER_BATCH_WAIT": "500us",
+    "GUBER_GLOBAL_SYNC_WAIT": "100ms",  # each daemon's own sync timer
+    "GUBER_PEER_DISCOVERY_TYPE": "file",
+    "GUBER_NATIVE_HTTP": "1",
+    # Four daemons and this script share the host's cores: a forward
+    # waits longer than the 500 ms default without being lost.
+    "GUBER_BATCH_TIMEOUT": "20s",
+    "GUBER_GLOBAL_TIMEOUT": "20s",
+}
+CLUSTER_CONNS = 32  # (a): BASELINE config 2, phase 13's clients
+CLUSTER_REQS = 16
+CLUSTER_LANES = 1_000
+CLUSTER_MORE = 4  # (c): frames a connection after the scale-up
+CLUSTER_GLOBAL_REQS = 8  # (b): requests of the 64 hot keys at each of nodes 1-3
+CLUSTER_GLOBAL_LIMIT = 1_000_000_000
+CLUSTER_K2_CONFIGS = 300
+CLUSTER_SETTLE_S = 120.0  # convergence and handoff deadlines
+CLUSTER_KERNELS = DAEMON_KERNELS
+
+
+def cluster_ring(addrs):
+    from gubernator_tpu_torch.parallel.hash_ring import ReplicatedConsistentHash
+
+    ring = ReplicatedConsistentHash()
+    for a in addrs:
+        ring.add(a, a)
+    return ring
+
+
+def ring_owners(ring, keys):
+    """The owner address of each hash key."""
+    codes, ids = ring.get_batch_codes(list(keys))
+    return np.asarray(ids, dtype=object)[codes]
+
+
+def write_peers(path, nodes):
+    tmp = path + ".tmp"
+    with open(tmp, "w") as f:
+        json.dump([{"grpcAddress": g, "httpAddress": h} for h, g in nodes], f)
+    os.replace(tmp, path)
+
+
+def cluster_traffic(ring3):
+    """Phase 14's requests: (a) and (c) frames by connection, the K2
+    batch (keys node 1 owns under the three-node ring) and (b)'s hot
+    GLOBAL keys."""
+    from gubernator_tpu_torch.types import GetRateLimitsRequest, RateLimitRequest
+    from gubernator_tpu_torch.utils import gregorian
+
+    rng = np.random.RandomState(14)
+    per = N_KEYS // CLUSTER_CONNS
+
+    def cols(keys):
+        n = len(keys)
+        return (["cl2"] * n, [str(k) for k in keys], np.ones(n, np.int32),
+                np.zeros(n, np.int32), np.ones(n, np.int64),
+                np.full(n, 1_000_000, np.int64), np.full(n, 3_600_000, np.int64))
+
+    frames = [[cols(zipf_ids(rng, per, CLUSTER_LANES) * CLUSTER_CONNS + c)
+               for _ in range(CLUSTER_REQS + CLUSTER_MORE)] for c in range(CLUSTER_CONNS)]
+    pool = [f"m{i}" for i in range(20 * CLUSTER_LANES)]
+    own = ring_owners(ring3, [f"clm_{k}" for k in pool])
+    mine = [k for k, o in zip(pool, own) if o == ring3.peer_ids()[0]][:CLUSTER_LANES]
+    k2 = GetRateLimitsRequest(requests=[
+        RateLimitRequest(name="clm", unique_key=k, algorithm=1, behavior=4, hits=1,
+                         limit=1_000_000 + i % CLUSTER_K2_CONFIGS,
+                         duration=gregorian.GREGORIAN_MONTHS)
+        for i, k in enumerate(mine)])
+
+    def hot(hits):
+        return GetRateLimitsRequest(requests=[
+            RateLimitRequest(name="clg", unique_key=f"h{j}", algorithm=0, behavior=2,
+                             hits=hits, limit=CLUSTER_GLOBAL_LIMIT, duration=3_600_000)
+            for j in range(HOT_KEYS)])
+
+    return frames, k2, hot(1), hot(0)
+
+
+def cluster_frames(nodes, conns, which, node_of, timeout_s=DAEMON_TIMEOUT_S):
+    """Each connection's frames `which` (a slice) to node node_of(c), the
+    connections concurrently.  Returns (answers[c][k] = (rows, owners),
+    latencies, wall)."""
+    from gubernator_tpu_torch.client import ColumnsV1Client
+
+    out = [[None] * len(range(*which.indices(len(s)))) for s in conns]
+    lat, errors = [], []
+    lock = threading.Lock()
+
+    def one(c):
+        client = ColumnsV1Client(nodes[node_of(c)][0], timeout_s=timeout_s, connections=1)
+        try:
+            for k, item in enumerate(conns[c][which]):
+                t0 = time.perf_counter()
+                rc, lo, hi = client.submit_columns(item).result(timeout=timeout_s)
+                dt = time.perf_counter() - t0
+                out[c][k] = (result_rows(rc, lo, hi), [rc.owner_at(i) for i in range(lo, hi)])
+                with lock:
+                    lat.append(dt)
+        except BaseException as e:  # noqa: BLE001 — raised below, on this thread
+            errors.append(e)
+        finally:
+            client.close()
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=one, args=(c,)) for c in range(len(conns))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=timeout_s * 2)
+    if any(t.is_alive() for t in threads):
+        raise AssertionError("a phase 14 connection did not finish")
+    if errors:
+        raise errors[0]
+    return out, lat, time.perf_counter() - t0
+
+
+def cluster_phase(torch, smi, dev="cuda"):
+    """Phase 14: four of the port's server binaries as one cluster on the
+    card (file discovery, phase 13's size each): (a) BASELINE config 2
+    frames through 32 ColumnsV1Clients over nodes 1-3, about two thirds
+    of each frame forwarded to its owners, and a 300-config monthly batch
+    (K2); (b) config 4's 64 hot keys as GLOBAL lanes at every node, the
+    daemons' own syncs to exact convergence; (c) node 4 joins: nodes
+    1-3's peers file is rewritten, the old owners drain the keys they no
+    longer own (K7) and transfer them to node 4 (K8), then more frames to
+    all four; (d) /metrics, each node's launches, SIGTERM with its
+    snapshot.  Every answer of (a) and (c) and every key's row (each in
+    exactly one node's snapshot, its owner's) equal a port node on the
+    plain versions (CPU) in this process fed each connection's requests
+    serially; each answer's owner is the ring's."""
+    from gubernator_tpu_torch import snapshot
+    from gubernator_tpu_torch.client import V1Client
+    from gubernator_tpu_torch.config import setup_daemon_config
+    from gubernator_tpu_torch.daemon import Daemon
+    from gubernator_tpu_torch.reshard import TRANSFER_MAX_LANES, TransferColumns
+    from gubernator_tpu_torch.utils.clock import Clock
+    from gubernator_tpu_torch.wire import encode_transfer_frame
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-cluster-")
+    nodes = [(f"127.0.0.1:{free_port()}", f"127.0.0.1:{free_port()}")
+             for _ in range(CLUSTER_NODES)]  # (http, grpc)
+    addrs = [g for _, g in nodes]
+    ring3, ring4 = cluster_ring(addrs[:3]), cluster_ring(addrs)
+    frames, k2_req, hot_req, hot_read = cluster_traffic(ring3)
+    files = [os.path.join(tmp, "peers-123.json"), os.path.join(tmp, "peers-4.json")]
+    write_peers(files[0], nodes[:3])
+    write_peers(files[1], nodes)
+    snaps = [os.path.join(tmp, f"node{i + 1}.snap") for i in range(CLUSTER_NODES)]
+    procs = [None] * CLUSTER_NODES
+    numbers = {}
+
+    def start(i):
+        env = dict(CLUSTER_ENV, GUBER_HTTP_ADDRESS=nodes[i][0], GUBER_GRPC_ADDRESS=nodes[i][1],
+                   GUBER_ADVERTISE_ADDRESS=nodes[i][1], GUBER_SNAPSHOT=snaps[i],
+                   GUBER_PEERS_FILE=files[0] if i < 3 else files[1])
+        env_file = os.path.join(tmp, f"node{i + 1}.env")
+        write_env(env_file, env)
+        procs[i] = DaemonProcess(env_file, os.path.join(tmp, f"node{i + 1}.err"), dev)
+
+    def launches(i):
+        return http_json(procs[i].http, "POST", "/debug/launches")["launches"]
+
+    def status(i):
+        return http_json(procs[i].http, "GET", "/debug/status")
+
+    def all_launches():
+        return [launches(i) for i in range(CLUSTER_NODES)]
+
+    try:
+        errors = []
+
+        def start_safe(i):
+            try:
+                start(i)
+            except BaseException as e:  # noqa: BLE001 — raised below
+                errors.append(e)
+
+        threads = [threading.Thread(target=start_safe, args=(i,)) for i in range(CLUSTER_NODES)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=DAEMON_START_S + 60)
+        if errors or any(p is None for p in procs):
+            raise errors[0] if errors else AssertionError("a phase 14 node did not start")
+        numbers["startup_s"] = [p.startup_s for p in procs]
+        for i in range(CLUSTER_NODES):
+            doc = status(i)
+            want = 3 if i < 3 else 4
+            if doc["health"]["peerCount"] != want or doc["ring"]["generation"] != 1:
+                raise AssertionError(f"phase 14: node {i + 1}'s ring is {doc['ring']} "
+                                     f"with {doc['health']['peerCount']} peers, not {want}")
+        all_launches()  # every count 0 from here
+
+        # (a) forwarding, and the K2 batch at node 1.
+        got_a, lat_a, wall_a = cluster_frames(nodes, frames, slice(0, CLUSTER_REQS),
+                                              lambda c: c % 3)
+        client = V1Client(nodes[0][0], timeout_s=DAEMON_TIMEOUT_S)
+        try:
+            got_k2 = json.dumps([r.to_json() for r in client.get_rate_limits(k2_req).responses])
+        finally:
+            client.close()
+        run_a = all_launches()
+
+        # (b) GLOBAL: the hot keys from nodes 1-3 at once, then the
+        # daemons' own syncs until every node reads the exact count.
+        lat_b, errs_b = [], []
+
+        def hot_client(i):
+            v = V1Client(nodes[i][0], timeout_s=DAEMON_TIMEOUT_S)
+            try:
+                for _ in range(CLUSTER_GLOBAL_REQS):
+                    t0 = time.perf_counter()
+                    resp = v.get_rate_limits(hot_req)
+                    lat_b.append(time.perf_counter() - t0)
+                    if any(r.error for r in resp.responses):
+                        raise AssertionError(f"phase 14 (b): {resp.responses[0].error}")
+            except BaseException as e:  # noqa: BLE001 — raised below
+                errs_b.append(e)
+            finally:
+                v.close()
+
+        threads = [threading.Thread(target=hot_client, args=(i,)) for i in range(3)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=DAEMON_TIMEOUT_S)
+        if errs_b or any(t.is_alive() for t in threads):
+            raise errs_b[0] if errs_b else AssertionError("phase 14 (b) did not finish")
+        t_sent = time.perf_counter()
+        want_rem = CLUSTER_GLOBAL_LIMIT - 3 * CLUSTER_GLOBAL_REQS
+        readers = [V1Client(nodes[i][0], timeout_s=DAEMON_TIMEOUT_S) for i in range(3)]
+        try:
+            while True:
+                reads = [[r.remaining for r in v.get_rate_limits(hot_read).responses]
+                         for v in readers]
+                if all(rem == [want_rem] * HOT_KEYS for rem in reads):
+                    break
+                if time.perf_counter() - t_sent > CLUSTER_SETTLE_S:
+                    raise AssertionError(f"phase 14 (b): GLOBAL counters never converged: "
+                                         f"{[sorted(set(r)) for r in reads]} != {want_rem}")
+                time.sleep(0.02)
+        finally:
+            for v in readers:
+                v.close()
+        numbers["converge_s"] = time.perf_counter() - t_sent
+        run_b = all_launches()
+
+        # (c) scale-up: nodes 1-3 read a file that lists all four.
+        t_rewrite = time.perf_counter()
+        write_peers(files[0], nodes)
+        while True:
+            docs = [status(i) for i in range(CLUSTER_NODES)]
+            rings = [d["ring"] for d in docs]
+            idle = all(r["generation"] == (2 if i < 3 else 1) and not r["handoffActive"]
+                       and r["reshard"]["transfersStarted"] == r["reshard"]["transfersCommitted"]
+                       + r["reshard"]["transfersAborted"]
+                       and (i == 3 or r["reshard"]["lastHandoffSeconds"] > 0)
+                       for i, r in enumerate(rings))
+            if idle:
+                break
+            if time.perf_counter() - t_rewrite > CLUSTER_SETTLE_S:
+                raise AssertionError(f"phase 14 (c): the handoff never went idle: {rings}")
+            time.sleep(0.05)
+        numbers["handoff_s"] = time.perf_counter() - t_rewrite
+        reshard = [r["reshard"] for r in rings]
+        if any(r["transfersAborted"] for r in reshard):
+            raise AssertionError(f"phase 14 (c): a transfer aborted: {reshard}")
+        run_h = all_launches()
+        got_c, lat_c, wall_c = cluster_frames(nodes, frames, slice(CLUSTER_REQS, None),
+                                              lambda c: c % CLUSTER_NODES)
+        run_c = all_launches()
+
+        # (d) scrape, then SIGTERM.
+        pages = []
+        for i in range(CLUSTER_NODES):
+            with edge_connect(nodes[i][0]) as s:
+                st, ctype, page = edge_request(s, "GET", "/metrics")
+            if st != 200:
+                raise AssertionError(f"phase 14 (d): node {i + 1}'s /metrics answered {st}")
+            pages.append(page.decode())
+        stops = []
+        for i in range(CLUSTER_NODES):
+            line, _ = procs[i].stop()
+            stops.append(json.loads(line.split("kernel launches ", 1)[1].rsplit(")", 1)[0]))
+    except BaseException:
+        for p in procs:
+            if p is not None:
+                p.kill()
+        raise
+
+    # The replay: one port node on the plain versions in this process,
+    # each connection's frames serially, the same frozen clock.
+    from gubernator_tpu_torch.client import ColumnsV1Client
+
+    t_replay = time.perf_counter()
+    conf = setup_daemon_config(env=dict(DAEMON_ENV, GUBER_HTTP_ADDRESS="127.0.0.1:0",
+                                        GUBER_GRPC_ADDRESS="127.0.0.1:0",
+                                        GUBER_NATIVE_HTTP="1", GUBER_TORCH_DEVICE="cpu"))
+    clock = Clock()
+    clock.freeze(NOW)
+    ref = Daemon(conf, clock=clock).start()
+    try:
+        want = []
+        for c in range(CLUSTER_CONNS):
+            client = ColumnsV1Client(ref.gateway.address, timeout_s=DAEMON_TIMEOUT_S,
+                                     connections=1)
+            try:
+                row = []
+                for item in frames[c]:
+                    rc, lo, hi = client.submit_columns(item).result(timeout=DAEMON_TIMEOUT_S)
+                    row.append(result_rows(rc, lo, hi))
+                want.append(row)
+            finally:
+                client.close()
+        client = V1Client(ref.gateway.address, timeout_s=DAEMON_TIMEOUT_S)
+        try:
+            want_k2 = json.dumps([r.to_json() for r in client.get_rate_limits(k2_req).responses])
+        finally:
+            client.close()
+        ref_cols = ref.service.store.snapshot_columns(NOW)
+    finally:
+        ref.close()
+    numbers["replay_s"] = time.perf_counter() - t_replay
+
+    # Every answer == the replay's; every owner the ring's.
+    forwarded = [0] * CLUSTER_NODES
+    lanes_at = [0] * CLUSTER_NODES
+    for leg, got, ring, n_nodes, off in (("a", got_a, ring3, 3, 0),
+                                         ("c", got_c, ring4, CLUSTER_NODES, CLUSTER_REQS)):
+        for c in range(CLUSTER_CONNS):
+            node = c % n_nodes
+            for k, (rows, owners) in enumerate(got[c]):
+                if rows != want[c][off + k]:
+                    raise AssertionError(f"phase 14 ({leg}) connection {c} frame {k}: "
+                                         "cluster != CPU replay")
+                item = frames[c][off + k]
+                ring_own = ring_owners(ring, [f"{n}_{u}" for n, u in zip(item[0], item[1])])
+                expect = [None if o == addrs[node] else o for o in ring_own]
+                if owners != expect:
+                    raise AssertionError(f"phase 14 ({leg}) connection {c} frame {k}: owner "
+                                         "metadata != the ring's")
+                forwarded[node] += sum(o is not None for o in owners)
+                lanes_at[node] += len(owners)
+    if got_k2 != want_k2:
+        raise AssertionError("phase 14: the 300-config batch != CPU replay")
+
+    # Each key's row in exactly one snapshot, its owner's under the
+    # four-node ring, == the replay's row.
+    fields = ("algorithm", "status", "limit", "remaining", "duration", "stamp", "expire_at")
+
+    def rows_of(cols):
+        m = np.stack([np.asarray(getattr(cols, f), np.int64) for f in fields], axis=1)
+        return dict(zip(cols.keys, map(tuple, m.tolist())))
+
+    want_rows = {k: v for k, v in rows_of(ref_cols).items() if not k.startswith("clg_")}
+    held, snap_bytes = {}, []
+    for i in range(CLUSTER_NODES):
+        with open(snaps[i], "rb") as f:
+            snap_bytes.append(len(f.read()))
+        cols, _meta = snapshot.read_snapshot(snaps[i])
+        for k, row in rows_of(cols).items():
+            if k.startswith("clg_"):
+                continue
+            if k in held:
+                raise AssertionError(f"phase 14: key {k} in the snapshots of nodes "
+                                     f"{held[k][0] + 1} and {i + 1}")
+            held[k] = (i, row)
+    if set(held) != set(want_rows):
+        raise AssertionError(f"phase 14: the snapshots hold {len(held)} keys, the replay "
+                             f"{len(want_rows)}")
+    keys = sorted(held)
+    own4 = ring_owners(ring4, keys)
+    for k, o in zip(keys, own4):
+        i, row = held[k]
+        if addrs[i] != o:
+            raise AssertionError(f"phase 14: key {k} lives on node {i + 1}, not its owner {o}")
+        if row != want_rows[k]:
+            raise AssertionError(f"phase 14: key {k}'s row on node {i + 1} != CPU replay")
+    # What the handoff moved: the keys of (a) and the K2 batch whose
+    # owner changed, by old owner; their transfer frames' bytes.
+    sent_keys = sorted({f"{n}_{u}" for conn in frames for item in conn[:CLUSTER_REQS]
+                        for n, u in zip(item[0], item[1])}
+                       | {r.hash_key() for r in k2_req.requests})
+    own3, own4s = ring_owners(ring3, sent_keys), ring_owners(ring4, sent_keys)
+    moved_keys = [[k for k, a, b in zip(sent_keys, own3, own4s) if a == addrs[i] and b != a]
+                  for i in range(3)]
+    moved_bytes = []
+    for i in range(3):
+        total = 0
+        for lo in range(0, len(moved_keys[i]), TRANSFER_MAX_LANES):
+            part = moved_keys[i][lo:lo + TRANSFER_MAX_LANES]
+            z32, z64 = np.zeros(len(part), np.int32), np.zeros(len(part), np.int64)
+            total += len(encode_transfer_frame(TransferColumns(
+                keys=part, algorithm=z32, status=z32, limit=z64, remaining=z64,
+                duration=z64, stamp=z64, expire_at=z64)))
+        moved_bytes.append(total)
+    moved = [r["lanesMoved"] for r in reshard]
+    if moved[:3] != [len(m) for m in moved_keys] or moved[3] != 0:
+        raise AssertionError(f"phase 14 (c): lanes moved {moved} != the keys whose owner "
+                             f"changed {[len(m) for m in moved_keys]}")
+    if reshard[3]["lanesReceived"] != sum(moved):
+        raise AssertionError(f"phase 14 (c): node 4 received {reshard[3]['lanesReceived']} "
+                             f"of {sum(moved)} lanes")
+
+    # (d) the peer families: every breaker closed, the forwarded frames.
+    fams = ("gubernator_circuit_breaker_state", "gubernator_peer_columns_batches")
+    fwd_frames = []
+    for i, page in enumerate(pages):
+        vals = metric_values(page, fams)
+        states = {dict(lab)["peer"]: v for (n, lab), v in vals.items()
+                  if n == "gubernator_circuit_breaker_state"}
+        if sorted(states) != sorted(addrs) or any(v != 0 for v in states.values()):
+            raise AssertionError(f"phase 14 (d): node {i + 1}'s breakers {states}")
+        fwd_frames.append(int(sum(v for (n, lab), v in vals.items()
+                                  if n == "gubernator_peer_columns_batches_total")))
+    if min(fwd_frames) <= 0:
+        raise AssertionError(f"phase 14 (d): forwarded frames a node {fwd_frames}")
+
+    def k(c):
+        return ", ".join(f"K{j} {c[n]}" for j, n in zip((1, 2, 3, 4, 5, 6, 7, 8), CLUSTER_KERNELS))
+
+    if dev == "cuda":
+        for i in range(CLUSTER_NODES):
+            if (run_a[i] if i < 3 else run_c[i])["bucket_rounds_dict"] == 0:
+                raise AssertionError(f"phase 14: node {i + 1} launched no K1")
+        need = {"bucket_rounds_cols": [run_a[0]],
+                "global_answer_rounds": run_b[:3], "global_sync": run_b[:3],
+                "gather_rows": run_h[:3], "write_rows": [run_h[3]]}
+        for name, runs in need.items():
+            for c in runs:
+                if c[name] == 0:
+                    raise AssertionError(f"phase 14: no {name} launch where the path makes "
+                                         f"one: {runs}")
+        if sum(c["set_replica"] for c in run_b[:3]) == 0:
+            raise AssertionError(f"phase 14 (b): no replica commit (K5): {run_b}")
+        for i in range(CLUSTER_NODES):
+            if stops[i]["gather_rows"] < 1:
+                raise AssertionError(f"phase 14: node {i + 1}'s snapshot save launched no K7")
+
+    def lat_line(v):
+        v = np.asarray(v) * 1e3
+        return f"request p50 {np.percentile(v, 50):.3f} ms, max {v.max():.3f} ms of {v.size}"
+
+    tag = f"[cluster] ({smi})"
+    log(f"{tag} startup to listening, nodes 1-4: "
+        + ", ".join(f"{s:.2f} s" for s in numbers["startup_s"]))
+    log(f"{tag} (a) BASELINE config 2 over nodes 1-3: {CLUSTER_CONNS} ColumnsV1Clients x "
+        f"{CLUSTER_REQS} kind-5 frames of {CLUSTER_LANES} lanes: "
+        f"{CLUSTER_CONNS * CLUSTER_REQS * CLUSTER_LANES / wall_a:.0f} checks/s, {lat_line(lat_a)}")
+    log(f"{tag} (a)+(c) lanes forwarded by receiving node: "
+        + ", ".join(f"node {i + 1} {forwarded[i]} of {lanes_at[i]}" for i in range(CLUSTER_NODES))
+        + "; forwarded frames (gubernator_peer_columns_batches) by node: "
+        + ", ".join(str(f) for f in fwd_frames))
+    log(f"{tag} (b) {HOT_KEYS} hot GLOBAL keys x {CLUSTER_GLOBAL_REQS} requests at each of nodes "
+        f"1-3: GLOBAL apply {lat_line(lat_b)}; every node reads the owner's exact count "
+        f"{numbers['converge_s']:.3f} s after the last hit's answer")
+    log(f"{tag} (c) handoff: rewrite to idle {numbers['handoff_s']:.3f} s; keys moved by nodes "
+        f"1-3 " + ", ".join(str(m) for m in moved[:3]) + " (transfer frames "
+        + ", ".join(f"{b} B" for b in moved_bytes) + f"), node 4 received "
+        f"{reshard[3]['lanesReceived']}; handoff pass "
+        + ", ".join(f"{r['lastHandoffSeconds']} s" for r in reshard[:3]))
+    log(f"{tag} (c) {CLUSTER_CONNS} x {CLUSTER_MORE} frames over all four nodes: "
+        f"{CLUSTER_CONNS * CLUSTER_MORE * CLUSTER_LANES / wall_c:.0f} checks/s, {lat_line(lat_c)}")
+    for i in range(CLUSTER_NODES):
+        log(f"{tag} node {i + 1} launches: (a) {k(run_a[i])}; (b) {k(run_b[i])}; handoff "
+            f"{k(run_h[i])}; (c) {k(run_c[i])}; SIGTERM save {k(stops[i])} "
+            f"({snap_bytes[i]} B snapshot)")
+    log(f"{tag} cluster == CPU serial replay: every answer of (a) and (c), the K2 batch, every "
+        f"key's row in exactly its owner's snapshot; owners == the ring's; GLOBAL exact "
+        f"(replay {numbers['replay_s']:.1f} s, phase {time.perf_counter() - t_phase:.1f} s)")
+    shutil.rmtree(tmp, ignore_errors=True)
+    return run_a, run_b, run_h, run_c
+
+
 def main():
     import torch
 
@@ -4791,6 +5304,8 @@ def main():
     edge_phase(torch)
     gc.collect()
     daemon_phase(torch)
+    gc.collect()
+    cluster_phase(torch, smi)
     log(smi)  # again, so the tail of a long log names the card and limit
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}), flush=True)

@@ -1,0 +1,145 @@
+"""In-process test cluster: N real daemons on loopback ports.
+
+Parity with cluster/cluster.go:82-131: every daemon gets the FULL peer
+list (discovery bypassed), behavior windows are shortened for tests, and
+daemons can be restarted in place.  Supports data-center labels for
+multi-region tests (cluster.DataCenterNone / DataCenterOne).
+
+The PyTorch port's copy of the JAX package's cluster.py.  `device`
+names the device of every daemon's store (None = the current CUDA
+device, "cpu" = the plain versions, as `DaemonConfig.device`).  The
+daemons of one cluster share the card: each has its own store and its
+own kernel launches.  `Daemon` (and with it `grpc`) is imported when a
+cluster starts.
+"""
+
+from __future__ import annotations
+
+import random
+from typing import TYPE_CHECKING, List, Optional
+
+from .config import BehaviorConfig, DaemonConfig
+from .types import PeerInfo
+from .utils.clock import Clock
+
+if TYPE_CHECKING:
+    from .daemon import Daemon
+
+DATA_CENTER_NONE = ""
+DATA_CENTER_ONE = "datacenter-1"
+
+
+def fast_test_behaviors() -> BehaviorConfig:
+    """Shortened windows (cluster/cluster.go:104-110).
+
+    reshard_handoff_s=0: the double-dispatch read window after a
+    membership change is OFF by default in tests — every cluster
+    fixture's startup (spawn -> feed full peer list) is a membership
+    change, and a 2s window of peeked reads would shadow what most
+    tests mean to measure.  State transfers still run; suites that
+    exercise the window set their own value
+    (tests/test_reshard_chaos.py)."""
+    return BehaviorConfig(
+        global_sync_wait_s=0.05,
+        global_timeout_s=5.0,
+        batch_timeout_s=5.0,
+        multi_region_sync_wait_s=0.05,
+        multi_region_timeout_s=5.0,
+        reshard_handoff_s=0.0,
+    )
+
+
+class Cluster:
+    def __init__(self):
+        self.daemons: List[Daemon] = []
+        self.peers: List[PeerInfo] = []
+
+    def start(self, n: int, clock: Optional[Clock] = None,
+              device: object = None) -> "Cluster":
+        return self.start_with([DATA_CENTER_NONE] * n, clock=clock,
+                               device=device)
+
+    def start_with(
+        self,
+        data_centers: List[str],
+        clock: Optional[Clock] = None,
+        cache_size: int = 4096,
+        g_capacity: int = 256,
+        behaviors: Optional[BehaviorConfig] = None,
+        native_http: Optional[bool] = None,
+        device: object = None,
+    ) -> "Cluster":
+        """cluster/cluster.go:96-131: spawn every daemon, then feed the
+        full converged peer list to all of them.  `behaviors` overrides
+        the shortened test windows (e.g. a loaded host needs longer peer
+        RPC deadlines, the GUBER_BATCH_TIMEOUT tuning a deployment
+        does)."""
+        from .daemon import Daemon
+
+        for dc in data_centers:
+            conf = DaemonConfig(
+                listen_address="127.0.0.1:0",
+                grpc_listen_address="127.0.0.1:0",
+                cache_size=cache_size,
+                global_cache_size=g_capacity,
+                data_center=dc,
+                behaviors=behaviors or fast_test_behaviors(),
+                peer_discovery_type="static",
+                native_http=native_http,
+                device=device,
+            )
+            d = Daemon(conf, clock=clock).start()
+            self.daemons.append(d)
+        self.peers = [d.peer_info for d in self.daemons]
+        for d in self.daemons:
+            d.set_peers(self.peers)
+        return self
+
+    # ------------------------------------------------------------------
+    def peer_at(self, idx: int) -> PeerInfo:
+        return self.peers[idx]
+
+    def daemon_at(self, idx: int) -> Daemon:
+        return self.daemons[idx]
+
+    def get_random_peer(self, data_center: str = DATA_CENTER_NONE) -> PeerInfo:
+        """cluster/cluster.go:40-54."""
+        candidates = [p for p in self.peers if p.data_center == data_center]
+        if not candidates:
+            raise RuntimeError(f"no peers in data center '{data_center}'")
+        return random.choice(candidates)
+
+    def daemon_for(self, peer: PeerInfo) -> Daemon:
+        for d in self.daemons:
+            if d.peer_info.grpc_address == peer.grpc_address:
+                return d
+        raise KeyError(peer.grpc_address)
+
+    def restart(self, idx: int, clock: Optional[Clock] = None) -> None:
+        """cluster/cluster.go:87-93: close and respawn at the same addresses."""
+        import dataclasses
+
+        from .daemon import Daemon
+
+        old = self.daemons[idx]
+        info = old.peer_info
+        old.close()
+        # replace() carries EVERY config field (a field-by-field rebuild
+        # silently dropped native_http/back_cache_size on restart).
+        conf = dataclasses.replace(
+            old.conf,
+            listen_address=info.http_address,
+            grpc_listen_address=info.grpc_address,
+            peer_discovery_type="static",
+        )
+        d = Daemon(conf, clock=clock or old.clock).start()
+        self.daemons[idx] = d
+        self.peers[idx] = d.peer_info
+        for dm in self.daemons:
+            dm.set_peers(self.peers)
+
+    def stop(self) -> None:
+        for d in self.daemons:
+            d.close()
+        self.daemons = []
+        self.peers = []

@@ -11,11 +11,9 @@ graceful shutdown with the snapshot and Loader save.  `set_peers`
 stamps IsOwner by advertise-address compare exactly like
 daemon.go:277-287.
 
-The port's service is one node: a peer list naming any other node
-raises NotImplementedError at `V1Service.set_peers` (slice A2), and
-etcd, member-list and k8s discovery raise at `peers.make_pool` (slice
-A5).  The incident black box's process switch comes with blackbox.py
-(slice A6).
+Etcd, member-list and k8s discovery raise NotImplementedError at
+`peers.make_pool` (slice A5).  The incident black box's process switch
+comes with blackbox.py (slice A6).
 """
 
 from __future__ import annotations

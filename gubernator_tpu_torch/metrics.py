@@ -12,8 +12,8 @@ the same name (`scripts/check_metrics_parity.py`), the
 `gubernator_xla_*` families included, which here count the port's
 kernel builds and first launches (telemetry.py).  Device memory is the
 CUDA caching allocator's, sampled per scrape.  Families of planes the
-port has no node for yet (peer circuit breakers, the black box,
-federation) stay at their zero values.  This is the only module of the
+port has no node for yet (the black box, federation) stay at their
+zero values.  This is the only module of the
 port that imports prometheus_client.
 """
 
@@ -719,9 +719,7 @@ class Metrics:
         """Refresh the per-peer breaker state gauge from live
         PeerClients (collect-on-scrape, like observe_cache).  Rebuilt
         from scratch each scrape: a peer that left the cluster must
-        drop off the gauge, not freeze at its last state forever.  The
-        port's only peer is this node, which has no breaker, so the
-        gauge stays empty until peer clients exist."""
+        drop off the gauge, not freeze at its last state forever."""
         self.circuit_state.clear()
         for p in peers:
             breaker = getattr(p, "breaker", None)

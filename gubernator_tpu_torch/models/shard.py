@@ -125,14 +125,18 @@ def prepare_requests(
     requests: Sequence[RateLimitRequest],
     now_ms: int,
     responses: List[Optional[RateLimitResponse]],
+    positions: Optional[Sequence[int]] = None,
 ) -> List[_Prepared]:
     """Precompute per-request host-side values (hash key, Gregorian
     expiry/duration).  Requests with invalid Gregorian durations get
-    error responses directly (reference returns the error per-request)."""
+    error responses directly (reference returns the error per-request).
+    `positions` gives each request's index in `responses` (default: its
+    own index)."""
     greg = GregResolver(now_ms)
     prepared: List[_Prepared] = []
 
-    for pos, req in enumerate(requests):
+    for i, req in enumerate(requests):
+        pos = positions[i] if positions is not None else i
         p = _Prepared(pos=pos, slot=-1, exists=False, req=req, key=req.hash_key())
         if has_behavior(req.behavior, Behavior.DURATION_IS_GREGORIAN):
             cached = greg.resolve(req.duration)
@@ -1102,10 +1106,64 @@ class ColumnarPipeline:
                 if not k.startswith("__warmup__")]
         return self._gather_transfer_locked(keys, now_ms)
 
-    def _gather_transfer_locked(self, keys, now_ms: int) -> TransferColumns:
+    # -- resharding: the sending half of the handoff (reshard.py) -------
+    @_drained_locked
+    def resident_keys(self) -> List[str]:
+        """Every key resident in the (front) slot tables, shard by shard:
+        the ring-delta scan of a handoff.  Back-tier rows do not migrate
+        (the cold tail; a stale row at the old owner ages out of the
+        FIFO).  No launch; under the plan lock, as the tables' key
+        enumeration is a size-then-fill marshal."""
+        return [k for t in self._tables() for k in t.keys()]
+
+    def resident_mask(self, keys) -> np.ndarray:
+        """bool[n]: which keys map to a slot now (the handoff peek's
+        observe-don't-create filter: a zero-hit launch for an absent key
+        would mint a bucket that later rides a transfer).  Plain lists
+        and PackedKeys alike; guarded lookups, no plan lock."""
+        if not len(keys):
+            return np.zeros(0, dtype=bool)
+        return tables_get_slots(self._tables(), keys)[1] >= 0
+
+    @_drained_locked
+    def drain_keys(self, keys, now_ms: int, remove: bool = True) -> TransferColumns:
+        """The rows of moved keys, with one row-gather launch (K7),
+        atomically with respect to launches (pipeline drained, plan lock
+        held).  With `remove` the keys also leave the tables (and a
+        two-tier table's back tier); the handoff passes remove=False and
+        calls forget_keys() once the transfer is acknowledged, so the old
+        owner's copy stays readable for the double-dispatch peek.  Keys
+        no longer resident, and a mesh's GLOBAL keys (they move through
+        their own replication plane), are skipped; expired rows are not
+        shipped."""
+        return self._gather_transfer_locked(keys, now_ms, remove=remove,
+                                            skip_global=True)
+
+    @_drained_locked
+    def forget_keys(self, keys) -> None:
+        """Drop keys from the tables (no launch: a freed slot's stale row
+        is overwritten on reassignment).  The handoff calls it once a
+        transfer is acknowledged."""
+        tables = self._tables()
+        if len(tables) == 1:
+            for k in keys:
+                tables[0].remove(k)
+            return
+        shard, _slot = tables_get_slots(tables, keys)
+        for k, s in zip(keys, shard.tolist()):
+            tables[s].remove(k)
+
+    def _gather_transfer_locked(self, keys, now_ms: int, remove: bool = False,
+                                skip_global: bool = False) -> TransferColumns:
         """The rows of `keys` at their owner shards (keys no longer
-        mapped are skipped), shard-major and in key order within a shard
-        as the JAX stores lay them out, minus rows already expired."""
+        mapped are skipped, and with `skip_global` a mesh's GLOBAL keys),
+        shard-major and in key order within a shard as the JAX stores
+        lay them out, minus rows already expired.  With `remove` every
+        found key leaves its table, expired or not."""
+        gtable = getattr(self, "gtable", None)
+        if skip_global and gtable is not None and gtable._key_to_gslot:  # noqa: SLF001
+            gkeys = gtable._key_to_gslot  # noqa: SLF001
+            keys = [k for k in keys if k not in gkeys]
         shard, slot = tables_get_slots(self._tables(), keys)
         found = np.nonzero(slot >= 0)[0]
         if not found.size:
@@ -1115,6 +1173,10 @@ class ColumnarPipeline:
         rows = self._read_rows(np.stack([shard[order], slot[order]]))
         self.transfer_drain_dispatches += 1
         self.device_dispatches += 1
+        if remove:
+            tables = self._tables()
+            for i in order.tolist():
+                tables[int(shard[i])].remove(keys[i])
         live = np.nonzero(rows.expire_at >= now_ms)[0]
         return TransferColumns(
             keys=[keys[i] for i in order[live].tolist()],

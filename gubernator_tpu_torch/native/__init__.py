@@ -56,6 +56,7 @@ def _load() -> ctypes.CDLL:
     ]
     lib.gt_table_get_slot.restype = c.c_int32
     lib.gt_table_get_slot.argtypes = [p, c.c_char_p, c.c_int64]
+    lib.gt_table_remove.argtypes = [p, c.c_char_p, c.c_int64]
     lib.gt_table_get_expire.argtypes = [p, p, c.c_int64, p]
     lib.gt_table_commit_keys.argtypes = [p, p, p, p, p, p, c.c_int64]
     lib.gt_table_set_expire.argtypes = [p, c.c_int32, c.c_int64]
@@ -322,6 +323,12 @@ class NativeSlotTable:
             self._ptr, b, len(b), now_ms, ctypes.byref(slot), ctypes.byref(exists)
         )
         return int(slot.value), bool(exists.value)
+
+    def remove(self, key: str) -> None:
+        """Drop `key`: its front slot is freed and, in two-tier mode, its
+        back row too, with its queued demotion cancelled."""
+        b = key.encode("utf-8")
+        self._lib.gt_table_remove(self._ptr, b, len(b))
 
     def get_expire_bulk(self, slots) -> np.ndarray:
         slots = np.ascontiguousarray(slots, dtype=np.int32)

@@ -451,6 +451,24 @@ int32_t gt_table_get_slot(void* tv, const char* key, int64_t len) {
   return it == t->key_to_slot.end() ? -1 : it->second;
 }
 
+// Drop a key (the handoff's forget after an acknowledged transfer, a
+// drain with remove): its front slot is freed; in two-tier mode a back
+// row is freed too and its queued demotion cancelled.
+void gt_table_remove(void* tv, const char* key, int64_t len) {
+  Table* t = (Table*)tv;
+  GT_LOCK(t);
+  std::string k(key, (size_t)len);
+  auto it = t->key_to_slot.find(k);
+  if (it != t->key_to_slot.end()) t->unmap_slot(it->second);
+  if (t->back_capacity > 0) {
+    auto itb = t->key_to_back.find(k);
+    if (itb != t->key_to_back.end()) {
+      t->cancel_pending_demo(itb->second);
+      t->unmap_back(itb->second);
+    }
+  }
+}
+
 void gt_table_stats(void* tv, int64_t* out) {  // hits, misses, evictions
   Table* t = (Table*)tv;
   GT_LOCK(t);

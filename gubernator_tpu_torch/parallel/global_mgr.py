@@ -244,6 +244,25 @@ class GlobalKeyTable:
         self.names[g] = req.name
         self.unique_keys[g] = req.unique_key
 
+    def request_template(self, g: int, hits: int) -> Optional[RateLimitRequest]:
+        """Materialize the last-seen request of gslot `g` with `hits`
+        substituted — the Store-SPI on_change leg, which still needs a
+        dataclass per key.  None when no request was ever seen here."""
+        name = self.names[g]
+        if name is None:
+            return None
+        return RateLimitRequest(
+            name=name,
+            unique_key=self.unique_keys[g],
+            hits=int(hits),
+            limit=int(self.limit[g]),
+            duration=int(self.duration[g]),
+            algorithm=int(self.algorithm[g]),
+            # The stored behavior has GLOBAL stripped; every templated
+            # request was a GLOBAL request, so restore the bit.
+            behavior=int(self.behavior[g]) | int(Behavior.GLOBAL),
+        )
+
     def hit_columns(self, gslots: np.ndarray, totals: np.ndarray) -> HitColumns:
         """Wire-ready hit-forward columns for `gslots` (templated lanes
         only — callers pre-filter with `templated`), hits from the

@@ -713,10 +713,13 @@ class MeshBucketStore(ColumnarPipeline):
         for o in np.unique(sel_shard):
             o = int(o)
             idx = sel[sel_shard == o]
-            self.tables[o].commit(
-                gt.owner_slot[idx], out_exp[o, idx], out_rm[o, idx],
-                [gt.key_of(int(g)) for g in idx],
-            )
+            if self.store is not None:
+                self._sync_store_callbacks(o, idx, out_exp, out_rm, totals_np)
+            else:
+                self.tables[o].commit(
+                    gt.owner_slot[idx], out_exp[o, idx], out_rm[o, idx],
+                    [gt.key_of(int(g)) for g in idx],
+                )
             # Commit-removals unmapped their keys: invalidate now so the
             # generation snapshot below cannot let a clean shard skip
             # re-resolving them next pass.
@@ -734,6 +737,23 @@ class MeshBucketStore(ColumnarPipeline):
         self._sync_gen = [t.generation for t in self.tables]
         self.dirty[:] = False
         return result
+
+    def _sync_store_callbacks(self, o, idx, out_exp, out_rm, totals_np) -> None:
+        """The owner-side apply of summed GLOBAL hits under a Store SPI:
+        key by key, as JAX's, commit the key's slot, then store.remove
+        for a removed bucket or store.on_change with its request (the
+        gslot's template with the summed hits) and its row (one row
+        gather a key; algorithms.go:64-68,38-40)."""
+        gt = self.gtable
+        for g in idx.tolist():
+            k, slot = gt.key_of(g), int(gt.owner_slot[g])
+            self.tables[o].commit([slot], [out_exp[o, g]], [out_rm[o, g]], [k])
+            req = gt.request_template(g, int(totals_np[g]))
+            if out_rm[o, g]:
+                self.store.remove(k)
+            elif req is not None:
+                rows = self._read_rows(np.array([[o], [slot]], np.int32))
+                self.store.on_change(req, _rows_to_items([k], rows)[0])
 
     # ------------------------------------------------------------------
     def apply_columns(

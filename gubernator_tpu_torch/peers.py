@@ -12,8 +12,7 @@ with the two zero-dependency pools:
 
 `member-list`, `etcd` and `k8s` come with slice A5 (gossip.py,
 etcd_pool.py, k8s_pool.py): `make_pool` raises NotImplementedError for
-them.  A list naming another node reaches `V1Service.set_peers`, which
-raises until the peer client (slice A2).
+them.
 """
 
 from __future__ import annotations

@@ -1,37 +1,90 @@
-"""Columnar state handoff: the transfer batch, its monotone merge, the
-ring fingerprint and the receive side of the resharding manager.
+"""Elastic membership: live resharding with columnar state handoff.
 
-The part of the JAX package's reshard.py that one node needs:
-`TransferColumns`, one batch of full bucket rows in column form (what
-`MeshBucketStore.snapshot_columns` gathers and `commit_transfer`
-commits, the row payload of a snapshot file and of a transfer frame);
-`merge_transfer_rows`, the monotone merge a commit applies against the
-rows already resident; `ring_fingerprint`, the epoch a transfer is
-fenced on; and `ReshardManager`'s receive-side bookkeeping
-(`V1Service.transfer_ownership`).  The sending half (the drain ->
-transfer handoff a ring change schedules) comes with the peer client.
+A ring change used to be metadata-only (`V1Service.set_peers` rebuilt
+the pickers, mirroring gubernator.go:357-437) — every device-resident
+counter whose ownership moved was silently orphaned, so a scale-out
+event was a cluster-wide rate-limit reset.  This module makes
+membership changes *stateful*:
 
-Merge semantics (architecture.md "Membership & resharding"): for a live
-resident row of the same algorithm, the side with the lower remaining
-keeps its (remaining, stamp) pair, status and expire merge max; an
-expired or algorithm-switched resident row is overwritten by the
-incoming row wholesale.  min/max are idempotent and order-free, so a
-re-delivered batch or a late snapshot restore cannot double-count a
-hit.
+  * On a ring delta, the old owner DRAINS the moved keys off the
+    device (one mesh-wide gather program per drain batch — the snapshot
+    readback in reverse, `MeshBucketStore.drain_keys`) and
+    ships them to each new owner as a TransferColumns batch (GUBC
+    frame kind 4 / proto `TransferColumnsReq`, wire.py).  The gather
+    does not remove the keys: the local copy is forgotten only after
+    the transfer is ACKED (`forget_keys`), so it stays readable — the
+    double-dispatch peek target — for the whole in-flight window.
+  * The new owner commits the batch through the batched replica-commit
+    playbook (`MeshBucketStore.commit_transfer`: one gather + one
+    scatter, O(1) device programs per batch) with MONOTONE merge
+    semantics, so duplicate delivery and concurrent traffic can never
+    double-count a hit.
+  * Epoch fencing: every transfer frame is stamped with the
+    destination ring's fingerprint (`ring_fingerprint`, an
+    order-independent FNV-1 fold of the membership).  A receiver whose
+    ring has since changed again rejects the batch (FailedPrecondition
+    — "a late transfer from a dead epoch"), and the sender aborts
+    instead of committing state under the wrong ring.
+  * During the handoff window reads DOUBLE-DISPATCH: the routing
+    daemon serves the hit from the key's NEW owner and issues a
+    zero-hit peek at the OLD owner, merging monotonically (see
+    V1Service._merge_handoff) so no request observes a reset bucket
+    while the transfer is in flight.
+
+Merge semantics (the documented monotone rule, architecture.md
+"Membership & resharding"): for a live resident row of the same
+algorithm, remaining = min, status = max (OVER_LIMIT wins), stamp /
+reset / expire = max; an expired or algorithm-switched resident row is
+overwritten by the incoming row wholesale.  min/max are idempotent and
+order-free, which is what makes transfer retries and the
+double-dispatch window safe.
+
+Documented slack (the exactly-once contract the chaos oracle pins,
+tests/test_reshard_chaos.py): hits admitted by the NEW owner against a
+fresh bucket *during* the handoff window are not reflected in the
+transferred row (and vice versa: hits the old owner admits between the
+drain gather and the transfer ACK never reach the new owner), so a key
+may over-admit by at most min(hits-before-drain, hits-during-window).
+If a transfer ABORTS (frames dropped past the retry budget, epoch
+fenced, unsupported peer), the local copy was never removed — reads
+still peek it for the rest of the window — but the new owner starts
+the key fresh, so the key over-admits by at most the old owner's
+consumption: exactly the behavior of a membership change without a handoff, now bounded to the
+failure case and counted
+(gubernator_reshard_transfers{result="aborted"} + a `reshard-aborted`
+flight-recorder event).  An old owner that DIES mid-transfer loses its
+unshipped consumption the same way.  Hits are never double-counted in
+any path: the commit merge is idempotent (min/max), a timeout-shaped
+send failure leaves both copies but only the current ring's owner
+takes hits, and the peek leg is zero-hit by construction.
+
+The PyTorch port's copy of the JAX package's reshard.py.  Its device
+programs are the stores' row gather (K7: `drain_keys`,
+`snapshot_columns`) and row scatter (K8: `commit_transfer`); the
+transfer batch, the merge and the fingerprint are the JAX bytes
+(tests/test_torch_reshard.py, tests/test_torch_cluster.py).
 """
 
 from __future__ import annotations
 
+import logging
 import threading
 import time
-from concurrent.futures import Future
+from concurrent.futures import Future, ThreadPoolExecutor
 from dataclasses import dataclass
-from typing import List, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
 from . import audit
+from . import tracing
 from .utils import hashing
+
+log = logging.getLogger("gubernator.reshard")
+
+# Lane cap per transfer RPC: ride the columnar peer-hop bound (a
+# transfer is the same wire weight class as a coalesced forward).
+TRANSFER_MAX_LANES = 16384
 
 
 def ring_fingerprint(peer_ids: Sequence[str], replicas: int = 512) -> int:
@@ -169,17 +222,28 @@ def merge_transfer_rows(cur, incoming: TransferColumns, idx, now_ms: int,
 
 
 class ReshardManager:
-    """The receive side of the state-migration plane: counters of the
-    transfers this node accepted or fenced, served in /debug/status.
-    The JAX manager also runs the sender's drain -> transfer handoff and
-    dropped peers' shutdowns on a bounded pool; the port has no peers
-    yet, so nothing is ever submitted and `wait_idle` finds no task."""
+    """The sender side of the state-migration plane, plus the bounded
+    membership maintenance pool.
+
+    One small pool serves both membership duties set_peers used to do
+    inline or on unbounded daemon threads: shutting down dropped peers'
+    clients (tracked, so close() can't race a half-shutdown client) and
+    running the drain -> transfer handoff for a ring delta.  Handoffs
+    are generation-checked: a newer set_peers supersedes an in-flight
+    handoff between batches."""
+
+    POOL_WORKERS = 4
 
     def __init__(self, service):
         self.service = service
+        self._pool = ThreadPoolExecutor(
+            max_workers=self.POOL_WORKERS, thread_name_prefix="reshard"
+        )
         self._lock = threading.Lock()
         self._tasks: List[Future] = []
         self._closed = False
+        # Host-side counters (exported as gubernator_reshard_* via the
+        # per-scrape observe pass and served raw in /debug/status).
         self.transfers_started = 0
         self.transfers_committed = 0
         self.transfers_aborted = 0
@@ -188,6 +252,193 @@ class ReshardManager:
         self.lanes_received = 0
         self.lanes_rejected = 0  # receive-side not-owned-here lanes
         self.last_handoff_seconds = 0.0
+
+    # -- bounded submission -------------------------------------------
+    def _submit(self, fn, *args) -> Optional[Future]:
+        with self._lock:
+            if self._closed:
+                return None
+            try:
+                fut = self._pool.submit(fn, *args)
+            except RuntimeError:  # pool shut down under us
+                return None
+            self._tasks.append(fut)
+            # Completed futures retire lazily; the list stays bounded
+            # by churn rate, not daemon lifetime.
+            if len(self._tasks) > 64:
+                self._tasks = [t for t in self._tasks if not t.done()]
+            return fut
+
+    def submit_shutdown(self, client) -> None:
+        """Shut a dropped peer's client down off the caller's thread —
+        through the bounded pool, TRACKED, so `close()` drains them
+        instead of racing a half-shutdown client (gubernator.go:398-428
+        drains dropped peers in the background too, but bounded)."""
+        if self._submit(self._safe_shutdown, client) is None:
+            # Closing/closed: shut down inline — the client must not
+            # leak its window thread just because we are.
+            self._safe_shutdown(client)
+
+    @staticmethod
+    def _safe_shutdown(client) -> None:
+        try:
+            client.shutdown()
+        except Exception as e:  # noqa: BLE001 — best-effort teardown
+            log.debug("dropped-peer shutdown failed: %s", e)
+
+    # -- handoff ------------------------------------------------------
+    def schedule_handoff(self, picker, ring_hash: int, generation: int) -> None:
+        """Queue the drain -> transfer pass for a ring delta (called by
+        V1Service.set_peers AFTER the new picker is installed, outside
+        the peer mutex)."""
+        self._submit(self._run_handoff, picker, ring_hash, generation)
+
+    def _current_generation(self) -> int:
+        return self.service.ring_generation
+
+    def _run_handoff(self, picker, ring_hash: int, generation: int) -> None:
+        svc = self.service
+        store = svc.store
+        t0 = time.monotonic()
+        did_work = False
+        try:
+            if self._current_generation() != generation or self._closed:
+                # Superseded before we even started (membership churn
+                # queues handoffs faster than they run): the newest
+                # handoff owns whatever still resides here — stale ones
+                # must cost one integer compare, not a table scan.
+                return
+            # Warmup keys ("__warmup__*") are synthetic compile fodder,
+            # resident on EVERY daemon by construction — shipping them
+            # would be pure churn (and under a frozen test clock they
+            # never expire out of the live filter).
+            keys = [
+                k for k in store.resident_keys()
+                if not k.startswith("__warmup__")
+            ]
+            if not keys:
+                return
+            codes, code_ids = picker.get_batch_codes(keys)
+            moved: Dict[str, List[str]] = {}
+            for c, pid in enumerate(code_ids):
+                peer = picker.get_by_peer_id(pid)
+                if peer is None or peer.info.is_owner:
+                    continue  # stays local (or churned away mid-pass)
+                sel = np.nonzero(codes == c)[0]
+                if sel.size:
+                    moved[pid] = [keys[int(i)] for i in sel]
+            if not moved:
+                return
+            did_work = True
+            n_total = sum(len(v) for v in moved.values())
+            log.info(
+                "reshard gen=%d: %d resident keys moved to %d new owner(s)",
+                generation, n_total, len(moved),
+            )
+            for pid, mkeys in moved.items():
+                for lo in range(0, len(mkeys), TRANSFER_MAX_LANES):
+                    if self._current_generation() != generation or self._closed:
+                        # A newer ring superseded this handoff: stop
+                        # between batches — nothing drained yet for this
+                        # chunk, so nothing is lost; the newer handoff
+                        # re-routes what still resides here.
+                        return
+                    self._transfer_chunk(
+                        picker, pid, mkeys[lo:lo + TRANSFER_MAX_LANES],
+                        ring_hash,
+                    )
+        except Exception as e:  # noqa: BLE001 — a handoff failure must
+            # never take the serving path down; it degrades to the
+            # no-handoff reset behavior for the affected keys, counted.
+            log.warning("reshard handoff gen=%d failed: %s", generation, e)
+            self._abort(None, 0, f"handoff-error: {e}")
+        finally:
+            if did_work:
+                # Superseded/no-op passes cost an integer compare and
+                # would rewrite the gauge to ~0, hiding the wall time
+                # of the last REAL drain->transfer pass.
+                self.last_handoff_seconds = time.monotonic() - t0
+
+    def _transfer_chunk(self, picker, pid: str, keys: List[str],
+                        ring_hash: int) -> None:
+        """Gather -> send -> forget-on-ack.  The gather does NOT remove
+        the keys: the old owner's copy stays readable (the
+        double-dispatch peek target) for the whole in-flight window,
+        and only a successful ACK forgets it — so an aborted transfer
+        loses nothing locally, and a timeout-shaped failure (the RPC
+        may have applied server-side) leaves both copies, which the
+        monotone merge + current-ring routing keep from ever
+        double-counting."""
+        svc = self.service
+        cols = svc.store.drain_keys(keys, svc.clock.now_ms(), remove=False)
+        if len(cols) == 0:
+            return
+        cols.ring_hash = ring_hash
+        self.transfers_started += 1
+        self._count("started")
+        # Conservation ledger (audit.py): acked lanes must never exceed
+        # drained lanes (reshard_out) — counted at the two distinct
+        # points of the gather -> send -> forget-on-ack protocol.
+        audit.note("reshard_drained_lanes", len(cols))
+        peer = picker.get_by_peer_id(pid)
+        if peer is None:
+            self._abort(cols, len(cols), f"peer {pid} gone from ring")
+            return
+        ok, err = svc._peer_send_ex(  # noqa: SLF001 — shared retry envelope
+            "TransferOwnership",
+            lambda: self._send_one(peer, cols),
+        )
+        if ok:
+            svc.store.forget_keys(cols.keys)
+            self.transfers_committed += 1
+            self.lanes_moved += len(cols)
+            self._count("committed")
+            audit.note("reshard_acked_lanes", len(cols))
+            if self.service.metrics is not None:
+                self.service.metrics.reshard_lanes.labels(
+                    direction="out"
+                ).inc(len(cols))
+        else:
+            self._abort(cols, len(cols), str(err))
+
+    def _send_one(self, peer, cols: TransferColumns) -> None:
+        """One transfer send; raises on transport failure.  A peer that
+        negotiated down to classic (no transfer surface) or fenced the
+        epoch raises a terminal ValueError so the retry envelope stops
+        — both are deterministic answers, not transient faults."""
+        status = peer.transfer_ownership(cols)
+        if status == "unsupported":
+            raise ValueError(
+                f"peer {peer.info.grpc_address} does not speak the "
+                "transfer plane (classic fallback: moved keys reset "
+                "there, pre-reshard semantics)"
+            )
+        if status == "fenced":
+            raise ValueError(
+                f"peer {peer.info.grpc_address} fenced the transfer "
+                "(its ring changed again; dead-epoch batch)"
+            )
+
+    def _abort(self, cols: Optional[TransferColumns], lanes: int,
+               reason: str) -> None:
+        """Abort leg: the local copy was never removed (gather-only
+        drain), so nothing is reinstalled — the keys stay readable at
+        the old owner for the rest of the double-dispatch window, after
+        which they behave as a change without a handoff does (fresh buckets at the
+        new owner) — bounded to this failure case and counted."""
+        self.transfers_aborted += 1
+        self._count("aborted")
+        # Flight-recorder event + automatic dump (tracing.py): an
+        # aborted transfer is exactly the state-loss moment the
+        # recorder exists to preserve — same rate-limited path as
+        # breaker-open.
+        tracing.record_event("reshard-aborted", lanes=lanes, reason=reason)
+        log.warning("reshard transfer aborted (%d lanes): %s", lanes, reason)
+
+    def _count(self, result: str) -> None:
+        m = self.service.metrics
+        if m is not None:
+            m.reshard_transfers.labels(result=result).inc()
 
     # -- receive-side bookkeeping (V1Service.transfer_ownership) -------
     def note_received(self, committed: int, rejected: int) -> None:
@@ -240,3 +491,4 @@ class ReshardManager:
         with self._lock:
             self._closed = True
         self.wait_idle(timeout_s)
+        self._pool.shutdown(wait=False)

@@ -1,50 +1,60 @@
-"""V1Service — the service core of one node (reference V1Instance,
-gubernator.go), on the port's columnar path.
+"""V1Service — the service core (reference V1Instance, gubernator.go),
+on the port's columnar path.
 
-The port of the JAX package's service.py for a single node that owns
-every key: the serving tier of one daemon without peers.  Every local
-evaluation goes through the JAX service's coalescing windows: a
-`ColumnarBatcher` merges concurrent column submissions inside one
-BatchWait window into one store launch (each caller reads its slice of
-the shared handle), a `LocalBatcher` does the same for single GLOBAL
-lanes on the dataclass path, NO_BATCHING lanes dispatch at once, and
-under the express lane (GUBER_EXPRESS) small submissions to a shallow
-queue skip the window.  The ingress gate bounds the lanes queued in
-both windows (GUBER_INGRESS_QUEUE_LANES) and sheds past it.
+The port of the JAX package's service.py.  Each lane of a GetRateLimits
+batch is routed by the consistent-hash ring (set_peers):
+
+* Keys this node owns evaluate through the JAX service's coalescing
+  windows: a `ColumnarBatcher` merges concurrent column submissions
+  inside one BatchWait window into one store launch (each caller reads
+  its slice of the shared handle), a `LocalBatcher` does the same for
+  single GLOBAL lanes on the dataclass path, NO_BATCHING lanes dispatch
+  at once, and under the express lane (GUBER_EXPRESS) small submissions
+  to a shallow queue skip the window.  The ingress gate bounds the
+  lanes queued in both windows (GUBER_INGRESS_QUEUE_LANES) and sheds
+  past it.
+* Keys another node owns are forwarded to it through the batching
+  PeerClient (peer_client.py), one columnar sub-batch per owner riding
+  that peer's window; an owner whose circuit breaker is open degrades
+  the lanes to local evaluation (`_degrade_local`, stamped
+  `degraded`), a not-ready owner is re-picked with jittered backoff.
+* GLOBAL lanes take the store's dataclass path (`apply`): the owner's
+  lanes evaluate, another owner's answer from the replica columns.  A
+  GlobalManager syncs them on an interval, broadcasts the owners'
+  answers to every peer and forwards the summed hits of remote-owner
+  keys to their owners.
+* A membership change bumps the ring generation and fingerprint (the
+  transfer epoch fence), opens the double-dispatch window (a read of a
+  moved key also peeks its old owner with zero hits and merges
+  monotonically) and schedules the handoff: the old owner drains the
+  moved keys' rows (K7) and transfers them to their new owners, which
+  merge-commit them (K8; reshard.py).
+
 `get_rate_limits_columns_async` submits on the caller's thread and
-calls back from a drainer thread once the launch's readback is in.
+calls back from a drainer thread once every launch's readback and every
+forward is in.  The store is a MeshBucketStore built from the sizes, or
+the one given as `ServiceConfig.store` (a ShardStore for a one-shard
+deployment, which answers GLOBAL lanes as local ones and has no GLOBAL
+sync; the service then runs no GlobalManager).  With a Store SPI
+(`persist_store`) every lane takes the dataclass path, as the store's
+callbacks need.  Persistence: a Loader (`loader`) is loaded at boot and
+saved at close; a snapshot file (`snapshot_path`) is restored at boot
+and written at close and every `behaviors.snapshot_interval_s`
+(snapshot.py).  The owner side of the peer API is here too:
+`get_peer_rate_limits[_columns][_async]`, `update_peer_globals[_columns]`
+(one batched replica commit) and `transfer_ownership` (the epoch fence,
+the lanes this node owns, then one merge-commit).  The gateway
+(gateway.py) reads the members built here: the flight recorder, the SLO
+engine, the hot-key sketch, the tenant ledger, the conservation auditor
+and the native ingress pump's hook.  `metrics` is the config's
+`Metrics` or a new one (metrics.py), never None.
 
-GLOBAL lanes take the store's dataclass path (`apply`) and a
-GlobalManager syncs them on an interval.  The store is a
-MeshBucketStore built from the sizes, or the one given as
-`ServiceConfig.store` (a ShardStore for a one-shard deployment, which
-answers GLOBAL lanes as local ones and has no GLOBAL sync; the service
-then runs no GlobalManager).  With a Store SPI (`persist_store`) every
-lane takes the dataclass path, as the store's callbacks need.
-Persistence: a Loader (`loader`) is loaded at boot and saved at close;
-a snapshot file (`snapshot_path`) is restored at boot and written at
-close and every `behaviors.snapshot_interval_s` (snapshot.py).
-
-Membership is one node: `set_peers` takes a list naming this node
-alone (its ring fingerprint fences transfers; a list naming any other
-peer raises NotImplementedError until the peer client is ported).  A
-service that was never given a list owns every key too.  The owner
-side of the peer API is here: `get_peer_rate_limits[_columns][_async]`
-(lanes owned here go to the columnar kernel through the shared
-window), `update_peer_globals[_columns]` (one batched replica commit)
-and `transfer_ownership` (the epoch fence, then one merge-commit).
-The gateway (gateway.py) reads the members built here: the flight
-recorder, the SLO engine, the hot-key sketch, the tenant ledger, the
-conservation auditor and the native ingress pump's hook.  `metrics` is
-the config's `Metrics` or a new one (metrics.py), never None: the
-gateway's /metrics route and the gRPC interceptor read it, and the SLO
-engine gets its latency samples through it.
-
-Not here (they need peers): forwarding, the handoff peek, MULTI_REGION,
-the sending half of resharding, and the GlobalManager's broadcast and
-hit-forward legs.  Responses are the JAX V1Service's
-(tests/test_torch_service.py, tests/test_torch_batchers.py,
-tests/test_torch_gateway.py).
+Not here yet: MULTI_REGION's cross-region hit queue and the region
+plane (federation.py), and the incident black box (blackbox.py).  A
+service never given a ring owns every key, where a JAX service answers
+"unable to pick a peer; pool is empty".  Responses are the JAX
+V1Service's (tests/test_torch_service.py, tests/test_torch_batchers.py,
+tests/test_torch_gateway.py, tests/test_torch_cluster.py).
 """
 
 from __future__ import annotations
@@ -53,7 +63,7 @@ import threading
 import time
 from collections import deque
 from concurrent.futures import Future, ThreadPoolExecutor
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 from functools import partial
 from typing import TYPE_CHECKING, Callable, Dict, List, Optional, Sequence
 
@@ -65,12 +75,15 @@ from . import saturation
 from . import snapshot as snapshot_mod
 from . import telemetry
 from . import tracing
+from . import wire
 from .config import MAX_BATCH_SIZE, PEER_COLUMNS_MAX_LANES, BehaviorConfig
+from .faults import Backoff
 from .models.shard import GregResolver
-from .parallel.global_mgr import GlobalsColumns
+from .parallel.global_mgr import GlobalsColumns, HitColumns
 from .parallel.hash_ring import ReplicatedConsistentHash
 from .parallel.mesh import MeshBucketStore
 from .parallel.region import RegionPicker
+from .peer_client import PeerClient, PeerError, is_circuit_open, is_not_ready
 from .reshard import ReshardManager, TransferColumns
 from .types import (
     Behavior,
@@ -90,6 +103,7 @@ from .utils.interval import Interval
 from .utils.logging import category_logger
 
 HEALTHY = "healthy"
+UNHEALTHY = "unhealthy"
 N_SHARDS = 8  # the JAX service's shard count on an 8-device mesh
 ERR_BATCHER_CLOSED = "local batcher is closed"
 ERR_EMPTY_KEY = "field 'unique_key' cannot be empty"
@@ -109,26 +123,6 @@ class ApiError(Exception):
         self.code = code
         self.message = message
         self.http_status = http_status
-
-
-class _SelfPeer:
-    """This node as the one member of its ring.  The JAX service keeps
-    a PeerClient there; a node that is its only peer never sends to
-    it, so the port keeps what the ring's readers ask: the PeerInfo."""
-
-    __slots__ = ("info",)
-
-    def __init__(self, info: PeerInfo):
-        self.info = info
-
-
-class BatcherClosedError(Exception):
-    """A submission to a stopped batcher.  The JAX service raises its
-    peer client's PeerError with this text; the port has no peer client
-    yet."""
-
-    def __init__(self):
-        super().__init__(ERR_BATCHER_CLOSED)
 
 
 class IngressShedError(ApiError):
@@ -194,8 +188,7 @@ class _IngressGate:
 
 @dataclass
 class ServiceConfig:
-    """Library-user config (reference Config, config.go:66-104), the
-    fields of one node without peers."""
+    """Library-user config (reference Config, config.go:66-104)."""
 
     # Any store of the port (a MeshBucketStore, a ShardStore for a
     # one-shard deployment); built from the sizes when None.
@@ -227,15 +220,18 @@ class ServiceConfig:
     data_center: str = ""
     # Prometheus families (metrics.py); None = a new Metrics of its own.
     metrics: Optional[Metrics] = None
-    # Peer transport credentials (an ssl.SSLContext for the HTTP
-    # transport, grpc.ChannelCredentials for gRPC), stored for the peer
-    # clients of slice A2; a node alone dials no peer.
+    # ssl.SSLContext of the PeerClients' HTTP transport (mTLS peer data
+    # plane, daemon.go:102-106 -> peer_client.go:87-132).
     peer_tls_context: object = None
+    # grpc.ChannelCredentials of the gRPC peer transport (None: an
+    # insecure channel, or with peer_tls_context set the HTTP transport,
+    # the only one that can skip verification).
     peer_channel_credentials: object = None
-    # A faults.FaultPlan for the peer clients (slice A2) and the
-    # incident black box's bundle directory (slice A6): the port has
-    # neither plane yet, so any value but None / "" raises.
+    # A faults.FaultPlan handed to every PeerClient this service creates
+    # (None: the clients honor the process-wide faults.install() plan).
     fault_plan: object = None
+    # The incident black box's bundle directory (blackbox.py, not
+    # ported yet): any value but "" raises.
     blackbox_dir: str = ""
 
 
@@ -298,7 +294,7 @@ class LocalBatcher:
     def submit(self, req: RateLimitRequest) -> Future:
         fut: Future = Future()
         if self._window.stopped:
-            fut.set_exception(BatcherClosedError())
+            fut.set_exception(PeerError(ERR_BATCHER_CLOSED))
             return fut
         if tracing.current() is None and self._express.bypass_ok(1, self._gate, self.store):
             return self._submit_express(req, fut)
@@ -461,6 +457,14 @@ class _ColumnsPlan:
     slow_idx: list  # GLOBAL lanes, for the dataclass router
     slow_fn: Optional[Callable[[], list]]  # their blocking resolver
     hash_keys: object  # List[str] or native.PackedKeys
+    # Forwarded lanes: owner addr -> forward future, owner addr -> [lane].
+    group_futs: Dict[str, Future] = field(default_factory=dict)
+    remote_groups: Dict[str, list] = field(default_factory=dict)
+    # Handoff double-dispatch peeks, one grouped zero-hit read per
+    # previous owner of moved lanes, merged monotonically after the
+    # primary legs: ("remote", forward future, lanes) or ("local",
+    # (handle, lo, hi), lanes); best-effort.
+    peeks: list = field(default_factory=list)
     # Tenant-ledger fold context (profiling.py): computed once at
     # admission, reused by the shed and outcome folds.
     tenant_ctx: object = None
@@ -509,6 +513,103 @@ def _deliver_future(callback, fut) -> None:
     except Exception as e:  # noqa: BLE001 — handed to the callback
         value, exc = None, e
     callback(value, exc)
+
+
+def _cols_to_requests(sub) -> List[RateLimitRequest]:
+    """Materialize a forwarded column sub-batch as dataclasses — the
+    FAILURE legs only (degraded local eval, per-item re-pick): the fast
+    path never calls this."""
+    names, uks, algo, beh, hits, limit, duration = sub
+    return [
+        RateLimitRequest(
+            name=names[i],
+            unique_key=uks[i],
+            hits=int(hits[i]),
+            limit=int(limit[i]),
+            duration=int(duration[i]),
+            algorithm=int(algo[i]),
+            behavior=int(beh[i]),
+        )
+        for i in range(len(names))
+    ]
+
+
+def _merge_group_result(result, idxs, addr, resps) -> None:
+    """Merge one owner-group forward outcome into `result` — the
+    shared body of the blocking _finalize_columns and the async
+    _ColumnsJoin.  ("cols", rc, lo, hi) scatters the decoded response
+    arrays (zero-dataclass); a list is the fallback legs' per-lane
+    dataclasses; an Exception converts per lane."""
+    if isinstance(resps, Exception):
+        for i in idxs:
+            result.overrides[int(i)] = RateLimitResponse(
+                error=f"while fetching rate limit from peer - '{resps}'"
+            )
+        return
+    if isinstance(resps, tuple):
+        _tag, rc, lo, hi = resps
+        idx = np.asarray(idxs, dtype=np.int64)
+        sl = slice(lo, hi)
+        result.status[idx] = rc.status[sl]
+        result.limit[idx] = rc.limit[sl]
+        result.remaining[idx] = rc.remaining[sl]
+        result.reset_time[idx] = rc.reset_time[sl]
+        result.set_owner(idx, addr)
+        for lane, r in rc.overrides.items():
+            if lo <= lane < hi:
+                r.metadata.setdefault("owner", addr)
+                result.overrides[int(idxs[lane - lo])] = r
+        return
+    for i, r in zip(idxs, resps):
+        result.overrides[int(i)] = r
+
+
+def _merge_peek_result(result, lanes, payload) -> None:
+    """Monotone-merge one resolved zero-hit peek group (the handoff
+    double-dispatch, architecture.md "Membership & resharding") into
+    the result arrays: status = max (OVER_LIMIT wins), remaining = min,
+    reset_time = max — never more permissive than either side, so bulk
+    columnar reads cannot observe a reset bucket mid-transfer.  Lanes
+    that resolved as overrides (errors, fallback legs) and peek lanes
+    that themselves errored are left untouched; payload None (a failed
+    peek — the old owner dying is exactly when this runs) leaves every
+    primary answer standing."""
+    if payload is None:
+        return
+    kind, data = payload
+    m = len(lanes)
+    keep = np.fromiter(
+        (int(i) not in result.overrides for i in lanes), bool, count=m
+    )
+    if kind == "remote":
+        rc, lo, hi = data
+        if rc.overrides:
+            keep &= np.fromiter(
+                ((lo + j) not in rc.overrides for j in range(m)),
+                bool, count=m,
+            )
+        st = np.asarray(rc.status[lo:hi])
+        rem = np.asarray(rc.remaining[lo:hi])
+        rst = np.asarray(rc.reset_time[lo:hi])
+        lim = np.asarray(rc.limit[lo:hi])
+    else:
+        out, sl = data
+        st = np.asarray(out["status"][sl])
+        rem = np.asarray(out["remaining"][sl])
+        rst = np.asarray(out["reset_time"][sl])
+        lim = np.asarray(out["limit"][sl])
+    # Consumption evidence only: a REMOTE peek cannot be residency-
+    # filtered at the sender, so a key already forgotten at the old
+    # owner answers as a fresh bucket (remaining == limit, UNDER) —
+    # merging that would only inflate reset_time.  An untouched
+    # genuine bucket is skipped identically (nothing to carry).
+    keep &= (rem < lim) | (st > 0)
+    if not keep.any():
+        return
+    idx = np.asarray(lanes, dtype=np.int64)[keep]
+    result.status[idx] = np.maximum(result.status[idx], st[keep])
+    result.remaining[idx] = np.minimum(result.remaining[idx], rem[keep])
+    result.reset_time[idx] = np.maximum(result.reset_time[idx], rst[keep])
 
 
 def _merge_fast_result(result, hash_keys, fast_idx, out, sl, exc) -> None:
@@ -570,7 +671,7 @@ class _HandleDrainer:
                     self._spawn()
                 self._cv.notify()
                 return
-        cb(None, BatcherClosedError())
+        cb(None, PeerError(ERR_BATCHER_CLOSED))
 
     def _run(self) -> None:
         while True:
@@ -605,43 +706,76 @@ class _HandleDrainer:
 
 
 class _ColumnsJoin:
-    """Completion join of one async columnar request: counts down the
-    plan's parts (each launch's handle through the drainer, the GLOBAL
-    lanes' route) and fires the callback once, from whichever
-    completion thread finishes last."""
+    """Completion join for one async columnar request: counts down the
+    plan's sub-completions (fast dispatch handles via the drainer,
+    owner-group forwards, the slow-lane route) and fires the callback
+    exactly once from whichever completion thread finishes last.  The
+    merge logic is the same _merge_fast_result / override-merge the
+    blocking _finalize_columns uses."""
 
-    def __init__(self, svc, plan: _ColumnsPlan, result, callback):
+    def __init__(self, svc, plan, result, callback):
         self.svc = svc
         self.plan = plan
         self.result = result
         self.callback = callback
         self._lock = threading.Lock()
         self._remaining = 0
-        self._failure: Optional[Exception] = None
+        self._failure: "Optional[Exception]" = None
         self._fast_outs: list = []  # (fast_idx, out, slice, exc)
-        self._slow_resps: Optional[list] = None
+        self._group_res: dict = {}  # addr -> resps | Exception
+        self._slow_resps: "Optional[list]" = None
+        self._peek_res: list = []  # (lanes, payload | None)
 
     def start(self) -> None:
         svc, plan = self.svc, self.plan
-        parts = len(plan.pendings) + (1 if plan.slow_idx else 0)
+        parts = (
+            len(plan.pendings)
+            + len(plan.group_futs)
+            + (1 if plan.slow_idx else 0)
+            + len(plan.peeks)
+        )
         if parts == 0:
             self._finish()
             return
         self._remaining = parts
         drainer = svc._get_drainer()
         if plan.slow_idx:
-            _attach_done(svc._slow_pool.submit(plan.slow_fn), self._on_slow)
+            # slow_fn runs _route / store.apply, which block on (and for
+            # _route, submit to) _forward_pool — the slow pool keeps the
+            # outer task off the pool its inner tasks need.
+            _attach_done(
+                svc._slow_pool.submit(plan.slow_fn), self._on_slow
+            )
+        for addr, fut in plan.group_futs.items():
+            _attach_done(fut, partial(self._on_group, addr))
         for pending, fast_idx in plan.pendings:
             if isinstance(pending, Future):
-                _attach_done(pending, partial(self._on_dispatched, fast_idx, drainer))
+                _attach_done(
+                    pending, partial(self._on_dispatched, fast_idx, drainer)
+                )
             else:
                 handle, lo, hi = pending
-                drainer.register(handle, partial(self._on_out, fast_idx, slice(lo, hi)))
+                drainer.register(
+                    handle, partial(self._on_out, fast_idx, slice(lo, hi))
+                )
+        for kind, payload, lanes in plan.peeks:
+            # Handoff peeks: window flushes resolve every forward
+            # future (result or exception) and the drainer resolves
+            # every handle, so the countdown can never hang on one.
+            if kind == "remote":
+                _attach_done(payload, partial(self._on_peek_remote, lanes))
+            else:
+                handle, lo, hi = payload
+                drainer.register(
+                    handle,
+                    partial(self._on_peek_local, lanes, slice(lo, hi)),
+                )
 
+    # -- sub-completion handlers (any thread) --------------------------
     def _on_dispatched(self, fast_idx, drainer, fut) -> None:
         try:
             handle, lo, hi = fut.result()
-        except Exception as e:  # noqa: BLE001 — per-lane errors at the merge
+        except Exception as e:  # noqa: BLE001
             self._on_out(fast_idx, None, None, e)
             return
         drainer.register(handle, partial(self._on_out, fast_idx, slice(lo, hi)))
@@ -651,12 +785,39 @@ class _ColumnsJoin:
             self._fast_outs.append((fast_idx, out, sl, exc))
         self._countdown()
 
+    def _on_group(self, addr, fut) -> None:
+        try:
+            resps = fut.result()
+        except Exception as e:  # noqa: BLE001 — _forward_group_columns
+            resps = e  # converts internally; this is pool-failure defensive
+        with self._lock:
+            self._group_res[addr] = resps
+        self._countdown()
+
     def _on_slow(self, fut) -> None:
         try:
             self._slow_resps = fut.result()
-        except Exception as e:  # noqa: BLE001 — the sync path raises it too
+        except Exception as e:  # noqa: BLE001
+            # The sync path propagates a slow-route failure to the
+            # caller (a 500 at the edge); same contract here.
             with self._lock:
                 self._failure = e
+        self._countdown()
+
+    def _on_peek_remote(self, lanes, fut) -> None:
+        try:
+            rc, lo, hi = fut.result()
+            payload = ("remote", (rc, lo, hi))
+        except Exception:  # noqa: BLE001 — peek is best-effort
+            payload = None
+        with self._lock:
+            self._peek_res.append((lanes, payload))
+        self._countdown()
+
+    def _on_peek_local(self, lanes, sl, out, exc) -> None:
+        payload = None if exc is not None else ("local", (out, sl))
+        with self._lock:
+            self._peek_res.append((lanes, payload))
         self._countdown()
 
     def _countdown(self) -> None:
@@ -674,13 +835,22 @@ class _ColumnsJoin:
                 if self._slow_resps is not None:
                     for i, r in zip(plan.slow_idx, self._slow_resps):
                         result.overrides[int(i)] = r
+                for addr, resps in self._group_res.items():
+                    _merge_group_result(
+                        result, plan.remote_groups[addr], addr, resps
+                    )
                 for fast_idx, out, sl, exc in self._fast_outs:
                     if isinstance(exc, IngressShedError):
-                        # Tenant shed attribution (the _resolve_fast twin).
+                        # Tenant shed attribution, async twin of
+                        # _resolve_fast's.
                         self.svc.tenants.fold_shed(plan.tenant_ctx, fast_idx)
-                    _merge_fast_result(result, plan.hash_keys, fast_idx, out, sl, exc)
+                    _merge_fast_result(
+                        result, plan.hash_keys, fast_idx, out, sl, exc
+                    )
+                for lanes, payload in self._peek_res:
+                    _merge_peek_result(result, lanes, payload)
                 self.svc.tenants.fold_outcome(plan.tenant_ctx, result)
-            except Exception as e:  # noqa: BLE001 — handed to the callback
+            except Exception as e:  # noqa: BLE001
                 result, err = None, e
         self.callback(result if err is None else None, err)
 
@@ -720,7 +890,7 @@ class ColumnarBatcher:
                greg_expire, greg_duration, trace_links=None) -> Future:
         fut: Future = Future()
         if self._window.stopped:
-            fut.set_exception(BatcherClosedError())
+            fut.set_exception(PeerError(ERR_BATCHER_CLOSED))
             return fut
         n = len(keys)
         if not trace_links and self._express.bypass_ok(n, self._gate, self.store):
@@ -888,10 +1058,6 @@ class ColumnarBatcher:
 
 class V1Service:
     def __init__(self, conf: ServiceConfig):
-        if conf.fault_plan is not None:
-            raise NotImplementedError(
-                "ServiceConfig.fault_plan drives the peer clients' fault "
-                "injection (faults.py), which comes with slice A2 (peers)")
         if conf.blackbox_dir:
             raise NotImplementedError(
                 "ServiceConfig.blackbox_dir needs the incident black box "
@@ -917,17 +1083,21 @@ class V1Service:
         self.metrics.set_build_info(self.store)
         self._closed = False
         self._started_monotonic = time.monotonic()
-        # Membership: the ring of this node alone once set_peers ran
-        # (empty before it: the node owns every key either way).  The
-        # ring fields are guarded by _peer_mutex.
+        # Membership: the ring set_peers installs (empty before it: the
+        # node then owns every key), its generation and fingerprint (the
+        # transfer epoch fence), the previous ring kept for the
+        # double-dispatch window, and the manager that runs the handoff
+        # and dropped peers' shutdowns on one bounded pool.  The ring
+        # fields are guarded by _peer_mutex.
         self.local_picker = ReplicatedConsistentHash()
         self.region_picker = RegionPicker()
         self._peer_mutex = threading.RLock()
         self.ring_generation = 0
         self.ring_hash = 0
-        self._prev_picker = None  # the handoff window's old ring (none yet)
-        self._handoff_deadline = 0.0
+        self._prev_picker: Optional[ReplicatedConsistentHash] = None
+        self._handoff_deadline = 0.0  # monotonic; 0 = no window
         self.reshard = ReshardManager(self)
+        self._health = HealthCheckResponse(status=HEALTHY)
         # Per-service flight recorder: threads this service owns bind it.
         self.recorder = tracing.Recorder(
             name=conf.advertise_address or f"service-{id(self):x}")
@@ -936,13 +1106,27 @@ class V1Service:
         # ring to the pump).
         self.native_ingress = None
         self.native_edges: list = []
-        # Async GLOBAL lanes and declined single-lane shapes block on the
-        # dataclass router: they run on this pool, never on a drainer.
+        # Peer forwards (the owner groups, single-lane forwards, handoff
+        # peeks) run on this pool.  Async GLOBAL lanes and declined
+        # single-lane shapes block on the dataclass router, which
+        # submits its forwards to the forward pool and waits: they run
+        # on a pool of their own, never on a drainer (outer tasks on the
+        # forward pool could fill it and wait on inner tasks queued
+        # behind them).
+        self._forward_pool = ThreadPoolExecutor(
+            max_workers=64, thread_name_prefix="peer-forward",
+            initializer=tracing.bind_recorder, initargs=(self.recorder,))
         self._slow_pool = ThreadPoolExecutor(
             max_workers=128, thread_name_prefix="columns-slow",
             initializer=tracing.bind_recorder, initargs=(self.recorder,))
         self._drainer: Optional[_HandleDrainer] = None
         self._drainer_lock = threading.Lock()
+        # Jittered backoff shared by the forward re-pick loop and the
+        # GLOBAL plane's send loops.
+        self._retry_backoff = Backoff(
+            base_s=conf.behaviors.retry_backoff_base_s,
+            max_s=conf.behaviors.retry_backoff_max_s,
+        )
         if conf.loader is not None:
             # Loader SPI over the columnar commit (store.go:49-58 call
             # pattern): the whole load() stream merges in one row gather
@@ -1032,7 +1216,15 @@ class V1Service:
         GUBER_REGION_COLUMNS=0."""
         return False
 
-    def get_peer_list(self) -> list:
+    def get_peer(self, key: str) -> PeerClient:
+        """Owner peer for a key (gubernator.go:440-449)."""
+        with self._peer_mutex:
+            if self.local_picker.size() == 0:
+                raise PeerError("unable to pick a peer; pool is empty")
+            owner_id = self.local_picker.get(key)
+            return self.local_picker.get_by_peer_id(owner_id)
+
+    def get_peer_list(self) -> List[PeerClient]:
         with self._peer_mutex:
             return list(self.local_picker.peers())
 
@@ -1040,36 +1232,114 @@ class V1Service:
         return self.region_picker
 
     def set_peers(self, peer_infos: Sequence[PeerInfo]) -> None:
-        """Install the ring (gubernator.go:357-437) for a node that is
-        its only peer.  A membership change bumps the ring generation
-        and fingerprint (the transfer epoch fence); a re-push of the
-        same list changes nothing.  The native ingress pump gets the new
-        ring.  A list naming another peer, or a peer of another data
-        center, raises NotImplementedError: peers come with the peer
-        client (peer_client.py)."""
-        infos = list(peer_infos)
-        for info in infos:
-            if not info.is_owner or (info.data_center
-                                     and info.data_center != self.conf.data_center):
-                raise NotImplementedError(
-                    f"peer {info.grpc_address!r} is not this node: peers come "
-                    "with the peer client (peer_client.py), not ported yet")
-        if len(infos) > 1:
-            raise NotImplementedError(
-                "a ring of more than this node needs the peer client "
-                "(peer_client.py), not ported yet")
+        """Rebuild pickers, reusing existing clients by address; drain
+        dropped peers through the bounded reshard pool
+        (gubernator.go:357-437).  A MEMBERSHIP change additionally bumps
+        the ring generation + fingerprint, opens the double-dispatch
+        handoff window (the previous ring is retained so reads can peek
+        the old owner), and — when the reshard plane is on — schedules
+        the columnar state handoff: moved resident keys drain off the
+        device and ship to their new owners (reshard.py)."""
+        local = [p for p in peer_infos if not p.data_center or p.data_center == self.conf.data_center]
+        regional = [p for p in peer_infos if p.data_center and p.data_center != self.conf.data_center]
+
         with self._peer_mutex:
+            old_clients = {
+                c.info.grpc_address: c
+                for c in list(self.local_picker.peers()) + list(self.region_picker.peers())
+                if isinstance(c, PeerClient)
+            }
             old_ids = set(self.local_picker.peer_ids())
             new_local = self.local_picker.new()
-            for info in infos:
-                new_local.add(info.grpc_address, _SelfPeer(info))
+            for info in local:
+                client = old_clients.pop(info.grpc_address, None)
+                if client is None:
+                    client = PeerClient(
+                        info, self.conf.behaviors,
+                        tls_context=self.conf.peer_tls_context,
+                        channel_credentials=self.conf.peer_channel_credentials,
+                        metrics=self.metrics,
+                        faults=self.conf.fault_plan,
+                    )
+                client.info = info
+                new_local.add(info.grpc_address, client)
+            new_region = self.region_picker.new()
+            for info in regional:
+                client = old_clients.pop(info.grpc_address, None)
+                if client is None:
+                    client = PeerClient(
+                        info, self.conf.behaviors,
+                        tls_context=self.conf.peer_tls_context,
+                        channel_credentials=self.conf.peer_channel_credentials,
+                        metrics=self.metrics,
+                        faults=self.conf.fault_plan,
+                    )
+                client.info = info
+                new_region.add(client)
+            prev_picker = self.local_picker
             self.local_picker = new_local
-            if set(new_local.peer_ids()) != old_ids:
+            self.region_picker = new_region
+            new_ids = set(new_local.peer_ids())
+            # Ring delta only on a real MEMBERSHIP change: re-pushes of
+            # the same list (discovery heartbeats, is_owner restamps)
+            # must not bump the epoch or churn a handoff.
+            membership_changed = new_ids != old_ids
+            handoff = False
+            if membership_changed:
                 self.ring_generation += 1
                 self.ring_hash = new_local.fingerprint()
-        pump = self.native_ingress
+                if old_ids and self.serves_reshard:
+                    # Not the bootstrap call (and the reshard plane is
+                    # on — GUBER_RESHARD=0 must be exactly the legacy
+                    # metadata-only behavior, peeks included): open the
+                    # double-dispatch window against the OLD ring.
+                    # (prev_picker holds
+                    # the surviving clients by reference — they are
+                    # reused in the new picker — and shut-down dropped
+                    # clients fast-fail, which the peek path tolerates.)
+                    self._prev_picker = prev_picker
+                    self._handoff_deadline = (
+                        time.monotonic()
+                        + getattr(self.conf.behaviors, "reshard_handoff_s", 2.0)
+                    )
+                    handoff = True
+                elif (
+                    self.serves_reshard
+                    and self.snapshots.restored_ring_hash
+                    and self.snapshots.restored_ring_hash != self.ring_hash
+                ):
+                    # BOOTSTRAP call, but the restored snapshot was
+                    # saved under a DIFFERENT membership (snapshot.py
+                    # ring fencing): the restore kept every key, so
+                    # drain the ones this daemon no longer owns and ship
+                    # them through the ordinary transfer path.  No
+                    # double-dispatch window — there is no previous
+                    # picker; the handoff itself is the ordinary
+                    # drain -> transfer pass against the new ring.
+                    self.snapshots.restored_ring_hash = None
+                    handoff = True
+            gen, rh = self.ring_generation, self.ring_hash
+
+        # Native service loop (gateway.NativeIngressPump): push the new
+        # ring snapshot so the GIL-free route check tracks membership —
+        # a membership change with a double-dispatch window DISABLES
+        # the fast lane until the window closes (moved keys owe the old
+        # owner a peek only the Python router performs).
+        pump = getattr(self, "native_ingress", None)
         if pump is not None:
             pump.update_ring()
+
+        # Handoff FIRST, then dropped-peer shutdowns: both ride the
+        # same bounded FIFO pool, and a delta dropping several peers
+        # must not park every worker in blocking client drains while
+        # the state transfer waits out its double-dispatch window.
+        if handoff and self.serves_reshard and not self._closed:
+            self.reshard.schedule_handoff(new_local, rh, gen)
+        # Shutdown dropped peers without blocking — through the bounded
+        # drain pool, tracked so close() can't race a half-shutdown
+        # client (previously one unbounded daemon thread per peer).
+        for client in old_clients.values():
+            self.reshard.submit_shutdown(client)
 
     # ------------------------------------------------------------------
     def get_rate_limits(self, req: GetRateLimitsRequest) -> GetRateLimitsResponse:
@@ -1084,47 +1354,66 @@ class V1Service:
     def get_rate_limits_columns(
         self, cols: IngressColumns, max_lanes: int = MAX_BATCH_SIZE
     ) -> ColumnarResult:
-        """Column-form GetRateLimits: same validation and semantics as
-        get_rate_limits with no per-request dataclasses for the plain
-        lanes.  `max_lanes` is the ingress-encoding cap
-        (INGRESS_COLUMNS_MAX_LANES for a columnar frame)."""
+        """Column-form GetRateLimits: same routing/validation semantics
+        as get_rate_limits (gubernator.go:116-227), but locally-owned
+        plain lanes flow straight into the store's columnar kernel path
+        with no per-request dataclasses.  GLOBAL / MULTI_REGION /
+        remotely-owned lanes fall back to the dataclass path lane-wise.
+
+        `max_lanes` is the ingress-encoding cap: classic (per-request
+        JSON/pb) requests keep the reference's MAX_BATCH_SIZE; the
+        columnar frame/proto edges pass INGRESS_COLUMNS_MAX_LANES — a
+        columnar client's frame coalesces many callers' checks, exactly
+        like a forwarded peer batch."""
         if len(cols) > max_lanes:
             raise ApiError(
                 "OutOfRange",
                 f"Requests.RateLimits list too large; max size is '{max_lanes}'",
             )
+        return self._route_columns(cols)
+
+    def _route_columns(self, cols: IngressColumns) -> ColumnarResult:
         n = len(cols)
         result = ColumnarResult.empty(n)
         if n == 0:
             return result
-        if n == 1 or not self.store.supports_columns:
-            # Single-lane requests ride the router: its batchers coalesce
-            # concurrent single-key callers into one launch.
+        store_columnar = getattr(self.store, "supports_columns", False)
+        if n == 1 or not store_columnar:
+            # Single-item requests ride the dataclass path: its
+            # LocalBatcher coalesces concurrent single-key clients into
+            # one dispatch (the routing policy lives HERE so the HTTP
+            # and gRPC edges cannot diverge).
             resp = self._route([cols.request_at(i) for i in range(n)])
             result.overrides = dict(enumerate(resp.responses))
             return result
         return self._finalize_columns(self._submit_columns(cols, result), result)
 
-    def _submit_columns(self, cols: IngressColumns, result: ColumnarResult) -> _ColumnsPlan:
-        """Phase 1 of the columnar route: validation and every launch
-        submission, no blocking on a readback (shared by the blocking
-        and the async entry points)."""
+    def _submit_columns(self, cols, result) -> "_ColumnsPlan":
+        """Phase 1 of the columnar route: validation, ownership, and
+        EVERY dispatch/forward submission — no blocking on device rounds
+        or peer RPCs.  Returns the plan _finalize_columns (sync) or
+        _ColumnsJoin (async) completes.  Shared by both so the two entry
+        points cannot diverge."""
         n = len(cols)
-        # Conservation ledger and tenant ledger: hits entering the public
-        # front door on the columnar path (the dataclass router notes
-        # its own in _route).
+        # Conservation ledger (audit.py): hits entering the public
+        # front door on the columnar path (sync + async edges both
+        # funnel here; the dataclass router counts in _route).
         audit_mod.note("ingress_hits", int(cols.hits.sum()))
+        # Tenant cost ledger (profiling.py): the SAME admission fold —
+        # every audit ingress note has a tenant fold beside it, so the
+        # two ledgers reconcile exactly at quiesce (the soak asserts).
         tenant_ctx = self.tenants.fold_admit(cols)
-        beh = np.asarray(cols.behavior, dtype=np.int32)
-        # GLOBAL lanes take the dataclass router (replica answers, hit
-        # accumulation); the rest launch columnar.
+        beh = cols.behavior
+        # GLOBAL lanes need the replica-cache/dataclass path; MULTI_REGION
+        # lanes stay columnar when locally owned (their only extra duty is
+        # async hit queueing, handled below).
         slow = (beh & int(Behavior.GLOBAL)) != 0
-        fast = ~slow
-        # Validation (gubernator.go:142-152; note the reference's
-        # 'namespace' wording for an empty name).  The native JSON parse
-        # and the frame decode hand the hash keys over packed, with a
-        # validation code per lane (gateway LazyIngressColumns,
-        # wire.FrameIngressColumns).
+        fast = np.logical_not(slow)
+
+        # Validation (gubernator.go:142-152) + hash keys in one pass.
+        # The native JSON edge precomputes both (gateway
+        # LazyIngressColumns.prevalidated): packed hash keys flow to
+        # the planner with zero per-lane Python.
         pre = getattr(cols, "prevalidated", None)
         if pre is not None:
             hash_keys, errc = pre
@@ -1144,39 +1433,281 @@ class V1Service:
                     fast[i] = slow[i] = False
                 else:
                     hash_keys[i] = f"{cols.names[i]}_{cols.unique_keys[i]}"
+
+        # Ownership: the single-self-peer daemon (the common standalone
+        # topology) owns everything; multi-peer rings resolve owners in
+        # one vectorized pass.  Plain remote lanes group by owner for
+        # ONE forwarded RPC per owner (the batch-sized analogue of the
+        # reference's per-item forward window); GLOBAL remote lanes
+        # keep the replica-cache dataclass path.
+        remote_groups: Dict[str, list] = {}  # owner addr -> [lane idx]
+        remote_peers: Dict[str, PeerClient] = {}
+        peek_plan: list = []  # [(prev owner PeerClient, lane idx array)]
+        with self._peer_mutex:
+            pp = self._handoff_prev_picker()  # handoff window: old ring
+            psize = self.local_picker.size()
+            # A service never given a ring owns every key.
+            single_owner = psize == 0
+            if psize == 1 and pp is None:
+                # The single-self shortcut is disabled during a handoff
+                # window: a just-scaled-in ring still owes moved lanes
+                # the double-dispatch peek at their old owner.
+                (only,) = self.local_picker.peers()
+                single_owner = only.info.is_owner
+            grouped_mask = np.zeros(n, dtype=bool)
+            if not single_owner and psize >= 1:
+                # Vectorized ownership: one batch hash + searchsorted,
+                # then one mask pass PER DISTINCT OWNER (not per lane)
+                # — the ring hands back integer owner codes, so no
+                # per-lane Python objects are touched here.  Works on
+                # plain string lists and PackedKeys alike.
+                valid = fast | slow  # validation-error lanes: both False
+                all_valid = bool(valid.all())
+                if all_valid:
+                    keys_for_ring = hash_keys
+                elif isinstance(hash_keys, list):
+                    keys_for_ring = [
+                        hash_keys[int(i)] for i in np.nonzero(valid)[0]
+                    ]
+                else:  # PackedKeys (native edge / peer frame decode)
+                    keys_for_ring = hash_keys.subset(np.nonzero(valid)[0])
+                codes, code_ids = self.local_picker.get_batch_codes(
+                    keys_for_ring, sketch=self.hotkeys
+                )
+                if all_valid:
+                    lane_code = codes
+                else:
+                    lane_code = np.full(n, -1, dtype=np.int32)
+                    lane_code[valid] = codes
+                if pp is not None and pp.size():
+                    # Handoff window: lanes whose owner moved between
+                    # the two rings double-dispatch COLUMNAR-natively —
+                    # routing stays on the fast path under the NEW
+                    # ring, and one grouped zero-hit peek per PREVIOUS
+                    # owner merges monotonically at finalize
+                    # (_merge_peek_result), so bulk reads never observe
+                    # a reset bucket mid-transfer and never pay per-
+                    # lane dataclass legs.  One extra vectorized ring
+                    # pass + one extra RPC/dispatch per prev-owner per
+                    # batch, only while the window is open.  GLOBAL
+                    # lanes keep replica semantics; Gregorian lanes
+                    # skip the peek (their duration column is an enum a
+                    # raw zero-hit batch cannot carry safely).
+                    pcodes, pids = pp.get_batch_codes(keys_for_ring)
+                    moved_sel = (
+                        np.asarray(code_ids, dtype=object)[codes]
+                        != np.asarray(pids, dtype=object)[pcodes]
+                    )
+                    if moved_sel.any():
+                        valid_idx = (
+                            np.arange(n) if all_valid
+                            else np.nonzero(valid)[0]
+                        )
+                        beh_v = np.asarray(beh)[valid_idx]
+                        mv = (
+                            moved_sel
+                            & ((beh_v & int(Behavior.GLOBAL)) == 0)
+                            & (
+                                (beh_v
+                                 & int(Behavior.DURATION_IS_GREGORIAN))
+                                == 0
+                            )
+                        )
+                        for pc in np.unique(pcodes[mv]):
+                            prev_peer = pp.get_by_peer_id(pids[int(pc)])
+                            if prev_peer is None:
+                                continue
+                            breaker = getattr(prev_peer, "breaker", None)
+                            if (
+                                breaker is not None
+                                and breaker.is_open
+                                and not prev_peer.info.is_owner
+                            ):
+                                # A dead old owner: the peek would only
+                                # fast-fail — skip it outright.
+                                continue
+                            lanes = valid_idx[mv & (pcodes == pc)]
+                            if lanes.size:
+                                peek_plan.append((prev_peer, lanes))
+                for c, pid in enumerate(code_ids):
+                    peer = self.local_picker.get_by_peer_id(pid)
+                    if peer is not None and peer.info.is_owner:
+                        continue
+                    lanes = np.nonzero(lane_code == c)[0]
+                    if not lanes.size:
+                        continue
+                    fast[lanes] = False
+                    if peer is not None:
+                        # Plain remote lanes: group-forward.  A None
+                        # peer (churn mid-resolve) stays on the
+                        # dataclass router, which re-picks; GLOBAL
+                        # lanes keep the replica-cache path.
+                        plain = lanes[np.logical_not(slow[lanes])]
+                        if plain.size:
+                            addr = peer.info.grpc_address
+                            remote_groups[addr] = plain
+                            remote_peers[addr] = peer
+                            grouped_mask[plain] = True
+                    slow[lanes] = True
+
         pendings = self._dispatch_fast(cols, beh, fast, hash_keys, result)
-        slow_idx = [int(i) for i in np.nonzero(slow)[0]]
+
+        # Plain remote lanes: ONE forwarded columnar sub-batch per
+        # owner, submitted in parallel while the local fast dispatch is
+        # in flight (the batch-sized analogue of the per-item forward,
+        # gubernator.go:195-210).  The lanes travel as COLUMN subsets —
+        # no per-lane dataclasses — and concurrent ingress batches to
+        # the same owner coalesce in the PeerClient window.  A group
+        # containing any NO_BATCHING lane sends direct (window
+        # bypassed), preserving the per-request opt-out.
+        group_futs = {}
+        for addr, idxs in remote_groups.items():
+            idx = np.asarray(idxs, dtype=np.int64)
+            sub = (
+                [cols.names[int(i)] for i in idxs],
+                [cols.unique_keys[int(i)] for i in idxs],
+                np.asarray(cols.algorithm[idx], dtype=np.int32),
+                np.asarray(beh[idx], dtype=np.int32),
+                np.asarray(cols.hits[idx], dtype=np.int64),
+                np.asarray(cols.limit[idx], dtype=np.int64),
+                np.asarray(cols.duration[idx], dtype=np.int64),
+            )
+            direct = bool((beh[idx] & int(Behavior.NO_BATCHING)).any())
+            group_futs[addr] = self._forward_pool.submit(
+                self._forward_group_columns, remote_peers[addr], sub, direct,
+                # Captured HERE: the forward runs on a pool thread with
+                # no ambient context; the peer hop carries this as the
+                # wire trace-context column (tracing.py).
+                tracing.current(),
+            )
+
+        # Handoff double-dispatch: submit the grouped zero-hit peeks
+        # (one per previous owner) alongside the in-flight primary
+        # legs.  Local groups (the previous owner is THIS daemon,
+        # draining away) dispatch one batched device read; remote
+        # groups ride the peer's coalescing window.  Strictly
+        # best-effort: a submit failure simply drops the peek.
+        peeks: list = []
+        for prev_peer, lanes in peek_plan:
+            idx = np.asarray(lanes, dtype=np.int64)
+            zero_hits = np.zeros(idx.size, np.int64)
+            try:
+                if prev_peer.info.is_owner:
+                    if isinstance(hash_keys, list):
+                        keys_sel = [hash_keys[int(i)] for i in idx]
+                    else:
+                        keys_sel = hash_keys.subset(idx)
+                    # Peeks OBSERVE, they must not create: drop lanes
+                    # with no resident bucket here — nothing to peek,
+                    # and a zero-hit shadow bucket would later ride the
+                    # transfer plane as noise.  resident_mask iterates
+                    # plain lists and PackedKeys alike.
+                    res = self.store.resident_mask(keys_sel)
+                    if not res.all():
+                        idx = idx[res]
+                        if not idx.size:
+                            continue
+                        keys_sel = (
+                            [k for k, r in zip(keys_sel, res) if r]
+                            if isinstance(keys_sel, list)
+                            else keys_sel.subset(np.nonzero(res)[0])
+                        )
+                        zero_hits = np.zeros(idx.size, np.int64)
+                    handle = self.store.apply_columns_async(
+                        keys_sel,
+                        np.asarray(cols.algorithm[idx], dtype=np.int32),
+                        np.asarray(beh[idx], dtype=np.int32),
+                        zero_hits,
+                        np.asarray(cols.limit[idx], dtype=np.int64),
+                        np.asarray(cols.duration[idx], dtype=np.int64),
+                        self.clock.now_ms(),
+                    )
+                    peeks.append(("local", (handle, 0, idx.size), idx))
+                else:
+                    sub = (
+                        [cols.names[int(i)] for i in idx],
+                        [cols.unique_keys[int(i)] for i in idx],
+                        np.asarray(cols.algorithm[idx], dtype=np.int32),
+                        np.asarray(beh[idx], dtype=np.int32),
+                        zero_hits,
+                        np.asarray(cols.limit[idx], dtype=np.int64),
+                        np.asarray(cols.duration[idx], dtype=np.int64),
+                    )
+                    peeks.append(
+                        ("remote", prev_peer.forward_columns(sub), idx)
+                    )
+            except Exception:  # noqa: BLE001 — peek is best-effort
+                continue
+
+        # Remaining slow lanes (GLOBAL remote/local specials) ride the
+        # dataclass router.
+        slow_idx = [
+            int(i)
+            for i in np.nonzero(np.logical_and(slow, ~grouped_mask))[0]
+        ]
         slow_reqs = [cols.request_at(i) for i in slow_idx]
         return _ColumnsPlan(
             pendings=pendings,
+            group_futs=group_futs,
+            remote_groups=remote_groups,
             slow_idx=slow_idx,
-            # _counted: the funnel above noted these lanes' hits already.
-            slow_fn=((lambda: self._route(slow_reqs, _counted=True).responses)
-                     if slow_idx else None),
+            slow_fn=(
+                # _counted: these lanes' hits were already noted by the
+                # funnel above — the dataclass router must not re-note
+                # the GLOBAL subset into the ingress ledger.
+                (lambda: self._route(slow_reqs, _counted=True).responses)
+                if slow_idx else None
+            ),
             hash_keys=hash_keys,
+            peeks=peeks,
             tenant_ctx=tenant_ctx,
         )
 
-    def _finalize_columns(self, plan: _ColumnsPlan, result: ColumnarResult) -> ColumnarResult:
-        """Phase 2, blocking: the GLOBAL lanes' route (store.apply drains
-        every launched batch first), then every launch's readback."""
+    def _finalize_columns(self, plan: "_ColumnsPlan", result) -> ColumnarResult:
+        """Phase 2, blocking form: resolve every submission from phase 1
+        and merge into `result` (the async twin is _ColumnsJoin).  The
+        handoff peeks merge LAST — they adjust the arrays the primary
+        merges populate."""
         if plan.slow_idx:
-            for i, r in zip(plan.slow_idx, plan.slow_fn()):
+            resps = plan.slow_fn()
+            for i, r in zip(plan.slow_idx, resps):
                 result.overrides[int(i)] = r
-        self._resolve_fast(plan.pendings, plan.hash_keys, result, plan.tenant_ctx)
-        # Tenant ledger: per-tenant OVER_LIMIT from the resolved arrays.
+        for addr, fut in plan.group_futs.items():
+            _merge_group_result(
+                result, plan.remote_groups[addr], addr, fut.result()
+            )
+        self._resolve_fast(
+            plan.pendings, plan.hash_keys, result,
+            tenant_ctx=plan.tenant_ctx,
+        )
+        for kind, payload, lanes in plan.peeks:
+            data = None
+            try:
+                if kind == "remote":
+                    rc, lo, hi = payload.result(
+                        timeout=self.conf.behaviors.batch_timeout_s + 1.0
+                    )
+                    data = ("remote", (rc, lo, hi))
+                else:
+                    handle, lo, hi = payload
+                    data = ("local", (handle.result(), slice(lo, hi)))
+            except Exception:  # noqa: BLE001 — peek is best-effort
+                data = None
+            _merge_peek_result(result, lanes, data)
+        # Tenant cost ledger: per-tenant OVER_LIMIT attribution from
+        # the resolved arrays (admission was folded at submit).
         self.tenants.fold_outcome(plan.tenant_ctx, result)
         return result
 
+    # -- shared fast-lane halves of the two columnar entry points ------
     def _resolve_greg_fast(self, cols, beh, fast, result):
-        """Gregorian precompute for the lanes that carry
-        DURATION_IS_GREGORIAN; an invalid duration becomes that lane's
-        error (and leaves `fast`).  Returns (greg_expire, greg_duration)
-        or Nones."""
+        """Gregorian precompute for fast lanes (slow lanes redo it in
+        prepare_requests; cheap, memoized per duration).  Mutates `fast`
+        for error lanes; returns (greg_expire, greg_duration) or Nones."""
+        n = len(cols)
         greg_lanes = fast & ((beh & int(Behavior.DURATION_IS_GREGORIAN)) != 0)
         if not greg_lanes.any():
             return None, None
-        n = len(cols)
         greg_expire = np.zeros(n, dtype=np.int64)
         greg_duration = np.zeros(n, dtype=np.int64)
         resolver = GregResolver(self.clock.now_ms())
@@ -1190,17 +1721,20 @@ class V1Service:
         return greg_expire, greg_duration
 
     def _dispatch_fast(self, cols, beh, fast, hash_keys, result):
-        """Launch the plain lanes.  Batching is per lane, as in the
-        reference (proto/gubernator.proto:74-78): NO_BATCHING lanes
-        launch at once, the rest go through the window, so a mixed
-        request splits into one direct and one windowed launch.  Returns
-        [(pending, lane idx)] for _resolve_fast / _ColumnsJoin."""
+        """Dispatch the fast lanes (Gregorian precompute included).
+        Batching behavior is per request, as in the reference
+        (proto/gubernator.proto:74-78): lanes flagged NO_BATCHING
+        dispatch immediately, the rest coalesce through the window —
+        a mixed batch splits into one direct and one windowed dispatch.
+        Returns a list of (pending, idx) pairs for _resolve_fast."""
         greg_expire, greg_duration = self._resolve_greg_fast(cols, beh, fast, result)
         fast_idx = np.nonzero(fast)[0]
         if not fast_idx.size:
             return []
         n = len(cols)
-        # Span links of the ambient request ([] when unsampled).
+        # Span handles for the dispatch (tracing.py): the ambient
+        # ingress context plus any wire trace-context column a peer
+        # batch carried; [] on unsampled traffic (one branch).
         links = tracing.request_links(cols)
 
         def dispatch(idx, direct):
@@ -1211,7 +1745,7 @@ class V1Service:
             elif isinstance(hash_keys, list):
                 keys_sel = [hash_keys[i] for i in idx]
             else:
-                keys_sel = hash_keys.subset(idx)  # PackedKeys, no per-lane strings
+                keys_sel = hash_keys.subset(idx)  # PackedKeys, no per-lane Python
             args = (
                 keys_sel, cols.algorithm[sl], beh[sl], cols.hits[sl],
                 cols.limit[sl], cols.duration[sl],
@@ -1224,11 +1758,15 @@ class V1Service:
                     tracing.stage_batch_trace(bt)
                 try:
                     handle = self.store.apply_columns_async(
-                        *args[:6], self.clock.now_ms(), *args[6:])
+                        *args[:6], self.clock.now_ms(), *args[6:]
+                    )
                 finally:
                     tracing.take_batch_trace()
                 return (handle, 0, idx.size), idx
-            return self.columnar_batcher.submit(*args, trace_links=links), idx
+            return (
+                self.columnar_batcher.submit(*args, trace_links=links),
+                idx,
+            )
 
         nb = (beh[fast_idx] & int(Behavior.NO_BATCHING)) != 0
         if not nb.any():
@@ -1237,70 +1775,182 @@ class V1Service:
             return [dispatch(fast_idx, True)]
         return [dispatch(fast_idx[nb], True), dispatch(fast_idx[~nb], False)]
 
-    def _resolve_fast(self, pendings, hash_keys, result, tenant_ctx=None) -> None:
-        """Block on each launch and scatter its arrays into the result;
-        a failed launch becomes per-lane errors."""
+    def _resolve_fast(self, pendings, hash_keys, result,
+                      tenant_ctx=None) -> None:
+        """Block on each fast dispatch and scatter its arrays into the
+        result; a dispatch failure (e.g. shutdown race) converts to
+        per-lane errors instead of failing lanes already computed."""
         for pending, fast_idx in pendings:
             out, sl, exc = None, None, None
             try:
-                handle, lo, hi = pending.result() if isinstance(pending, Future) else pending
+                handle, lo, hi = (
+                    pending.result() if isinstance(pending, Future) else pending
+                )
                 out = handle.result()
                 sl = slice(lo, hi)
-            except Exception as e:  # noqa: BLE001 — per-lane errors, batch survives
+            except Exception as e:  # noqa: BLE001
                 exc = e
             if isinstance(exc, IngressShedError):
-                # Tenant ledger: the ingress gate refused these lanes.
+                # Tenant cost ledger: the bounded ingress gate refused
+                # these lanes — attribute the shed to their tenants
+                # (ROADMAP item 2's "one tenant's burst sheds itself").
                 self.tenants.fold_shed(tenant_ctx, fast_idx)
             _merge_fast_result(result, hash_keys, fast_idx, out, sl, exc)
 
     def _route(self, requests: Sequence[RateLimitRequest],
                _counted: bool = False) -> GetRateLimitsResponse:
-        """The dataclass router of a node that owns every key: a
-        multi-lane request (or a NO_BATCHING lane) is its own batch; a
-        single BATCHING lane rides a window.  `_counted` marks lanes the
-        columnar funnel already noted in the audit and tenant ledgers."""
         n = len(requests)
+        # Conservation ledger: the dataclass router is the other public
+        # front-door funnel (get_rate_limits, single-lane and
+        # non-columnar fallbacks of the columnar entries).  `_counted`
+        # marks lanes the columnar funnel already noted (its GLOBAL/
+        # slow subset routes through here) — noting them twice would
+        # overstate front-door hits by the GLOBAL fraction.
         if not _counted:
-            audit_mod.note("ingress_hits", sum(int(r.hits) for r in requests))
-        tenant_names = None if _counted else self.tenants.fold_requests(requests)
+            audit_mod.note(
+                "ingress_hits", sum(int(r.hits) for r in requests)
+            )
+        # Tenant cost ledger: the dataclass router's admission fold
+        # (lanes the columnar funnel already folded arrive _counted).
+        tenant_names = (
+            None if _counted else self.tenants.fold_requests(requests)
+        )
         out: List[Optional[RateLimitResponse]] = [None] * n
         local: List[int] = []
+        global_remote: List[int] = []
+        owner_by_idx: Dict[int, str] = {}
+        forwards: List[tuple] = []  # (idx, req, peer)
+        peeks: Dict[int, Future] = {}  # handoff double-dispatch legs
+        with self._peer_mutex:
+            # A service never given a ring owns every key.
+            alone = self.local_picker.size() == 0
+
         for i, r in enumerate(requests):
+            # Validation (gubernator.go:142-152; note the reference's
+            # 'namespace' wording for an empty name).
             if not r.unique_key:
                 out[i] = RateLimitResponse(error=ERR_EMPTY_KEY)
-            elif not r.name:
+                continue
+            if not r.name:
                 out[i] = RateLimitResponse(error=ERR_EMPTY_NAME)
-            else:
+                continue
+            if alone:
                 local.append(i)
+                continue
+            key = r.hash_key()
+            peer, err = self._pick_ready_peer(key)
+            if peer is None:
+                out[i] = RateLimitResponse(
+                    error=f"while finding peer that owns rate limit '{key}' - '{err}'"
+                )
+                continue
+            if not has_behavior(r.behavior, Behavior.GLOBAL):
+                # Handoff window (elastic membership): a lane whose
+                # ownership moved between the previous and current ring
+                # DOUBLE-DISPATCHES — the hit is served by the new
+                # owner (the normal legs below) plus a concurrent
+                # zero-hit peek at the old owner, merged monotonically
+                # at the end, so the read can never observe a reset
+                # bucket while the state transfer is in flight.
+                prev = self._handoff_peek_peer(key, peer)
+                if prev is not None:
+                    peeks[i] = self._forward_pool.submit(
+                        self._peek_one, r, prev
+                    )
+            if peer.info.is_owner:
+                local.append(i)
+            elif has_behavior(r.behavior, Behavior.GLOBAL):
+                global_remote.append(i)
+                owner_by_idx[i] = peer.info.grpc_address
+            else:
+                forwards.append((i, r, peer))
+
+        now = self.clock.now_ms()
+
         if local:
+            # Whole-batch requests evaluate directly (they ARE the
+            # batch); single-item requests with BATCHING ride the
+            # ingress window so concurrent clients share one dispatch.
             local_reqs = [requests[i] for i in local]
-            if len(local_reqs) > 1 or has_behavior(local_reqs[0].behavior, Behavior.NO_BATCHING):
-                if len(local_reqs) == 1 and self._single_columnar_eligible(local_reqs[0]):
-                    # One NO_BATCHING lane: a direct columnar launch.
+            if len(local_reqs) > 1 or any(
+                has_behavior(r.behavior, Behavior.NO_BATCHING) for r in local_reqs
+            ):
+                if len(local_reqs) == 1 and self._single_columnar_eligible(
+                    local_reqs[0]
+                ):
+                    # Single NO_BATCHING lane: direct columnar dispatch
+                    # (no window).  Same eligibility as the batched
+                    # rider; keeps the latency-optimized flag FASTER
+                    # than the windowed path, not slower (the object
+                    # path's per-request dataclass machinery costs more
+                    # than the 500 µs window it skips).
                     i = local[0]
                     try:
-                        out[i] = self._submit_single_local(local_reqs[0], direct=True).result()
-                    except Exception as e:  # noqa: BLE001 — per-lane error
+                        out[i] = self._submit_single_local(
+                            local_reqs[0], direct=True
+                        ).result()
+                    except Exception as e:  # noqa: BLE001
+                        key = local_reqs[0].hash_key()
                         out[i] = RateLimitResponse(
-                            error=f"while applying rate limit '{local_reqs[0].hash_key()}' - '{e}'")
+                            error=f"while applying rate limit '{key}' - '{e}'"
+                        )
                 else:
-                    resps = self.store.apply(local_reqs, self.clock.now_ms())
+                    resps = self.store.apply(local_reqs, now)
                     for i, resp in zip(local, resps):
                         out[i] = resp
             else:
-                i = local[0]
-                try:
-                    # No timeout: the flush always resolves the future,
-                    # and a timeout would report an error for hits the
-                    # late flush still applies.
-                    out[i] = self._submit_single_local(local_reqs[0]).result()
-                except Exception as e:  # noqa: BLE001 — per-lane error
-                    out[i] = RateLimitResponse(
-                        error=f"while applying rate limit '{local_reqs[0].hash_key()}' - '{e}'")
+                futs = [
+                    (i, self._submit_single_local(r))
+                    for i, r in zip(local, local_reqs)
+                ]
+                for i, fut in futs:
+                    # Per-item error conversion, like the forward path
+                    # (_forward_one): a batcher failure must not 500 the
+                    # whole GetRateLimits call.
+                    try:
+                        # No timeout: the flush ALWAYS resolves every
+                        # future (result or exception), and a timeout
+                        # here would report an error for hits that the
+                        # late flush still applies device-side.
+                        out[i] = fut.result()
+                    except Exception as e:  # noqa: BLE001
+                        key = requests[i].hash_key()
+                        out[i] = RateLimitResponse(
+                            error=f"while applying rate limit '{key}' - '{e}'"
+                        )
+        if global_remote:
+            resps = self.store.apply(
+                [requests[i] for i in global_remote], now, remote_global=True
+            )
+            for i, resp in zip(global_remote, resps):
+                resp.metadata = {"owner": owner_by_idx.get(i, "")}
+                out[i] = resp
+
+        if forwards:
+            futures = {
+                i: self._forward_pool.submit(
+                    self._forward_one, r, p, tracing.current()
+                )
+                for i, r, p in forwards
+            }
+            for i, fut in futures.items():
+                out[i] = fut.result()
+
+        for i, fut in peeks.items():
+            try:
+                peek = fut.result(
+                    timeout=self.conf.behaviors.batch_timeout_s + 1.0
+                )
+            except Exception:  # noqa: BLE001 — peek is best-effort
+                peek = None
+            if out[i] is not None:
+                out[i] = self._merge_handoff(out[i], peek)
+
         if tenant_names is not None:
             self.tenants.fold_outcome_responses(tenant_names, out)
         return GetRateLimitsResponse(
-            responses=[r if r is not None else RateLimitResponse() for r in out])
+            responses=[r if r is not None else RateLimitResponse() for r in out]
+        )
 
     def _single_columnar_eligible(self, r: RateLimitRequest) -> bool:
         return not has_behavior(r.behavior, Behavior.GLOBAL) and self.store.supports_columns
@@ -1346,6 +1996,274 @@ class V1Service:
             fut = self.columnar_batcher.submit(*cols, ge_arr, gd_arr, trace_links=links)
         return _SingleLaneWait(fut)
 
+    def _pick_ready_peer(self, key: str):
+        """GetPeer for routing; the not-ready re-pick loop
+        (gubernator.go:154-162) lives in _forward_one, where readiness
+        is actually observed."""
+        try:
+            return self.get_peer(key), None
+        except PeerError as e:
+            return None, e
+
+    def _forward_group_columns(self, peer: PeerClient, sub, direct: bool,
+                               trace_ctx=None):
+        """Forward a whole owner-group as ONE columnar sub-batch
+        (riding the peer's coalescing window; `direct` bypasses it for
+        NO_BATCHING groups).  Fast outcome: ("cols", result, lo, hi) —
+        this group's slice of the shared decoded response arrays,
+        scattered zero-dataclass by _merge_group_result.  Failure legs
+        keep the dataclass route: an owner with an open circuit breaker
+        degrades the whole group to local evaluation; a not-ready peer
+        degrades to the per-item forward path, which owns the re-pick
+        retry loop (gubernator.go:154-162); other failures convert per
+        lane."""
+        try:
+            if direct:
+                rc = peer.send_columns_direct(
+                    sub, timeout_s=self.conf.behaviors.batch_timeout_s,
+                    trace_ctx=trace_ctx,
+                )
+                return ("cols", rc, 0, len(sub[0]))
+            fut = peer.forward_columns(sub, trace_ctx=trace_ctx)
+            rc, lo, hi = fut.result(
+                timeout=self.conf.behaviors.batch_timeout_s + 1.0
+            )
+            return ("cols", rc, lo, hi)
+        except Exception as e:  # noqa: BLE001
+            if is_circuit_open(e):
+                # The RPC never left this host (breaker fast-fail), so
+                # local evaluation cannot double-count.
+                return self._degrade_local(_cols_to_requests(sub), peer)
+            if is_not_ready(e):
+                return [
+                    self._forward_one(r, peer) for r in _cols_to_requests(sub)
+                ]
+            return [
+                RateLimitResponse(
+                    error=(
+                        f"while fetching rate limit '{nm}_{uk}' from peer - '{e}'"
+                    )
+                )
+                for nm, uk in zip(sub[0], sub[1])
+            ]
+
+    def _degrade_local(
+        self, reqs: Sequence[RateLimitRequest], peer: PeerClient
+    ) -> List[RateLimitResponse]:
+        """The owner's circuit breaker is open: serve the hit from the
+        LOCAL shard instead of blocking the batch window behind a dead
+        peer.  Documented degraded semantics (architecture.md "Fault
+        tolerance"): during the open window each surviving daemon
+        enforces the key's full limit against its own share of the
+        traffic, so OVER_LIMIT is still enforced (per daemon) and state
+        converges back to owner-authoritative once the breaker's
+        half-open probe re-closes it.  Responses are stamped
+        degraded=true so callers/tests can observe the mode.
+
+        Singles ride _submit_single_local (the windowed columnar
+        coalescer): under exactly the load this path absorbs — a whole
+        batch window's waiters failing over at once — one raw
+        store.apply per waiter would serialize N device rounds at one
+        store-lock hold each (the ThunderingHeard ceiling the coalescer
+        exists to avoid).  Groups are already one batched apply."""
+        if len(reqs) == 1:
+            try:
+                resps = [self._submit_single_local(reqs[0]).result()]
+            except Exception as e:  # noqa: BLE001 (per-item, like _forward_one)
+                resps = [
+                    RateLimitResponse(
+                        error=(
+                            f"while applying rate limit "
+                            f"'{reqs[0].hash_key()}' - '{e}'"
+                        )
+                    )
+                ]
+        else:
+            resps = self.store.apply(list(reqs), self.clock.now_ms())
+        for resp in resps:
+            resp.metadata = {
+                "owner": peer.info.grpc_address,
+                "degraded": "true",
+            }
+        self.metrics.degraded_evals.inc(len(resps))
+        return resps
+
+    def _forward_one(self, r: RateLimitRequest, peer: PeerClient,
+                     trace_ctx=None) -> RateLimitResponse:
+        """Forward to the owner (the BATCHING leg, gubernator.go:195-210),
+        retrying with a re-pick + jittered backoff when the peer is not
+        ready (budget: behaviors.forward_retry_limit).  An owner whose
+        circuit breaker was already open serves degraded local
+        evaluation instead; a breaker that opens MID-retry keeps the
+        error path — this request already burned its budget observing
+        real failures, and the caller sees the same not-connected error
+        the reference returns (the NEXT request gets the fast degraded
+        path).  `trace_ctx` is the SUBMITTING request's span context:
+        this runs on a forward-pool thread with no ambient context, so
+        the router captures it at submit time — without it a
+        single-lane forwarded request's trace would end at the ingress
+        span instead of crossing the wire."""
+        key = r.hash_key()
+        attempts = 0
+        budget = self.conf.behaviors.forward_retry_limit
+        while True:
+            try:
+                resp = peer.get_peer_rate_limit(r, trace_ctx=trace_ctx)
+                resp.metadata = {"owner": peer.info.grpc_address}
+                return resp
+            except Exception as e:  # noqa: BLE001
+                if is_circuit_open(e):
+                    if attempts == 0:
+                        return self._degrade_local([r], peer)[0]
+                    return RateLimitResponse(
+                        error=(
+                            "GetPeer() keeps returning peers that are not connected "
+                            f"for '{key}' - '{e}'"
+                        )
+                    )
+                if is_not_ready(e):
+                    attempts += 1
+                    if attempts > budget:
+                        return RateLimitResponse(
+                            error=(
+                                "GetPeer() keeps returning peers that are not connected "
+                                f"for '{key}' - '{e}'"
+                            )
+                        )
+                    self.metrics.peer_retries.labels(op="forward").inc()
+                    self._retry_backoff.sleep(attempts - 1)
+                    try:
+                        peer = self.get_peer(key)
+                    except PeerError as pe:
+                        return RateLimitResponse(
+                            error=f"while finding peer that owns rate limit '{key}' - '{pe}'"
+                        )
+                    continue
+                return RateLimitResponse(
+                    error=f"while fetching rate limit '{key}' from peer - '{e}'"
+                )
+
+    # -- double-dispatch reads during a handoff window -----------------
+    def _handoff_prev_picker(self):
+        """The previous ring's picker while the double-dispatch window
+        is open, else None (and the reference is dropped once the
+        window lapses, so steady state pays one None check).  Caller
+        holds _peer_mutex."""
+        if self._prev_picker is None:
+            return None
+        if time.monotonic() >= self._handoff_deadline:
+            self._prev_picker = None
+            return None
+        return self._prev_picker
+
+    def _handoff_peek_peer(self, key: str, cur_peer: PeerClient):
+        """The OLD owner to peek for `key` during the handoff window —
+        None when no window is open, ownership didn't move, or the old
+        owner is the current one."""
+        if self._prev_picker is None:  # unlocked fast path (benign race)
+            return None
+        with self._peer_mutex:
+            pp = self._handoff_prev_picker()
+            if pp is None or pp.size() == 0:
+                return None
+            try:
+                prev = pp.get_by_peer_id(pp.get(key))
+            except RuntimeError:
+                return None
+        if prev is None or prev is cur_peer:
+            return None
+        pinfo = getattr(prev, "info", None)
+        if pinfo is not None and pinfo.grpc_address == cur_peer.info.grpc_address:
+            return None
+        breaker = getattr(prev, "breaker", None)
+        if (
+            breaker is not None and breaker.is_open
+            and not (pinfo is not None and pinfo.is_owner)
+        ):
+            # A dead old owner (breaker open): the peek would only
+            # fast-fail — skip it so churn against unreachable peers
+            # never taxes the request path.
+            return None
+        return prev
+
+    def _peek_one(self, r: RateLimitRequest, prev_peer):
+        """Zero-hit read at the PREVIOUS owner: the second leg of the
+        double-dispatch.  hits=0 never consumes budget, so the peek
+        cannot double-count — it only observes the bucket the transfer
+        hasn't landed yet.  Best-effort: any failure (old owner dying
+        is exactly when this runs) returns None and the primary answer
+        stands."""
+        r0 = replace(r, hits=0)
+        try:
+            if prev_peer.info.is_owner:
+                # The previous owner is THIS daemon (we are draining
+                # away): read our own store — only if the bucket is
+                # actually resident (peeks observe, never create).
+                mask_fn = getattr(self.store, "resident_mask", None)
+                if mask_fn is not None and not mask_fn([r0.hash_key()])[0]:
+                    return None
+                return self.store.apply([r0], self.clock.now_ms())[0]
+            return prev_peer.get_peer_rate_limit(r0)
+        except Exception:  # noqa: BLE001 — peek is strictly best-effort
+            return None
+
+    @staticmethod
+    def _merge_handoff(primary: RateLimitResponse,
+                       peek: Optional[RateLimitResponse]) -> RateLimitResponse:
+        """Monotone merge of a double-dispatched read (the documented
+        rule, architecture.md "Membership & resharding"): status = max
+        (OVER_LIMIT wins), remaining = min, reset_time = max.  Both
+        sides answered about the same limit config; the merged view is
+        never more permissive than either — so no request observes a
+        reset bucket mid-handoff.  Error answers on either side leave
+        the primary untouched."""
+        if peek is None or peek.error or primary.error:
+            return primary
+        if int(peek.remaining) >= int(peek.limit) and int(peek.status) == 0:
+            # No consumption evidence: the old owner answered a
+            # fresh/untouched bucket (it may have already forgotten the
+            # key post-ACK) — nothing to carry, and merging would only
+            # inflate reset_time.
+            return primary
+        primary.status = max(int(primary.status), int(peek.status))
+        primary.remaining = min(int(primary.remaining), int(peek.remaining))
+        primary.reset_time = max(int(primary.reset_time), int(peek.reset_time))
+        if primary.metadata:
+            primary.metadata.setdefault("handoff", "true")
+        else:
+            primary.metadata = {"handoff": "true"}
+        return primary
+
+    def _peer_send(self, op: str, fn: Callable[[], object]) -> bool:
+        """Host-tier peer send (GLOBAL hits/broadcast fan-out,
+        multi-region push) with jittered-backoff retries on not-ready
+        failures, replacing the bare try/except-pass hot loops that
+        were dominated by network timeouts under failure.  Circuit-open
+        fast-fails are skipped immediately (the breaker's open interval
+        IS the backoff across ticks); budgets come from
+        behaviors.global_send_retries.  Returns success."""
+        ok, _ = self._peer_send_ex(op, fn)
+        return ok
+
+    def _peer_send_ex(self, op: str, fn: Callable[[], object]):
+        """_peer_send returning (success, last_error): the GLOBAL
+        requeue accounting reads the failure SHAPE — a breaker
+        fast-fail / connection-level not-ready provably never applied
+        (safe to requeue the hits), a timeout-shaped failure may have
+        applied server-side (requeueing would double-count)."""
+        budget = self.conf.behaviors.global_send_retries
+        attempt = 0
+        while True:
+            try:
+                fn()
+                return True, None
+            except Exception as e:  # noqa: BLE001 (logged-and-continue in ref)
+                if is_circuit_open(e) or not is_not_ready(e) or attempt >= budget:
+                    return False, e
+                self.metrics.peer_retries.labels(op=op).inc()
+                self._retry_backoff.sleep(attempt)
+                attempt += 1
+
     # ------------------------------------------------------------------
     # Async columnar ingress
     # ------------------------------------------------------------------
@@ -1389,13 +2307,24 @@ class V1Service:
         _ColumnsJoin(self, plan, result, callback).start()
 
     def _try_single_async(self, cols: IngressColumns, callback) -> bool:
-        """Completion of one async lane without a parked thread: the
-        same _submit_single_local rider the sync path uses, completed by
-        the drainer (columnar) or the LocalBatcher's flush (dataclass).
-        Returns False to decline (validation wording, a GLOBAL
-        NO_BATCHING lane), leaving it to the sync router."""
+        """Completion of one async lane without a parked thread on a
+        node that owns every key: the same _submit_single_local rider
+        the sync path uses, completed by the drainer (columnar) or the
+        LocalBatcher's flush (dataclass).  Returns False to decline
+        (other rings, validation wording, a GLOBAL NO_BATCHING lane),
+        leaving it to the sync router."""
         if not self.store.supports_columns:
             return False
+        with self._peer_mutex:
+            # This node must own every key: no ring (a service never
+            # given one), or a ring of this node alone.  Other rings
+            # take the sync router, which forwards.
+            if self.local_picker.size() > 1:
+                return False
+            if self.local_picker.size() == 1:
+                (only,) = self.local_picker.peers()
+                if not only.info.is_owner:
+                    return False
         r = cols.request_at(0)
         if not r.unique_key or not r.name:
             return False
@@ -1579,9 +2508,9 @@ class V1Service:
 
     def transfer_ownership(self, cols: TransferColumns) -> "tuple[int, int]":
         """Receive side of an ownership transfer (reshard.py): fence the
-        epoch, then merge-commit the lanes with one row gather (K7) and
-        one row write (K8).  Returns (committed, rejected); this node
-        owns every key of its one-node ring, so none is rejected."""
+        epoch, drop the lanes this node does not own under its current
+        ring, then merge-commit the rest with one row gather (K7) and
+        one row write (K8).  Returns (committed, rejected)."""
         n = len(cols)
         if n > PEER_COLUMNS_MAX_LANES:
             raise ApiError(
@@ -1594,6 +2523,8 @@ class V1Service:
         audit_mod.note("reshard_received_lanes", n)
         with self._peer_mutex:
             cur_hash = self.ring_hash
+            picker = self.local_picker
+            psize = picker.size()
         if cols.ring_hash and cur_hash and cols.ring_hash != cur_hash:
             # Epoch fence: the batch was routed under a ring this node no
             # longer runs; the sender sees a non-retryable answer.
@@ -1604,24 +2535,52 @@ class V1Service:
                 f"current ring {cur_hash:#018x}",
                 http_status=409,
             )
-        # set_peers admits no peer but this node, so it owns every key;
-        # lanes owned elsewhere are rejected once peers exist.
-        committed = self.store.commit_transfer(cols, self.clock.now_ms())
-        rejected = 0
+        keep = np.arange(n)
+        if psize > 1:
+            codes, code_ids = picker.get_batch_codes(cols.keys)
+            own = np.zeros(len(code_ids), dtype=bool)
+            for c, pid in enumerate(code_ids):
+                peer = picker.get_by_peer_id(pid)
+                own[c] = peer is not None and peer.info.is_owner
+            keep = np.nonzero(own[codes])[0]
+        elif psize == 1:
+            (only,) = picker.peers()
+            if not only.info.is_owner:
+                keep = np.zeros(0, dtype=np.int64)
+        committed = 0
+        if keep.size:
+            sub = cols if keep.size == n else cols.subset(keep)
+            committed = self.store.commit_transfer(sub, self.clock.now_ms())
+        rejected = n - int(keep.size)
         self.reshard.note_received(committed, rejected)
         return committed, rejected
 
     # ------------------------------------------------------------------
     def health_check(self) -> HealthCheckResponse:
-        """gubernator.go:295-333 for a node that is its only peer (no
-        transport to fail, no breaker to open); a service never given a
-        ring counts itself as its one peer."""
+        """gubernator.go:295-333: unhealthy while any peer client holds
+        a recent error (its message joins the peers' errors), with the
+        count of open breakers.  A service never given a ring counts
+        itself as its one peer."""
         from . import __version__
 
+        errs: List[str] = []
+        breaker_open = 0
         with self._peer_mutex:
-            peer_count = self.local_picker.size() or 1
-        return HealthCheckResponse(status=HEALTHY, peer_count=peer_count,
-                                   version=__version__)
+            for peer in list(self.local_picker.peers()) + list(self.region_picker.peers()):
+                errs.extend(peer.get_last_err())
+                if peer.breaker.is_open:
+                    breaker_open += 1
+            self._health.status = UNHEALTHY if errs else HEALTHY
+            self._health.message = "|".join(errs)
+            self._health.peer_count = self.local_picker.size() or 1
+            self._health.breaker_open_count = breaker_open
+            return HealthCheckResponse(
+                status=self._health.status,
+                message=self._health.message,
+                peer_count=self._health.peer_count,
+                breaker_open_count=self._health.breaker_open_count,
+                version=__version__,
+            )
 
     def ingress_queued_lanes(self) -> int:
         """Lanes admitted into the bounded ingress gates (both batchers
@@ -1642,15 +2601,19 @@ class V1Service:
         hc = self.health_check()
         with self._peer_mutex:
             peer_list = list(self.local_picker.peers()) + list(self.region_picker.peers())
+            handoff_active = self._handoff_prev_picker() is not None
             ring = {
                 "generation": self.ring_generation,
                 "hash": format(self.ring_hash, "016x"),
-                "handoffActive": False,
-                "handoffRemainingS": 0.0,
+                "handoffActive": handoff_active,
+                "handoffRemainingS": (
+                    round(max(self._handoff_deadline - time.monotonic(), 0.0), 3)
+                    if handoff_active else 0.0),
                 "reshardEnabled": self.serves_reshard,
             }
         peers = [{"peer": p.info.grpc_address, "isOwner": bool(p.info.is_owner),
-                  "breaker": "closed"} for p in peer_list]
+                  "breaker": self._BREAKER_NAMES.get(p.breaker.state_code, "closed")}
+                 for p in peer_list]
         store = self.store
         shards = store.occupancy_stats()
         used_total = sum(r["used"] for r in shards)
@@ -1714,10 +2677,10 @@ class V1Service:
 
     def close(self) -> None:
         """Stop the windows (each flushes what it holds), resolve every
-        registered handle, stop the GLOBAL sync, resolve every in-flight
-        batch, then (in the JAX service's order) stop the snapshot
-        cadence, write the shutdown snapshot and hand the Loader every
-        item."""
+        registered handle, stop the GLOBAL sync and the membership pool,
+        resolve every in-flight batch, then (in the JAX service's order)
+        stop the snapshot cadence, write the shutdown snapshot, hand the
+        Loader every item and shut the peer clients down."""
         if self._closed:
             return
         self._closed = True
@@ -1735,26 +2698,42 @@ class V1Service:
         if self.global_mgr is not None:
             self.global_mgr.stop()
         self.auditor.stop()
+        # The membership pool before the peers and the store: an
+        # in-flight handoff or dropped-peer shutdown finishes (or
+        # aborts) rather than race the teardown below.
         self.reshard.close(timeout_s=5.0)
+        self._forward_pool.shutdown(wait=False)
         self._slow_pool.shutdown(wait=False)
         self.store._drain_all()
         self.snapshots.stop()
         self.snapshots.save_now("close")
         if self.conf.loader is not None:
             self.conf.loader.save(self.store.snapshot_items())
+        for peer in self.get_peer_list() + list(self.region_picker.peers()):
+            peer.shutdown(timeout_s=1.0)
 
 
 class GlobalManager:
-    """The host tier of the GLOBAL plane (global.go:32-243): every
-    GlobalSyncWait, run the store's sync (ops/global_ops.py global_sync
-    on the device).
+    """Host-tier GLOBAL pipelines (global.go:32-243) on top of the
+    device-tier sync: every GlobalSyncWait, run the store's sync
+    (ops/global_ops.py global_sync on the device, K4); fan out the resulting owner broadcasts (UpdatePeerGlobals) to
+    every peer daemon and forward aggregated hits for remotely-owned
+    keys (GetPeerRateLimits) to their owner daemons.
 
-    The port's service has no peers yet, so the legs that need them are
-    not here: the broadcast fan-out (a one-node daemon sends its
-    broadcasts to no peer, as the JAX service's fan-out skips itself),
-    the remote-hit forward and its requeue carry.  A sync that returns
-    hits for a remote owner raises NotImplementedError: no path of the
-    port's service can make one (it never marks an owner remote)."""
+    Both legs are COLUMNAR and CONCURRENT (architecture.md "GLOBAL
+    plane"): the sync emits column batches, the broadcast is encoded
+    once (wire.BroadcastBatch) and fanned to all peers through a
+    bounded pool — tick wall-time stops scaling as peers x RTT — and
+    aggregated hits ride the columnar GetPeerRateLimits path as
+    per-owner sub-batches.  Hits whose send provably never applied
+    (unroutable owner, breaker fast-fail, connection-level not-ready)
+    requeue into the next tick instead of being dropped."""
+
+    # Requeue-carry bound (distinct keys): hits for a peer that stays
+    # down accumulate here between ticks; past the cap new keys drop
+    # (counted in gubernator_global_dropped_hits) — matching the
+    # reference's bounded-loss posture under prolonged partition.
+    HIT_CARRY_MAX = 16_384
 
     # Auto-sizing policy: one sync pass should cost <= 10% of its
     # window, clamped to [5 ms, 1 s]; the estimator is the minimum over
@@ -1765,14 +2744,12 @@ class GlobalManager:
     SYNC_WAIT_MAX_S = 1.0
     SYNC_WAIT_FALLBACK_S = 0.1
     SYNC_COST_SAMPLES = 8
-    # Cap of the remote-hit requeue carry (audit.py's global_slack
-    # bound); the carry itself comes with the peer legs.
-    HIT_CARRY_MAX = 16_384
 
     @classmethod
     def window_for_cost(cls, cost_s: float) -> float:
         """The sync window this policy derives from a measured per-sync
-        cost."""
+        cost (single source of truth for the service, the bench suite,
+        and the tests)."""
         return min(
             max(cost_s / cls.SYNC_OVERHEAD_TARGET, cls.SYNC_WAIT_MIN_S),
             cls.SYNC_WAIT_MAX_S,
@@ -1787,8 +2764,18 @@ class GlobalManager:
             self.SYNC_WAIT_FALLBACK_S if configured is None else configured
         )
         self.measured_sync_cost_s: Optional[float] = None
-        self._sync_cost_samples: "deque[float]" = deque(maxlen=self.SYNC_COST_SAMPLES)
+        self._sync_cost_samples: "deque[float]" = deque(
+            maxlen=self.SYNC_COST_SAMPLES
+        )
         self._last_sync_cost_s: Optional[float] = None
+        # Requeued hit lanes awaiting the next tick: hash_key ->
+        # [name, unique_key, algorithm, behavior, hits, limit,
+        # duration], hits summed on merge.  Tick-thread-only state (the
+        # Interval serializes run_once), so no lock.
+        self._hit_carry: Dict[str, list] = {}
+        # Bounded fan-out pool, created on first use (idle daemons and
+        # non-GLOBAL deployments spawn no threads).
+        self._fanout_pool: "Optional[ThreadPoolExecutor]" = None
         self._interval = Interval(self.sync_wait_s, self._tick)
         self._interval.next()
 
@@ -1810,20 +2797,309 @@ class GlobalManager:
         self._interval.duration_s = self.sync_wait_s
 
     def run_once(self) -> bool:
-        """One sync pass; returns whether it produced host-tier work (the
-        auto-tuner's signal that GLOBAL is in real use).  Only the store
-        sync's in-lock cost counts as sync cost."""
+        """One sync pass; returns whether the sync produced host-tier
+        work (the auto-tuner's signal that GLOBAL is in real use).
+
+        Only the store sync (device collective + decode) counts as
+        "sync cost" for window sizing — the peer fan-out legs below are
+        dominated by network timeouts under failure, and a dead peer
+        must not inflate the window for every healthy peer."""
         svc = self.service
         t0 = time.perf_counter()
+        t0_ns = time.monotonic_ns()
         res = svc.store.sync_globals(svc.clock.now_ms())
-        cost = svc.store.last_sync_cost_s
-        self._last_sync_cost_s = cost if cost is not None else time.perf_counter() - t0
+        # The store reports the in-lock cost of the pass (kernel +
+        # decode/commit).  The wall time around the call also holds the
+        # drain-then-lock wait, serving backpressure rather than sync
+        # cost, which under load would inflate the auto window.  Fall
+        # back to wall time only for stores that don't report.
+        cost = getattr(svc.store, "last_sync_cost_s", None)
+        self._last_sync_cost_s = (
+            cost if cost is not None else (time.perf_counter() - t0)
+        )
+        did_work = bool(res.broadcast_cols or res.remote_hit_cols)
         if res.remote_hit_cols is not None and len(res.remote_hit_cols):
-            raise NotImplementedError(
-                "forwarding GLOBAL hits to a remote owner needs the peer "
-                "transport (ROADMAP: GlobalManager peer legs)")
-        return bool(res.broadcast_cols or res.remote_hit_cols)
+            # Conservation ledger (audit.py): GLOBAL hits AGGREGATED by
+            # this tick's collective — new lanes only, BEFORE the carry
+            # merge below (requeued lanes were counted the tick they
+            # first aggregated; counting them again would mask a
+            # double-send).
+            audit_mod.note(
+                "global_agg_hits", int(res.remote_hit_cols.hits.sum())
+            )
+        # global.sync batch trace per WORK tick: child
+        # spans for the collective and the two fan-out legs, with the
+        # per-peer peer.rpc client spans span-linked to the tick's ctx.
+        tick = (
+            tracing.BatchTrace(())
+            if (did_work or self._hit_carry) and tracing.sampled()
+            else None
+        )
+        tracing.batch_span(
+            "global.collective", tick, t0_ns, time.monotonic_ns(),
+            broadcasts=res.broadcast_count,
+            hit_lanes=(
+                0 if res.remote_hit_cols is None else len(res.remote_hit_cols)
+            ),
+        )
+        hit_cols = self._take_carry_merged(res.remote_hit_cols)
+        if hit_cols is not None and len(hit_cols):
+            self._forward_hits(hit_cols, tick)
+        if res.broadcast_cols is not None and len(res.broadcast_cols):
+            self._broadcast(res.broadcast_cols, tick)
+        if tick is not None:
+            tracing.record_span(
+                "global.sync", tick.ctx,
+                start_ns=t0_ns, end_ns=time.monotonic_ns(),
+                broadcasts=res.broadcast_count,
+            )
+        return did_work
+
+    # ------------------------------------------------------------------
+    def _get_fanout_pool(self) -> "ThreadPoolExecutor":
+        # Tick-thread-only (like _hit_carry): no lock needed.
+        if self._fanout_pool is None:
+            self._fanout_pool = ThreadPoolExecutor(
+                max_workers=max(
+                    1, getattr(self.service.conf.behaviors, "global_fanout", 8)
+                ),
+                thread_name_prefix="global-fanout",
+            )
+        return self._fanout_pool
+
+    def _broadcast(self, bcols, tick) -> None:
+        """Encode the sync pass's broadcasts ONCE (wire.BroadcastBatch
+        caches every encoding) and fan them out to all peers
+        CONCURRENTLY through the bounded pool.  Per-peer breaker /
+        backoff semantics ride unchanged inside each send
+        (service._peer_send -> PeerClient._guarded_call); a peer that
+        exhausts its budget triggers the flight-recorder dump path."""
+        svc = self.service
+        peers = [
+            p for p in svc.get_peer_list()
+            if not p.info.is_owner  # exclude ourselves (global.go:223-226)
+        ]
+        if not peers:
+            return
+        t0 = time.perf_counter()
+        t0_ns = time.monotonic_ns()
+        # Chunk at the receive-side lane cap (a full 65536-gslot table
+        # going dirty in one tick outsizes one RPC); each chunk is
+        # still ONE encoded batch shared by every peer.
+        batches = [
+            wire.BroadcastBatch(bcols.slice(lo, lo + PEER_COLUMNS_MAX_LANES))
+            for lo in range(0, len(bcols), PEER_COLUMNS_MAX_LANES)
+        ]
+        pool = self._get_fanout_pool()
+        svc.metrics.global_fanout_concurrency.set(
+            min(len(peers), getattr(svc.conf.behaviors, "global_fanout", 8))
+        )
+        ctx = tick.ctx if tick is not None else None
+        timeout = svc.conf.behaviors.global_timeout_s
+
+        def send_all(peer) -> bool:
+            ok = True
+            for batch in batches:
+                ok = svc._peer_send(
+                    "global_broadcast",
+                    partial(
+                        peer.update_peer_globals_batch, batch,
+                        timeout_s=timeout, trace_ctx=ctx,
+                    ),
+                ) and ok
+            return ok
+
+        futs = [(peer, pool.submit(send_all, peer)) for peer in peers]
+        for peer, fut in futs:
+            if not fut.result():
+                # Flight-recorder dump (tracing._DUMP_KINDS): a peer
+                # that missed a broadcast serves stale replicas until
+                # the next successful tick — preserve the context.
+                tracing.record_event(
+                    "global-send-failed", op="global_broadcast",
+                    peer=peer.info.grpc_address, items=len(bcols),
+                )
+        svc.metrics.broadcast_durations.observe(time.perf_counter() - t0)
+        tracing.batch_span(
+            "global.broadcast", tick, t0_ns, time.monotonic_ns(),
+            items=len(bcols), peers=len(peers),
+        )
+
+    def _forward_hits(self, cols: "HitColumns", tick) -> None:
+        """Forward aggregated hits to their remote owners as columnar
+        sub-batches over the existing GetPeerRateLimits columnar path
+        (sendHits, global.go:120-160), one concurrent send per owner.
+        BUGFIX vs the pre-columns sender: an unroutable owner (pool
+        churn mid-tick) or a provably-unapplied send failure requeues
+        the lanes into the next tick instead of silently dropping
+        them."""
+        svc = self.service
+        t0 = time.perf_counter()
+        t0_ns = time.monotonic_ns()
+        by_owner: Dict[str, list] = {}
+        clients: Dict[str, PeerClient] = {}
+        requeue: list = []
+        for i in range(len(cols)):
+            try:
+                peer = svc.get_peer(cols.hash_key_at(i))
+            except PeerError:
+                requeue.append(i)
+                continue
+            addr = peer.info.grpc_address
+            by_owner.setdefault(addr, []).append(i)
+            clients[addr] = peer
+        pool = self._get_fanout_pool()
+        ctx = tick.ctx if tick is not None else None
+        futs = {
+            addr: pool.submit(
+                self._send_hits, clients[addr], cols.subset(lanes), ctx
+            )
+            for addr, lanes in by_owner.items()
+        }
+        dropped = 0
+        for addr, fut in futs.items():
+            rq_rel, dr = fut.result()
+            lanes = by_owner[addr]
+            requeue.extend(lanes[j] for j in rq_rel)
+            dropped += dr
+            if rq_rel or dr:
+                tracing.record_event(
+                    "global-send-failed", op="global_hits", peer=addr,
+                    requeued=len(rq_rel), dropped=dr,
+                )
+        if requeue:
+            self._requeue_hits(cols, requeue)
+        if dropped:
+            svc.metrics.global_dropped_hits.inc(dropped)
+        # Carry size is the documented GLOBAL bounded-loss slack; the
+        # audit's global_slack invariant checks it against HIT_CARRY_MAX.
+        audit_mod.set_gauge(audit_mod.GLOBAL_CARRY_GAUGE, len(self._hit_carry))
+        svc.metrics.async_durations.observe(time.perf_counter() - t0)
+        tracing.batch_span(
+            "global.hits", tick, t0_ns, time.monotonic_ns(),
+            lanes=len(cols), owners=len(by_owner),
+        )
+
+    def _send_hits(self, peer: PeerClient, sub: "HitColumns", ctx):
+        """Send one owner's hit columns, chunked at the columnar lane
+        cap (the client re-chunks classic-negotiated sends itself).
+        Returns (lanes to requeue, lanes dropped): a chunk whose
+        failure provably never applied — breaker fast-fail or a
+        connection-level not-ready error — requeues; a timeout-shaped
+        failure may have applied server-side, so requeueing would
+        double-count and the chunk drops (counted)."""
+        svc = self.service
+        n = len(sub)
+        pc = sub.peer_columns()
+        timeout = svc.conf.behaviors.global_timeout_s
+        requeue: list = []
+        dropped = 0
+        for lo in range(0, n, PEER_COLUMNS_MAX_LANES):
+            hi = min(lo + PEER_COLUMNS_MAX_LANES, n)
+            chunk = wire.peer_columns_slice(pc, lo, hi)
+            t0_ns = time.monotonic_ns()
+            ok, err = svc._peer_send_ex(
+                "global_hits",
+                partial(
+                    peer.send_columns_direct, chunk,
+                    timeout_s=timeout, trace_ctx=ctx,
+                ),
+            )
+            if ctx is not None:
+                bt = tracing.new_batch([ctx])
+                if bt is not None:
+                    attrs = dict(
+                        peer=peer.info.grpc_address,
+                        op="GetPeerRateLimits", leg="global_hits",
+                        lanes=hi - lo,
+                    )
+                    if not ok:
+                        attrs["error"] = str(err)
+                    tracing.record_span(
+                        "peer.rpc", bt.ctx,
+                        start_ns=t0_ns, end_ns=time.monotonic_ns(),
+                        links=bt.links, **attrs,
+                    )
+            chunk_hits = int(sub.hits[lo:hi].sum())
+            if ok:
+                # Conservation ledger: GLOBAL hits DELIVERED owner-ward
+                # (sent + dropped must stay <= aggregated).
+                audit_mod.note("global_sent_hits", chunk_hits)
+                continue
+            if is_circuit_open(err) or is_not_ready(err):
+                requeue.extend(range(lo, hi))
+            else:
+                audit_mod.note("global_dropped_hits", chunk_hits)
+                dropped += hi - lo
+        return requeue, dropped
+
+    def _requeue_hits(self, cols: "HitColumns", lanes) -> None:
+        """Fold failed lanes into the carry (hits summed per key),
+        bounded at HIT_CARRY_MAX distinct keys."""
+        carry = self._hit_carry
+        dropped = 0
+        for i in lanes:
+            hk = cols.hash_key_at(i)
+            cur = carry.get(hk)
+            if cur is not None:
+                cur[4] += int(cols.hits[i])
+                continue
+            if len(carry) >= self.HIT_CARRY_MAX:
+                dropped += 1
+                audit_mod.note("global_dropped_hits", int(cols.hits[i]))
+                continue
+            carry[hk] = [
+                cols.names[i], cols.unique_keys[i],
+                int(cols.algorithm[i]), int(cols.behavior[i]),
+                int(cols.hits[i]), int(cols.limit[i]),
+                int(cols.duration[i]),
+            ]
+        requeued = len(lanes) - dropped
+        if requeued:
+            self.service.metrics.global_requeued_hits.inc(requeued)
+        if dropped:
+            self.service.metrics.global_dropped_hits.inc(dropped)
+
+    def _take_carry_merged(
+        self, new_cols: "Optional[HitColumns]"
+    ) -> "Optional[HitColumns]":
+        """Previous ticks' requeued hits merged with this tick's
+        accumulator output: hits sum per key, config fields take the
+        newest lane (last-writer-wins, like the gtable mirror)."""
+        if not self._hit_carry:
+            return new_cols
+        carry, self._hit_carry = self._hit_carry, {}
+        if new_cols is not None:
+            for i in range(len(new_cols)):
+                hk = new_cols.hash_key_at(i)
+                cur = carry.get(hk)
+                if cur is None:
+                    carry[hk] = [
+                        new_cols.names[i], new_cols.unique_keys[i],
+                        int(new_cols.algorithm[i]), int(new_cols.behavior[i]),
+                        int(new_cols.hits[i]), int(new_cols.limit[i]),
+                        int(new_cols.duration[i]),
+                    ]
+                else:
+                    cur[2] = int(new_cols.algorithm[i])
+                    cur[3] = int(new_cols.behavior[i])
+                    cur[4] += int(new_cols.hits[i])
+                    cur[5] = int(new_cols.limit[i])
+                    cur[6] = int(new_cols.duration[i])
+        vals = list(carry.values())
+        n = len(vals)
+        return HitColumns(
+            names=[v[0] for v in vals],
+            unique_keys=[v[1] for v in vals],
+            algorithm=np.fromiter((v[2] for v in vals), np.int32, count=n),
+            behavior=np.fromiter((v[3] for v in vals), np.int32, count=n),
+            hits=np.fromiter((v[4] for v in vals), np.int64, count=n),
+            limit=np.fromiter((v[5] for v in vals), np.int64, count=n),
+            duration=np.fromiter((v[6] for v in vals), np.int64, count=n),
+        )
 
     def stop(self) -> None:
         self._stopped = True
         self._interval.stop()
+        if self._fanout_pool is not None:
+            self._fanout_pool.shutdown(wait=False)

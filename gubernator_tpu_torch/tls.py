@@ -15,8 +15,9 @@ handed to every PeerClient so peer data-plane traffic is encrypted and
 ClientTLS into the peer dialer (daemon.go:102-106, peer_client.go:87-132).
 
 The port of the JAX package's tls.py, the one home of `TLSConfig`
-(config.py builds it from the GUBER_TLS_* variables).  A node alone
-dials no peer: its client context serves the clients a caller builds.
+(config.py builds it from the GUBER_TLS_* variables).  The daemon
+hands the client context (and, without insecure_skip_verify, the gRPC
+channel credentials) to the service, whose PeerClients dial with it.
 """
 
 from __future__ import annotations

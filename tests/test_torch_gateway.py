@@ -24,6 +24,7 @@ import json
 import socket
 import sys
 import threading
+import time
 
 import numpy as np
 import pytest
@@ -608,11 +609,14 @@ def test_native_shed_answers_alike():
 
 def test_pump_ring_follows_set_peers():
     """The native fast lane serves once set_peers installed the ring of
-    this node, exactly as on a JAX node; a service closing stops it."""
+    this node, exactly as on a JAX node; a membership change with
+    another peer opens the double-dispatch window, which turns the lane
+    off until the window closes; a service closing stops it."""
     clock = Clock()
     clock.freeze(NOW)
     ts = TService(TConfig(cache_size=1024, clock=clock, device="cpu",
-                          behaviors=TBehaviors(global_sync_wait_s=3600.0)))
+                          behaviors=TBehaviors(global_sync_wait_s=3600.0,
+                                               reshard_handoff_s=30.0)))
     srv = _serve(tgw, ts, native=True, pump=True)
     try:
         frame = twire.encode_ingress_frame(_frame_cols(1, 8))
@@ -622,12 +626,15 @@ def test_pump_ring_follows_set_peers():
             ts.set_peers([TPeer(grpc_address=ADDR, is_owner=True)])
             assert _request(s, "POST", "/v1/GetRateLimits", frame)[0] == 200
             assert srv.pump.stats()["frames"] == 1
-        with pytest.raises(NotImplementedError):
-            ts.set_peers([TPeer(grpc_address="10.0.0.2:81", is_owner=False)])
-        with pytest.raises(NotImplementedError):
-            ts.set_peers([TPeer(grpc_address=ADDR, is_owner=True),
-                          TPeer(grpc_address="10.0.0.2:81")])
-        assert ts.ring_generation == 1 and len(ts.get_peer_list()) == 1
+        assert srv.pump._enable_at == 0.0  # noqa: SLF001 — no window
+        # Another peer (a closed loopback port: nothing is sent to it
+        # here but the handoff's transfer, which fails and aborts).
+        ts.set_peers([TPeer(grpc_address=ADDR, is_owner=True),
+                      TPeer(grpc_address="127.0.0.1:1")])
+        assert ts.ring_generation == 2 and len(ts.get_peer_list()) == 2
+        assert ts.debug_status()["ring"]["handoffActive"] is True
+        assert srv.pump._enable_at > time.monotonic()  # noqa: SLF001 — lane off
+        assert ts.reshard.wait_idle(timeout_s=30.0)
     finally:
         srv.close()
         ts.close()

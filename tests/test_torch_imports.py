@@ -55,8 +55,9 @@ def test_global_plane_modules_are_covered():
     binding lives in ops._kernels), the serving tier's leaf modules and
     the HTTP edge's (ring, audit, profiling, telemetry, the pb modules,
     wire, gateway) and the daemon's (metrics, tls, grpc_server, peers,
-    daemon, client, the cmd binaries) are among those the two checks
-    above import with JAX absent and scan for imports."""
+    daemon, client, the cmd binaries) and the peers slice's (faults,
+    peer_client, cluster) are among those the two checks above import
+    with JAX absent and scan for imports."""
     mods = set(_modules())
     for m in ("ops.global_ops", "parallel.global_mgr", "utils.interval",
               "parallel.mesh", "service", "ops._kernels", "store", "reshard",
@@ -66,8 +67,32 @@ def test_global_plane_modules_are_covered():
               "audit", "profiling", "telemetry", "proto", "proto.gubernator_pb2",
               "proto.peers_pb2", "proto.peers_columns_pb2", "wire", "gateway",
               "metrics", "tls", "grpc_server", "peers", "daemon", "client",
-              "cmd", "cmd.server", "cmd.cli", "cmd.cluster_main"):
+              "cmd", "cmd.server", "cmd.cli", "cmd.cluster_main",
+              "faults", "peer_client", "cluster"):
         assert f"gubernator_tpu_torch.{m}" in mods, m
+
+
+def test_peer_modules_import_without_grpc():
+    """The peers slice's modules (and the service that builds peer
+    clients) import neither JAX nor grpc: a node speaking HTTP to its
+    peers needs no grpc, and the gRPC transport imports it at its first
+    call."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "import gubernator_tpu_torch.faults, gubernator_tpu_torch.peer_client\n"
+        "import gubernator_tpu_torch.cluster, gubernator_tpu_torch.reshard\n"
+        "import gubernator_tpu_torch.service\n"
+        "bad = [k for k, v in sys.modules.items()\n"
+        "       if v is not None and k.split('.')[0] in ('grpc', 'jax', 'gubernator_tpu')]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
 
 
 def test_no_jax_or_reference_imports_in_sources():

@@ -12,9 +12,7 @@ scripts/check_metrics_parity.py.
   batches, occupancy, ring generation, and the snapshot counters of a
   save at close() and of restores that find a good file, no file and a
   corrupt one.
-  Known difference: the JAX node's own peer client reports its closed
-  circuit breaker (0); the port's self peer has no breaker until the
-  peers slice.
+  Each node's own peer client reports its closed circuit breaker (0).
 * The C++ table and the Python SlotTable count hits, misses and
   evictions as the JAX ones do, op for op.
 * `ServiceConfig.metrics` is never None on a running service, the
@@ -129,13 +127,11 @@ def test_daemon_metrics_equal_jax(tmp_path):
             b.close()
         jv, tv = values(jpage), values(tpage)
         assert tv == jv
-        # The known difference until the peers slice: a JAX node's own
-        # PeerClient has a breaker (closed, 0); the port's self peer has
-        # none, so the gauge has no series.
+        # Each node's own PeerClient has a breaker (closed, 0).
         breaker = ("gubernator_circuit_breaker_state",)
         assert values(jpage, breaker) == {
             ("gubernator_circuit_breaker_state", (("peer", "127.0.0.1:9999"),)): 0.0}
-        assert values(tpage, breaker) == {}
+        assert values(tpage, breaker) == values(jpage, breaker)
         hits = tv[("gubernator_cache_access_count_total", (("type", "hit"),))]
         misses = tv[("gubernator_cache_access_count_total", (("type", "miss"),))]
         assert hits > 0 and misses > 0
@@ -242,15 +238,21 @@ def test_service_metrics_and_later_slices():
         assert isinstance(svc.metrics, tmetrics.Metrics)
     finally:
         svc.close()
-    with pytest.raises(NotImplementedError, match="A2"):
-        TService(TConfig(cache_size=64, device="cpu", fault_plan=object()))
     with pytest.raises(NotImplementedError, match="A6"):
         TService(TConfig(cache_size=64, device="cpu", blackbox_dir="/nonexistent"))
-    # Peer credentials are stored for the peers slice.
-    svc = TService(TConfig(cache_size=64, device="cpu", clock=Clock(),
+    # The fault plan and the peer credentials reach every peer client.
+    from gubernator_tpu_torch import faults as tfaults
+    from gubernator_tpu_torch.types import PeerInfo as TPeer
+
+    plan = tfaults.FaultPlan(seed=1)
+    svc = TService(TConfig(cache_size=64, device="cpu", clock=Clock(), fault_plan=plan,
                            peer_tls_context="ctx", peer_channel_credentials="creds"))
     try:
-        assert (svc.conf.peer_tls_context, svc.conf.peer_channel_credentials) == ("ctx", "creds")
+        svc.set_peers([TPeer(grpc_address="127.0.0.1:9999", is_owner=True),
+                       TPeer(grpc_address="127.0.0.1:1")])
+        for p in svc.get_peer_list():
+            assert p.faults is plan
+            assert (p.tls_context, p.channel_credentials) == ("ctx", "creds")
     finally:
         svc.close()
 
