@@ -200,7 +200,38 @@ Phases (any failure exits non-zero and prints no `ok` line):
               (a)'s and (c)'s checks/s and p50 / max, the lanes and
               frames forwarded, (b)'s GLOBAL apply p50 and time to
               convergence, the handoff's seconds, keys and bytes, and
-              each node's K1-K8 launches by leg.
+              each node's K1-K8 launches by leg;
+15. federation — two regions of two of the port's server binaries
+              each on the card (BASELINE config 5, bench_full.py
+              config5's two logical regions, the first named dc-west;
+              phase 13's size each), found by member-list gossip with
+              node 1's gossip address as the known node; node 4 runs
+              GUBER_REGION_COLUMNS=0, so the region sends to and from
+              it take the classic per-item encoding: (a) every node's
+              /debug/status lists the four peers, two a region, and its
+              `region` section names the other region; (b) MULTI_REGION
+              token and leaky frames through 16 ColumnsV1Clients x 4
+              into both regions, then the 100 ms flushes: every node
+              applies the other region's hits (K1); (c) config 5's
+              storm, 100 callers x 512 MULTI_REGION token lanes of 16
+              hot keys (hits 5, limit 10) round-robin over the four
+              gateways, a warm epoch then a timed one: zero error
+              lanes, over the four nodes region_sent_hits ==
+              region_agg_hits == every hit sent, region_recv_hits ==
+              region_applied_hits == the hits sent columnar, none
+              dropped, no region invariant violated, both encodings in
+              gubernator_region_batches; (d) each node's launches and
+              SIGTERM with its snapshot.  Every answer of (b) and every
+              (b) key's row in both regions equal two port nodes on the
+              plain versions (CPU) in this process, one a region, fed
+              each connection's frames serially and flushed by hand;
+              the rings must not change during the run; `[federation]`
+              lines, each beside the card's name and power limit, give
+              each node's startup and the time to gossip convergence,
+              (b)'s and (c)'s checks/s and request p50 / max, the
+              flushes, region batches by encoding, the ledger, one
+              flush's bytes a region in each encoding, and each node's
+              K1-K8 launches.
 
 The last line is `{"ok": true, "device": {...}}`.  Exits 2 without a
 CUDA device.
@@ -5271,6 +5302,444 @@ def cluster_phase(torch, smi, dev="cuda"):
     return run_a, run_b, run_h, run_c
 
 
+# ---------------------------------------------------------------------
+# phase 15: two regions of two server binaries each, by gossip
+# ---------------------------------------------------------------------
+# BASELINE config 5 ("Multi-region picker: 2 logical regions";
+# bench_full.py config5: Cluster().start_with(["", "", "dc-east",
+# "dc-east"]) and its 100-caller MULTI_REGION storm).  The first region
+# is named: a node with no data centre takes every peer without one as
+# local and names no region, so config 5's dc-east nodes would see one
+# four-node ring and never send back.  Each node at phase 13's size.
+FED_DCS = ("dc-west", "dc-west", "dc-east", "dc-east")
+FED_ENV = {
+    "GUBER_CACHE_SIZE": "2097152",
+    "GUBER_BATCH_WAIT": "500us",
+    "GUBER_GLOBAL_SYNC_WAIT": "100ms",
+    "GUBER_PEER_DISCOVERY_TYPE": "member-list",
+    "GUBER_NATIVE_HTTP": "1",
+    "GUBER_MULTI_REGION_SYNC_WAIT": "100ms",  # the flush window
+    # Four daemons and this script share the host's cores (phase 14).
+    "GUBER_BATCH_TIMEOUT": "20s",
+    "GUBER_GLOBAL_TIMEOUT": "20s",
+    "GUBER_MULTI_REGION_TIMEOUT": "20s",
+}
+FED_CONNS = 16  # (b): ColumnsV1Clients, connection c at node c mod 4
+FED_REQS = 4
+FED_LANES = 1_000
+FED_STORM_CALLERS = 100  # (c): benchmark_test.go's ThunderingHeard fan-out
+FED_STORM_LANES = 512
+FED_STORM_BATCHES = 8
+FED_STORM_KEYS = 16
+FED_SETTLE_S = 120.0
+
+
+def fed_traffic():
+    """(b)'s frames by connection (MULTI_REGION token and leaky lanes,
+    disjoint keys a connection, each key one algorithm, limits no lane
+    reaches: what a region applies is then the same however the flush
+    windows split a key's hits) and (c)'s storm
+    batches (bench_full.py config5: 16 hot keys, hits 5, limit 10)."""
+    from gubernator_tpu_torch.types import Behavior, GetRateLimitsRequest, RateLimitRequest
+
+    mr = int(Behavior.MULTI_REGION)
+    rng = np.random.RandomState(15)
+    per = N_KEYS // FED_CONNS
+
+    def cols(keys):
+        n = len(keys)
+        return (["fedb"] * n, [str(k) for k in keys], (keys % 2).astype(np.int32),
+                np.full(n, mr, np.int32), np.ones(n, np.int64),
+                np.full(n, 1_000_000, np.int64), np.full(n, 3_600_000, np.int64))
+
+    frames = [[cols(zipf_ids(rng, per, FED_LANES) * FED_CONNS + c) for _ in range(FED_REQS)]
+              for c in range(FED_CONNS)]
+    rng = np.random.RandomState(5)
+    storm = [GetRateLimitsRequest(requests=[
+        RateLimitRequest(name="c5", unique_key=f"storm{rng.randint(FED_STORM_KEYS)}", hits=5,
+                         limit=10, duration=60_000, algorithm=0, behavior=mr)
+        for _ in range(FED_STORM_LANES)]) for _ in range(FED_STORM_BATCHES)]
+    return frames, storm
+
+
+def fed_expected_hits(addrs, frames, storm, epochs):
+    """(total hits, hits sent in the columnar encoding): each key's hits
+    leave its owner in the region that took them for its owner in the
+    other region, classic when either end is node 4
+    (GUBER_REGION_COLUMNS=0)."""
+    rings = {dc: cluster_ring([a for a, d in zip(addrs, FED_DCS) if d == dc])
+             for dc in set(FED_DCS)}
+    per = collections.Counter()  # (region, hash key) -> hits
+    for c, conn in enumerate(frames):
+        for item in conn:
+            for n, u, h in zip(item[0], item[1], item[4]):
+                per[(FED_DCS[c % 4], f"{n}_{u}")] += int(h)
+    for e in range(epochs):
+        for i in range(FED_STORM_CALLERS):
+            for r in storm[i % FED_STORM_BATCHES].requests:
+                per[(FED_DCS[i % 4], r.hash_key())] += r.hits
+    total = columnar = 0
+    for dc in set(FED_DCS):
+        other = next(d for d in set(FED_DCS) if d != dc)
+        keys = [k for d, k in per if d == dc]
+        src, dst = ring_owners(rings[dc], keys), ring_owners(rings[other], keys)
+        for k, a, b in zip(keys, src, dst):
+            total += per[(dc, k)]
+            if addrs[3] not in (a, b):
+                columnar += per[(dc, k)]
+    return total, columnar
+
+
+def federation_phase(torch, smi, dev="cuda"):
+    """Phase 15: two regions of two of the port's server binaries each
+    on the card, found by member-list gossip (node 1's gossip address
+    the known node); node 4 runs GUBER_REGION_COLUMNS=0, so the sends to
+    and from it take the classic per-item encoding.  (a) every node lists
+    the four peers, two a region, and names the other region; (b)
+    MULTI_REGION token and leaky frames through ColumnsV1Client into both
+    regions, then the flushes: every answer and every key's row in both
+    regions equal two port nodes on the plain versions (CPU) in this
+    process fed each connection's frames serially, flushed by hand; (c)
+    config 5's storm, 100 callers x 512 lanes over the four gateways:
+    zero error lanes, the region ledger balanced over the four nodes,
+    no audit violation, both encodings used; (d) each node's launches,
+    SIGTERM with its snapshot."""
+    from gubernator_tpu_torch import snapshot
+    from gubernator_tpu_torch.client import ColumnsV1Client, V1Client
+    from gubernator_tpu_torch.config import setup_daemon_config
+    from gubernator_tpu_torch.daemon import Daemon
+    from gubernator_tpu_torch.utils.clock import Clock
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-federation-")
+    nodes = [(f"127.0.0.1:{free_port()}", f"127.0.0.1:{free_port()}",
+              f"127.0.0.1:{free_port()}") for _ in range(4)]  # (http, grpc, gossip)
+    addrs = [g for _, g, _ in nodes]
+    frames, storm = fed_traffic()
+    snaps = [os.path.join(tmp, f"node{i + 1}.snap") for i in range(4)]
+    procs = [None] * 4
+    numbers = {}
+
+    def start(i):
+        env = dict(FED_ENV, GUBER_HTTP_ADDRESS=nodes[i][0], GUBER_GRPC_ADDRESS=nodes[i][1],
+                   GUBER_ADVERTISE_ADDRESS=nodes[i][1], GUBER_DATA_CENTER=FED_DCS[i],
+                   GUBER_MEMBERLIST_ADDRESS=nodes[i][2],
+                   GUBER_MEMBERLIST_KNOWN_NODES=nodes[0][2],
+                   GUBER_MEMBERLIST_NODE_NAME=f"node{i + 1}", GUBER_SNAPSHOT=snaps[i])
+        if i == 3:
+            env["GUBER_REGION_COLUMNS"] = "0"
+        env_file = os.path.join(tmp, f"node{i + 1}.env")
+        write_env(env_file, env)
+        procs[i] = DaemonProcess(env_file, os.path.join(tmp, f"node{i + 1}.err"), dev)
+
+    def launches(i):
+        return http_json(procs[i].http, "POST", "/debug/launches")["launches"]
+
+    def status(i):
+        return http_json(procs[i].http, "GET", "/debug/status")
+
+    def all_launches():
+        return [launches(i) for i in range(4)]
+
+    def settle(what, done):
+        t0 = time.perf_counter()
+        while True:
+            docs = [status(i) for i in range(4)]
+            if done(docs):
+                return docs, time.perf_counter() - t0
+            if time.perf_counter() - t0 > FED_SETTLE_S:
+                raise AssertionError(f"phase 15: {what} never happened: "
+                                     f"{[d['region'] for d in docs]}")
+            time.sleep(0.02)
+
+    def flushed(hits):
+        """Every hit queued so far delivered or dropped: a flush in
+        flight has emptied the queue before its sends count."""
+        def done(docs):
+            r = [d["region"] for d in docs]
+            return (all(x["pendingKeys"] == 0 and x["carryKeyTotal"] == 0 for x in r)
+                    and sum(x["sentHits"] + x["droppedHits"] for x in r) == hits)
+        return done
+
+    hits_b, _ = fed_expected_hits(addrs, frames, storm, epochs=0)
+    total, columnar = fed_expected_hits(addrs, frames, storm, epochs=2)
+
+    try:
+        # Node 1 first: the others join through its gossip address.
+        start(0)
+        errors = []
+
+        def start_safe(i):
+            try:
+                start(i)
+            except BaseException as e:  # noqa: BLE001 — raised below
+                errors.append(e)
+
+        threads = [threading.Thread(target=start_safe, args=(i,)) for i in range(1, 4)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=DAEMON_START_S + 60)
+        if errors or any(p is None for p in procs):
+            raise errors[0] if errors else AssertionError("a phase 15 node did not start")
+        numbers["startup_s"] = [p.startup_s for p in procs]
+
+        # (a) gossip convergence: two local peers, the other region's two.
+        def converged(docs):
+            for i, d in enumerate(docs):
+                other = "dc-east" if FED_DCS[i] == "dc-west" else "dc-west"
+                if (d["health"]["peerCount"] != 2 or len(d["peers"]) != 4
+                        or d["region"]["regions"] != {other: {"peers": 2, "breakerOpen": 0}}
+                        or d["region"]["dataCenter"] != FED_DCS[i]):
+                    return False
+            return True
+
+        docs, numbers["converge_s"] = settle("gossip convergence", converged)
+        generations = [d["ring"]["generation"] for d in docs]
+        all_launches()  # every count 0 from here
+
+        # (b) the serial leg: each connection's frames into its node's
+        # region, the connections concurrently; then the flush windows.
+        got_b, lat_b, wall_b = cluster_frames([(h, g) for h, g, _ in nodes], frames,
+                                              slice(0, None), lambda c: c % 4)
+        _, numbers["flush_b_s"] = settle("the flushes of (b)", flushed(hits_b))
+        run_b = all_launches()
+
+        # (c) config 5's storm: an untimed warm epoch, then the timed one.
+        lat_c, totals = [], [0, 0, 0]  # lanes, over limit, error lanes
+        lock = threading.Lock()
+
+        def storm_one(i, timed):
+            v = V1Client(nodes[i % 4][0], timeout_s=DAEMON_TIMEOUT_S)
+            try:
+                t0 = time.perf_counter()
+                resp = v.get_rate_limits(storm[i % FED_STORM_BATCHES])
+                dt = time.perf_counter() - t0
+            finally:
+                v.close()
+            with lock:
+                if timed:
+                    lat_c.append(dt)
+                totals[0] += len(resp.responses)
+                totals[1] += sum(r.status == 1 and not r.error for r in resp.responses)
+                totals[2] += sum(bool(r.error) for r in resp.responses)
+
+        wall_c = 0.0
+        for timed in (False, True):
+            errs = []
+
+            def safe(i, timed=timed):
+                try:
+                    storm_one(i, timed)
+                except BaseException as e:  # noqa: BLE001 — raised below
+                    errs.append(e)
+
+            threads = [threading.Thread(target=safe, args=(i,)) for i in range(FED_STORM_CALLERS)]
+            t0 = time.perf_counter()
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=DAEMON_TIMEOUT_S)
+            if errs or any(t.is_alive() for t in threads):
+                raise errs[0] if errs else AssertionError("phase 15 (c) did not finish")
+            wall_c = time.perf_counter() - t0
+        docs, numbers["flush_c_s"] = settle("the flushes of (c)", flushed(total))
+        run_c = all_launches()
+        if [d["ring"]["generation"] for d in docs] != generations:
+            raise AssertionError(f"phase 15: a ring changed during the run (gossip flapped): "
+                                 f"{generations} -> {[d['ring']['generation'] for d in docs]}")
+
+        # (d) the ledgers, /metrics, SIGTERM.
+        audits = [http_json(procs[i].http, "GET", "/debug/audit") for i in range(4)]
+        pages = []
+        for i in range(4):
+            with edge_connect(nodes[i][0]) as s:
+                st, _, page = edge_request(s, "GET", "/metrics")
+            if st != 200:
+                raise AssertionError(f"phase 15 (d): node {i + 1}'s /metrics answered {st}")
+            pages.append(page.decode())
+        stops = []
+        for i in range(4):
+            line, _ = procs[i].stop()
+            stops.append(json.loads(line.split("kernel launches ", 1)[1].rsplit(")", 1)[0]))
+    except BaseException:
+        for p in procs:
+            if p is not None:
+                p.kill()
+        raise
+
+    # The replay: one port node a region on the plain versions in this
+    # process, each connection's frames serially, the flushes by hand.
+    t_replay = time.perf_counter()
+    clock = Clock()
+    clock.freeze(NOW)
+    ref = {}
+    try:
+        for dc in ("dc-west", "dc-east"):
+            conf = setup_daemon_config(env=dict(
+                DAEMON_ENV, GUBER_HTTP_ADDRESS="127.0.0.1:0", GUBER_GRPC_ADDRESS="127.0.0.1:0",
+                GUBER_ADVERTISE_ADDRESS="", GUBER_STATIC_PEERS="", GUBER_NATIVE_HTTP="1",
+                GUBER_TORCH_DEVICE="cpu", GUBER_DATA_CENTER=dc,
+                GUBER_MULTI_REGION_SYNC_WAIT="3600s"))
+            ref[dc] = Daemon(conf, clock=clock).start()
+        infos = [d.peer_info for d in ref.values()]
+        for d in ref.values():
+            d.set_peers(infos)
+        want_b = []
+        for c in range(FED_CONNS):
+            client = ColumnsV1Client(ref[FED_DCS[c % 4]].gateway.address,
+                                     timeout_s=DAEMON_TIMEOUT_S, connections=1)
+            try:
+                row = []
+                for item in frames[c]:
+                    rc, lo, hi = client.submit_columns(item).result(timeout=DAEMON_TIMEOUT_S)
+                    row.append(result_rows(rc, lo, hi))
+                want_b.append(row)
+            finally:
+                client.close()
+        for d in ref.values():
+            d.service.multi_region_mgr.run_once()
+        ref_cols = {dc: d.service.store.snapshot_columns(NOW) for dc, d in ref.items()}
+    finally:
+        for d in ref.values():
+            d.close()
+    numbers["replay_s"] = time.perf_counter() - t_replay
+
+    for c in range(FED_CONNS):
+        for k, (rows, _owners) in enumerate(got_b[c]):
+            if rows != want_b[c][k]:
+                raise AssertionError(f"phase 15 (b) connection {c} frame {k}: card != CPU "
+                                     "replay")
+    fields = ("algorithm", "status", "limit", "remaining", "duration", "stamp", "expire_at")
+
+    def rows_of(cols):
+        m = np.stack([np.asarray(getattr(cols, f), np.int64) for f in fields], axis=1)
+        return {k: v for k, v in zip(cols.keys, map(tuple, m.tolist())) if k.startswith("fedb_")}
+
+    n_rows = {}
+    for dc in ("dc-west", "dc-east"):
+        held = {}
+        for i in (j for j in range(4) if FED_DCS[j] == dc):
+            cols, _meta = snapshot.read_snapshot(snaps[i])
+            for k, row in rows_of(cols).items():
+                if k in held:
+                    raise AssertionError(f"phase 15: key {k} on both nodes of {dc}")
+                held[k] = row
+        want = rows_of(ref_cols[dc])
+        if held != want:
+            bad = sorted(k for k in set(held) | set(want) if held.get(k) != want.get(k))
+            raise AssertionError(f"phase 15 (b): {len(bad)} of {len(want)} keys' rows in {dc} "
+                                 f"!= CPU replay (first {bad[:3]}: "
+                                 f"{[(held.get(k), want.get(k)) for k in bad[:3]]})")
+        n_rows[dc] = len(held)
+
+    # (c) zero error lanes; the region ledger over the four nodes.
+    if totals[2]:
+        raise AssertionError(f"phase 15 (c): {totals[2]} error lanes of {totals[0]}")
+    led = collections.Counter()
+    for i, a in enumerate(audits):
+        node = {k: int(a["ledger"].get(k, 0)) for k in
+                ("region_agg_hits", "region_sent_hits", "region_dropped_hits",
+                 "region_admitted_hits", "region_wire_hits", "region_recv_hits",
+                 "region_applied_hits")}
+        bad = {k: v for k, v in a["violations"].items() if k.startswith("region") and v}
+        slack = a["gauges"].get("region_carry_keys", 0)
+        if (bad or node["region_wire_hits"] > node["region_admitted_hits"]
+                or node["region_sent_hits"] + node["region_dropped_hits"]
+                > node["region_agg_hits"]
+                or node["region_applied_hits"] > node["region_recv_hits"] or slack):
+            raise AssertionError(f"phase 15: node {i + 1}'s region invariants: {node}, "
+                                 f"violations {bad}, carry {slack}")
+        led.update(node)
+    if not (led["region_agg_hits"] == led["region_sent_hits"] == total
+            and led["region_dropped_hits"] == 0
+            and led["region_recv_hits"] == led["region_applied_hits"] == columnar):
+        raise AssertionError(f"phase 15: region ledger {dict(led)} != {total} hits sent, "
+                             f"{columnar} of them columnar")
+    batches = collections.Counter()
+    flushes = [d["region"]["flushes"] for d in docs]
+    for page in pages:
+        for (n, lab), v in metric_values(page, ("gubernator_region_batches",)).items():
+            if n == "gubernator_region_batches_total":
+                batches[dict(lab)["encoding"]] += int(v)
+    if not (batches["columns"] > 0 and batches["classic"] > 0):
+        raise AssertionError(f"phase 15: region batches by encoding {dict(batches)}")
+
+    def k(c):
+        return ", ".join(f"K{j} {c[n]}" for j, n in zip((1, 2, 3, 4, 5, 6, 7, 8), DAEMON_KERNELS))
+
+    # The storm's keys each node owns in its region (FNV clusters keys
+    # that differ only at the end, so a node may own none of the 16).
+    storm_keys = sorted({r.hash_key() for b in storm for r in b.requests})
+    owned = [0] * 4
+    for dc in set(FED_DCS):
+        ring = cluster_ring([a for a, d in zip(addrs, FED_DCS) if d == dc])
+        for o in ring_owners(ring, storm_keys):
+            owned[addrs.index(o)] += 1
+    if dev == "cuda":
+        for i in range(4):
+            if run_b[i]["bucket_rounds_dict"] == 0 or (
+                    owned[i] and run_c[i]["bucket_rounds_dict"] == 0):
+                raise AssertionError(f"phase 15: node {i + 1} (owner of {owned[i]} storm keys) "
+                                     f"launched no K1: {run_b[i]}, {run_c[i]}")
+            if stops[i]["gather_rows"] < 1:
+                raise AssertionError(f"phase 15: node {i + 1}'s snapshot save launched no K7")
+
+    # What one flush of each region's keys costs on the wire, in each
+    # encoding (the bytes actually sent are not counted by the nodes).
+    from gubernator_tpu_torch.federation import RegionBatch, RegionColumns
+    from gubernator_tpu_torch.types import RateLimitRequest
+
+    one_flush = {}
+    for dc in ("dc-west", "dc-east"):
+        agg = {}
+        for c in (c for c in range(FED_CONNS) if FED_DCS[c % 4] == dc):
+            for item in frames[c]:
+                for j in range(len(item[0])):
+                    key = (item[0][j], item[1][j])
+                    if key in agg:
+                        agg[key].hits += 1
+                    else:
+                        agg[key] = RateLimitRequest(
+                            name=item[0][j], unique_key=item[1][j], hits=1,
+                            limit=int(item[5][j]), duration=int(item[6][j]),
+                            algorithm=int(item[2][j]), behavior=int(item[3][j]))
+        b = RegionBatch(RegionColumns.from_requests(dc, list(agg.values())))
+        one_flush[dc] = (len(agg), len(b.frame()), sum(len(x) for x in b.classic_json_chunks(1000)))
+
+    def lat_line(v):
+        v = np.asarray(v) * 1e3
+        return f"request p50 {np.percentile(v, 50):.3f} ms, max {v.max():.3f} ms of {v.size}"
+
+    tag = f"[federation] ({smi})"
+    log(f"{tag} startup to listening, nodes 1-4: "
+        + ", ".join(f"{s:.2f} s" for s in numbers["startup_s"])
+        + f"; gossip convergence (four peers, the other region named) "
+        f"{numbers['converge_s']:.3f} s after the last node listened")
+    log(f"{tag} (b) {FED_CONNS} ColumnsV1Clients x {FED_REQS} MULTI_REGION frames of "
+        f"{FED_LANES} lanes over both regions: {FED_CONNS * FED_REQS * FED_LANES / wall_b:.0f} "
+        f"checks/s, {lat_line(lat_b)}; flushed {numbers['flush_b_s']:.3f} s after the last "
+        f"answer; rows in dc-west {n_rows['dc-west']}, dc-east {n_rows['dc-east']} keys")
+    log(f"{tag} (c) config 5 storm, {FED_STORM_CALLERS} callers x {FED_STORM_LANES} lanes over "
+        f"the four gateways: {FED_STORM_CALLERS * FED_STORM_LANES / wall_c:.0f} checks/s, "
+        f"{lat_line(lat_c)}; over limit {totals[1]} of {totals[0]} lanes (both epochs), "
+        f"error lanes {totals[2]}; flushed {numbers['flush_c_s']:.3f} s after the last answer; "
+        f"storm keys owned by nodes 1-4: {owned}")
+    log(f"{tag} region plane: flushes by node {flushes}; batches by encoding "
+        f"{dict(sorted(batches.items()))}; ledger over the four nodes {dict(sorted(led.items()))}"
+        f" ({columnar} of {total} hits columnar, the rest to or from node 4)")
+    log(f"{tag} one flush of each region's (b) keys: "
+        + "; ".join(f"{dc} {n} keys, region frame {f} B, classic JSON {j} B"
+                    for dc, (n, f, j) in one_flush.items()))
+    for i in range(4):
+        log(f"{tag} node {i + 1} ({FED_DCS[i]}) launches: (b) {k(run_b[i])}; (c) {k(run_c[i])}; "
+            f"SIGTERM save {k(stops[i])}")
+    log(f"{tag} cluster == CPU serial replay: every answer of (b), every (b) key's row in both "
+        f"regions (replay {numbers['replay_s']:.1f} s, phase {time.perf_counter() - t_phase:.1f} s)")
+    shutil.rmtree(tmp, ignore_errors=True)
+    return run_b, run_c
+
+
 def main():
     import torch
 
@@ -5306,6 +5775,8 @@ def main():
     daemon_phase(torch)
     gc.collect()
     cluster_phase(torch, smi)
+    gc.collect()
+    federation_phase(torch, smi)
     log(smi)  # again, so the tail of a long log names the card and limit
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}), flush=True)

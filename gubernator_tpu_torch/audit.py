@@ -232,14 +232,9 @@ def _carry_cap() -> int:
     return GlobalManager.HIT_CARRY_MAX
 
 
-# The federation plane's carry bound (JAX federation.py
-# REGION_CARRY_MAX).  The port has no federation plane yet, so nothing
-# sets the region gauge; the bound is kept here so the check needs no
-# federation module.
-REGION_CARRY_MAX = 16_384
-
-
 def _region_carry_cap() -> int:
+    from .federation import REGION_CARRY_MAX
+
     return REGION_CARRY_MAX
 
 

@@ -5,8 +5,12 @@
 
 FILE holds GUBER_* lines (`config.setup_daemon_config`); the store runs
 on the current CUDA device unless the config sets
-GUBER_TORCH_DEVICE=cpu.  SIGINT or SIGTERM closes the daemon, which
-writes its snapshot when GUBER_SNAPSHOT names one.
+GUBER_TORCH_DEVICE=cpu.  Discovery follows GUBER_PEER_DISCOVERY_TYPE
+(static, file, member-list with GUBER_MEMBERLIST_*, etcd with
+GUBER_ETCD_*, k8s with GUBER_K8S_*); GUBER_DATA_CENTER names the node's
+region, and GUBER_MULTI_REGION_* and GUBER_REGION_COLUMNS set the
+federation plane.  SIGINT or SIGTERM closes the daemon (a gossip node
+leaves first), which writes its snapshot when GUBER_SNAPSHOT names one.
 """
 
 from __future__ import annotations

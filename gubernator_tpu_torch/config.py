@@ -430,20 +430,6 @@ class DaemonConfig:
         return self.advertise_address or self.listen_address
 
 
-WATCH_ENDPOINTS = "endpoints"
-WATCH_PODS = "pods"
-
-
-def watch_mechanism_from_string(mechanism: str) -> str:
-    """kubernetes.go:51-62: empty defaults to endpoints (the JAX
-    package's k8s_pool.py helper, kept here until discovery is ported)."""
-    if mechanism in ("", WATCH_ENDPOINTS):
-        return WATCH_ENDPOINTS
-    if mechanism == WATCH_PODS:
-        return WATCH_PODS
-    raise ValueError(f"unknown watch mechanism specified: {mechanism}")
-
-
 def _env_bool(merged: "Dict[str, str]", key: str, default: bool) -> bool:
     """Reference getEnvBool semantics: any truthy string enables
     (config.go:444-489); absent keeps the default."""
@@ -597,6 +583,8 @@ def setup_daemon_config(
     conf.k8s_pod_ip = merged.get("GUBER_K8S_POD_IP", "")
     conf.k8s_pod_port = merged.get("GUBER_K8S_POD_PORT", "") or conf.k8s_pod_port
     conf.k8s_selector = merged.get("GUBER_K8S_ENDPOINTS_SELECTOR", "")
+    from .k8s_pool import watch_mechanism_from_string
+
     try:
         conf.k8s_mechanism = watch_mechanism_from_string(
             merged.get("GUBER_K8S_WATCH_MECHANISM", "")

@@ -6,13 +6,13 @@ on the configured device (`DaemonConfig.device`: None = the current
 CUDA device, which raises without one; "cpu" runs the plain versions),
 the kernels' warmup launches, the gRPC server, the HTTP edge (the C++
 epoll edge with its ingress pump under GUBER_NATIVE_HTTP=1, else the
-stdlib gateway, which alone serves TLS), static or file discovery, and
-graceful shutdown with the snapshot and Loader save.  `set_peers`
-stamps IsOwner by advertise-address compare exactly like
-daemon.go:277-287.
+stdlib gateway, which alone serves TLS), discovery (static, file,
+member-list gossip, etcd or k8s: `peers.make_pool`, given this node's
+advertised PeerInfo), and graceful shutdown with the snapshot and Loader
+save.  `set_peers` stamps IsOwner by
+advertise-address compare exactly like daemon.go:277-287.
 
-Etcd, member-list and k8s discovery raise NotImplementedError at
-`peers.make_pool` (slice A5).  The incident black box's process switch
+The incident black box's process switch
 comes with blackbox.py (slice A6).
 """
 
@@ -157,7 +157,7 @@ class Daemon:
 
             self._pool = FilePool(self.conf.peers_file, on_update=self.set_peers)
         elif self.conf.peer_discovery_type in ("etcd", "member-list", "k8s"):
-            from .peers import make_pool  # raises: slice A5
+            from .peers import make_pool
 
             self._pool = make_pool(
                 self.conf.peer_discovery_type,

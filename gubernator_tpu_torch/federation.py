@@ -1,0 +1,531 @@
+"""Multi-region federation plane: columnar cross-region hit replication.
+
+The port of the JAX package's federation.py (no JAX: the plane is host
+code, and the receiving region applies the hits through
+`V1Service.get_peer_rate_limits_columns`, so on the card they launch
+the bucket kernel K1, or K2 for a batch of more than 256 configs).
+The reference replicates MULTI_REGION hits asynchronously between
+clusters (multiregion.go:8-83; region_picker.go:7-95 picks the owner
+peer per region).
+
+* **Per-region accumulator** — MULTI_REGION lanes aggregate per key
+  (hits summed, multiregion.go:37-47) into one host-side map, flushed
+  every `multi_region_sync_wait_s` or at once when the map reaches
+  `multi_region_batch_limit` distinct keys (the reference's queue-full
+  flush, multiregion.go:49-62).
+
+* **Encode-once columnar batch** — a flush builds ONE RegionColumns
+  batch (per-key summed hits + this node's GUBER_DATA_CENTER as the
+  origin-region id, MULTI_REGION stripped so the receiver cannot echo)
+  and fans it to each remote region's owner peers concurrently through
+  a bounded pool.  When every region's ring maps the whole flush to one
+  owner, all regions share the SAME RegionBatch object, so the
+  frame/proto bytes are encoded once per flush, not once per region.
+
+* **Partition semantics** — a send that provably never applied
+  (breaker fast-fail, connection-level not-ready) requeues into that
+  REGION's carry (hits summed per key, capped at REGION_CARRY_MAX,
+  overflow drops COUNTED); a timeout-shaped failure may have applied
+  remotely, so it drops counted instead of double-sending.
+  Breaker/backoff per remote peer ride inside service._peer_send_ex.
+
+* **Audit contract** (audit.py `region_*`): origin-admitted >=
+  wire-reached >= remote-applied, each pair side-local and
+  lag-tolerant.  A FaultPlan DUPLICATE on the region wire doubles
+  `region_wire_hits` against a single `region_admitted_hits` note and
+  trips `region_conservation`.
+
+Eventual-consistency slack (documented in architecture.md
+"Multi-region federation"): a remote region's view lags by up to one
+flush window plus carry residence; under prolonged partition at most
+REGION_CARRY_MAX distinct keys per region are retained and overflow
+hits drop counted (`gubernator_region_dropped_hits`) — bounded loss,
+never double-apply.
+"""
+
+from __future__ import annotations
+
+import json
+import threading
+import time
+from dataclasses import dataclass, replace
+from typing import Dict, List, Optional
+
+import numpy as np
+
+from . import audit
+from . import tracing
+from . import wire
+from .config import PEER_COLUMNS_MAX_LANES
+from .peer_client import is_circuit_open, is_not_ready
+from .types import Behavior, RateLimitRequest, set_behavior
+from .utils.interval import Interval
+
+# Requeue-carry bound per destination region (distinct keys): hits for
+# a region that stays partitioned accumulate between flushes; past the
+# cap new keys drop (counted in gubernator_region_dropped_hits) — the
+# GLOBAL plane's bounded-loss posture (service.GlobalManager
+# .HIT_CARRY_MAX), applied per region.  The audit's region_slack
+# invariant checks the live carry against this.
+REGION_CARRY_MAX = 16_384
+
+
+@dataclass
+class RegionColumns:
+    """One cross-region hit batch in column form — the wire currency of
+    the federation plane (GUBC frame kind 7 / RegionColumnsReq).
+    `origin` is the sending daemon's GUBER_DATA_CENTER; the behavior
+    column has MULTI_REGION already stripped (the receiver applies, it
+    must not re-queue — the no-amplification rule)."""
+
+    origin: str
+    names: List[str]
+    unique_keys: List[str]
+    algorithm: np.ndarray  # i32[n]
+    behavior: np.ndarray  # i32[n], MULTI_REGION stripped
+    hits: np.ndarray  # i64[n]
+    limit: np.ndarray  # i64[n]
+    duration: np.ndarray  # i64[n]
+
+    def __len__(self) -> int:
+        return len(self.names)
+
+    def hash_key_at(self, i: int) -> str:
+        return f"{self.names[i]}_{self.unique_keys[i]}"
+
+    def peer_columns(self):
+        """This batch as a wire.PeerColumns tuple (the classic-fallback
+        encoders consume it)."""
+        return (
+            self.names, self.unique_keys, self.algorithm, self.behavior,
+            self.hits, self.limit, self.duration,
+        )
+
+    def slice(self, lo: int, hi: int) -> "RegionColumns":
+        return RegionColumns(
+            origin=self.origin,
+            names=self.names[lo:hi],
+            unique_keys=self.unique_keys[lo:hi],
+            algorithm=self.algorithm[lo:hi],
+            behavior=self.behavior[lo:hi],
+            hits=self.hits[lo:hi],
+            limit=self.limit[lo:hi],
+            duration=self.duration[lo:hi],
+        )
+
+    @classmethod
+    def from_requests(
+        cls, origin: str, reqs: List[RateLimitRequest]
+    ) -> "RegionColumns":
+        n = len(reqs)
+        return cls(
+            origin=origin,
+            names=[r.name for r in reqs],
+            unique_keys=[r.unique_key for r in reqs],
+            algorithm=np.fromiter(
+                (int(r.algorithm) for r in reqs), np.int32, count=n
+            ),
+            behavior=np.fromiter(
+                (set_behavior(r.behavior, Behavior.MULTI_REGION, False)
+                 for r in reqs),
+                np.int32, count=n,
+            ),
+            hits=np.fromiter((int(r.hits) for r in reqs), np.int64, count=n),
+            limit=np.fromiter((int(r.limit) for r in reqs), np.int64, count=n),
+            duration=np.fromiter(
+                (int(r.duration) for r in reqs), np.int64, count=n
+            ),
+        )
+
+
+class RegionBatch:
+    """One flush's columns with every wire encoding cached, so an
+    N-region fan-out encodes each form at most once (wire.BroadcastBatch
+    for the region tier).  The classic encodings are built through the
+    exact per-item codecs of the pre-federation wire
+    (wire.peer_columns_to_classic_pb/_json), so a GUBER_REGION_COLUMNS=0
+    daemon — or a classic-negotiated peer — sees byte-identical wire.
+
+    Lazy init is LOCKED: the fan-out pool hands one batch to many
+    concurrent sends."""
+
+    __slots__ = ("cols", "_lock", "_frame", "_pb", "_classic_pb",
+                 "_classic_json", "_total_hits")
+
+    def __init__(self, cols: RegionColumns):
+        self.cols = cols
+        self._lock = threading.Lock()
+        self._frame: Optional[bytes] = None
+        self._pb = None
+        # Classic fallbacks chunk at the receiver's classic per-RPC cap,
+        # which can differ per client config: cache per cap.
+        self._classic_pb: Dict[int, list] = {}
+        self._classic_json: Dict[int, list] = {}
+        self._total_hits = int(np.asarray(cols.hits).sum())
+
+    def __len__(self) -> int:
+        return len(self.cols)
+
+    def total_hits(self) -> int:
+        return self._total_hits
+
+    def frame(self) -> bytes:
+        with self._lock:
+            if self._frame is None:
+                self._frame = wire.encode_region_frame(self.cols)
+            return self._frame
+
+    def columns_pb(self):
+        with self._lock:
+            if self._pb is None:
+                self._pb = wire.region_cols_to_pb(self.cols)
+            return self._pb
+
+    def classic_pb_chunks(self, cap: int) -> list:
+        """The pre-federation wire: per-item GetPeerRateLimitsReq
+        messages, chunked at the classic per-RPC cap."""
+        with self._lock:
+            chunks = self._classic_pb.get(cap)
+            if chunks is None:
+                pc = self.cols.peer_columns()
+                n = len(self.cols)
+                chunks = [
+                    wire.peer_columns_to_classic_pb(
+                        wire.peer_columns_slice(pc, lo, min(lo + cap, n))
+                    )
+                    for lo in range(0, n, cap)
+                ]
+                self._classic_pb[cap] = chunks
+            return chunks
+
+    def classic_json_chunks(self, cap: int) -> list:
+        """The pre-federation HTTP wire: per-item {"requests": [...]}
+        bodies."""
+        with self._lock:
+            chunks = self._classic_json.get(cap)
+            if chunks is None:
+                pc = self.cols.peer_columns()
+                n = len(self.cols)
+                chunks = [
+                    json.dumps(
+                        wire.peer_columns_to_classic_json(
+                            wire.peer_columns_slice(pc, lo, min(lo + cap, n))
+                        )
+                    ).encode("utf-8")
+                    for lo in range(0, n, cap)
+                ]
+                self._classic_json[cap] = chunks
+            return chunks
+
+
+class FederationManager:
+    """MULTI_REGION hit pipeline (multiregion.go:8-83, the send-leg
+    TODOs honored columnar).  Aggregates hits per key, flushes them as
+    encode-once RegionColumns batches to each remote region's owner
+    peers concurrently, and carries provably-unapplied sends into the
+    next flush per region.  Module docstring has the full contract."""
+
+    def __init__(self, service):
+        self.service = service
+        self._lock = threading.Lock()
+        # Per-key aggregation (hits summed; stored copies so callers'
+        # requests are never mutated) — the multiregion.go:37-47 map.
+        self._hits: Dict[str, RateLimitRequest] = {}
+        self._stopped = False
+        # Serializes flushes: the interval tick, the batch-limit early
+        # kick, and direct test callers must not interleave the
+        # take-accumulator / merge-carry / requeue sequence.
+        self._flush_lock = threading.Lock()
+        self._kick_pending = False
+        # Per-REGION requeue carry: region -> hash_key -> private
+        # RateLimitRequest copy (hits summed).  Flush-thread-only
+        # mutation (under _flush_lock); snapshots read sizes only.
+        self._carry: Dict[str, Dict[str, RateLimitRequest]] = {}
+        self._fanout_pool = None
+        # Status counters (hit totals, for GET /debug/status).
+        self.sent_hits = 0
+        self.requeued_hits = 0
+        self.dropped_hits = 0
+        self.flushes = 0
+        self._last_flush_monotonic: Optional[float] = None
+        self._interval = Interval(
+            service.conf.behaviors.multi_region_sync_wait_s, self._tick
+        )
+        self._interval.next()
+
+    # -- queueing ------------------------------------------------------
+    def _tick(self) -> None:
+        try:
+            self.run_once()
+        finally:
+            if not self._stopped:
+                self._interval.next()
+
+    def queue_hits(self, r: RateLimitRequest) -> None:
+        """Aggregate by hash key, summing hits (multiregion.go:37-47).
+        Reaching multi_region_batch_limit distinct keys flushes
+        immediately instead of waiting out the window — the reference's
+        queue-full flush."""
+        limit = self.service.conf.behaviors.multi_region_batch_limit
+        with self._lock:
+            key = r.hash_key()
+            cur = self._hits.get(key)
+            if cur is None:
+                self._hits[key] = replace(r)
+            else:
+                cur.hits += r.hits
+            kick = (
+                limit > 0
+                and len(self._hits) >= limit
+                and not self._kick_pending
+                and not self._stopped
+            )
+            if kick:
+                self._kick_pending = True
+        if kick:
+            threading.Thread(
+                target=self.run_once, daemon=True, name="region-flush"
+            ).start()
+
+    # -- the flush -----------------------------------------------------
+    def run_once(self) -> bool:
+        """One flush pass; returns whether any region send happened."""
+        with self._flush_lock:
+            return self._run_locked()
+
+    def _run_locked(self) -> bool:
+        svc = self.service
+        my_dc = svc.conf.data_center
+        with self._lock:
+            self._kick_pending = False
+            new, self._hits = self._hits, {}
+        rp = svc.get_region_picker()
+        regions = [dc for dc in rp.region_names() if dc != my_dc]
+        # Carry owed to regions that left the membership: bounded loss,
+        # counted — there is no longer anywhere to deliver it.  (Inner
+        # carry dicts are flush-thread-only; TOP-LEVEL _carry mutations
+        # take _lock so snapshot() can iterate concurrently.)
+        for dc in list(self._carry):
+            if dc not in regions:
+                with self._lock:
+                    gone = self._carry.pop(dc)
+                if gone:
+                    self._drop(sum(int(r.hits) for r in gone.values()),
+                               len(gone))
+        if not regions:
+            # No remote regions (GUBER_DATA_CENTER unset, or a
+            # single-region cluster): drain and discard, exactly the
+            # pre-federation no-op.  Hits were never admitted toward any
+            # region, so no ledger notes.
+            return False
+        if not new and not self._carry:
+            return False
+        self.flushes += 1
+        self._last_flush_monotonic = time.monotonic()
+        tick = tracing.BatchTrace(()) if tracing.sampled() else None
+        t0_ns = time.monotonic_ns()
+        new_hits_total = sum(int(r.hits) for r in new.values())
+
+        # Plan every (region, owner) send.  The shared no-carry path
+        # reuses ONE RegionBatch (and therefore one encode) across all
+        # regions whose ring maps the whole flush to a single owner.
+        shared: Optional[List[RegionBatch]] = None
+        sends: List[tuple] = []  # (dc, addr, client, batches, entries)
+        for dc in regions:
+            with self._lock:
+                carry = self._carry.pop(dc, None)
+            if carry:
+                merged = carry  # private copies: safe to sum into
+                for k, r in new.items():
+                    cur = merged.get(k)
+                    if cur is None:
+                        merged[k] = r
+                    else:
+                        cur.hits += int(r.hits)
+            else:
+                merged = new  # shared, read-only from here on
+            if not merged:
+                continue
+            if new:
+                # Origin-admitted ledger (audit.py): NEW hits only, per
+                # destination region — carried lanes were counted the
+                # flush they first aggregated toward this region.
+                audit.note("region_agg_hits", new_hits_total)
+            groups: Dict[str, List[str]] = {}
+            clients: Dict[str, object] = {}
+            unroutable: List[str] = []
+            for k in merged:
+                peer = rp.pick(dc, k)
+                if peer is None:
+                    unroutable.append(k)
+                    continue
+                addr = peer.info.grpc_address
+                groups.setdefault(addr, []).append(k)
+                clients[addr] = peer
+            if unroutable:
+                # Region ring churned mid-flush: provably unapplied.
+                self._requeue(dc, [(k, merged[k]) for k in unroutable])
+            for addr, keys in groups.items():
+                entries = [(k, merged[k]) for k in keys]
+                if merged is new and len(keys) == len(merged):
+                    if shared is None:
+                        shared = self._make_batches(my_dc, entries)
+                    batches = shared
+                else:
+                    batches = self._make_batches(my_dc, entries)
+                sends.append((dc, addr, clients[addr], batches, entries))
+
+        if sends:
+            pool = self._get_pool()
+            ctx = tick.ctx if tick is not None else None
+            futs = [
+                (dc, addr, batches, entries,
+                 pool.submit(self._send_region, client, batches, ctx))
+                for dc, addr, client, batches, entries in sends
+            ]
+            for dc, addr, batches, entries, fut in futs:
+                statuses = fut.result()
+                pos = 0
+                for batch, status in zip(batches, statuses):
+                    chunk = entries[pos:pos + len(batch)]
+                    pos += len(batch)
+                    chunk_hits = batch.total_hits()
+                    if status == "sent":
+                        audit.note("region_sent_hits", chunk_hits)
+                        self.sent_hits += chunk_hits
+                    elif status == "requeue":
+                        self._requeue(dc, chunk)
+                    else:  # "drop": timeout-shaped, may have applied
+                        self._drop(chunk_hits, len(chunk))
+                    if status != "sent":
+                        tracing.record_event(
+                            "region-send-failed", region=dc, peer=addr,
+                            lanes=len(chunk), outcome=status,
+                        )
+        carry_keys = sum(len(c) for c in self._carry.values())
+        audit.set_gauge(audit.REGION_CARRY_GAUGE, carry_keys)
+        svc.metrics.region_carry_keys.set(carry_keys)
+        if tick is not None:
+            tracing.record_span(
+                "region.flush", tick.ctx,
+                start_ns=t0_ns, end_ns=time.monotonic_ns(),
+                regions=len(regions), sends=len(sends),
+                keys=len(new),
+            )
+        return bool(sends)
+
+    def _make_batches(self, origin: str, entries) -> List[RegionBatch]:
+        """Entries -> RegionBatch list, chunked at the columnar receive
+        cap (classic-negotiated clients re-chunk further themselves)."""
+        cols = RegionColumns.from_requests(origin, [r for _, r in entries])
+        n = len(cols)
+        if n <= PEER_COLUMNS_MAX_LANES:
+            return [RegionBatch(cols)]
+        return [
+            RegionBatch(cols.slice(lo, min(lo + PEER_COLUMNS_MAX_LANES, n)))
+            for lo in range(0, n, PEER_COLUMNS_MAX_LANES)
+        ]
+
+    def _send_region(self, client, batches: List[RegionBatch],
+                     ctx) -> List[str]:
+        """Send one owner's batches; per-batch outcome: "sent",
+        "requeue" (provably unapplied — breaker fast-fail or
+        connection-level not-ready), or "drop" (timeout-shaped: the
+        batch may have applied remotely, so re-sending would
+        double-count)."""
+        svc = self.service
+        timeout = svc.conf.behaviors.multi_region_timeout_s
+        out: List[str] = []
+        for batch in batches:
+            ok, err = svc._peer_send_ex(
+                "multi_region",
+                lambda b=batch: client.update_region_columns(
+                    b, timeout_s=timeout, trace_ctx=ctx
+                ),
+            )
+            if ok:
+                out.append("sent")
+            elif is_circuit_open(err) or is_not_ready(err):
+                out.append("requeue")
+            else:
+                out.append("drop")
+        return out
+
+    def _requeue(self, dc: str, entries) -> None:
+        """Fold failed lanes into the region's carry (hits summed per
+        key), bounded at REGION_CARRY_MAX distinct keys."""
+        with self._lock:
+            carry = self._carry.setdefault(dc, {})
+        requeued = dropped_keys = dropped_hits = 0
+        for k, r in entries:
+            cur = carry.get(k)
+            if cur is not None:
+                cur.hits += int(r.hits)
+                requeued += 1
+                continue
+            if len(carry) >= REGION_CARRY_MAX:
+                dropped_keys += 1
+                dropped_hits += int(r.hits)
+                continue
+            carry[k] = replace(r)
+            requeued += 1
+        if requeued:
+            self.requeued_hits += sum(
+                int(r.hits) for k, r in entries if k in carry
+            )
+            self.service.metrics.region_requeued_hits.inc(requeued)
+        if dropped_hits or dropped_keys:
+            self._drop(dropped_hits, dropped_keys)
+
+    def _drop(self, hits: int, keys: int) -> None:
+        if hits:
+            audit.note("region_dropped_hits", hits)
+            self.dropped_hits += hits
+        if keys:
+            self.service.metrics.region_dropped_hits.inc(keys)
+
+    def _get_pool(self):
+        # Flush-thread-only under _flush_lock: no extra lock needed.
+        if self._fanout_pool is None:
+            from concurrent.futures import ThreadPoolExecutor
+
+            self._fanout_pool = ThreadPoolExecutor(
+                max_workers=max(1, self.service.conf.behaviors.global_fanout),
+                thread_name_prefix="region-fanout",
+            )
+        return self._fanout_pool
+
+    # -- observers -----------------------------------------------------
+    def snapshot(self) -> dict:
+        """The `region` section of GET /debug/status (federation half;
+        the service adds per-region peer/breaker counts under its peer
+        mutex)."""
+        with self._lock:
+            pending = len(self._hits)
+            # Top-level _carry mutations also hold _lock (the flush
+            # thread's pops and _requeue's setdefault); len() of the
+            # inner flush-thread-owned dicts is atomic.
+            carry = {dc: len(c) for dc, c in self._carry.items()}
+        age = (
+            round(time.monotonic() - self._last_flush_monotonic, 3)
+            if self._last_flush_monotonic is not None
+            else None
+        )
+        return {
+            "dataCenter": self.service.conf.data_center,
+            "columnsEnabled": self.service.conf.behaviors.region_columns,
+            "pendingKeys": pending,
+            "carryKeys": carry,
+            "carryKeyTotal": sum(carry.values()),
+            "flushes": self.flushes,
+            "lastFlushAgeS": age,
+            "sentHits": self.sent_hits,
+            "requeuedHits": self.requeued_hits,
+            "droppedHits": self.dropped_hits,
+        }
+
+    def stop(self) -> None:
+        self._stopped = True
+        self._interval.stop()
+        if self._fanout_pool is not None:
+            self._fanout_pool.shutdown(wait=False)

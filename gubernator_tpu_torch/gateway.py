@@ -4,8 +4,9 @@ The port of the JAX package's gateway.py: the reference's grpc-gateway
 mux (daemon.go:194-239) — POST /v1/GetRateLimits (JSON or a GUBC
 kind-5 frame), GET /v1/HealthCheck, the receiving half of the peer data
 plane (PeersV1: POST /v1/peer.GetPeerRateLimits,
-/v1/peer.UpdatePeerGlobals, /v1/peer.TransferOwnership) and the debug
-routes and GET /metrics — answered byte for byte like a JAX node.  Errors render
+/v1/peer.UpdatePeerGlobals, /v1/peer.TransferOwnership,
+/v1/peer.UpdateRegionColumns) and the debug routes and GET /metrics —
+answered byte for byte like a JAX node.  Errors render
 grpc-gateway style: {"code": N, "message": "..."}.  Two edges share
 `handle_request`: the stdlib `GatewayServer` (TLS when configured) and
 the C++ epoll `NativeGatewayServer`, whose `NativeIngressPump` takes
@@ -13,8 +14,7 @@ kind-5 frames natively and dispatches them a coalesced batch at a
 time.
 
 Not served yet, answered as any unknown route (404): POST
-/debug/incident (the black box) and POST /v1/peer.UpdateRegionColumns
-(the federation plane).  The port's own route, which a JAX node answers
+/debug/incident (the black box).  The port's own route, which a JAX node answers
 404: GET /debug/launches (each CUDA kernel's launches in the process;
 POST returns them and sets them to 0).
 """
@@ -420,9 +420,32 @@ def _handle_request(service: V1Service, method: str, path: str, raw: bytes,
             )
         if path == "/debug/profile":
             return _debug_profile(raw)
-        # POST /v1/peer.UpdateRegionColumns (the federation receive)
-        # comes with federation.py: until then it answers the 404 below,
-        # as a JAX node with GUBER_REGION_COLUMNS=0 does.
+        if (path == "/v1/peer.UpdateRegionColumns"
+                and service.serves_region_columns):
+            # Cross-region federation receive (federation.py): GUBC
+            # region frame in, ONE columnar apply.  A node with the
+            # plane off (GUBER_REGION_COLUMNS=0) never reaches here: it
+            # falls through to the 404 below, what a pre-federation
+            # build answers, which is the sender's version probe (sticky
+            # classic fallback to the per-item GetPeerRateLimits path).
+            with service.metrics.observe_rpc(
+                "/pb.gubernator.PeersV1/UpdateRegionColumns"
+            ):
+                if not wire.is_region_frame(raw):
+                    raise ApiError(
+                        "InvalidArgument",
+                        "UpdateRegionColumns expects a GUBC region frame",
+                    )
+                try:
+                    cols = wire.decode_region_frame(raw)
+                except ValueError as e:
+                    raise ApiError(
+                        "InvalidArgument", f"invalid region frame: {e}"
+                    ) from e
+                applied = service.update_region_columns(cols)
+            return 200, "application/json", _json_bytes(
+                {"applied": applied}
+            )
         if path == "/v1/peer.TransferOwnership" and service.serves_reshard:
             # Ownership-transfer receive (elastic membership): GUBC
             # transfer frame in, ONE batched merge-commit.  A daemon

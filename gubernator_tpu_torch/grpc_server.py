@@ -9,10 +9,7 @@ message classes (no grpc_python_plugin in this image), so the wire
 format and fully-qualified method names match the reference exactly —
 a stock Gubernator client can dial this server.
 
-The port of the JAX package's grpc_server.py.  PeersV1's
-UpdateRegionColumns is not registered: it needs the federation plane
-(slice A4), and callers see UNIMPLEMENTED, as from a JAX node with
-GUBER_REGION_COLUMNS=0.  This module and client.py are the only modules
+The port of the JAX package's grpc_server.py.  This module and client.py are the only modules
 of the port that import grpc.
 """
 
@@ -330,6 +327,21 @@ def _peers_v1_handler(service: V1Service) -> grpc.GenericRpcHandler:
         except ApiError as e:
             _abort_api_error(context, e)
 
+    def update_region_columns(
+        request: pc_pb.RegionColumnsReq, context
+    ) -> pc_pb.RegionColumnsResp:
+        """Cross-region federation receive (federation.py): one
+        columnar hit batch from a remote region's flush, applied
+        through the same columnar path a classic per-item send lands
+        in (service.update_region_columns)."""
+        try:
+            applied = service.update_region_columns(
+                wire.region_cols_from_pb(request)
+            )
+            return pc_pb.RegionColumnsResp(applied=applied)
+        except ApiError as e:
+            _abort_api_error(context, e)
+
     def transfer_ownership(
         request: pc_pb.TransferColumnsReq, context
     ) -> pc_pb.TransferResp:
@@ -378,6 +390,17 @@ def _peers_v1_handler(service: V1Service) -> grpc.GenericRpcHandler:
             update_peer_globals_columns,
             request_deserializer=pc_pb.GlobalsColumnsReq.FromString,
             response_serializer=peers_pb.UpdatePeerGlobalsResp.SerializeToString,
+        )
+    if service.serves_region_columns:
+        # Same advertisement rule on the federation knob
+        # (V1Service.serves_region_columns): GUBER_REGION_COLUMNS=0
+        # withholds the method so senders see UNIMPLEMENTED — exactly
+        # what a pre-federation daemon answers — and fall back sticky
+        # to the classic per-item GetPeerRateLimits encoding.
+        methods["UpdateRegionColumns"] = grpc.unary_unary_rpc_method_handler(
+            update_region_columns,
+            request_deserializer=pc_pb.RegionColumnsReq.FromString,
+            response_serializer=pc_pb.RegionColumnsResp.SerializeToString,
         )
     if service.serves_reshard:
         # Same advertisement rule on the reshard knob

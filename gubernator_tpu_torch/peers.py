@@ -3,16 +3,14 @@
 The reference ships three backends (etcd lease+watch, memberlist gossip,
 k8s informer — etcd.go / memberlist.go / kubernetes.go), all pushing
 `[]PeerInfo` through an OnUpdate callback.  The port of the JAX
-package's peers.py keeps its config surface (GUBER_PEER_DISCOVERY_TYPE)
-with the two zero-dependency pools:
+package's peers.py keeps its config surface (GUBER_PEER_DISCOVERY_TYPE):
 
-  * static  — fixed list in DaemonConfig.peers
-  * file    — a watched JSON file of PeerInfo entries; editing the file
-              is the membership event
-
-`member-list`, `etcd` and `k8s` come with slice A5 (gossip.py,
-etcd_pool.py, k8s_pool.py): `make_pool` raises NotImplementedError for
-them.
+  * static      — fixed list in DaemonConfig.peers
+  * file        — a watched JSON file of PeerInfo entries; editing the
+                  file is the membership event
+  * member-list — SWIM gossip (gossip.py)
+  * etcd        — lease registration and a prefix watch (etcd_pool.py)
+  * k8s         — Endpoints or Pods list and watch (k8s_pool.py)
 """
 
 from __future__ import annotations
@@ -110,14 +108,59 @@ class FilePool:
 
 def make_pool(kind: str, conf, on_update: OnUpdate, advertise: Optional[PeerInfo] = None):
     """daemon.go:163-192 discovery switch.  `advertise` is this daemon's
-    own PeerInfo, which the backends that register or gossip themselves
-    need (slice A5)."""
+    own PeerInfo, required by the backends that register or gossip
+    themselves (member-list, etcd).  Each backend's module is imported
+    here, when it is chosen: etcd's pulls in grpc."""
     if kind == "static":
         return StaticPool(conf.peers, on_update)
     if kind == "file":
         return FilePool(conf.peers_file, on_update)
-    if kind in ("etcd", "member-list", "k8s"):
-        raise NotImplementedError(
-            f"'{kind}' peer discovery comes with slice A5 (gossip.py, "
-            "etcd_pool.py, k8s_pool.py), not ported yet")
+    if kind == "etcd":
+        from .etcd_pool import EtcdPool, credentials_from_config
+
+        if not advertise:
+            raise ValueError("etcd discovery requires an advertise PeerInfo")
+        if conf.etcd_advertise_address:
+            advertise = PeerInfo(
+                grpc_address=conf.etcd_advertise_address,
+                http_address=advertise.http_address,
+                data_center=advertise.data_center,
+            )
+        return EtcdPool(
+            advertise=advertise,
+            on_update=on_update,
+            endpoints=conf.etcd_endpoints,
+            key_prefix=conf.etcd_key_prefix,
+            credentials=credentials_from_config(conf),
+            username=getattr(conf, "etcd_user", ""),
+            password=getattr(conf, "etcd_password", ""),
+        )
+    if kind == "member-list":
+        from .gossip import GossipPool
+
+        if not advertise:
+            raise ValueError("member-list discovery requires an advertise PeerInfo")
+        # Default bind: advertise_host:7946 (config.go:315) — binding
+        # loopback would gossip an unreachable address to remote peers.
+        adv_host = advertise.grpc_address.partition(":")[0]
+        return GossipPool(
+            advertise=advertise,
+            member_list_address=conf.member_list_address or f"{adv_host}:7946",
+            on_update=on_update,
+            known_nodes=conf.member_list_known_nodes,
+            node_name=conf.member_list_node_name,
+            seed=getattr(conf, "gossip_seed", None),
+            faults=getattr(conf, "fault_plan", None),
+        )
+    if kind == "k8s":
+        from .k8s_pool import K8sPool
+
+        return K8sPool(
+            on_update=on_update,
+            namespace=conf.k8s_namespace,
+            selector=conf.k8s_selector,
+            pod_ip=conf.k8s_pod_ip,
+            pod_port=conf.k8s_pod_port,
+            mechanism=conf.k8s_mechanism,
+        )
     raise ValueError(f"unknown peer discovery type '{kind}'")

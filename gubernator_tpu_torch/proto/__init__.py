@@ -4,7 +4,8 @@ carried over from the JAX package with the same bytes.
 `gubernator_pb2` / `peers_pb2` are protoc-generated from the .proto
 files in this directory; `peers_columns_pb2` (the columnar peer hop,
 peers_columns.proto) was generated without protoc from its
-FileDescriptorProto.  Service and message names are wire-compatible
+FileDescriptorProto; `etcd_kv_pb2` / `etcd_rpc_pb2` are the wire subset
+of etcd's v3 API that etcd discovery speaks (etcd_pool.py).  Service and message names are wire-compatible
 with the reference, so stock Gubernator gRPC clients interoperate.
 
 Nothing is imported here: the generated modules need `protobuf`, which

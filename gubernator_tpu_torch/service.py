@@ -49,8 +49,10 @@ engine, the hot-key sketch, the tenant ledger, the conservation auditor
 and the native ingress pump's hook.  `metrics` is the config's
 `Metrics` or a new one (metrics.py), never None.
 
-Not here yet: MULTI_REGION's cross-region hit queue and the region
-plane (federation.py), and the incident black box (blackbox.py).  A
+MULTI_REGION lanes queue their hits toward the other regions
+(`multi_region_mgr`, federation.py) and `update_region_columns` applies
+another region's batch through the columnar peer receive.  Not here
+yet: the incident black box (blackbox.py).  A
 service never given a ring owns every key, where a JAX service answers
 "unable to pick a peer; pool is empty".  Responses are the JAX
 V1Service's (tests/test_torch_service.py, tests/test_torch_batchers.py,
@@ -78,6 +80,7 @@ from . import tracing
 from . import wire
 from .config import MAX_BATCH_SIZE, PEER_COLUMNS_MAX_LANES, BehaviorConfig
 from .faults import Backoff
+from .federation import FederationManager
 from .models.shard import GregResolver
 from .parallel.global_mgr import GlobalsColumns, HitColumns
 from .parallel.hash_ring import ReplicatedConsistentHash
@@ -1171,6 +1174,7 @@ class V1Service:
         self.auditor.start()
         # A store without a GLOBAL sync (a ShardStore) gets no sync ticks.
         self.global_mgr = GlobalManager(self) if hasattr(self.store, "sync_globals") else None
+        self.multi_region_mgr = FederationManager(self)
 
     # ------------------------------------------------------------------
     @property
@@ -1210,11 +1214,15 @@ class V1Service:
 
     @property
     def serves_region_columns(self) -> bool:
-        """Whether this node serves /v1/peer.UpdateRegionColumns.  The
-        port has no federation plane yet, so it never does: the route
-        falls through to 404, as on a JAX node with
-        GUBER_REGION_COLUMNS=0."""
-        return False
+        """Whether this node speaks the columnar inter-region wire: the
+        one rule both edges consult (gRPC UpdateRegionColumns
+        registration, the gateway's path gate), so negotiation cannot
+        differ by transport.  False under GUBER_REGION_COLUMNS=0 (the
+        pre-federation interop mode: senders see UNIMPLEMENTED / 404 and
+        fall back sticky to the classic per-item GetPeerRateLimits
+        encoding, which this node serves like any peer receive) and for
+        stores without columns."""
+        return self.conf.behaviors.region_columns and self.store.supports_columns
 
     def get_peer(self, key: str) -> PeerClient:
         """Owner peer for a key (gubernator.go:440-449)."""
@@ -1550,6 +1558,7 @@ class V1Service:
                             grouped_mask[plain] = True
                     slow[lanes] = True
 
+        self._queue_mr_fast(cols, beh, fast, hash_keys)
         pendings = self._dispatch_fast(cols, beh, fast, hash_keys, result)
 
         # Plain remote lanes: ONE forwarded columnar sub-batch per
@@ -1720,6 +1729,24 @@ class V1Service:
             greg_expire[i], greg_duration[i] = cached
         return greg_expire, greg_duration
 
+    def _queue_mr_fast(self, cols, beh, fast, hash_keys) -> None:
+        """MULTI_REGION fast lanes owe the cross-region hit queue
+        (gubernator.go:343-345): aggregate per key first, so the queue
+        sees one request per unique key, not one per lane."""
+        mr = fast & ((beh & int(Behavior.MULTI_REGION)) != 0)
+        if not mr.any():
+            return
+        agg: Dict[str, RateLimitRequest] = {}
+        for i in np.nonzero(mr)[0]:
+            k = hash_keys[int(i)]
+            cur = agg.get(k)
+            if cur is None:
+                agg[k] = cols.request_at(int(i))
+            else:
+                cur.hits += int(cols.hits[i])
+        for r in agg.values():
+            self.multi_region_mgr.queue_hits(r)
+
     def _dispatch_fast(self, cols, beh, fast, hash_keys, result):
         """Dispatch the fast lanes (Gregorian precompute included).
         Batching behavior is per request, as in the reference
@@ -1859,6 +1886,8 @@ class V1Service:
                     )
             if peer.info.is_owner:
                 local.append(i)
+                if has_behavior(r.behavior, Behavior.MULTI_REGION):
+                    self.multi_region_mgr.queue_hits(r)
             elif has_behavior(r.behavior, Behavior.GLOBAL):
                 global_remote.append(i)
                 owner_by_idx[i] = peer.info.grpc_address
@@ -2342,6 +2371,8 @@ class V1Service:
         def to_error(e: BaseException) -> RateLimitResponse:
             return RateLimitResponse(error=f"while applying rate limit '{r.hash_key()}' - '{e}'")
 
+        if has_behavior(r.behavior, Behavior.MULTI_REGION):
+            self.multi_region_mgr.queue_hits(r)
         # This lane bypasses both router funnels: note it here.
         audit_mod.note("ingress_hits", int(r.hits))
         self.tenants.fold_one(
@@ -2397,6 +2428,9 @@ class V1Service:
         audit_mod.note("peer_ingress_hits", sum(int(r.hits) for r in req.requests))
         tenant_names = self.tenants.fold_requests(list(req.requests))
         resps = self.store.apply(list(req.requests), self.clock.now_ms())
+        for r in req.requests:
+            if has_behavior(r.behavior, Behavior.MULTI_REGION):
+                self.multi_region_mgr.queue_hits(r)
         self.tenants.fold_outcome_responses(tenant_names, resps)
         return GetRateLimitsResponse(responses=resps)
 
@@ -2438,6 +2472,10 @@ class V1Service:
             hash_keys, _errc = pre
         else:
             hash_keys = [f"{nm}_{uk}" for nm, uk in zip(cols.names, cols.unique_keys)]
+        # MULTI_REGION queueing covers every lane here (the reference
+        # queues after applying each forwarded request,
+        # gubernator.go:340-341), GLOBAL+MULTI_REGION lanes too.
+        self._queue_mr_fast(cols, beh, np.ones(len(cols), dtype=bool), hash_keys)
         pendings = self._dispatch_fast(cols, beh, fast, hash_keys, result)
         slow_idx = [int(i) for i in np.nonzero(slow)[0]]
         slow_reqs = [cols.request_at(i) for i in slow_idx]
@@ -2505,6 +2543,53 @@ class V1Service:
             return
         for u in cols.to_updates():
             self.store.set_replica(u, now)
+
+    def update_region_columns(self, cols) -> int:
+        """The receive side of the federation plane: one cross-region
+        hit batch (RegionColumnsReq or the GUBC region frame) applied
+        here through the same columnar receive a classic per-item
+        GetPeerRateLimits send lands in, so both encodings behave alike
+        and only the wire differs (on the card: K1, or K2 for many
+        configs).
+
+        The sender stripped MULTI_REGION (applying must not queue the
+        hits toward other regions again); any lane still flagged is
+        stripped here too, since an echo loop between two regions is
+        worse than one misbehaving sender.  Ledger (audit.py): the
+        batch's hits note `region_recv_hits`, the lanes that applied
+        without error `region_applied_hits`.  Returns the applied lane
+        count."""
+        n = len(cols)
+        if n > PEER_COLUMNS_MAX_LANES:
+            raise ApiError(
+                "OutOfRange",
+                f"'UpdateRegionColumns' columns list too large; "
+                f"max size is '{PEER_COLUMNS_MAX_LANES}'",
+            )
+        if n == 0:
+            return 0
+        hits = np.asarray(cols.hits, dtype=np.int64)
+        audit_mod.note("region_recv_hits", int(hits.sum()))
+        beh = np.asarray(cols.behavior, dtype=np.int32)
+        mr = int(Behavior.MULTI_REGION)
+        if bool((beh & mr).any()):
+            beh = beh & ~np.int32(mr)
+        ic = IngressColumns(
+            names=list(cols.names),
+            unique_keys=list(cols.unique_keys),
+            algorithm=np.asarray(cols.algorithm, dtype=np.int32),
+            behavior=beh,
+            hits=hits,
+            limit=np.asarray(cols.limit, dtype=np.int64),
+            duration=np.asarray(cols.duration, dtype=np.int64),
+        )
+        result = self.get_peer_rate_limits_columns(ic, max_lanes=PEER_COLUMNS_MAX_LANES)
+        errored = [i for i, r in result.overrides.items() if getattr(r, "error", "")]
+        applied = n - len(errored)
+        applied_hits = int(hits.sum()) - sum(int(hits[i]) for i in errored)
+        if applied_hits > 0:
+            audit_mod.note("region_applied_hits", applied_hits)
+        return applied
 
     def transfer_ownership(self, cols: TransferColumns) -> "tuple[int, int]":
         """Receive side of an ownership transfer (reshard.py): fence the
@@ -2593,14 +2678,16 @@ class V1Service:
         """GET /debug/status: health, peers, table occupancy, ingress
         queue, pipeline depth, SLO burn, express lane, hot keys, tenants,
         profiler, ring and resharding counters, audit, device telemetry
-        and snapshots.  Host-side state only: no launch.  The JAX
-        document's `blackbox` and `region` sections wait for their
-        modules."""
+        snapshots and the federation plane's `region` section.
+        Host-side state only: no launch.  The JAX document's `blackbox`
+        section waits for its module."""
         from . import __version__
 
         hc = self.health_check()
         with self._peer_mutex:
             peer_list = list(self.local_picker.peers()) + list(self.region_picker.peers())
+            region_rings = {dc: list(ring.peers())
+                            for dc, ring in self.region_picker.regions.items()}
             handoff_active = self._handoff_prev_picker() is not None
             ring = {
                 "generation": self.ring_generation,
@@ -2673,14 +2760,26 @@ class V1Service:
                 "steadyRecompiles": telemetry.steady_recompile_count(),
             },
             "snapshot": self.snapshots.snapshot(),
+            # The federation plane: this node's data center, the
+            # accumulator and carry, and each other region's peers and
+            # open breakers.
+            "region": {
+                **self.multi_region_mgr.snapshot(),
+                "regions": {
+                    dc: {"peers": len(plist),
+                         "breakerOpen": sum(1 for p in plist if p.breaker.is_open)}
+                    for dc, plist in region_rings.items()
+                },
+            },
         }
 
     def close(self) -> None:
         """Stop the windows (each flushes what it holds), resolve every
-        registered handle, stop the GLOBAL sync and the membership pool,
-        resolve every in-flight batch, then (in the JAX service's order)
-        stop the snapshot cadence, write the shutdown snapshot, hand the
-        Loader every item and shut the peer clients down."""
+        registered handle, stop the GLOBAL sync, the region flushes and
+        the membership pool, resolve every in-flight batch, then (in the
+        JAX service's order) stop the snapshot cadence, write the
+        shutdown snapshot, hand the Loader every item and shut the peer
+        clients down."""
         if self._closed:
             return
         self._closed = True
@@ -2697,6 +2796,7 @@ class V1Service:
             drainer.stop()
         if self.global_mgr is not None:
             self.global_mgr.stop()
+        self.multi_region_mgr.stop()
         self.auditor.stop()
         # The membership pool before the peers and the store: an
         # in-flight handoff or dropped-peer shutdown finishes (or

@@ -3,8 +3,8 @@
 The port of the JAX package's wire.py, byte for byte.  The GUBC frames
 are the HTTP transport's binary bodies: kinds 1/2 (the columnar peer
 hop), 3 (the GLOBAL broadcast), 4 (an ownership transfer), 5/6 (the
-public columnar ingress) and 7 (a cross-region batch; its decode waits
-for the federation plane).  The dataclasses in `types.py` stay the
+public columnar ingress) and 7 (a cross-region batch of the federation
+plane).  The dataclasses in `types.py` stay the
 in-process currency; protobuf enters only at the gRPC edge, mirroring
 how the reference's generated pb types live at its gRPC boundary
 (gubernator.pb.go / peers.pb.go).
@@ -1271,8 +1271,7 @@ def is_region_frame(raw: bytes) -> bool:
 
 
 def encode_region_frame(cols) -> bytes:
-    """A region batch (JAX federation.RegionColumns) -> binary region
-    frame: GUBC header
+    """federation.RegionColumns -> binary region frame: GUBC header
     (kind 7) + `u32 origin_len | origin utf-8` + the seven kind-1
     request columns (names/unique_keys string columns, algo/behavior
     i32, hits/limit/duration i64)."""
@@ -1295,6 +1294,51 @@ def encode_region_frame(cols) -> bytes:
     )
 
 
+def decode_region_frame(raw: bytes):
+    """Binary region frame -> federation.RegionColumns.  Raises
+    ValueError on a malformed/foreign frame (the gateway maps it to a
+    400)."""
+    from .federation import RegionColumns
+
+    if not is_columns_frame(raw):
+        raise ValueError("not a columns frame")
+    version, kind, n = struct.unpack_from("<BBI", raw, 4)
+    if version != FRAME_VERSION or kind != _FRAME_KIND_REGION:
+        raise ValueError(
+            f"unsupported region frame (version={version}, kind={kind})"
+        )
+    pos = _FRAME_HEADER_LEN
+    try:
+        (origin_len,) = struct.unpack_from("<I", raw, pos)
+    except struct.error:
+        raise ValueError("columns frame truncated") from None
+    pos += 4
+    origin_b = raw[pos:pos + origin_len]
+    if len(origin_b) != origin_len:
+        raise ValueError("columns frame truncated")
+    try:
+        origin = origin_b.decode("utf-8")
+    except UnicodeDecodeError:
+        raise ValueError("region frame origin is not valid utf-8") from None
+    pos += origin_len
+    no, nb, pos = _read_str_blob(raw, pos, n)
+    uo, ub, pos = _read_str_blob(raw, pos, n)
+    algo, pos = _read_array(raw, pos, np.int32, n)
+    beh, pos = _read_array(raw, pos, np.int32, n)
+    hits, pos = _read_array(raw, pos, np.int64, n)
+    limit, pos = _read_array(raw, pos, np.int64, n)
+    duration, pos = _read_array(raw, pos, np.int64, n)
+    if pos != len(raw):
+        raise ValueError("columns frame length mismatch")
+    return RegionColumns(
+        origin=origin,
+        names=[nb[no[i]:no[i + 1]].decode("utf-8") for i in range(n)],
+        unique_keys=[ub[uo[i]:uo[i + 1]].decode("utf-8") for i in range(n)],
+        algorithm=algo, behavior=beh,
+        hits=hits, limit=limit, duration=duration,
+    )
+
+
 def region_cols_to_pb(cols) -> "pc_pb.RegionColumnsReq":
     m = pc_pb.RegionColumnsReq()
     m.origin = cols.origin
@@ -1306,6 +1350,22 @@ def region_cols_to_pb(cols) -> "pc_pb.RegionColumnsReq":
     m.limit.extend(np.asarray(cols.limit, dtype=np.int64).tolist())
     m.duration.extend(np.asarray(cols.duration, dtype=np.int64).tolist())
     return m
+
+
+def region_cols_from_pb(m) -> "object":
+    from .federation import RegionColumns
+
+    n = len(m.names)
+    return RegionColumns(
+        origin=m.origin,
+        names=list(m.names),
+        unique_keys=list(m.unique_keys),
+        algorithm=np.fromiter(m.algorithm, np.int32, count=n),
+        behavior=np.fromiter(m.behavior, np.int32, count=n),
+        hits=np.fromiter(m.hits, np.int64, count=n),
+        limit=np.fromiter(m.limit, np.int64, count=n),
+        duration=np.fromiter(m.duration, np.int64, count=n),
+    )
 
 
 def update_global_to_pb(u: UpdatePeerGlobal) -> peers_pb.UpdatePeerGlobal:

@@ -27,6 +27,7 @@ setup(
         # The PyTorch/CUDA port builds these at first use (nvcc, g++).
         "gubernator_tpu_torch": ["csrc/*.cu", "csrc/*.cuh"],
         "gubernator_tpu_torch.native": ["host_runtime.cpp"],
+        "gubernator_tpu_torch.proto": ["*.proto"],
     },
     python_requires=">=3.10",
     install_requires=[

@@ -147,7 +147,8 @@ def _keys(rng, n, space=240, prefix="k"):
     return [f"{int(k)}{prefix}" for k in rng.integers(0, space, n)]
 
 
-def _json_body(rng, n, beh_nb=0.1):
+def _json_body(rng, n, beh_nb=0.1, owned=()):
+    """n seeded lanes, then one lane for each unique key in `owned`."""
     lanes = []
     for uk in _keys(rng, n):
         lane = {"name": str(rng.choice(["acct", "api"])), "uniqueKey": uk,
@@ -157,7 +158,23 @@ def _json_body(rng, n, beh_nb=0.1):
         if rng.random() < beh_nb:
             lane["behavior"] = NB
         lanes.append(lane)
+    for uk in owned:
+        lanes.append({"name": "acct", "uniqueKey": uk, "hits": "1", "limit": "20",
+                      "duration": "60000"})
     return json.dumps({"requests": lanes}).encode()
+
+
+def _owned_by(daemon, addr, n):
+    """The first n unique keys "{j}p" whose "acct" lane `addr` owns.  The
+    ports, and so the ring, are the module's: every cluster gets the
+    same keys."""
+    out = []
+    j = 0
+    while len(out) < n:
+        if daemon.service.get_peer(f"acct_{j}p").info.grpc_address == addr:
+            out.append(f"{j}p")
+        j += 1
+    return out
 
 
 def _frame_cols(rng, n):
@@ -279,14 +296,18 @@ def _run_cluster(kinds):
             with d.service._peer_mutex:  # noqa: SLF001
                 d.service._handoff_deadline = time.monotonic()  # noqa: SLF001
 
-        # (d) node 0 partitioned from node 2.
+        # (d) node 0 partitioned from node 2.  Each batch carries a lane
+        # node 2 owns, whatever the ring: the first opens the breaker,
+        # the second meets it open and degrades.
+        part_keys = _owned_by(daemons[0], NODES[2][1], 2)
         plan = (jfaults if kinds[0] == "jax" else tfaults).FaultPlan(seed=5)
         plan.partition(NODES[2][1])
         for p in daemons[0].service.get_peer_list():
             if p.info.grpc_address == NODES[2][1]:
                 p.faults = plan
         for s in range(4):
-            body = _json_body(rng, 1 if s % 2 else 12, beh_nb=0.0)
+            body = (_json_body(rng, 1, beh_nb=0.0) if s % 2 else
+                    _json_body(rng, 12, beh_nb=0.0, owned=[part_keys[s // 2]]))
             res["partition"].append(("req", s, ends[0].http("/v1/GetRateLimits", body)))
         res["partition"].append(("health", ends[0].http("/v1/HealthCheck", method="GET")))
         st, _, page = ends[0].http("/metrics", method="GET")

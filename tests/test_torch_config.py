@@ -251,11 +251,12 @@ def test_limits_and_watch_mechanism():
     assert tcfg.MAX_BATCH_SIZE == jcfg.MAX_BATCH_SIZE
     assert tcfg.INGRESS_COLUMNS_MAX_LANES == jcfg.INGRESS_COLUMNS_MAX_LANES
     from gubernator_tpu.k8s_pool import watch_mechanism_from_string as jw
+    from gubernator_tpu_torch.k8s_pool import watch_mechanism_from_string as tw
 
     for m in ("", "endpoints", "pods"):
-        assert tcfg.watch_mechanism_from_string(m) == jw(m)
+        assert tw(m) == jw(m)
     with pytest.raises(ValueError) as jerr:
         jw("nodes")
     with pytest.raises(ValueError) as terr:
-        tcfg.watch_mechanism_from_string("nodes")
+        tw("nodes")
     assert str(terr.value) == str(jerr.value)

@@ -15,9 +15,6 @@ at close() restore into the other package's daemon, a file pool picks
 up a rewritten peers file naming the node itself, and the server binary
 starts, answers and stops on SIGTERM as a subprocess.
 
-Known differences, pinned here: PeersV1/UpdateRegionColumns answers
-UNIMPLEMENTED on the port (no federation plane yet).
-
 Every socket operation, wait and join has a bound.
 """
 
@@ -292,13 +289,15 @@ def test_daemons_answer_alike(tmp_path, mode):
         assert [p.info.grpc_address for p in td.service.get_peer_list()] == [ADDR]
         assert (getattr(td.gateway, "pump", None) is not None) == (mode == "native")
         exchange(jd, td, clock, seed={"native": 0, "stdlib": 1, "tls": 2}[mode])
-        # The documented difference: no federation plane on the port.
-        t = Ends(td)
+        # The federation receive answers an empty batch alike.
+        t, j = Ends(td), Ends(jd)
         try:
             got = t.rpc(PEERS + "UpdateRegionColumns", b"")
-            assert got[:2] == ("error", grpc.StatusCode.UNIMPLEMENTED)
+            assert got == j.rpc(PEERS + "UpdateRegionColumns", b"")
+            assert got[0] == "ok"
         finally:
             t.close()
+            j.close()
     finally:
         jd.close()
         td.close()
@@ -404,12 +403,30 @@ def test_file_pool_picks_up_a_rewritten_peers_file(tmp_path):
 
 
 def test_discovery_of_other_kinds_is_refused(tmp_path):
-    from gubernator_tpu_torch.peers import make_pool
+    """make_pool refuses what JAX's refuses, with the same error: an
+    unknown kind, member-list and etcd without an advertised PeerInfo,
+    and k8s outside a cluster with no kubeconfig."""
+    from gubernator_tpu.peers import make_pool as jmake
+    from gubernator_tpu_torch.peers import make_pool as tmake
 
-    conf = tcfg.setup_daemon_config(env=daemon_env(tmp_path, "stdlib"))
-    for kind in ("etcd", "member-list", "k8s"):
-        with pytest.raises(NotImplementedError, match="A5"):
-            make_pool(kind, conf, on_update=lambda peers: None)
+    env = daemon_env(tmp_path, "stdlib")
+    jconf = jcfg.setup_daemon_config(env=env)
+    tconf = tcfg.setup_daemon_config(env=env)
+    old = {k: os.environ.pop(k, None) for k in ("KUBERNETES_SERVICE_HOST", "KUBECONFIG")}
+    os.environ["KUBECONFIG"] = str(tmp_path / "no-kubeconfig")
+    try:
+        for kind in ("etcd", "member-list", "k8s", "consul"):
+            errs = []
+            for make, conf in ((jmake, jconf), (tmake, tconf)):
+                with pytest.raises((ValueError, RuntimeError)) as e:
+                    make(kind, conf, on_update=lambda peers: None)
+                errs.append((type(e.value).__name__, str(e.value)))
+            assert errs[0] == errs[1], kind
+    finally:
+        for k, v in old.items():
+            os.environ.pop(k, None)
+            if v is not None:
+                os.environ[k] = v
 
 
 # ---------------------------------------------------------------------

@@ -15,7 +15,7 @@ routes answer 200 with the same keys.
 GET /metrics answers 200 with the same families (their values are
 held to JAX's in tests/test_torch_metrics.py).  Known differences,
 pinned here: POST /debug/incident answers 404 on the port (no black box
-yet), and /debug/status has no `blackbox` or `region` section.
+yet), and /debug/status has no `blackbox` section.
 
 Every socket operation has a timeout, and no test orders on a sleep.
 """
@@ -383,9 +383,9 @@ def test_debug_routes_have_the_same_keys(nodes):
         assert a[0] == b[0] == 200 and a[1] == b[1], path
         ka, kb = set(json.loads(a[2])), set(json.loads(b[2]))
         if path == "/debug/status":
-            assert ka - kb == {"blackbox", "region"} and not kb - ka
+            assert ka - kb == {"blackbox"} and not kb - ka
             sa, sb = json.loads(a[2]), json.loads(b[2])
-            for sec in ("health", "occupancy", "ring", "audit", "express", "xla"):
+            for sec in ("health", "occupancy", "ring", "audit", "express", "xla", "region"):
                 assert set(sa[sec]) == set(sb[sec]), sec
             assert sb["peers"] == sa["peers"]
             assert sb["ring"]["hash"] == sa["ring"]["hash"]

@@ -56,8 +56,10 @@ def test_global_plane_modules_are_covered():
     the HTTP edge's (ring, audit, profiling, telemetry, the pb modules,
     wire, gateway) and the daemon's (metrics, tls, grpc_server, peers,
     daemon, client, the cmd binaries) and the peers slice's (faults,
-    peer_client, cluster) are among those the two checks above import
-    with JAX absent and scan for imports."""
+    peer_client, cluster) and the federation and discovery slice's
+    (federation, gossip, etcd_pool, k8s_pool, the etcd pb modules) are
+    among those the two checks above import with JAX absent and scan for
+    imports."""
     mods = set(_modules())
     for m in ("ops.global_ops", "parallel.global_mgr", "utils.interval",
               "parallel.mesh", "service", "ops._kernels", "store", "reshard",
@@ -68,7 +70,8 @@ def test_global_plane_modules_are_covered():
               "proto.peers_pb2", "proto.peers_columns_pb2", "wire", "gateway",
               "metrics", "tls", "grpc_server", "peers", "daemon", "client",
               "cmd", "cmd.server", "cmd.cli", "cmd.cluster_main",
-              "faults", "peer_client", "cluster"):
+              "faults", "peer_client", "cluster", "federation", "gossip",
+              "etcd_pool", "k8s_pool", "proto.etcd_kv_pb2", "proto.etcd_rpc_pb2"):
         assert f"gubernator_tpu_torch.{m}" in mods, m
 
 
@@ -86,6 +89,33 @@ def test_peer_modules_import_without_grpc():
         "bad = [k for k, v in sys.modules.items()\n"
         "       if v is not None and k.split('.')[0] in ('grpc', 'jax', 'gubernator_tpu')]\n"
         "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def test_discovery_and_http_path_import_without_grpc():
+    """The federation plane, gossip, k8s discovery, `peers.make_pool`,
+    the service and the HTTP edge import no grpc: only the etcd pool does, and
+    make_pool imports it only when etcd is chosen.  The etcd pb copies
+    import with JAX absent and the JAX package unloaded."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "import gubernator_tpu_torch.federation, gubernator_tpu_torch.gossip\n"
+        "import gubernator_tpu_torch.k8s_pool, gubernator_tpu_torch.peers\n"
+        "import gubernator_tpu_torch.gateway, gubernator_tpu_torch.service\n"
+        "bad = [k for k, v in sys.modules.items()\n"
+        "       if v is not None and k.split('.')[0] in ('grpc', 'jax', 'gubernator_tpu')]\n"
+        "assert not bad, bad\n"
+        "import gubernator_tpu_torch.etcd_pool, gubernator_tpu_torch.proto.etcd_rpc_pb2\n"
+        "assert 'grpc' in sys.modules\n"
+        "assert not any(k.split('.')[0] in ('jax', 'gubernator_tpu') for k, v in sys.modules.items()\n"
+        "               if v is not None)\n"
         "print('ok')\n"
     )
     env = dict(os.environ, PYTHONPATH=ROOT)

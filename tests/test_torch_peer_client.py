@@ -10,9 +10,8 @@ half, the JAX client against a port node, and each against its own
 package's node.  The calls cover the windowed forward, a direct
 columnar send, single lanes (batched and NO_BATCHING), the classic
 batch, the GLOBAL broadcast (the columnar batch and the classic list),
-an ownership transfer (committed, then fenced) and a region batch (the
-columnar encoding against a JAX node; on a port node, which has no
-region plane yet, the 404 / UNIMPLEMENTED probe and the classic resend).
+an ownership transfer (committed, then fenced) and a region batch (each
+package's RegionBatch, in the columnar encoding against either node).
 Every result of the port client equals the JAX client's on the same
 package's node, tolerance 0.  On the plain transports a loopback proxy
 in front of each node records what reaches it: the request bytes of
@@ -47,6 +46,8 @@ from gubernator_tpu_torch import peer_client as tpc
 from gubernator_tpu_torch import types as ttypes
 from gubernator_tpu_torch import wire as twire
 from gubernator_tpu_torch.daemon import Daemon as TDaemon
+from gubernator_tpu_torch.federation import RegionBatch as TRegionBatch
+from gubernator_tpu_torch.federation import RegionColumns as TRegionColumns
 from gubernator_tpu_torch.parallel.global_mgr import GlobalsColumns as TGlobalsColumns
 from gubernator_tpu_torch.reshard import TransferColumns as TTransfer
 
@@ -165,37 +166,6 @@ class _GrpcRecorder:
 # ---------------------------------------------------------------------
 # The calls
 # ---------------------------------------------------------------------
-class _PortRegionBatch:
-    """The federation plane's RegionBatch surface over the port's wire
-    (the port's sender of it comes with federation.py)."""
-
-    def __init__(self, cols):
-        self.cols = cols
-
-    def __len__(self):
-        return len(self.cols)
-
-    def total_hits(self):
-        return int(np.asarray(self.cols.hits).sum())
-
-    def frame(self):
-        return twire.encode_region_frame(self.cols)
-
-    def columns_pb(self):
-        return twire.region_cols_to_pb(self.cols)
-
-    def _chunks(self, cap):
-        pc, n = self.cols.peer_columns(), len(self.cols)
-        return [twire.peer_columns_slice(pc, lo, min(lo + cap, n)) for lo in range(0, n, cap)]
-
-    def classic_pb_chunks(self, cap):
-        return [twire.peer_columns_to_classic_pb(c) for c in self._chunks(cap)]
-
-    def classic_json_chunks(self, cap):
-        return [json.dumps(twire.peer_columns_to_classic_json(c)).encode("utf-8")
-                for c in self._chunks(cap)]
-
-
 def _cols(seed, n, prefix):
     rng = np.random.default_rng(seed)
     return ([str(rng.choice(["acct", "api"])) for _ in range(n)],
@@ -256,12 +226,12 @@ def _calls(pkg, client, node, clock):
     tcols.ring_hash = 12345
     out.append(("fenced", client.transfer_ownership(tcols)))
     m = 10
-    rcols = RegionColumns(
+    rcols = (RegionColumns if pkg == "jax" else TRegionColumns)(
         origin="dc-b", names=["acct"] * m, unique_keys=[f"r{i}" for i in range(m)],
         algorithm=np.zeros(m, np.int32), behavior=np.zeros(m, np.int32),
         hits=np.full(m, 2, np.int64), limit=np.full(m, 20, np.int64),
         duration=np.full(m, 60_000, np.int64))
-    rbatch = JRegionBatch(rcols) if pkg == "jax" else _PortRegionBatch(rcols)
+    rbatch = (JRegionBatch if pkg == "jax" else TRegionBatch)(rcols)
     client.update_region_columns(rbatch)
     out.append(("region", client._region_columnar))  # noqa: SLF001
     # What the node now holds for the keys the calls touched.
@@ -342,15 +312,11 @@ def test_clients_alike_against_both_nodes(transport, tls):
             if not tls:
                 assert seen[(kind, "jax")] == seen[(kind, "torch")], kind
                 assert len(seen[(kind, "torch")]) >= 9
-        # Both nodes answered the same results to the same calls.  A port
-        # node has no region plane yet: the clients speak classic to it
-        # after the probe, which lands the same hits.
-        def _no_region(rs):
-            return [x for x in rs if x[0] != "region"]
-
-        assert _no_region(results[("jax", "torch")]) == _no_region(results[("torch", "torch")])
-        assert [x for x in results[("jax", "torch")] if x[0] == "region"] == [("region", True)]
-        assert [x for x in results[("torch", "torch")] if x[0] == "region"] == [("region", False)]
+        # Both nodes answered the same results to the same calls; each
+        # took the region batch in its columnar encoding.
+        assert results[("jax", "torch")] == results[("torch", "torch")]
+        for kind in ("jax", "torch"):
+            assert [x for x in results[(kind, "torch")] if x[0] == "region"] == [("region", True)]
         assert ("transfer", "ok") in results[("torch", "torch")]
         assert ("fenced", "fenced") in results[("torch", "torch")]
     finally:

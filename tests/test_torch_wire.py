@@ -5,10 +5,9 @@ Every GUBC frame kind — 1/2 (the columnar peer hop), 3 (the GLOBAL
 broadcast), 4 (an ownership transfer), 5/6 (the public columnar
 ingress), 7 (a cross-region batch) — is encoded from the same seeded
 columns by both packages and compared byte for byte (tolerance 0), and
-each side decodes the other's bytes to the same columns.  The region
-frame's decode waits for the port's federation plane, so kind 7 is
-held on the encode side and on the JAX decode of the port's bytes.
-The pb codecs serialize to the same bytes too, and the module imports
+each side decodes the other's bytes to the same columns (a region
+frame or RegionColumnsReq to each package's own RegionColumns, and a
+malformed region frame to the same error).  The pb codecs serialize to the same bytes too, and the module imports
 with protobuf, grpc and prometheus_client absent.
 """
 
@@ -27,6 +26,7 @@ from gubernator_tpu.reshard import TransferColumns as JTransfer
 from gubernator_tpu.service import ColumnarResult as JResult
 from gubernator_tpu.types import RateLimitResponse as JResp
 from gubernator_tpu_torch import wire as twire
+from gubernator_tpu_torch.federation import RegionColumns as TRegionColumns
 from gubernator_tpu_torch.parallel.global_mgr import GlobalsColumns as TGlobals
 from gubernator_tpu_torch.reshard import TransferColumns as TTransfer
 from gubernator_tpu_torch.service import ColumnarResult as TResult
@@ -227,9 +227,8 @@ def test_transfer_frame_kind_4(seed):
 
 @pytest.mark.parametrize("seed", SEEDS)
 def test_region_frame_kind_7_encode(seed):
-    """The port encodes a region batch as the JAX package does (its
-    decode waits for the federation plane); the JAX decode reads the
-    port's bytes back to the batch."""
+    """The port encodes a region batch as the JAX package does; the JAX
+    decode reads the port's bytes back to the batch."""
     names, uks, algo, beh, hits, limit, dur = _peer_cols(seed)
     rc = RegionColumns(origin=f"dc-{seed}é", names=names, unique_keys=uks, algorithm=algo,
                        behavior=beh, hits=hits, limit=limit, duration=dur)
@@ -240,6 +239,76 @@ def test_region_frame_kind_7_encode(seed):
     assert back.origin == rc.origin and back.names == names and back.unique_keys == uks
     assert (twire.region_cols_to_pb(rc).SerializeToString()
             == jwire.region_cols_to_pb(rc).SerializeToString())
+
+
+def _region(cls, seed):
+    names, uks, algo, beh, hits, limit, dur = _peer_cols(seed)
+    return cls(origin=f"dc-{seed}é", names=names, unique_keys=uks, algorithm=algo,
+               behavior=beh, hits=hits, limit=limit, duration=dur)
+
+
+def _region_fields(rc):
+    return (rc.origin, rc.names, rc.unique_keys, rc.algorithm.dtype.str,
+            rc.algorithm.tolist(), rc.behavior.dtype.str, rc.behavior.tolist(),
+            rc.hits.dtype.str, rc.hits.tolist(), rc.limit.dtype.str, rc.limit.tolist(),
+            rc.duration.dtype.str, rc.duration.tolist())
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_region_frame_kind_7_decodes_across_packages(seed):
+    """A region frame and a RegionColumnsReq encoded by one package
+    decode in the other to its own RegionColumns with the same columns,
+    and re-encode to the same bytes."""
+    jrc, trc = _region(RegionColumns, seed), _region(TRegionColumns, seed)
+    jb, tb = jwire.encode_region_frame(jrc), twire.encode_region_frame(trc)
+    assert jb == tb
+    from_j, from_t = twire.decode_region_frame(jb), jwire.decode_region_frame(tb)
+    assert isinstance(from_j, TRegionColumns) and isinstance(from_t, RegionColumns)
+    assert _region_fields(from_j) == _region_fields(from_t) == _region_fields(jrc)
+    assert twire.encode_region_frame(from_j) == jb
+    jpb = jwire.region_cols_to_pb(jrc).SerializeToString()
+    tpb = twire.region_cols_to_pb(trc).SerializeToString()
+    assert jpb == tpb
+    from gubernator_tpu.proto import peers_columns_pb2 as jpc
+    from gubernator_tpu_torch.proto import peers_columns_pb2 as tpc
+
+    from_j = twire.region_cols_from_pb(tpc.RegionColumnsReq.FromString(jpb))
+    from_t = jwire.region_cols_from_pb(jpc.RegionColumnsReq.FromString(tpb))
+    assert isinstance(from_j, TRegionColumns)
+    assert _region_fields(from_j) == _region_fields(from_t) == _region_fields(jrc)
+
+
+def _malformed_region_frames():
+    rc = _region(RegionColumns, 0)
+    good = jwire.encode_region_frame(rc)
+    empty = jwire.encode_region_frame(_region(RegionColumns, 1).slice(0, 0))
+    bad_origin = bytearray(good)
+    bad_origin[14] = 0xFF  # the origin's first byte: not utf-8
+    return {
+        "not_a_frame": b"{}",
+        "other_kind": jwire.encode_ingress_frame(_peer_cols(0)),
+        "bad_version": good[:4] + b"\x09" + good[5:],
+        "truncated_header": good[:12],
+        "truncated_origin": good[:16],
+        "origin_not_utf8": bytes(bad_origin),
+        "truncated_columns": good[:-3],
+        "trailing_bytes": good + b"\x00",
+        "empty_trailing": empty + b"\x01",
+    }
+
+
+@pytest.mark.parametrize("case", sorted(_malformed_region_frames()))
+def test_malformed_region_frame_fails_alike(case):
+    """Both decoders refuse a malformed region frame with the same
+    exception type and message (the gateway's 400 body)."""
+    raw = _malformed_region_frames()[case]
+    errs = []
+    for w in (jwire, twire):
+        with pytest.raises(Exception) as e:
+            w.decode_region_frame(raw)
+        errs.append((type(e.value).__name__, str(e.value)))
+    assert errs[0] == errs[1]
+    assert errs[0][0] == "ValueError"
 
 
 def test_frame_kind_sniffs_agree():
