@@ -231,7 +231,34 @@ Phases (any failure exits non-zero and prints no `ok` line):
               (b)'s and (c)'s checks/s and request p50 / max, the
               flushes, region batches by encoding, the ledger, one
               flush's bytes a region in each encoding, and each node's
-              K1-K8 launches.
+              K1-K8 launches;
+16. blackbox — the incident black box on two in-process port nodes on
+              the card (phase 13's size each, each its own bundle
+              directory): (a) BASELINE config 2 through node 1's native
+              pump, 16 ColumnsV1Clients x 4 frames of 1,000 leaky lanes,
+              about half of each frame forwarded to node 2, in ABBA quads
+              of blackbox.force_disable: checks/s on and off and their
+              median quad ratio, the public and peer rings' frame counts
+              == the frames sent and forwarded (the 64 MiB budget holds
+              a run), one write_bundle at 16 MiB rings; (b) the seeded
+              incident of tests/test_blackbox.py (FaultPlan seed 11
+              duplicating GetPeerRateLimits, the armed auditor, a probe
+              of hits 3 forwarded by node 1): forward_conservation's
+              auto-dump writes a bundle that
+              scripts/torch_blackbox_fsck.py passes, listing
+              audit-violation, its peer ring holding a duplicated frame
+              pair; node 2 takes 8 kind-1 frames over HTTP and answers
+              POST /debug/incident 202 (a second bundle), 403 with the
+              box force-disabled and 409 without a directory; (c)
+              scripts/torch_replay.py replays each bundle twice on the
+              card and once on the plain versions (CPU): the three
+              reports byte-identical, node 1's violation reproduced,
+              node 2's frames launching K1 on the card; (d)
+              measure_sync_cost_s on a fresh phase 6 store (iters 6):
+              a sync's seconds beside K4's device time, K4 launched
+              iters + 1 times, and refused on a store with a live GLOBAL
+              key.  `[blackbox]` lines give each number beside the
+              card's name and power limit.
 
 The last line is `{"ok": true, "device": {...}}`.  Exits 2 without a
 CUDA device.
@@ -3044,6 +3071,8 @@ DEVICE_KERNELS = {
     "bucket_compact": ("bucket_rounds_kernel",),  # rounds.cuh, the CompactOut sink
     "launch_floor": ("empty_kernel", "empty_barrier_kernel"),
 }
+# device ms a call from phase 8's numbers, by wrapper (phase 16 reads K4's)
+NUMBERS_DEVICE_MS = {}
 # wrappers whose every call is one device kernel (device_ms asserts it)
 ONE_LAUNCH = ("bucket_rounds_dict", "bucket_rounds_cols", "global_answer_rounds",
               "clear_gslots", "apply_moves", "bucket_compact")
@@ -3058,14 +3087,17 @@ def device_profile(torch, fn, iters=20, cold=False, kernels=()):
     `cold`, a 64 MiB buffer is zeroed before each call so the call finds
     the 50 MB L2 cache holding none of its rows (the zeroing's own kernel
     is not summed).  (None, None, 0) when the trace holds no such
-    kernel."""
+    kernel; (None, None, kernels seen a call) when every one of its ten
+    traces lost some of their records."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     flush = torch.empty(16 << 20, dtype=torch.int32, device="cuda") if cold else None
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):  # a trace that lost kernels' records is taken again
+    for attempt in range(10):  # a trace that lost kernels' records is taken again
+        if attempt:
+            time.sleep(0.2)  # let the tracer drain what it still holds
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 if flush is not None:
@@ -3076,13 +3108,14 @@ def device_profile(torch, fn, iters=20, cold=False, kernels=()):
                      if e.device_type == DeviceType.CUDA and any(k in e.name for k in kernels))
         if evs and len(evs) % iters == 0 and sum(b - a for a, b in evs):
             break
+        log(f"[profile] trace {attempt + 1} held {len(evs)} of its kernels for {iters} calls")
     if not evs or not sum(b - a for a, b in evs):
         return None, None, 0
+    if len(evs) % iters:  # every trace lost records: no time from them
+        return None, None, len(evs) / iters
     ms = sum(b - a for a, b in evs) / iters / 1e3
-    span = None
-    if len(evs) % iters == 0:
-        k = len(evs) // iters
-        span = sum(evs[i + k - 1][1] - evs[i][0] for i in range(0, len(evs), k)) / iters / 1e3
+    k = len(evs) // iters
+    span = sum(evs[i + k - 1][1] - evs[i][0] for i in range(0, len(evs), k)) / iters / 1e3
     return ms, span, len(evs) / iters
 
 
@@ -3109,16 +3142,16 @@ def device_ms(torch, kname, fn, iters=20, cold=False, kernels=None):
     time) of the wrapper's kernels (DEVICE_KERNELS, or the names in
     `kernels`), which leaves out the host's launch gaps that the event
     timing of back-to-back calls includes; logs it with the call's span.
-    None when the trace holds no such kernel.  A wrapper of ONE_LAUNCH
-    must run one device kernel a call."""
+    None when no trace holds all of its kernels.  A wrapper of
+    ONE_LAUNCH must run one device kernel a call."""
     ms, span, per_call = device_profile(torch, fn, iters, cold,
                                         kernels or DEVICE_KERNELS[kname])
-    if ms is None:
-        log(f"[profile] {kname}: no device time in the trace (not measured)")
-        return None
-    if kernels is None and kname in ONE_LAUNCH and per_call != 1:
+    if kernels is None and kname in ONE_LAUNCH and per_call and per_call != 1:
         raise AssertionError(f"{kname}: {per_call * iters:g} device kernels in {iters} calls, "
                              f"not one a call")
+    if ms is None:
+        log(f"[profile] {kname}: no complete trace of its kernels (not measured)")
+        return None
     span_s = "not measured" if span is None else f"{span:.4f} ms"
     log(f"[profile] {kname}: device {ms:.4f} ms per call{' (L2 flushed)' if cold else ''}, "
         f"{per_call:g} kernels a call, first start to last end {span_s}")
@@ -3282,7 +3315,8 @@ def global_numbers_phase(torch, card, launches, errs, inputs, now):
     cfg, dirty = sync_staged
     hot, cold, g = copies()
     ms = time_launches(torch, lambda: global_ops.global_sync(hot, cold, g, cfg, dirty, now), 20)
-    device_ms(torch, "global_sync", lambda: global_ops.global_sync(hot, cold, g, cfg, dirty, now))
+    NUMBERS_DEVICE_MS["global_sync"] = device_ms(
+        torch, "global_sync", lambda: global_ops.global_sync(hot, cold, g, cfg, dirty, now))
     plain_ms = time_launches(torch, lambda: global_ops.global_sync_plain(
         hot, cold, g, cfg, dirty, now), 3)
     applied = int(((sync_np[0, 0] >> 1) & 1).sum())
@@ -5740,6 +5774,389 @@ def federation_phase(torch, smi, dev="cuda"):
     return run_b, run_c
 
 
+# ---------------------------------------------------------------------
+# Phase 16: the incident black box and its replay, two in-process port
+# nodes at phase 13's size each.
+BB_NODES = 2
+BB_CACHE = 2_097_152  # 8 x 262,144 slots a node
+BB_CONNS = 16  # (a): BASELINE config 2 through the native pump
+BB_REQS = 4
+BB_LANES = 1_000
+BB_QUADS = 3  # ABBA quads of the tap's cost
+BB_PEER_FRAMES = 8  # (b): kind-1 frames of owned lanes POSTed to node 2
+BB_WRITE_MB = 16  # (a): one write_bundle at full rings of this budget
+BB_KERNELS = ("bucket_rounds_dict", "bucket_rounds_cols", "global_answer_rounds",
+              "global_sync", "gather_rows", "write_rows")
+
+
+def bb_frames():
+    """(a)'s frames by connection: leaky BATCHING lanes of a 1,000,000-key
+    Zipf space, each connection its own keys (ids = c mod BB_CONNS)."""
+    rng = np.random.RandomState(16)
+    per = N_KEYS // BB_CONNS
+
+    def cols(keys):
+        n = len(keys)
+        return (["bb2"] * n, [str(k) for k in keys], np.ones(n, np.int32),
+                np.zeros(n, np.int32), np.ones(n, np.int64),
+                np.full(n, 1_000_000, np.int64), np.full(n, 3_600_000, np.int64))
+
+    return [[cols(zipf_ids(rng, per, BB_LANES) * BB_CONNS + c) for _ in range(BB_REQS)]
+            for c in range(BB_CONNS)]
+
+
+def bb_write_ms(blackbox, wire, tmp):
+    """One write_bundle of a service-less box whose five rings are filled
+    to their share of BB_WRITE_MB with 64-lane frames (bench.py's
+    measure_blackbox_bundle_write): (ms, ring bytes, bundle bytes)."""
+    d = os.path.join(tmp, "write")
+    bb = blackbox.BlackBox(None, path=d, budget_mb=BB_WRITE_MB)
+    lanes = 64
+    cols = (["bench"] * lanes, [f"key-{i:06d}" for i in range(lanes)], [1] * lanes,
+            [0] * lanes, [2] * lanes, [1000] * lanes, [60_000] * lanes)
+    try:
+        for kind in (1, 3, 4, 5, 7):
+            frame = wire.encode_columns_frame(cols, kind=kind)
+            ring = bb.rings[blackbox._KIND_WIRE[kind]]
+            for _ in range(ring.budget // (len(frame) + 32) + 1):
+                bb.tap("in", "10.0.0.9:1051", frame)
+        ring_bytes = sum(bb.rings[w].stats()[1] for w in blackbox.WIRES)
+        t0 = time.perf_counter()
+        path = bb.write_bundle([{"kind": "bench", "wallNs": 0, "monoNs": 0, "fields": {}}])
+        ms = (time.perf_counter() - t0) * 1e3
+        size = sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
+        return ms, ring_bytes, size
+    finally:
+        bb.close()
+
+
+def bb_wait_bundles(blackbox, box, path, n, timeout_s=30.0):
+    """The bundles under `path` once `box` has written n."""
+    deadline = time.monotonic() + timeout_s
+    while time.monotonic() < deadline:
+        found = blackbox.list_bundles(path)
+        if len(found) >= n and box.bundles_written >= n:
+            return [os.path.join(path, e) for e in found]
+        time.sleep(0.02)
+    raise AssertionError(f"phase 16: no {n} bundles under {path} in {timeout_s} s")
+
+
+def bb_violation_bundle(blackbox, path, timeout_s=30.0):
+    """The first bundle under `path` whose triggers list audit-violation."""
+    deadline = time.monotonic() + timeout_s
+    while time.monotonic() < deadline:
+        for e in blackbox.list_bundles(path):
+            try:
+                with open(os.path.join(path, e, blackbox.MANIFEST_NAME), "rb") as f:
+                    kinds = [t["kind"] for t in json.loads(f.read())["triggers"]]
+            except OSError:
+                continue
+            if "audit-violation" in kinds:
+                return os.path.join(path, e)
+        time.sleep(0.02)
+    raise AssertionError(f"phase 16: no audit-violation bundle under {path}")
+
+
+def bb_script(name):
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def blackbox_phase(torch, smi, rows, dev="cuda"):
+    """Phase 16: the incident black box on two in-process port nodes on
+    the card (phase 13's size each, their own bundle directories):
+    (a) the tap's cost at node 1's native pump (BASELINE config 2, about
+    half of each frame forwarded to node 2) in ABBA quads of
+    blackbox.force_disable, the rings' frame counts against the frames
+    sent and forwarded, one bundle write; (b) the seeded incident of
+    tests/test_blackbox.py (a FaultPlan DUPLICATE on the forward, the
+    armed auditor): forward_conservation's auto-dump writes a bundle
+    that scripts/torch_blackbox_fsck.py passes, with the duplicated
+    frame pair; node 2 takes kind-1 frames over HTTP and answers POST
+    /debug/incident 202 with a second bundle, 403 force-disabled, 409
+    without a directory; (c) scripts/torch_replay.py replays each bundle
+    twice on the card and once on the plain versions (CPU): the three
+    reports byte-identical, the violation reproduced; (d)
+    measure_sync_cost_s on a fresh phase 6 store, K4 launched iters + 1
+    times, refused on a store with a live GLOBAL key."""
+    from gubernator_tpu_torch import blackbox, faults, tracing, wire
+    from gubernator_tpu_torch.client import ColumnsV1Client
+    from gubernator_tpu_torch.cluster import Cluster, fast_test_behaviors
+    from gubernator_tpu_torch.ops import _kernels
+    from gubernator_tpu_torch.parallel.mesh import MeshBucketStore
+    from gubernator_tpu_torch.types import (
+        Behavior, GetRateLimitsRequest, RateLimitRequest)
+
+    from gubernator_tpu_torch import snapshot
+
+    t_phase = time.perf_counter()
+    tag = f"[blackbox] ({smi})"
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-blackbox-")
+    _kernels.reset_launch_counts()  # the phase's path starts here
+    beh = fast_test_behaviors()
+    beh.batch_timeout_s = 20.0  # two nodes and this script share the host's cores
+    beh.global_timeout_s = 20.0
+    blackbox.set_enabled(True)
+    blackbox.force_disable(False)
+    t0 = time.perf_counter()
+    cl = Cluster().start_with([""] * BB_NODES, cache_size=BB_CACHE, behaviors=beh,
+                              native_http=True, device=None if dev == "cuda" else dev)
+    start_s = time.perf_counter() - t0
+    n1, n2 = (d.service for d in cl.daemons)
+    try:
+        for i, svc in enumerate((n1, n2)):
+            if svc.store.device.type != dev:
+                raise AssertionError(f"phase 16's node {i + 1} runs on {svc.store.device}")
+            if svc.native_ingress is None or svc.blackbox.budget_bytes != 64 << 20:
+                raise AssertionError("phase 16 needs the native pump and the 64 MiB box")
+        n1.blackbox.path = os.path.join(tmp, "node1")
+        n2.blackbox.path = ""  # set at (b)'s POST: the nodes share the default recorder
+        log(f"{tag} two nodes up in {start_s:.3f} s (8 x {BB_CACHE // 8} slots each, "
+            f"the native pump at node 1)")
+
+        # (a) the tap's cost
+        frames = bb_frames()
+        addr1 = cl.daemons[0].gateway.address
+        cols_ctr = n1.metrics.peer_columns_batches.labels(encoding="columns")
+
+        def run():
+            def one(c, out):
+                client = ColumnsV1Client(addr1, timeout_s=DAEMON_TIMEOUT_S, connections=1)
+                try:
+                    for item in frames[c]:
+                        rc, lo, hi = client.submit_columns(item).result(timeout=DAEMON_TIMEOUT_S)
+                        errs = [r.error for i, r in rc.overrides.items() if lo <= i < hi and r.error]
+                        if errs:
+                            out.append(AssertionError(f"phase 16 (a): {errs[:2]}"))
+                except BaseException as e:  # noqa: BLE001 — raised below
+                    out.append(e)
+                finally:
+                    client.close()
+
+            errors = []
+            ts = [threading.Thread(target=one, args=(c, errors)) for c in range(BB_CONNS)]
+            t = time.perf_counter()
+            for th in ts:
+                th.start()
+            for th in ts:
+                th.join(timeout=DAEMON_TIMEOUT_S * 2)
+            wall = time.perf_counter() - t
+            if any(th.is_alive() for th in ts):
+                raise AssertionError("a phase 16 connection did not finish")
+            if errors:
+                raise errors[0]
+            return BB_CONNS * BB_REQS * BB_LANES / wall
+
+        def totals():
+            return {w: n1.blackbox.rings[w].stats()[2] for w in blackbox.WIRES}
+
+        run()  # warm: every key's first touch
+        cps = {True: [], False: []}
+        ratios = []
+        first_on = None
+        for q in range(BB_QUADS):
+            quad = {}
+            for on in (True, False, False, True):
+                blackbox.force_disable(not on)
+                before, fwd0 = totals(), cols_ctr._value.get()
+                v = run()
+                after, fwd = totals(), cols_ctr._value.get() - fwd0
+                d = {w: after[w] - before[w] for w in blackbox.WIRES}
+                sent = BB_CONNS * BB_REQS
+                want = ({"public": 2 * sent, "peer": int(fwd), "global": 0, "transfer": 0,
+                         "region": 0} if on else dict.fromkeys(blackbox.WIRES, 0))
+                if d != want or (on and fwd == 0):
+                    raise AssertionError(f"phase 16 (a): ring frames {d}, want {want}")
+                if on and first_on is None:
+                    # The budget holds one run's frames whole.
+                    first_on = {w: n1.blackbox.rings[w].stats()[0] for w in ("public", "peer")}
+                    if first_on["public"] < d["public"] or first_on["peer"] < d["peer"]:
+                        raise AssertionError(f"phase 16 (a): the rings hold {first_on}, "
+                                             f"the run tapped {d}")
+                    first_on = d
+                cps[on].append(v)
+                quad.setdefault(on, []).append(v)
+            ratios.append(sum(quad[True]) / sum(quad[False]))
+        blackbox.force_disable(False)
+        ratio = float(np.median(ratios))
+        ring_mb = sum(n1.blackbox.rings[w].stats()[1] for w in blackbox.WIRES) / 2**20
+        log(f"{tag} (a) tap cost at the pump, {BB_QUADS} ABBA quads of {BB_CONNS} x {BB_REQS} "
+            f"frames of {BB_LANES} lanes: on {np.median(cps[True]):.0f} checks/s "
+            f"(runs {', '.join(f'{v:.0f}' for v in cps[True])}), off "
+            f"{np.median(cps[False]):.0f} (runs {', '.join(f'{v:.0f}' for v in cps[False])}), "
+            f"median quad ratio on/off {ratio:.4f}; a run taps {2 * BB_CONNS * BB_REQS} public "
+            f"and {first_on['peer']} peer frames, the rings hold {ring_mb:.1f} MiB")
+        w_ms, w_ring, w_size = bb_write_ms(blackbox, wire, tmp)
+        log(f"{tag} (a) write_bundle at {BB_WRITE_MB} MiB rings: {w_ms:.1f} ms, "
+            f"{w_ring} ring bytes, {w_size} bundle bytes")
+
+        # (b) the seeded incident.  Node 1's state is on disk first (one
+        # K7), so its bundles carry it and the replay restores it.
+        snap1 = os.path.join(tmp, "node1.snap")
+        now1 = n1.clock.now_ms()
+        snapshot.write_snapshot(snap1, n1.store.snapshot_columns(now1), now1)
+        n1.conf.snapshot_path = snap1
+        # No rate limit: the DUPLICATE's "fault" trigger may write a
+        # bundle before the audit runs; the violation writes its own.
+        n1.blackbox.coalesce_s = 0.05
+        n1.blackbox.min_interval_s = 0.0
+        plan = faults.FaultPlan(seed=11)
+        plan.duplicate(op="GetPeerRateLimits")
+        tracing.bind_recorder(n1.recorder)  # check as node 1's audit thread does
+        try:
+            auditor = n1.auditor
+            auditor.arm()
+            auditor.check_now()  # the seed pass
+            faults.install(plan)
+            me = n1.advertise_address
+            import hashlib
+
+            cand = [hashlib.md5(str(i).encode()).hexdigest() for i in range(64)]
+            probe = [RateLimitRequest(name="bb", unique_key=uk, hits=3, limit=1000,
+                                      duration=60_000)
+                     for uk in cand if n1.get_peer(f"bb_{uk}").info.grpc_address != me]
+            if not probe:
+                raise AssertionError("phase 16 (b): no key of node 2 in the probe range")
+            n1.get_rate_limits(GetRateLimitsRequest(requests=probe))
+            found = [v["invariant"] for v in auditor.check_now()]
+            faults.uninstall()
+        finally:
+            faults.uninstall()
+            tracing.bind_recorder(None)
+        if "forward_conservation" not in found:
+            raise AssertionError(f"phase 16 (b): the audit found {found}")
+        b1 = bb_violation_bundle(blackbox, n1.blackbox.path)
+        if bb_script("torch_blackbox_fsck").main([b1]) != 0:
+            raise AssertionError(f"phase 16 (b): fsck rejected {b1}")
+        bundle1 = blackbox.load_bundle(b1)
+        kinds = [t["kind"] for t in bundle1.manifest["triggers"]]
+        if "audit-violation" not in kinds or "state.snap" not in bundle1.manifest["files"]:
+            raise AssertionError(f"phase 16 (b): the manifest lists {kinds}, "
+                                 f"{sorted(bundle1.manifest['files'])}")
+        peer_out = [r[5] for r in bundle1.frames["peer"] if r[2] == "out"]
+        if not any(a == b for a, b in zip(peer_out, peer_out[1:])):
+            raise AssertionError("phase 16 (b): no duplicated forward frame in the capture")
+        # node 2: kind-1 frames of lanes it owns over HTTP, then the
+        # operator's bundle and the endpoint's refusals
+        addr2 = cl.daemons[1].gateway.address
+        g2 = cl.daemons[1].peer_info.grpc_address
+        # index-first keys: FNV-1 clusters suffix-varying ones on the ring
+        pool = [f"{i}p" for i in range(8 * BB_PEER_FRAMES * BB_LANES)]
+        owned = [k for k in pool if n1.get_peer(f"bbp_{k}").info.grpc_address == g2]
+        need = BB_PEER_FRAMES * BB_LANES
+        if len(owned) < need:
+            raise AssertionError("phase 16 (b): too few keys of node 2")
+        with edge_connect(addr2) as s:
+            for k in range(BB_PEER_FRAMES):
+                keys = owned[k * BB_LANES:(k + 1) * BB_LANES]
+                n = len(keys)
+                f = wire.encode_columns_frame((
+                    ["bbp"] * n, keys, np.ones(n, np.int32), np.zeros(n, np.int32),
+                    np.full(n, 2, np.int64), np.full(n, 1_000, np.int64),
+                    np.full(n, 3_600_000, np.int64)))
+                st, _, _ = edge_request(s, "POST", "/v1/peer.GetPeerRateLimits", f)
+                if st != 200:
+                    raise AssertionError(f"phase 16 (b): peer frame answered {st}")
+            st_409, _, _ = edge_request(s, "POST", "/debug/incident", b"")
+            n2.blackbox.path = os.path.join(tmp, "node2")
+            n2.blackbox.coalesce_s = 0.05
+            st_202, _, body = edge_request(s, "POST", "/debug/incident", b'{"reason": "phase 16"}')
+            b2 = bb_wait_bundles(blackbox, n2.blackbox, n2.blackbox.path, 1)[-1]
+            blackbox.force_disable(True)
+            try:
+                st_403, _, _ = edge_request(s, "POST", "/debug/incident", b"")
+            finally:
+                blackbox.force_disable(False)
+        if (st_409, st_202, st_403) != (409, 202, 403):
+            raise AssertionError(f"phase 16 (b): /debug/incident answered "
+                                 f"{st_409}, {st_202}, {st_403}")
+        if bb_script("torch_blackbox_fsck").main([b2]) != 0:
+            raise AssertionError(f"phase 16 (b): fsck rejected {b2}")
+        bundle2 = blackbox.load_bundle(b2)
+        in2 = sum(1 for r in bundle2.frames["peer"] if r[2] == "in")
+        if in2 != BB_PEER_FRAMES:
+            raise AssertionError(f"phase 16 (b): node 2's bundle holds {in2} peer frames")
+        log(f"{tag} (b) forward_conservation bundle {os.path.basename(b1)}: triggers {kinds}, "
+            f"{sum(len(v) for v in bundle1.frames.values())} frames "
+            f"({len(peer_out)} peer out, a duplicated pair); node 2's POST /debug/incident "
+            f"202 ({json.loads(body)['accepted']}), {sum(len(v) for v in bundle2.frames.values())} "
+            f"frames; 403 force-disabled, 409 without a directory; fsck 0 on both")
+    finally:
+        blackbox.force_disable(False)
+        cl.stop()
+
+    # (c) the replays
+    replay = bb_script("torch_replay")
+    for label, b in (("node 1", b1), ("node 2", b2)):
+        reports, secs, k1, rows_k = [], [], [], []
+        for device in (dev, dev, "cpu"):
+            before = dict(_kernels.LAUNCHES)
+            t0 = time.perf_counter()
+            reports.append(json.dumps(replay.replay_bundle(b, device=device), sort_keys=True))
+            secs.append(time.perf_counter() - t0)
+            d = {k: _kernels.LAUNCHES[k] - before[k] for k in before}
+            k1.append(d["bucket_rounds_dict"] + d["bucket_rounds_cols"])
+            rows_k.append((d["gather_rows"], d["write_rows"]))
+        if len(set(reports)) != 1:
+            raise AssertionError(f"phase 16 (c): {label}'s replays differ:\n" + "\n".join(reports))
+        rep = json.loads(reports[0])
+        # Node 2's audit may report node 1's violation too (the nodes
+        # share the process's ledger); only node 1's frames replay it.
+        if label == "node 1" and not (rep["reproducesBundleViolations"]
+                                      and rep["violations"].get("forward_conservation")):
+            raise AssertionError(f"phase 16 (c): node 1's violation not reproduced: {rep}")
+        if label == "node 2" and dev == "cuda" and (k1[0] < 1 or k1[0] != k1[1] or k1[2] != 0):
+            raise AssertionError(f"phase 16 (c): node 2's replays launched K1/K2 {k1}")
+        if label == "node 1" and dev == "cuda" and min(rows_k[0]) < 1:
+            raise AssertionError(f"phase 16 (c): node 1's restore launched K7/K8 {rows_k[0]}")
+        log(f"{tag} (c) replay of {label}'s bundle: {secs[0]:.3f} / {secs[1]:.3f} s on the card, "
+            f"{secs[2]:.3f} s on the CPU, {sum(rep['driven'].values())} frames driven "
+            f"{rep['driven']}, {sum(rep['framesCaptured'].values())} captured, statuses "
+            f"{rep['responseStatuses']}, violations {rep['violations']}, K1+K2 launches "
+            f"{k1[0]} / {k1[1]} and K7/K8 (the state restore) {rows_k[0]} on the card; "
+            f"the three reports byte-identical")
+
+    # (d) measure_sync_cost_s
+    store = MeshBucketStore(capacity_per_shard=C_GLOBAL, g_capacity=G_FULL,
+                            device=None if dev == "cuda" else dev)
+    iters = 6
+    k4_0 = _kernels.LAUNCHES["global_sync"]
+    cost_s = store.measure_sync_cost_s(NOW, iters=iters)
+    k4 = _kernels.LAUNCHES["global_sync"] - k4_0
+    if dev == "cuda" and k4 != iters + 1:
+        raise AssertionError(f"phase 16 (d): {k4} K4 launches, want {iters} + the warm one")
+    launches = {k: _kernels.LAUNCHES[k] for k in BB_KERNELS}  # the path ends here
+    if dev == "cuda" and not all(launches[k] for k in ("bucket_rounds_dict", "global_sync",
+                                                       "gather_rows")):
+        raise AssertionError(f"phase 16: a kernel of the path never launched: {launches}")
+    live = MeshBucketStore(capacity_per_shard=C_GLOBAL, g_capacity=G_FULL,
+                           device=None if dev == "cuda" else dev)
+    live.apply([RateLimitRequest(name="bb", unique_key="live", hits=1, limit=10, duration=5000,
+                                 behavior=Behavior.GLOBAL)], NOW)
+    try:
+        live.measure_sync_cost_s(NOW + 1, iters=1)
+    except RuntimeError as e:
+        refused = str(e)
+    else:
+        raise AssertionError("phase 16 (d): measure_sync_cost_s ran on a live GLOBAL key")
+    k4_row = next(r for r in rows if r["name"] == "global_sync")
+    log(f"{tag} (d) measure_sync_cost_s (8 x {C_GLOBAL} slots, {G_FULL} gslots, iters "
+        f"{iters}): {cost_s * 1e3:.4f} ms a sync, {k4} K4 launches; [numbers] K4 (the same "
+        f"shapes) device {_ms(NUMBERS_DEVICE_MS.get('global_sync'))} a call, "
+        f"{k4_row['ms']:.4f} ms a call back to back; a live GLOBAL "
+        f"key refused ({refused[:60]}...)")
+    shutil.rmtree(tmp, ignore_errors=True)
+    log(f"{tag} launches of the phase's path: K1 {launches['bucket_rounds_dict']}, K2 "
+        f"{launches['bucket_rounds_cols']}, K3 {launches['global_answer_rounds']}, K4 "
+        f"{launches['global_sync']}, K7 {launches['gather_rows']}, K8 {launches['write_rows']}")
+    log(f"{tag} phase {time.perf_counter() - t_phase:.1f} s")
+
+
 def main():
     import torch
 
@@ -5777,6 +6194,8 @@ def main():
     cluster_phase(torch, smi)
     gc.collect()
     federation_phase(torch, smi)
+    gc.collect()
+    blackbox_phase(torch, smi, rows)
     log(smi)  # again, so the tail of a long log names the card and limit
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}), flush=True)

@@ -10,10 +10,9 @@ stdlib gateway, which alone serves TLS), discovery (static, file,
 member-list gossip, etcd or k8s: `peers.make_pool`, given this node's
 advertised PeerInfo), and graceful shutdown with the snapshot and Loader
 save.  `set_peers` stamps IsOwner by
-advertise-address compare exactly like daemon.go:277-287.
-
-The incident black box's process switch
-comes with blackbox.py (slice A6).
+advertise-address compare exactly like daemon.go:277-287.  The
+incident black box's process switch takes the parsed GUBER_BLACKBOX,
+in both directions.
 """
 
 from __future__ import annotations
@@ -55,11 +54,13 @@ class Daemon:
             raise
 
     def _start(self) -> "Daemon":
-        from . import profiling, telemetry, tracing
+        from . import blackbox, profiling, telemetry, tracing
 
         # Process-wide planes: the daemon's parsed knobs win over the
-        # modules' import-time env defaults, in both directions.
+        # modules' import-time env defaults, in both directions.  (The
+        # black box's rings, bundle dir and budgets are per service.)
         tracing.set_sample_rate(self.conf.behaviors.trace_sample)
+        blackbox.set_enabled(self.conf.behaviors.blackbox)
         telemetry.set_enabled(self.conf.behaviors.xla_telemetry)
         telemetry.set_storm(
             self.conf.behaviors.xla_storm,

@@ -13,8 +13,10 @@ the C++ epoll `NativeGatewayServer`, whose `NativeIngressPump` takes
 kind-5 frames natively and dispatches them a coalesced batch at a
 time.
 
-Not served yet, answered as any unknown route (404): POST
-/debug/incident (the black box).  The port's own route, which a JAX node answers
+Every GUBC frame in and out of either edge is tapped into the node's
+incident black box (blackbox.py; the native pump rebuilds the frames of
+each take), and POST /debug/incident asks it for a bundle (403, 409 or
+202, as on a JAX node).  The port's own route, which a JAX node answers
 404: GET /debug/launches (each CUDA kernel's launches in the process;
 POST returns them and sets them to 0).
 """
@@ -235,12 +237,19 @@ def handle_request(service: V1Service, method: str, path: str, raw: bytes,
     Returns (http_status, content_type, body_bytes).  `headers` (any
     mapping with .get, or None) feeds traceparent extraction; the
     native edge passes None — its requests root fresh traces."""
-    # Per-service flight recorder: bind this node's recorder for the
-    # handler's duration (co-resident nodes keep their rings apart).
-    # The JAX gateway also taps every GUBC frame into its black box,
-    # which comes with blackbox.py.
+    # Per-service flight recorder + incident black box: bind this
+    # node's recorder for the handler's duration (co-resident nodes keep
+    # their rings apart), and tap every GUBC frame at the edge, both
+    # directions (bb.tap sniffs the frame magic, so JSON bodies cost one
+    # length/prefix check each way).
     tracing.bind_recorder(service.recorder)
-    return _handle_request(service, method, path, raw, headers)
+    bb = service.blackbox
+    if raw:
+        bb.tap("in", "", raw)
+    status, ctype, body = _handle_request(service, method, path, raw, headers)
+    if body:
+        bb.tap("out", "", body)
+    return status, ctype, body
 
 
 def _handle_request(service: V1Service, method: str, path: str, raw: bytes,
@@ -420,6 +429,8 @@ def _handle_request(service: V1Service, method: str, path: str, raw: bytes,
             )
         if path == "/debug/profile":
             return _debug_profile(raw)
+        if path == "/debug/incident":
+            return _debug_incident(service, raw)
         if (path == "/v1/peer.UpdateRegionColumns"
                 and service.serves_region_columns):
             # Cross-region federation receive (federation.py): GUBC
@@ -591,6 +602,43 @@ def _debug_pprof(path: str):
 _profile_state = {"thread": None, "dirs": [], "run_id": "", "log_dir": ""}
 _profile_seq = itertools.count(1)
 _profile_lock = threading.Lock()
+
+
+def _debug_incident(service, raw: bytes):
+    """POST /debug/incident [{"reason": "..."}]: operator-requested
+    incident bundle (blackbox.py) — freeze the wire rings + debug
+    surfaces into an on-disk bundle exactly as an auto-dump trigger
+    would, but exempt from the writer's rate limit.  403 when the
+    black box is disabled (GUBER_BLACKBOX=0 must not let callers
+    re-arm capture), 409 when no bundle directory is configured (the
+    rings run but there is nowhere to freeze them), 202 otherwise —
+    the write happens off-thread (evidence collection must not park a
+    gateway worker)."""
+    from . import blackbox as blackbox_mod
+
+    bb = service.blackbox
+    if not (blackbox_mod.enabled() and bb._on):  # noqa: SLF001
+        raise ApiError(
+            "InvalidArgument",
+            "incident capture requires the black box enabled "
+            "(GUBER_BLACKBOX=1)",
+            http_status=403,
+        )
+    if not bb.path:
+        return 409, "application/json", _json_bytes(
+            {
+                "code": 9,
+                "message": "no bundle directory configured "
+                           "(GUBER_BLACKBOX_DIR)",
+            }
+        )
+    body = json.loads(raw) if raw else {}
+    if not isinstance(body, dict):
+        raise ApiError("InvalidArgument", "body must be a JSON object")
+    doc = bb.trigger_manual(str(body.get("reason", "")))
+    return 202, "application/json", _json_bytes(doc)
+
+
 # Retention cap on profile dumps this daemon created: a client looping
 # POST /debug/profile must not fill the temp filesystem of a long-lived
 # daemon (each dump is a multi-MB TensorBoard trace).
@@ -755,8 +803,13 @@ def handle_request_async(service: V1Service, method: str, path: str,
     ):
         respond(*handle_request(service, method, path, raw, headers))
         return
-    # Recorder binding, the handle_request discipline.
+    # Recorder binding + black-box edge taps, the handle_request
+    # discipline: request on the submitting worker here, response in
+    # finish() where the rendered triplet exists.
     tracing.bind_recorder(service.recorder)
+    bb = service.blackbox
+    if raw:
+        bb.tap("in", "", raw)
     rpc = (
         "/pb.gubernator.V1/GetRateLimits"
         if path == "/v1/GetRateLimits"
@@ -794,6 +847,8 @@ def handle_request_async(service: V1Service, method: str, path: str,
         metrics.request_duration.labels(method=rpc).observe(dt)
         metrics.observe_latency(rpc, dt, ctx=span.ctx if span else None)
         span.end(status=status_label)
+        if triplet[2]:
+            bb.tap("out", "", triplet[2])
         respond(*triplet)
 
     try:
@@ -1073,6 +1128,7 @@ class NativeIngressPump:
     def _run(self) -> None:
         batcher = self.batcher
         tracing.bind_recorder(self.service.recorder)
+        bb = self.service.blackbox
         while not self._stopped.is_set():
             with self._ring_lock:
                 # Check-and-push under ONE lock hold: a set_peers that
@@ -1126,6 +1182,12 @@ class NativeIngressPump:
                 if batcher.stopped:
                     return
                 continue
+            # Black-box native tap, BEFORE _submit: the batch's zero-copy
+            # views die at complete()/fail(), and this is the only point
+            # where the coalesced frames' bytes can still be rebuilt
+            # (express-lane singles answered in C++ never surface here:
+            # capture slack).
+            bb.tap_taken(tb)
             self._sem.acquire()
             try:
                 args = self._submit(tb)

@@ -11,10 +11,8 @@ The port of the JAX package's metrics.py: every family and label under
 the same name (`scripts/check_metrics_parity.py`), the
 `gubernator_xla_*` families included, which here count the port's
 kernel builds and first launches (telemetry.py).  Device memory is the
-CUDA caching allocator's, sampled per scrape.  Families of planes the
-port has no node for yet (the black box, federation) stay at their
-zero values.  This is the only module of the
-port that imports prometheus_client.
+CUDA caching allocator's, sampled per scrape.  This is the only module of
+the port that imports prometheus_client.
 """
 
 from __future__ import annotations
@@ -958,9 +956,7 @@ class Metrics:
     def observe_blackbox(self, service) -> None:
         """Refresh the incident-black-box families from the service's
         BlackBox (collect-on-scrape: the tap itself never touches
-        prometheus — one branch + ring append per frame).  The port's
-        service has no black box yet: the families keep their zero
-        values."""
+        prometheus — one branch + ring append per frame)."""
         bb = getattr(service, "blackbox", None)
         if bb is None:
             return

@@ -53,9 +53,8 @@ rendezvous, so the port has no such lock.
 Small batches of a CPU store take the express scalar slot when
 `scalar_fast_path` is on (ops/scalar.py, as ShardStore).
 
-Not ported yet: `measure_sync_cost_s`, `load_item`, `warmup`,
-`occupancy_stats` and resharding (`drain_keys`, `forget_keys`,
-`resident_*`).
+`measure_sync_cost_s` times K4 alone, back to back, on a store with no
+live GLOBAL key (a benchmark utility, as in the JAX store).
 """
 
 from __future__ import annotations
@@ -754,6 +753,68 @@ class MeshBucketStore(ColumnarPipeline):
             elif req is not None:
                 rows = self._read_rows(np.array([[o], [slot]], np.int32))
                 self.store.on_change(req, _rows_to_items([k], rows)[0])
+
+    # ------------------------------------------------------------------
+    def measure_sync_cost_s(self, now_ms: int, iters: int = 6) -> float:
+        """BENCHMARK UTILITY: device-only steady-state cost (seconds) of
+        ONE GLOBAL sync kernel (K4) on this store.  Applies the
+        calibration request (`__synccal__`), resolves the owner slots
+        and runs one full sync (the warm launch, with its readback and
+        host commit), then launches K4 `iters` times back to back and
+        ends with one small readback.  Only the launches are timed: the
+        host legs of `sync_globals` (resolution, decode, commit) are
+        not, as the JAX store times only its sync program.
+
+        Do NOT call on a store serving GLOBAL traffic: the timed raw
+        syncs drain device-side hit accumulations without the host
+        commit/broadcast legs (the serving tuner instead times its real
+        sync passes in situ, service.GlobalManager).  Refuses
+        (RuntimeError) if the store tracks GLOBAL keys beyond its own
+        calibration key, once before any work and again under the store
+        lock after the pipeline drains, so a key registered by a racing
+        serving thread cannot slip past.  The store lock stands for the
+        JAX store's `_SYNC_COLLECTIVE_LOCK`: it serialises every launch
+        on this store's state."""
+        req = RateLimitRequest(
+            name="__synccal__", unique_key="__synccal__", hits=1,
+            limit=1_000_000, duration=60_000, behavior=Behavior.GLOBAL,
+        )
+        cal_key = req.hash_key()
+
+        def _guard():
+            live = [
+                k
+                for k in (self.gtable.key_of(g) for g in self.gtable.active_gslots())
+                if k is not None and k != cal_key
+            ]
+            if live:
+                raise RuntimeError(
+                    "measure_sync_cost_s would drain device-side GLOBAL hit "
+                    "accumulations without the host commit/broadcast legs; "
+                    f"refusing with {len(live)} live GLOBAL key(s), e.g. {live[:3]}"
+                )
+
+        _guard()  # fast fail before any device work
+        self.apply([req], now_ms)
+        self._drain_then_lock()
+        try:
+            _guard()  # authoritative: under the lock, pipeline drained
+            prep = self._prepare_sync(now_ms)  # owner slots, resolved once
+            cfg, dirty = self._stage_sync(prep)
+            # The warm launch is the full sync: its readback and commit
+            # are what the JAX store's first sync does (only the
+            # calibration key can be active, so its host legs lose
+            # nothing).
+            self._finish_sync(prep, _readback(self._launch_sync(cfg, dirty, now_ms))())
+            dirty = self._upload(self.dirty)
+            hot, cold, gcols = self.state.hot, self.state.cold, self.gcols
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                packed = global_ops.global_sync(hot, cold, gcols, cfg, dirty, now_ms)
+            packed[:1, :1, :1].cpu()  # one small blocking readback
+            return (time.perf_counter() - t0) / iters
+        finally:
+            self._unlock_drained()
 
     # ------------------------------------------------------------------
     def apply_columns(

@@ -27,12 +27,12 @@ The PyTorch port's copy of the JAX package's peer_client.py.  The
 request bytes on both transports are the JAX client's
 (tests/test_torch_peer_client.py).  `grpc` and the generated pb
 modules are imported at the first gRPC call, not with the module: a
-node that speaks HTTP to its peers needs neither.  The `blackbox=` tap
-stays None until the incident black box (blackbox.py) is ported; no
-caller passes one.  `update_region_columns` takes a batch with the
+node that speaks HTTP to its peers needs neither.  The service hands
+every client its incident black box (`blackbox=`, blackbox.py), which
+taps each peer frame sent and received.  `update_region_columns` takes a batch with the
 federation plane's RegionBatch surface (`frame`, `columns_pb`,
-`classic_pb_chunks`, `classic_json_chunks`, `total_hits`); the port's
-sender of it comes with federation.py.
+`classic_pb_chunks`, `classic_json_chunks`, `total_hits`), as
+federation.py's sender builds it.
 """
 
 from __future__ import annotations

@@ -51,10 +51,13 @@ and the native ingress pump's hook.  `metrics` is the config's
 
 MULTI_REGION lanes queue their hits toward the other regions
 (`multi_region_mgr`, federation.py) and `update_region_columns` applies
-another region's batch through the columnar peer receive.  Not here
-yet: the incident black box (blackbox.py).  A
+another region's batch through the columnar peer receive.  The
+incident black box (blackbox.py) taps every peer client's frames and
+writes bundles on the flight recorder's dump triggers.  A
 service never given a ring owns every key, where a JAX service answers
-"unable to pick a peer; pool is empty".  Responses are the JAX
+"unable to pick a peer; pool is empty"; once `set_peers` has run, an
+empty ring answers that as JAX's does (the replay's service, fed
+`set_peers([])`, gives JAX's bytes).  Responses are the JAX
 V1Service's (tests/test_torch_service.py, tests/test_torch_batchers.py,
 tests/test_torch_gateway.py, tests/test_torch_cluster.py).
 """
@@ -72,6 +75,7 @@ from typing import TYPE_CHECKING, Callable, Dict, List, Optional, Sequence
 import numpy as np
 
 from . import audit as audit_mod
+from . import blackbox as blackbox_mod
 from . import profiling
 from . import saturation
 from . import snapshot as snapshot_mod
@@ -233,8 +237,9 @@ class ServiceConfig:
     # A faults.FaultPlan handed to every PeerClient this service creates
     # (None: the clients honor the process-wide faults.install() plan).
     fault_plan: object = None
-    # The incident black box's bundle directory (blackbox.py, not
-    # ported yet): any value but "" raises.
+    # Incident black box (blackbox.py): directory incident bundles are
+    # written to ("" = rings still run, no bundles).  Env:
+    # GUBER_BLACKBOX_DIR.
     blackbox_dir: str = ""
 
 
@@ -1061,10 +1066,6 @@ class ColumnarBatcher:
 
 class V1Service:
     def __init__(self, conf: ServiceConfig):
-        if conf.blackbox_dir:
-            raise NotImplementedError(
-                "ServiceConfig.blackbox_dir needs the incident black box "
-                "(blackbox.py), which comes with slice A6")
         from .metrics import Metrics
 
         self.conf = conf
@@ -1095,6 +1096,9 @@ class V1Service:
         self.local_picker = ReplicatedConsistentHash()
         self.region_picker = RegionPicker()
         self._peer_mutex = threading.RLock()
+        # True until the first set_peers: only a service never given a
+        # ring owns every key; a ring set empty answers "pool is empty".
+        self._ringless = True
         self.ring_generation = 0
         self.ring_hash = 0
         self._prev_picker: Optional[ReplicatedConsistentHash] = None
@@ -1104,6 +1108,19 @@ class V1Service:
         # Per-service flight recorder: threads this service owns bind it.
         self.recorder = tracing.Recorder(
             name=conf.advertise_address or f"service-{id(self):x}")
+        # Incident black box (blackbox.py): the per-wire traffic rings
+        # and the triggered bundle writer.  Hooked into BOTH this
+        # service's recorder and the process-default recorder: events
+        # recorded by unbound threads still trigger bundles.
+        self.blackbox = blackbox_mod.BlackBox(
+            self,
+            path=conf.blackbox_dir or "",
+            budget_mb=conf.behaviors.blackbox_mb,
+            retain=conf.behaviors.blackbox_retain,
+            enabled=conf.behaviors.blackbox,
+        )
+        self.recorder.dump_hooks.append(self.blackbox.on_trigger)
+        tracing.default_recorder().dump_hooks.append(self.blackbox.on_trigger)
         # Native service loop attachments (gateway.NativeIngressPump and
         # NativeGatewayServer register themselves; set_peers pushes the
         # ring to the pump).
@@ -1252,6 +1269,7 @@ class V1Service:
         regional = [p for p in peer_infos if p.data_center and p.data_center != self.conf.data_center]
 
         with self._peer_mutex:
+            self._ringless = False
             old_clients = {
                 c.info.grpc_address: c
                 for c in list(self.local_picker.peers()) + list(self.region_picker.peers())
@@ -1268,6 +1286,7 @@ class V1Service:
                         channel_credentials=self.conf.peer_channel_credentials,
                         metrics=self.metrics,
                         faults=self.conf.fault_plan,
+                        blackbox=self.blackbox,
                     )
                 client.info = info
                 new_local.add(info.grpc_address, client)
@@ -1281,6 +1300,7 @@ class V1Service:
                         channel_credentials=self.conf.peer_channel_credentials,
                         metrics=self.metrics,
                         faults=self.conf.fault_plan,
+                        blackbox=self.blackbox,
                     )
                 client.info = info
                 new_region.add(client)
@@ -1394,9 +1414,12 @@ class V1Service:
             resp = self._route([cols.request_at(i) for i in range(n)])
             result.overrides = dict(enumerate(resp.responses))
             return result
-        return self._finalize_columns(self._submit_columns(cols, result), result)
+        plan = self._submit_columns(cols, result)
+        if plan is None:
+            return result
+        return self._finalize_columns(plan, result)
 
-    def _submit_columns(self, cols, result) -> "_ColumnsPlan":
+    def _submit_columns(self, cols, result) -> "Optional[_ColumnsPlan]":
         """Phase 1 of the columnar route: validation, ownership, and
         EVERY dispatch/forward submission — no blocking on device rounds
         or peer RPCs.  Returns the plan _finalize_columns (sync) or
@@ -1455,13 +1478,24 @@ class V1Service:
             pp = self._handoff_prev_picker()  # handoff window: old ring
             psize = self.local_picker.size()
             # A service never given a ring owns every key.
-            single_owner = psize == 0
+            single_owner = psize == 0 and self._ringless
             if psize == 1 and pp is None:
                 # The single-self shortcut is disabled during a handoff
                 # window: a just-scaled-in ring still owes moved lanes
                 # the double-dispatch peek at their old owner.
                 (only,) = self.local_picker.peers()
                 single_owner = only.info.is_owner
+            if psize == 0 and not single_owner:
+                # A ring set empty: every valid lane answers JAX's error.
+                for i in range(n):
+                    if i not in result.overrides:
+                        result.overrides[i] = RateLimitResponse(
+                            error=(
+                                f"while finding peer that owns rate limit "
+                                f"'{hash_keys[i]}' - 'unable to pick a peer; pool is empty'"
+                            )
+                        )
+                return None
             grouped_mask = np.zeros(n, dtype=bool)
             if not single_owner and psize >= 1:
                 # Vectorized ownership: one batch hash + searchsorted,
@@ -1850,7 +1884,7 @@ class V1Service:
         peeks: Dict[int, Future] = {}  # handoff double-dispatch legs
         with self._peer_mutex:
             # A service never given a ring owns every key.
-            alone = self.local_picker.size() == 0
+            alone = self.local_picker.size() == 0 and self._ringless
 
         for i, r in enumerate(requests):
             # Validation (gubernator.go:142-152; note the reference's
@@ -2333,6 +2367,9 @@ class V1Service:
         except Exception as e:  # noqa: BLE001 — handed to the callback
             callback(None, e)
             return
+        if plan is None:
+            callback(result, None)
+            return
         _ColumnsJoin(self, plan, result, callback).start()
 
     def _try_single_async(self, cols: IngressColumns, callback) -> bool:
@@ -2349,6 +2386,8 @@ class V1Service:
             # given one), or a ring of this node alone.  Other rings
             # take the sync router, which forwards.
             if self.local_picker.size() > 1:
+                return False
+            if self.local_picker.size() == 0 and not self._ringless:
                 return False
             if self.local_picker.size() == 1:
                 (only,) = self.local_picker.peers()
@@ -2657,7 +2696,7 @@ class V1Service:
                     breaker_open += 1
             self._health.status = UNHEALTHY if errs else HEALTHY
             self._health.message = "|".join(errs)
-            self._health.peer_count = self.local_picker.size() or 1
+            self._health.peer_count = self.local_picker.size() or int(self._ringless)
             self._health.breaker_open_count = breaker_open
             return HealthCheckResponse(
                 status=self._health.status,
@@ -2679,8 +2718,8 @@ class V1Service:
         queue, pipeline depth, SLO burn, express lane, hot keys, tenants,
         profiler, ring and resharding counters, audit, device telemetry
         snapshots and the federation plane's `region` section.
-        Host-side state only: no launch.  The JAX document's `blackbox`
-        section waits for its module."""
+        Host-side state only: no launch.  The `blackbox` section is
+        what scripts/cluster_status.py's blackbox column reads."""
         from . import __version__
 
         hc = self.health_check()
@@ -2760,6 +2799,9 @@ class V1Service:
                 "steadyRecompiles": telemetry.steady_recompile_count(),
             },
             "snapshot": self.snapshots.snapshot(),
+            # Incident black box: ring fill, bundle counts, last-trigger
+            # age.
+            "blackbox": self.blackbox.snapshot(),
             # The federation plane: this node's data center, the
             # accumulator and carry, and each other region's peers and
             # open breakers.
@@ -2807,6 +2849,14 @@ class V1Service:
         self.store._drain_all()
         self.snapshots.stop()
         self.snapshots.save_now("close")
+        # The black box after the final snapshot (still capturable
+        # evidence); the default recorder's hook goes first, or a closed
+        # service would write bundles on other nodes' triggers.
+        try:
+            tracing.default_recorder().dump_hooks.remove(self.blackbox.on_trigger)
+        except ValueError:
+            pass
+        self.blackbox.close()
         if self.conf.loader is not None:
             self.conf.loader.save(self.store.snapshot_items())
         for peer in self.get_peer_list() + list(self.region_picker.peers()):

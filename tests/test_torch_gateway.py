@@ -355,9 +355,9 @@ def test_region_columns_route_falls_through_alike():
 
 
 def test_routes_the_port_does_not_serve_yet(nodes):
-    """The documented difference: no incident bundle.  GET /metrics is
-    served since the daemon slice, with JAX's content type and
-    families."""
+    """No route is left unserved: GET /metrics carries JAX's content type
+    and families, and POST /debug/incident (the black box) answers a
+    node without a bundle directory as a JAX node does (409)."""
     js, ts, _ = nodes
     a = jgw.handle_request(js, "GET", "/metrics", b"")
     b = tgw.handle_request(ts, "GET", "/metrics", b"")
@@ -368,8 +368,10 @@ def test_routes_the_port_does_not_serve_yet(nodes):
                 if line.startswith("# TYPE ") and not line.split()[2].endswith("_created")}
 
     assert families(b[2]) == families(a[2])
-    assert tgw.handle_request(ts, "POST", "/debug/incident", b"{}") == (
-        404, "application/json", b'{"code": 5, "message": "no handler for /debug/incident"}')
+    a = jgw.handle_request(js, "POST", "/debug/incident", b"{}")
+    b = tgw.handle_request(ts, "POST", "/debug/incident", b"{}")
+    assert (a[0], a[1], bytes(a[2])) == (b[0], b[1], bytes(b[2]))
+    assert b[0] == 409
 
 
 def test_debug_routes_have_the_same_keys(nodes):
@@ -383,9 +385,10 @@ def test_debug_routes_have_the_same_keys(nodes):
         assert a[0] == b[0] == 200 and a[1] == b[1], path
         ka, kb = set(json.loads(a[2])), set(json.loads(b[2]))
         if path == "/debug/status":
-            assert ka - kb == {"blackbox"} and not kb - ka
+            assert ka == kb
             sa, sb = json.loads(a[2]), json.loads(b[2])
-            for sec in ("health", "occupancy", "ring", "audit", "express", "xla", "region"):
+            for sec in ("health", "occupancy", "ring", "audit", "express", "xla", "region",
+                        "blackbox"):
                 assert set(sa[sec]) == set(sb[sec]), sec
             assert sb["peers"] == sa["peers"]
             assert sb["ring"]["hash"] == sa["ring"]["hash"]

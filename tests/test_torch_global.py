@@ -548,3 +548,43 @@ def test_global_state_carry_over_from_a_jax_store():
         st.apply(random_requests(rng, 20, 10), now, home_shard=(step * 3) % S)
         now += 300
     st.sync(now)
+
+
+def test_measure_sync_cost_and_autotune():
+    """tests/test_global.py's twin: measure_sync_cost_s returns the cost
+    of one sync kernel and leaves the JAX store's bytes; the
+    GlobalManager sizes its window from its in-situ sync timings (<= 10%
+    overhead, clamped) once GLOBAL traffic is observed."""
+    from gubernator_tpu_torch.service import GlobalManager, ServiceConfig, V1Service
+    from gubernator_tpu_torch.types import GetRateLimitsRequest, PeerInfo
+    from gubernator_tpu_torch.utils.clock import Clock
+
+    st = Pair(256, 64)
+    assert 0 < st.t.measure_sync_cost_s(T0, iters=2) < 60.0
+    st.j.measure_sync_cost_s(T0, iters=2)
+    st.check()
+
+    store = st.t
+    clock = Clock()
+    clock.freeze(T0)
+    svc = V1Service(ServiceConfig(store=store, clock=clock, advertise_address="127.0.0.1:9991"))
+    svc.set_peers([PeerInfo(grpc_address="127.0.0.1:9991", is_owner=True)])
+    try:
+        mgr = svc.global_mgr
+        assert mgr._auto and mgr.sync_wait_s == GlobalManager.SYNC_WAIT_FALLBACK_S
+        mgr._interval.stop()  # drive ticks by hand
+        svc.get_rate_limits(GetRateLimitsRequest(requests=[mk("tune", hits=1, limit=10)]))
+        mgr._tick()
+        assert mgr.measured_sync_cost_s is not None
+        expected = GlobalManager.window_for_cost(mgr.measured_sync_cost_s)
+        assert mgr.sync_wait_s == pytest.approx(expected)
+        assert mgr._interval.duration_s == pytest.approx(expected)
+        assert mgr._auto
+        before = mgr.sync_wait_s
+        mgr._observe_sync_cost(10.0)
+        assert mgr.sync_wait_s == pytest.approx(before)
+        for _ in range(GlobalManager.SYNC_COST_SAMPLES):
+            mgr._observe_sync_cost(10.0)
+        assert mgr.sync_wait_s == GlobalManager.SYNC_WAIT_MAX_S
+    finally:
+        svc.close()

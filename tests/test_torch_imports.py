@@ -57,8 +57,8 @@ def test_global_plane_modules_are_covered():
     wire, gateway) and the daemon's (metrics, tls, grpc_server, peers,
     daemon, client, the cmd binaries) and the peers slice's (faults,
     peer_client, cluster) and the federation and discovery slice's
-    (federation, gossip, etcd_pool, k8s_pool, the etcd pb modules) are
-    among those the two checks above import with JAX absent and scan for
+    (federation, gossip, etcd_pool, k8s_pool, the etcd pb modules) and
+    the incident black box (blackbox) are among those the two checks above import with JAX absent and scan for
     imports."""
     mods = set(_modules())
     for m in ("ops.global_ops", "parallel.global_mgr", "utils.interval",
@@ -71,7 +71,8 @@ def test_global_plane_modules_are_covered():
               "metrics", "tls", "grpc_server", "peers", "daemon", "client",
               "cmd", "cmd.server", "cmd.cli", "cmd.cluster_main",
               "faults", "peer_client", "cluster", "federation", "gossip",
-              "etcd_pool", "k8s_pool", "proto.etcd_kv_pb2", "proto.etcd_rpc_pb2"):
+              "etcd_pool", "k8s_pool", "proto.etcd_kv_pb2", "proto.etcd_rpc_pb2",
+              "blackbox"):
         assert f"gubernator_tpu_torch.{m}" in mods, m
 
 
@@ -138,6 +139,34 @@ def test_no_jax_or_reference_imports_in_sources():
         roots = set(_imported_roots(f))
         assert "jax" not in roots and "jaxlib" not in roots, f
         assert "gubernator_tpu" not in roots, f
+
+
+def test_blackbox_and_port_scripts_load_without_jax():
+    """blackbox.py and every scripts/torch_*.py load (their mains not
+    run) with JAX absent, and neither JAX nor the JAX package is in
+    sys.modules afterwards."""
+    scripts = os.path.join(ROOT, "scripts")
+    names = sorted(n for n in os.listdir(scripts) if n.startswith("torch_") and n.endswith(".py"))
+    assert {"torch_replay.py", "torch_blackbox_fsck.py", "torch_incident_collect.py",
+            "torch_snapshot_fsck.py", "torch_soak.py", "torch_long_soak.py",
+            "torch_check_metrics_parity.py"} <= set(names)
+    code = (
+        "import sys, importlib.util, os\n"
+        "sys.modules['jax'] = None\n"
+        "import gubernator_tpu_torch.blackbox\n"
+        f"for n in {names!r}:\n"
+        f"    spec = importlib.util.spec_from_file_location(n[:-3], os.path.join({scripts!r}, n))\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+        "bad = [k for k, v in sys.modules.items() if v is not None\n"
+        "       and k.split('.')[0] in ('jax', 'jaxlib', 'gubernator_tpu')]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
 
 
 def test_store_without_device_raises_without_a_gpu():

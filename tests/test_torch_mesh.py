@@ -182,3 +182,62 @@ def test_global_lanes_are_rejected():
         with pytest.raises(ValueError, match=msg):
             store.apply_columns(["a", "b"], np.zeros(2), np.full(2, 2), np.ones(2),
                                 np.full(2, 5), np.full(2, 1000), NOW)
+
+
+def test_measure_sync_cost_refuses_live_global_traffic():
+    """tests/test_mesh.py's twin: measure_sync_cost_s refuses on a store
+    with a live GLOBAL key, with JAX's message, and measures on a fresh
+    store, leaving the JAX store's state, replica and table bytes."""
+    from gubernator_tpu.types import Behavior as JaxBehavior
+    from gubernator_tpu.types import RateLimitRequest as JaxRequest
+    from gubernator_tpu_torch.types import Behavior, RateLimitRequest
+
+    now = 1_700_000_000_000
+    msgs = []
+    for store, req, beh in ((MeshBucketStore(capacity_per_shard=64, g_capacity=16, device="cpu"),
+                             RateLimitRequest, Behavior),
+                            (JaxStore(capacity_per_shard=64, g_capacity=16),
+                             JaxRequest, JaxBehavior)):
+        store.apply([req(name="mesh", unique_key="live_global", hits=1, limit=10,
+                         duration=5000, behavior=beh.GLOBAL)], now)
+        with pytest.raises(RuntimeError, match="live GLOBAL") as ei:
+            store.measure_sync_cost_s(now + 1, iters=1)
+        msgs.append(str(ei.value))
+    assert msgs[0] == msgs[1]
+
+    t = MeshBucketStore(capacity_per_shard=64, g_capacity=16, device="cpu")
+    j = JaxStore(capacity_per_shard=64, g_capacity=16)
+    assert t.measure_sync_cost_s(now, iters=1) > 0
+    assert j.measure_sync_cost_s(now, iters=1) > 0
+    hot, cold = state_to_numpy(t.state)
+    assert np.asarray(j.state.hot).tobytes() == hot.tobytes()
+    assert np.asarray(j.state.cold).tobytes() == cold.tobytes()
+    for a, b in zip(j.gcols, t.gcols):
+        assert np.asarray(a).tobytes() == b.numpy().tobytes()
+    for f in ("owner_shard", "owner_slot", "rep_expire"):
+        assert getattr(j.gtable, f).tobytes() == getattr(t.gtable, f).tobytes(), f
+    assert j.gtable._key_to_gslot == t.gtable._key_to_gslot
+    assert j.dirty.tobytes() == t.dirty.tobytes()
+    for jt, tt in zip(j.tables, t.tables):
+        assert sorted(jt.keys()) == sorted(tt.keys())
+    # A second call re-applies the calibration key and refuses nothing.
+    assert t.measure_sync_cost_s(now + 5, iters=2) > 0
+    j.measure_sync_cost_s(now + 5, iters=2)
+    assert np.asarray(j.state.hot).tobytes() == state_to_numpy(t.state)[0].tobytes()
+
+
+def test_measure_sync_cost_launches_k4_iters_plus_one(monkeypatch):
+    """One warm launch (the full sync) and `iters` timed launches of K4."""
+    from gubernator_tpu_torch.ops import global_ops
+
+    calls = []
+    orig = global_ops.global_sync
+
+    def spy(*a, **kw):
+        calls.append(1)
+        return orig(*a, **kw)
+
+    store = MeshBucketStore(capacity_per_shard=64, g_capacity=16, device="cpu")
+    monkeypatch.setattr(global_ops, "global_sync", spy)
+    store.measure_sync_cost_s(1_700_000_000_000, iters=6)
+    assert len(calls) == 7

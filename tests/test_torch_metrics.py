@@ -238,8 +238,13 @@ def test_service_metrics_and_later_slices():
         assert isinstance(svc.metrics, tmetrics.Metrics)
     finally:
         svc.close()
-    with pytest.raises(NotImplementedError, match="A6"):
-        TService(TConfig(cache_size=64, device="cpu", blackbox_dir="/nonexistent"))
+    # A bundle directory no longer stops the service (it is made at the
+    # first bundle).
+    svc = TService(TConfig(cache_size=64, device="cpu", blackbox_dir="/nonexistent"))
+    try:
+        assert svc.blackbox.path == "/nonexistent"
+    finally:
+        svc.close()
     # The fault plan and the peer credentials reach every peer client.
     from gubernator_tpu_torch import faults as tfaults
     from gubernator_tpu_torch.types import PeerInfo as TPeer
