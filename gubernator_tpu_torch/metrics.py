@@ -311,9 +311,17 @@ class Metrics:
         self.latency_attribution = Histogram(
             "gubernator_latency_attribution_seconds",
             "Per-phase latency attribution across the request "
-            "waterfall (ingress parse -> batch-window wait -> queue "
-            "wait -> dispatch prepare/stage/launch/fetch/commit -> "
-            "peer-wire RTT -> response encode).  Always-on; the same "
+            "waterfall (ingress parse -> service.admit -> batch-window "
+            "wait -> request.flush (queue wait = queue.backstop + "
+            "queue.concat -> prepare.plan_lock_wait -> dispatch "
+            "prepare (its prepare.planner, prepare.table_lock_wait) "
+            "-> stage/launch) -> request.answer (dispatch fetch/commit, "
+            "commit.table_lock_wait) -> peer-wire RTT -> response "
+            "encode).  "
+            "service.admit, batch.window, request.flush and "
+            "request.answer are per request and follow one another "
+            "(batch.window starts at the submit inside service.admit); "
+            "the rest per flush or per launch.  Always-on; the same "
             "observations back GET /debug/latency's percentile "
             "snapshots.",
             ["phase"],

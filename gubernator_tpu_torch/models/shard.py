@@ -807,7 +807,9 @@ class ColumnarPipeline:
 
     # -- observability -------------------------------------------------
     def _observe_stage(self, stage: str, dt: float) -> None:
-        saturation.observe_phase(f"dispatch.{stage}", dt)
+        # The five dispatch stages are phases dispatch.<stage>; a part
+        # of one (prepare.planner, ...) is a phase of its own name.
+        saturation.observe_phase(stage if "." in stage else f"dispatch.{stage}", dt)
         with self._stats_lock:
             st = self._stage_stats.setdefault(stage, [0, 0.0, 0.0])
             st[0] += 1
@@ -837,7 +839,12 @@ class ColumnarPipeline:
 
     def take_pipeline_stats(self):
         """Drain the per-stage aggregates since the last call:
-        ({stage: (count, total_s, max_s)}, depth, depth high-water mark)."""
+        ({stage: (count, total_s, max_s)}, depth, depth high-water mark).
+        The stages are the five dispatch stages and parts of them:
+        `prepare.plan_lock_wait` (the acquire of `_plan_lock`, inside
+        `prepare`) and, on a mesh store, each plan's C++ timings
+        (`prepare.planner`, `prepare.table_lock_wait` and
+        `commit.table_lock_wait`)."""
         with self._stats_lock:
             out = {k: tuple(v) for k, v in self._stage_stats.items()}
             self._stage_stats.clear()
@@ -860,18 +867,26 @@ class ColumnarPipeline:
         # The express slot is decided before the plan, which it pins to
         # the wide decode.
         use_scalar = force_wire is None and self._scalar_eligible(cols)
-        with self._plan_lock, profiling.scope("dispatch.prepare"):
-            prep = self._prepare_columns(keys, cols, now_ms,
-                                         "wide" if use_scalar else force_wire)
-            handle = ColumnsHandle(self, prep.commit, cols.limit, cols.hits)
-            handle._trace = bt
-            handle.ticket = self._next_ticket
-            self._next_ticket += 1
-            self._inflight.append(handle)
-            with self._stats_lock:
-                self._depth_hwm = max(self._depth_hwm, len(self._inflight))
+        with profiling.scope("prepare.plan_lock_wait"):
+            t_lock = time.perf_counter()
+            self._plan_lock.acquire()
+            lock_wait = time.perf_counter() - t_lock
+        try:
+            with profiling.scope("dispatch.prepare"):
+                prep = self._prepare_columns(keys, cols, now_ms,
+                                             "wide" if use_scalar else force_wire)
+                handle = ColumnsHandle(self, prep.commit, cols.limit, cols.hits)
+                handle._trace = bt
+                handle.ticket = self._next_ticket
+                self._next_ticket += 1
+                self._inflight.append(handle)
+                with self._stats_lock:
+                    self._depth_hwm = max(self._depth_hwm, len(self._inflight))
+        finally:
+            self._plan_lock.release()
         dt = time.perf_counter() - t0
         self._observe_stage("prepare", dt)
+        self._observe_stage("prepare.plan_lock_wait", lock_wait)
         tracing.stage_span("prepare", dt, bt, ticket=handle.ticket, lanes=len(keys))
         saturation.lane_util.add(len(keys), self._padded_lanes(prep))
         try:

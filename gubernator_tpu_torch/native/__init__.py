@@ -110,6 +110,7 @@ def _load() -> ctypes.CDLL:
     lib.gt_mesh_finish_narrow.argtypes = [p, p, c.c_int64, p, p, p]
     lib.gt_mesh_finish_wide.argtypes = [p, p, p, p, p]
     lib.gt_mesh_free.argtypes = [p]
+    lib.gt_mesh_times.argtypes = [p, p]
     lib.gt_json_parse.restype = p
     lib.gt_json_parse.argtypes = [c.c_char_p, c.c_int64]
     lib.gt_json_n.restype = c.c_int64
@@ -561,6 +562,14 @@ class NativeMeshPlanner:
         n_rounds = mp.plan_grouped(cols, reset_mask, P)
         ... kernel launch ...
         status, remaining, reset = mp.finish_narrow(packed_np, now_ms)
+
+    Each plan times itself (`times()`, gt_mesh_times): the seconds
+    inside gt_mesh_begin (hashing and bucketing every key) and
+    gt_mesh_plan_grouped (each shard's plan) with the waits for a
+    shard's table lock left out, and those waits in plan and in finish
+    (a finish of batch N holds a shard's lock while batch N+1 plans).
+    A lock is tried first and the clock read only when it is held
+    elsewhere, so an uncontended lock adds nothing.
     """
 
     __slots__ = ("_lib", "_tables", "_ptr", "n", "counts", "padded",
@@ -636,6 +645,13 @@ class NativeMeshPlanner:
             status.ctypes.data, remaining.ctypes.data, reset.ctypes.data,
         )
         return status[: self.n], remaining[: self.n], reset[: self.n]
+
+    def times(self):
+        """(planner, plan's table-lock waits, finish's table-lock waits)
+        of this plan so far, in s."""
+        out = np.zeros(3, dtype=np.int64)
+        self._lib.gt_mesh_times(self._ptr, out.ctypes.data)
+        return tuple(v / 1e9 for v in out.tolist())
 
 
 # ---------------------------------------------------------------------

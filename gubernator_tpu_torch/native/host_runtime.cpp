@@ -26,6 +26,7 @@
 // the FIFO drain); this mutex only makes each call atomic.
 
 #include <algorithm>
+#include <chrono>
 #include <cstdint>
 #include <cstring>
 #include <mutex>
@@ -1035,7 +1036,27 @@ struct MeshPlan {
   std::vector<void*> batches;                // per-shard Batch* (plan phase)
   std::vector<std::vector<int32_t>> pslot;   // per-shard planned slots [m]
   std::vector<std::vector<int64_t>> pre_exp; // plan-time expiry snapshot [m]
+  // This plan's own timings, read by gt_mesh_times, in ns: its time
+  // inside gt_mesh_begin and gt_mesh_plan_grouped less the table-lock
+  // waits, and its waits for a shard's table lock in plan and in finish.
+  int64_t plan_ns = 0, plan_wait_ns = 0, finish_wait_ns = 0;
 };
+
+inline int64_t now_ns() {
+  return std::chrono::duration_cast<std::chrono::nanoseconds>(
+             std::chrono::steady_clock::now().time_since_epoch())
+      .count();
+}
+
+// Takes a table's mutex (the caller adopts it).  The clock is read only
+// when the lock is held elsewhere, so an uncontended lock costs one
+// try_lock: returns the nanoseconds waited, 0 uncontended.
+inline int64_t lock_table(Table* t) {
+  if (t->mu.try_lock()) return 0;
+  int64_t t0 = now_ns();
+  t->mu.lock();
+  return now_ns() - t0;
+}
 
 }  // namespace
 
@@ -1047,6 +1068,7 @@ extern "C" {
 void* gt_mesh_begin(void** tables, int64_t S, const char* keys,
                     const int64_t* offsets, int64_t n, int64_t now_ms,
                     int64_t* counts) {
+  int64_t t0 = now_ns();
   MeshPlan* mp = new MeshPlan();
   mp->S = S;
   mp->n = n;
@@ -1081,6 +1103,7 @@ void* gt_mesh_begin(void** tables, int64_t S, const char* keys,
     mp->soffs[s].push_back((int64_t)mp->skeys[s].size());
     mp->lanes[s].push_back((int32_t)i);
   }
+  mp->plan_ns = now_ns() - t0;
   return mp;
 }
 
@@ -1098,6 +1121,7 @@ int64_t gt_mesh_plan_grouped(void* mpv, const int32_t* algo,
                              int32_t reset_mask, int64_t P, int32_t* slot,
                              int32_t* rid, uint8_t* exists, int32_t* occ,
                              uint8_t* write, int64_t* pos) {
+  int64_t t0 = now_ns(), wait_ns = 0;
   MeshPlan* mp = (MeshPlan*)mpv;
   mp->P = P;
   int64_t n_rounds = 1;
@@ -1112,7 +1136,9 @@ int64_t gt_mesh_plan_grouped(void* mpv, const int32_t* algo,
     // concurrent older batch's finish on the same shard (the
     // overlapped-pipeline contract; the gt_batch_* calls below
     // re-enter the same recursive mutex).
-    GT_LOCK(mp->tables[s]);
+    wait_ns += lock_table(mp->tables[s]);
+    std::lock_guard<std::recursive_mutex> guard(mp->tables[s]->mu,
+                                                std::adopt_lock);
     // Gather this shard's column values into contiguous temporaries.
     a32.resize(m); b32.resize(m);
     h64.resize(m); l64.resize(m); d64.resize(m);
@@ -1151,6 +1177,8 @@ int64_t gt_mesh_plan_grouped(void* mpv, const int32_t* algo,
           (sl >= 0 && sl < t->capacity) ? t->expire_ms[sl] : 0;
     }
   }
+  mp->plan_ns += (now_ns() - t0) - wait_ns;
+  mp->plan_wait_ns += wait_ns;
   return n_rounds;
 }
 
@@ -1164,14 +1192,15 @@ void gt_mesh_finish_narrow(void* mpv, const int32_t* packed, int64_t now_ms,
                            int32_t* status, int64_t* remaining,
                            int64_t* reset_time) {
   MeshPlan* mp = (MeshPlan*)mpv;
-  int64_t P = mp->P;
+  int64_t P = mp->P, wait_ns = 0;
   std::vector<int64_t> ne;
   std::vector<uint8_t> rm;
   for (int64_t s = 0; s < mp->S; ++s) {
     int64_t m = (int64_t)mp->lanes[s].size();
     if (m == 0) continue;
     Table* t = mp->tables[s];
-    GT_LOCK(t);
+    wait_ns += lock_table(t);
+    std::lock_guard<std::recursive_mutex> guard(t->mu, std::adopt_lock);
     Batch* b = (Batch*)mp->batches[s];
     const int32_t* row0 = packed + ((s * 4) + 0) * P;
     const int32_t* row1 = packed + ((s * 4) + 1) * P;
@@ -1206,6 +1235,7 @@ void gt_mesh_finish_narrow(void* mpv, const int32_t* packed, int64_t now_ms,
     }
     gt_batch_commit_plan(b, ne.data(), rm.data());
   }
+  mp->finish_wait_ns += wait_ns;
 }
 
 // Phase 3 (wide wire): same shape over the packed i64[S, 4, P] result
@@ -1213,13 +1243,15 @@ void gt_mesh_finish_narrow(void* mpv, const int32_t* packed, int64_t now_ms,
 void gt_mesh_finish_wide(void* mpv, const int64_t* packed, int32_t* status,
                          int64_t* remaining, int64_t* reset_time) {
   MeshPlan* mp = (MeshPlan*)mpv;
-  int64_t P = mp->P;
+  int64_t P = mp->P, wait_ns = 0;
   std::vector<int64_t> ne;
   std::vector<uint8_t> rm;
   for (int64_t s = 0; s < mp->S; ++s) {
     int64_t m = (int64_t)mp->lanes[s].size();
     if (m == 0) continue;
-    GT_LOCK(mp->tables[s]);
+    wait_ns += lock_table(mp->tables[s]);
+    std::lock_guard<std::recursive_mutex> guard(mp->tables[s]->mu,
+                                                std::adopt_lock);
     Batch* b = (Batch*)mp->batches[s];
     const int64_t* row0 = packed + ((s * 4) + 0) * P;
     const int64_t* row1 = packed + ((s * 4) + 1) * P;
@@ -1237,6 +1269,7 @@ void gt_mesh_finish_wide(void* mpv, const int64_t* packed, int32_t* status,
     }
     gt_batch_commit_plan(b, ne.data(), rm.data());
   }
+  mp->finish_wait_ns += wait_ns;
 }
 
 void gt_mesh_free(void* mpv) {
@@ -1244,6 +1277,15 @@ void gt_mesh_free(void* mpv) {
   for (void* b : mp->batches)
     if (b) gt_batch_free(b);
   delete mp;
+}
+
+// The plan's timings into out[3], in ns: planner (begin + plan, table-
+// lock waits left out), the plan's table-lock waits, the finish's.
+void gt_mesh_times(void* mpv, int64_t* out) {
+  MeshPlan* mp = (MeshPlan*)mpv;
+  out[0] = mp->plan_ns;
+  out[1] = mp->plan_wait_ns;
+  out[2] = mp->finish_wait_ns;
 }
 
 }  // extern "C"

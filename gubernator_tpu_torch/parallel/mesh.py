@@ -67,7 +67,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
-from .. import native
+from .. import native, profiling
 from ..models.shard import (
     ColumnarPipeline,
     ColumnsHandle,
@@ -855,9 +855,14 @@ class MeshBucketStore(ColumnarPipeline):
         one C++ call (decode, slot-table commit, original-order
         scatter)."""
         n = len(keys)
-        mp = native.NativeMeshPlanner(self.tables, keys, now_ms)
-        padded = pad_size(max(int(mp.counts.max()) if n else 1, 1))
-        n_rounds = mp.plan_grouped(cols, int(Behavior.RESET_REMAINING), padded)
+        with profiling.scope("prepare.planner"):
+            mp = native.NativeMeshPlanner(self.tables, keys, now_ms)
+            padded = pad_size(max(int(mp.counts.max()) if n else 1, 1))
+            n_rounds = mp.plan_grouped(cols, int(Behavior.RESET_REMAINING), padded)
+        # The plan's own C++ time and its waits for a shard's table lock.
+        planner_s, table_wait_s, _ = mp.times()
+        self._observe_stage("prepare.planner", planner_s)
+        self._observe_stage("prepare.table_lock_wait", table_wait_s)
         narrow = narrow_ok(cols, now_ms) and force_wire != "wide"
 
         # The JAX store also writes each lane's algorithm into its
@@ -865,8 +870,11 @@ class MeshBucketStore(ColumnarPipeline):
         # store with one has no columnar path.
         def commit(packed_np):
             if narrow:
-                return mp.finish_narrow(packed_np, now_ms)
-            return mp.finish_wide(packed_np)
+                out = mp.finish_narrow(packed_np, now_ms)
+            else:
+                out = mp.finish_wide(packed_np)
+            self._observe_stage("commit.table_lock_wait", mp.times()[2])
+            return out
 
         return _MeshPrep(
             cols=cols, now_ms=now_ms, force_wire=force_wire,

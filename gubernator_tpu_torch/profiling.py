@@ -147,11 +147,42 @@ class _Scope:
         return False
 
 
+class _RangedScope:
+    """A scope that also opens a torch.profiler range named by its tag
+    (`torch.autograd.profiler.record_function`: a `user_annotation`
+    event of the profiler's chrome trace, on the clock of the device
+    operations it records)."""
+
+    __slots__ = ("_scope", "_range")
+
+    def __init__(self, tag: str, profiler_mod):
+        self._scope = _Scope(tag) if _ENABLED else _NOOP
+        self._range = profiler_mod.record_function(tag)
+
+    def __enter__(self):
+        self._scope.__enter__()
+        self._range.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self._range.__exit__(*exc)
+        return self._scope.__exit__(*exc)
+
+
 def scope(tag: str):
     """Phase scope for the current thread: while active, profiler
     samples of this thread attribute to `tag` (saturation.py's phase
-    taxonomy).  Disabled path is one branch returning a shared no-op —
-    the tracing/telemetry compiled-out discipline."""
+    taxonomy).  While a torch profiler runs, the scope also opens a
+    profiler range of that name, so a trace holds the program's own
+    stages beside the device's operations.  The check is torch's
+    process-wide flag of a running profiler, which does not say what it
+    records: a profiler of the device's operations alone opens ranges it
+    does not keep, and one of the host's keeps only the threads it
+    profiles.  Otherwise the disabled path is one branch returning a
+    shared no-op — the tracing/telemetry compiled-out discipline."""
+    prof = sys.modules.get("torch.autograd.profiler")
+    if prof is not None and getattr(prof, "_is_profiler_enabled", False):
+        return _RangedScope(tag, prof)
     if not _ENABLED:
         return _NOOP
     return _Scope(tag)

@@ -6,12 +6,15 @@ module aggregates the same signals ALWAYS-ON, so the operator questions
 "are we burning the error budget") have live answers without sampling:
 
 * **Latency attribution** — per-phase duration reservoirs covering the
-  whole request waterfall (`PHASES`): ingress parse -> batch-window
-  wait -> queue wait -> the five dispatch pipeline stages -> peer-wire
-  RTT -> response encode.  Each observation also feeds the
+  whole request waterfall (`PHASES`): ingress parse -> admission ->
+  batch-window wait -> the request's flush (queue wait, the five
+  dispatch pipeline stages) -> its answer -> peer-wire RTT -> response
+  encode.  Each observation also feeds the
   `gubernator_latency_attribution_seconds{phase}` histogram of the
   registered metrics sink; `GET /debug/latency` serves ceil-rank
-  percentile snapshots straight from the reservoirs.
+  percentile snapshots straight from the reservoirs (the last
+  PHASE_RING samples), and `phase_quantile` reads a log-bucket
+  histogram of every observation since the last reset().
 
 * **SLO engine** — `SloEngine` turns per-request ingress latency into
   multi-window (5m / 1h) error-budget burn rates against
@@ -76,33 +79,76 @@ def percentile(sorted_vals: Sequence[float], q: float) -> float:
 # ---------------------------------------------------------------------
 
 # The request waterfall, in flight order.  Snapshots list phases in
-# this order so a /debug/latency reader sees the pipeline shape.
+# this order so a /debug/latency reader sees the pipeline shape.  The
+# per-request legs of an async columnar request (get_rate_limits_
+# columns_async) are service.admit, batch.window, request.flush and
+# request.answer: they follow one another, so their sum is the
+# request's time in the service, but for service.admit's last step
+# (batch.window starts at the batcher submit, inside it).  The
+# per-flush phases in between say what its flush did.
 PHASES = (
     "ingress.parse",     # wire bytes -> IngressColumns (gateway)
+    "service.admit",     # per request, the caller's thread inside
+                         # _submit_columns: validation, routing, the
+                         # tenant and audit folds, the hot-key sketch,
+                         # the ingress gate, the batcher submit (lanes
+                         # counted beside it)
     "batch.window",      # submit -> coalescing-window flush (batchers)
     "express.submit",    # express bypass: submit -> dispatch staged
                          # (replaces batch.window + queue.wait for
                          # express lanes — the express-vs-batched split)
-    "queue.wait",        # flush -> dispatch submit (backstop + concat)
+    "request.flush",     # per request: its flush's start (where
+                         # batch.window ends) -> its future holds the
+                         # launch's handle
+    "queue.wait",        # per flush chunk: start -> dispatch submit;
+                         # not a queue's wait, but queue.backstop plus
+                         # queue.concat
+    "queue.backstop",    # the flush thread's wait on its oldest launch
+                         # once MAX_INFLIGHT are unresolved (a readback
+                         # and commit on the flush thread)
+    "queue.concat",      # the chunk's keys and columns concatenated
+    "prepare.plan_lock_wait",  # the acquire of the store's _plan_lock
     "dispatch.prepare",  # slot-table planning (pipeline stage 1)
+    "prepare.planner",   # per plan of a mesh store, inside
+                         # dispatch.prepare: the C++ planner's own time
+                         # (gt_mesh_begin + gt_mesh_plan_grouped), its
+                         # table-lock waits left out
+    "prepare.table_lock_wait",  # that plan's waits for a shard's table
+                         # lock (an older batch's finish holds it)
     "dispatch.stage",    # wire pack + H2D upload start (stage 2)
     "dispatch.launch",   # ticket-ordered jit call (stage 3)
     "dispatch.fetch",    # device->host readback
     "dispatch.commit",   # decode + table commit
+    "commit.table_lock_wait",  # inside dispatch.commit on a mesh store:
+                         # the finish's waits for a shard's table lock
+                         # (the next batch's plan holds it)
+    "request.answer",    # per request: the handle handed to it -> its
+                         # callback called (drainer wake, readback,
+                         # commit in order, the merge)
     "peer.rpc",          # forwarded-hop round trip (peer_client)
     "response.encode",   # ColumnarResult -> wire bytes (gateway)
     "ingress.total",     # whole-request wall time (GetRateLimits)
 )
 
 PHASE_RING = 2048  # recent samples kept per phase
+# Each phase also counts every observation since the last reset() in
+# fixed log-spaced buckets: bucket i holds [HIST_LO * HIST_STEP**i,
+# HIST_LO * HIST_STEP**(i + 1)) s, 100 ns to about 3 hours in steps of
+# 2%, so a quantile read from it is within 1% of an observation.
+HIST_LO = 1e-7
+HIST_STEP = 1.02
+HIST_BUCKETS = 1280
+_HIST_SCALE = 1.0 / math.log(HIST_STEP)
 
 
 class _PhaseStats:
     """One phase's reservoir: a ring of recent durations plus lifetime
-    count/sum.  A small lock per observation — observations happen per
-    BATCH or per REQUEST, not per lane, so contention is negligible."""
+    count/sum, a log-bucket histogram of every duration and the lanes
+    the observations carried.  A small lock per observation —
+    observations happen per BATCH or per REQUEST, not per lane, so
+    contention is negligible."""
 
-    __slots__ = ("_buf", "_lock", "count", "sum_s", "max_s")
+    __slots__ = ("_buf", "_lock", "count", "sum_s", "max_s", "lanes", "_hist")
 
     def __init__(self):
         self._buf: List[float] = []
@@ -110,17 +156,37 @@ class _PhaseStats:
         self.count = 0
         self.sum_s = 0.0
         self.max_s = 0.0
+        self.lanes = 0
+        self._hist = [0] * HIST_BUCKETS
 
-    def observe(self, dt_s: float) -> None:
+    def observe(self, dt_s: float, lanes: int = 0) -> None:
+        b = (min(int(math.log(dt_s / HIST_LO) * _HIST_SCALE), HIST_BUCKETS - 1)
+             if dt_s > HIST_LO else 0)
         with self._lock:
             self.count += 1
             self.sum_s += dt_s
+            self.lanes += lanes
+            self._hist[b] += 1
             if dt_s > self.max_s:
                 self.max_s = dt_s
             if len(self._buf) >= PHASE_RING:
                 self._buf[self.count % PHASE_RING] = dt_s
             else:
                 self._buf.append(dt_s)
+
+    def quantile(self, q: float) -> Optional[float]:
+        """The nearest-rank q-quantile of every observation, from the
+        histogram: the geometric middle of its bucket."""
+        with self._lock:
+            if not self.count:
+                return None
+            rank = percentile_rank(self.count, q) + 1
+            seen = 0
+            for b, c in enumerate(self._hist):
+                seen += c
+                if seen >= rank:
+                    return HIST_LO * HIST_STEP ** (b + 0.5)
+        return None
 
     def snapshot(self) -> Optional[dict]:
         with self._lock:
@@ -155,14 +221,14 @@ def register_sink(histogram) -> None:
         _sink = [histogram, {}]
 
 
-def observe_phase(phase: str, dt_s: float) -> None:
-    """Record one completed phase interval.  Called from the hot path
-    (per batch / per request): one lock, one ring write, one histogram
-    observe."""
+def observe_phase(phase: str, dt_s: float, lanes: int = 0) -> None:
+    """Record one completed phase interval, and the lanes it carried.
+    Called from the hot path (per batch / per request): one lock, one
+    ring write, one bucket count, one histogram observe."""
     st = _phases.get(phase)
     if st is None:  # unknown phase: record rather than drop
         st = _phases.setdefault(phase, _PhaseStats())
-    st.observe(dt_s)
+    st.observe(dt_s, lanes)
     sink = _sink
     if sink is not None:
         child = sink[1].get(phase)
@@ -172,6 +238,24 @@ def observe_phase(phase: str, dt_s: float) -> None:
             except Exception:  # noqa: BLE001 — a dead registry must not fail requests
                 return
         child.observe(dt_s)
+
+
+def phase_quantile(phase: str, q: float) -> Optional[float]:
+    """The q-quantile (0..1, nearest rank) in s of every observation of
+    `phase` since the last reset(), within 1% (the 2% buckets); None
+    before the first."""
+    st = _phases.get(phase)
+    return None if st is None else st.quantile(q)
+
+
+def phase_totals(phase: str) -> Optional[Tuple[int, float, int]]:
+    """(observations, their seconds, the lanes they carried) of `phase`
+    since the last reset(); None before the first."""
+    st = _phases.get(phase)
+    if st is None:
+        return None
+    with st._lock:
+        return (st.count, st.sum_s, st.lanes) if st.count else None
 
 
 def phase_snapshot() -> Dict[str, dict]:

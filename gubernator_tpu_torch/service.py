@@ -733,6 +733,9 @@ class _ColumnsJoin:
         self._group_res: dict = {}  # addr -> resps | Exception
         self._slow_resps: "Optional[list]" = None
         self._peek_res: list = []  # (lanes, payload | None)
+        # When a launch's handle was last handed to this request: the
+        # start of its request.answer phase.
+        self._handed_t: Optional[float] = None
 
     def start(self) -> None:
         svc, plan = self.svc, self.plan
@@ -763,6 +766,7 @@ class _ColumnsJoin:
                 )
             else:
                 handle, lo, hi = pending
+                self._handed_t = time.monotonic()
                 drainer.register(
                     handle, partial(self._on_out, fast_idx, slice(lo, hi))
                 )
@@ -786,6 +790,7 @@ class _ColumnsJoin:
         except Exception as e:  # noqa: BLE001
             self._on_out(fast_idx, None, None, e)
             return
+        self._handed_t = time.monotonic()
         drainer.register(handle, partial(self._on_out, fast_idx, slice(lo, hi)))
 
     def _on_out(self, fast_idx, sl, out, exc) -> None:
@@ -860,6 +865,8 @@ class _ColumnsJoin:
                 self.svc.tenants.fold_outcome(plan.tenant_ctx, result)
             except Exception as e:  # noqa: BLE001
                 result, err = None, e
+        if self._handed_t is not None:
+            saturation.observe_phase("request.answer", time.monotonic() - self._handed_t)
         self.callback(result if err is None else None, err)
 
 
@@ -949,62 +956,73 @@ class ColumnarBatcher:
         return fut
 
     def _flush(self, batch) -> None:
-        lanes = sum(len(item[0][0]) for item in batch)
-        self._gate.release(lanes)
-        saturation.note_express("windowed", lanes)
-        t_flush = time.monotonic()
-        for item, fut in batch:
-            st = getattr(fut, "_submit_t", None)
-            if st is not None:
-                saturation.observe_phase("batch.window", t_flush - st)
-                # Queue-residency pool: this submission's lanes waited
-                # out the window; tenants take proportional shares.
-                profiling.note_queue_wait(len(item[0]), t_flush - st)
-        # The window admits the submission that crosses the lane limit,
-        # so one flush can overshoot MAX_LANES by a submission: re-chunk.
-        chunk, lanes = [], 0
-        for item in batch:
-            n = len(item[0][0])
-            if chunk and lanes + n > self.MAX_LANES:
-                self._flush_chunk(chunk)
-                chunk, lanes = [], 0
-            chunk.append(item)
-            lanes += n
-        if chunk:
-            self._flush_chunk(chunk)
-        saturation.dispatcher_busy.add(time.monotonic() - t_flush)
+        with profiling.scope("batcher.flush"):
+            lanes = sum(len(item[0][0]) for item in batch)
+            self._gate.release(lanes)
+            saturation.note_express("windowed", lanes)
+            t_flush = time.monotonic()
+            for item, fut in batch:
+                st = getattr(fut, "_submit_t", None)
+                if st is not None:
+                    saturation.observe_phase("batch.window", t_flush - st)
+                    # Queue-residency pool: this submission's lanes waited
+                    # out the window; tenants take proportional shares.
+                    profiling.note_queue_wait(len(item[0]), t_flush - st)
+            # The window admits the submission that crosses the lane limit,
+            # so one flush can overshoot MAX_LANES by a submission: re-chunk.
+            chunk, lanes = [], 0
+            for item in batch:
+                n = len(item[0][0])
+                if chunk and lanes + n > self.MAX_LANES:
+                    self._flush_chunk(chunk, t_flush)
+                    chunk, lanes = [], 0
+                chunk.append(item)
+                lanes += n
+            if chunk:
+                self._flush_chunk(chunk, t_flush)
+            saturation.dispatcher_busy.add(time.monotonic() - t_flush)
 
-    def _flush_chunk(self, batch) -> None:
+    def _flush_chunk(self, batch, t_flush: float) -> None:
+        """Launch one chunk of a flush and hand each submission its
+        slice of the handle; `t_flush` is the flush's start, where each
+        submission's request.flush phase begins."""
         t_chunk = time.monotonic()
         try:
             # Backstop: wait on the oldest unresolved launch only when
             # the pipeline is pathologically deep.
-            oldest = None
-            with self._inflight_lock:
-                while self._own_inflight and self._own_inflight[0].done:
-                    self._own_inflight.popleft()
-                if len(self._own_inflight) >= self.MAX_INFLIGHT:
-                    oldest = self._own_inflight.popleft()
-            if oldest is not None:
-                oldest.result()
-            if len(batch) == 1:
-                (cols, _fut), = batch
-                keys, arrays = cols[0], cols[1:]
-            else:
-                from .native import PackedKeys
-
-                if all(isinstance(c[0], PackedKeys) for c, _ in batch):
-                    # Packed keys coalesce without per-lane strings.
-                    keys = PackedKeys.concat([c[0] for c, _ in batch])
+            with profiling.scope("queue.backstop"):
+                oldest = None
+                with self._inflight_lock:
+                    while self._own_inflight and self._own_inflight[0].done:
+                        self._own_inflight.popleft()
+                    if len(self._own_inflight) >= self.MAX_INFLIGHT:
+                        oldest = self._own_inflight.popleft()
+                if oldest is not None:
+                    oldest.result()
+            t_concat = time.monotonic()
+            with profiling.scope("queue.concat"):
+                if len(batch) == 1:
+                    (cols, _fut), = batch
+                    keys, arrays = cols[0], cols[1:]
                 else:
-                    keys = []
-                    for c, _ in batch:
-                        keys.extend(c[0])
-                arrays = tuple(np.concatenate([c[i] for c, _ in batch]) for i in range(1, 8))
+                    from .native import PackedKeys
+
+                    if all(isinstance(c[0], PackedKeys) for c, _ in batch):
+                        # Packed keys coalesce without per-lane strings.
+                        keys = PackedKeys.concat([c[0] for c, _ in batch])
+                    else:
+                        keys = []
+                        for c, _ in batch:
+                            keys.extend(c[0])
+                    arrays = tuple(np.concatenate([c[i] for c, _ in batch])
+                                   for i in range(1, 8))
             algo, beh, hits, limit, duration, ge, gd = arrays
-            # queue.wait: flush start -> launch submit (the backstop wait
-            # plus the concatenation).
-            saturation.observe_phase("queue.wait", time.monotonic() - t_chunk)
+            # queue.wait: chunk start -> launch submit, the backstop wait
+            # plus the concatenation.
+            t_submit = time.monotonic()
+            saturation.observe_phase("queue.backstop", t_concat - t_chunk)
+            saturation.observe_phase("queue.concat", t_submit - t_concat)
+            saturation.observe_phase("queue.wait", t_submit - t_chunk)
             bt = self._batch_trace(batch)
             if bt is not None:
                 tracing.stage_batch_trace(bt)
@@ -1023,6 +1041,7 @@ class ColumnarBatcher:
             for c, fut in batch:
                 hi = lo + len(c[0])
                 if not fut.done():
+                    saturation.observe_phase("request.flush", time.monotonic() - t_flush)
                     fut.set_result((handle, lo, hi))
                 lo = hi
         except Exception as e:  # noqa: BLE001 — every waiter gets the error
@@ -2363,7 +2382,11 @@ class V1Service:
                 fut = self._slow_pool.submit(self.get_rate_limits_columns, cols)
                 _attach_done(fut, partial(_deliver_future, callback))
                 return
-            plan = self._submit_columns(cols, result)
+            with profiling.scope("service.admit"):
+                t_admit = time.monotonic()
+                plan = self._submit_columns(cols, result)
+                admit_s = time.monotonic() - t_admit
+            saturation.observe_phase("service.admit", admit_s, lanes=n)
         except Exception as e:  # noqa: BLE001 — handed to the callback
             callback(None, e)
             return

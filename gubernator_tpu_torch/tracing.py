@@ -53,9 +53,6 @@ logger = category_logger("tracing")
 # degrades to a single comparison and the wire carries no trace bytes
 # (the GUBER_TRACE_SAMPLE=0 wire-parity contract).
 _SAMPLE: float = 0.0
-# Bench-only "compiled out" switch: the overhead gate compares the
-# sample-rate-0 guards against this fully-disabled baseline.
-_FORCE_DISABLED: bool = False
 
 def _env_ring(default: int = 4096) -> int:
     """GUBER_TRACE_RING, warn-and-default on garbage — module import
@@ -116,16 +113,9 @@ def sample_rate() -> float:
     return _SAMPLE
 
 
-def force_disable(flag: bool) -> None:
-    """Bench hook: behave as if the module did not exist (the
-    'tracing-compiled-out' baseline of the overhead gate)."""
-    global _FORCE_DISABLED
-    _FORCE_DISABLED = bool(flag)
-
-
 def enabled() -> bool:
-    """One branch — THE hot-path guard every layer uses."""
-    return _SAMPLE > 0.0 and not _FORCE_DISABLED
+    """One compare — THE hot-path guard every layer uses."""
+    return _SAMPLE > 0.0
 
 
 def sampled() -> bool:
