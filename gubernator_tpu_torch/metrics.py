@@ -373,7 +373,7 @@ class Metrics:
         self.lane_utilization = Gauge(
             "gubernator_lane_utilization",
             "Per-launch lane utilization since the previous scrape: "
-            "stat=lanes (real), stat=padded (pow2-padded shape "
+            "stat=lanes (real), stat=padded (the padded shape "
             "scattered), stat=ratio (fill fraction), stat=launches.  "
             "Cleared per scrape.",
             ["stat"],
@@ -749,6 +749,8 @@ class Metrics:
         self.dispatch_inflight_hwm.set(hwm)
         self.dispatch_stage_seconds.clear()
         for stage, (count, total_s, max_s) in stats.items():
+            if stage.startswith("wire."):
+                continue  # lanes and bytes, not seconds
             lab = self.dispatch_stage_seconds.labels
             lab(stage=stage, stat="count").set(count)
             lab(stage=stage, stat="sum").set(total_s)

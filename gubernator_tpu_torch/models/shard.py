@@ -51,23 +51,24 @@ from ..reshard import TransferColumns, merge_transfer_rows
 from ..utils import gregorian
 from .slot_table import SlotTable
 
-# Batches pad to a small set of bucket sizes (64, 256, 1024, then powers
-# of two), as the JAX package does, so both stores plan identical
-# padded shapes.
+# Batches of up to 1,024 lanes a shard pad to 64, 256 or 1,024 lanes, as
+# the JAX package does, so small batches share a shape and fuse.  Larger
+# ones pad to the next multiple of 256 lanes, where the JAX package
+# doubles to keep its compiled programs few: the port's kernels take
+# any P and compile nothing per shape, and every padding lane costs the
+# dict wire 12 bytes up and the narrow result 16 bytes down.
 _PAD_MIN = 64
 _PAD_COARSE_MAX = 1024
-_PAD_MAX = 1 << 20
+_PAD_STEP = 256
 
 
 def pad_size(n: int) -> int:
     p = _PAD_MIN
     while p < n and p < _PAD_COARSE_MAX:
         p <<= 2
-    while p < n and p < _PAD_MAX:
-        p <<= 1
     if n <= p:
         return p
-    return ((n + _PAD_MAX - 1) // _PAD_MAX) * _PAD_MAX
+    return -(-n // _PAD_STEP) * _PAD_STEP
 
 
 @dataclass
@@ -816,6 +817,17 @@ class ColumnarPipeline:
             st[1] += dt
             st[2] = max(st[2], dt)
 
+    def _tally(self, *counts: Tuple[str, int]) -> None:
+        """Counts beside the stage timings (`wire.*`: lanes or bytes),
+        each kept as (times, sum, max) and drained by take_pipeline_stats
+        together; not seconds, so they feed no phase."""
+        with self._stats_lock:
+            for name, value in counts:
+                st = self._stage_stats.setdefault(name, [0, 0, 0])
+                st[0] += 1
+                st[1] += value
+                st[2] = max(st[2], value)
+
     def pipeline_depth(self) -> int:
         """Batches dispatched but not yet resolved."""
         return len(self._inflight)
@@ -844,7 +856,12 @@ class ColumnarPipeline:
         `prepare.plan_lock_wait` (the acquire of `_plan_lock`, inside
         `prepare`) and, on a mesh store, each plan's C++ timings
         (`prepare.planner`, `prepare.table_lock_wait` and
-        `commit.table_lock_wait`)."""
+        `commit.table_lock_wait`).  Beside them, counts of each batch
+        that launches a kernel, (batches, sum, max): `wire.lanes` (live
+        lanes), `wire.slots` (the lane slots shipped, shards x padded
+        lanes) and `wire.up_bytes` (the wire's tensors); and of each
+        readback, `wire.down_bytes` (a fused group's shared readback
+        counts once)."""
         with self._stats_lock:
             out = {k: tuple(v) for k, v in self._stage_stats.items()}
             self._stage_stats.clear()
@@ -896,6 +913,10 @@ class ColumnarPipeline:
             dt = time.perf_counter() - t1
             self._observe_stage("stage", dt)
             tracing.stage_span("stage", dt, bt)
+            if staged.scalar is None:
+                up = sum(a.nbytes for a in staged.args if isinstance(a, torch.Tensor))
+                self._tally(("wire.lanes", len(keys)),
+                            ("wire.slots", self._padded_lanes(prep)), ("wire.up_bytes", up))
         except BaseException as e:
             self._abort_launch_turn(handle, e)
             raise
@@ -1015,10 +1036,13 @@ class ColumnarPipeline:
         with telemetry.program(self._program_label(group)):
             if len(group) == 1:
                 staged, h = group[0]
-                h._launch_ok(_readback(staged.launch(self.state)))
+                out = staged.launch(self.state)
+                self._tally(("wire.down_bytes", out.nbytes))
+                h._launch_ok(_readback(out))
                 return
             stacked = self._fused_launch_fn(len(group), group[0][0].wide)(
                 self.state, [s for s, _ in group])
+        self._tally(("wire.down_bytes", stacked.nbytes))
         shared = _SharedFetch(_readback(stacked))
         for i, (_, h) in enumerate(group):
             h._launch_ok(lambda i=i: shared.get(i))

@@ -29,7 +29,7 @@ module aggregates the same signals ALWAYS-ON, so the operator questions
   hot-key defense.
 
 * **Saturation accumulators** — per-launch lane utilization (fill vs
-  pow2 pad), dispatcher busy fraction, and ingress-queue depth
+  the padded shape), dispatcher busy fraction, and ingress-queue depth
   samples, drained per metrics scrape like the dispatch-stage gauges.
 
 Reservoirs/accumulators are MODULE-GLOBAL, like the tracing flight
@@ -273,7 +273,7 @@ def phase_snapshot() -> Dict[str, dict]:
 # Saturation accumulators (drained per metrics scrape)
 # ---------------------------------------------------------------------
 class LaneUtil:
-    """Per-launch lane utilization: real lanes vs the pow2-padded shape
+    """Per-launch lane utilization: real lanes vs the padded shape
     the program actually scattered.  take() drains the deltas since the
     last scrape (the dispatch-stage gauge convention)."""
 

@@ -167,9 +167,11 @@ def test_jax_service_answers_over_port_stores(form):
             assert stats.get("launch", (0,))[0] == launched["groups"]
             stats["launch"] = (launched["batches"],)
         # The port also times its plan-lock acquire and counts its C++
-        # planner (take_pipeline_stats); the JAX store has neither.
+        # planner and its wire's lanes and bytes (take_pipeline_stats);
+        # the JAX store has none of them.
         port_only = {"prepare.plan_lock_wait", "prepare.planner",
-                     "prepare.table_lock_wait", "commit.table_lock_wait"}
+                     "prepare.table_lock_wait", "commit.table_lock_wait",
+                     "wire.lanes", "wire.slots", "wire.up_bytes", "wire.down_bytes"}
         assert set(tstats) - set(jstats) <= port_only
         assert ({k: v[0] for k, v in tstats.items() if k not in port_only}
                 == {k: v[0] for k, v in jstats.items()})
