@@ -59,6 +59,13 @@ class Sent:
     lanes: Optional[np.ndarray] = None  # its key ids, filled in for the check
 
 
+def behavior_field(p: dict) -> str:
+    """A JSON lane's `behavior` as an HTTP caller writes it, by its name;
+    nothing for BATCHING (0)."""
+    names = traffic_mod.behavior_names(p)
+    return ',"behavior":"%s"' % names[0] if names else ""
+
+
 class Requests:
     """Each request as the service takes it, a new object for every send.
     Entry "columns": an IngressColumns whose key strings are made once,
@@ -76,10 +83,11 @@ class Requests:
         self.entry = p["entry"]
         if self.entry == "json":
             lane = ('{"name":"%s","unique_key":"%%d","hits":%d,"limit":%d,"duration":%d,'
-                    '"algorithm":"%s"}' % (self.name, int(p["hits"]), int(p["limit"]),
-                                           int(p["duration_ms"]),
-                                           {"token": "TOKEN_BUCKET",
-                                            "leaky": "LEAKY_BUCKET"}[p["algorithm"]]))
+                    '"algorithm":"%s"%s}' % (self.name, int(p["hits"]), int(p["limit"]),
+                                             int(p["duration_ms"]),
+                                             {"token": "TOKEN_BUCKET",
+                                              "leaky": "LEAKY_BUCKET"}[p["algorithm"]],
+                                             behavior_field(p)))
             self._bodies = [[('{"requests":[%s]}' % ",".join(lane % i for i in ids.tolist()))
                              .encode() for ids in s] for s in traffic.scripts]
         else:
@@ -504,10 +512,7 @@ def run_cell(cell: dict, config: dict, mix: dict, seed: int, seconds: float, tra
         if not flows.wait_answered(lead, DRAIN_S * 5):
             raise RuntimeError("the lead requests did not finish")
         t_led = time.perf_counter()
-        # The window opens here.
         store = svc.store
-        store.take_pipeline_stats()
-        launches0, epochs0 = launches(), flows.epochs
         from gubernator_tpu_torch import saturation
 
         saturation.reset()  # the window's own queue.wait samples
@@ -529,6 +534,9 @@ def run_cell(cell: dict, config: dict, mix: dict, seed: int, seconds: float, tra
                 t_mark = time.perf_counter()
             flows.spans = spans
             unannotate = annotate_layers(svc, spans)
+        # The window opens here: the counts start with it.
+        store.take_pipeline_stats()
+        launches0, epochs0 = launches(), flows.epochs
         cpu0 = host_cpu()
         t0 = time.perf_counter()
         setup_s = t0 - t_start
@@ -536,12 +544,13 @@ def run_cell(cell: dict, config: dict, mix: dict, seed: int, seconds: float, tra
             f"{t0 - t_led:.3f} s; set-up {setup_s:.3f} s")
         time.sleep(max(0.0, t0 + seconds - time.perf_counter()))
         t1 = time.perf_counter()
-        if prof is not None:
-            prof.stop()
-        cpu1 = host_cpu()
+        # The counts end with the window, before the profiler's stop.
         stages, _, _ = store.take_pipeline_stats()
         launches1, epochs1 = launches(), flows.epochs
         qw = queue_wait_samples()
+        if prof is not None:
+            prof.stop()
+        cpu1 = host_cpu()
         gcs = [st["collections"] - c for st, c in zip(gc.get_stats(), gc0)]
         if trace and prof is not None:
             flows.spans = None

@@ -24,6 +24,9 @@ Parameters (all required unless marked):
   ids, the rest uniform over all of them
 - `name`: the rate limit's name on every lane
 - `algorithm`: "token" or "leaky"; `limit`, `duration_ms`, `hits`
+- `behavior` (optional): a list of at most one upstream Behavior name,
+  set on every lane as its `behavior` bits; absent or empty, 0
+  (BATCHING).  Only the names of BEHAVIORS, those a cell sends
 - `fill_lanes`: lanes of one set-up fill request
 - `lead_requests`: requests per flow, on average, answered before the
   window opens
@@ -47,6 +50,9 @@ import numpy as np
 from portbench import reference
 
 TOKEN, LEAKY = 0, 1
+# The Behavior bits (gubernator.proto) a mix may set: those a cell sends.
+# GLOBAL and MULTI_REGION need peers, which a one-node run has not.
+BEHAVIORS = {"NO_BATCHING": 1}
 DAY_MS = 86_400_000
 SEED_SALT = 0x5EED
 
@@ -84,10 +90,27 @@ class Traffic:
         return self.now_ms + (index // int(p["epoch_requests"]) + 1) * int(p["epoch_ms"])
 
 
+def behavior_names(p: dict) -> List[str]:
+    """The mix's `behavior` names: at most one, from BEHAVIORS."""
+    names = p.get("behavior") or []
+    if not isinstance(names, list) or len(names) > 1:
+        raise ValueError(f"traffic parameter 'behavior' is a list of one name, not {names!r}")
+    if names and names[0] not in BEHAVIORS:
+        raise ValueError(f"traffic parameter 'behavior': {names[0]!r} not among "
+                         f"{sorted(BEHAVIORS)}")
+    return names
+
+
+def behavior_bits(p: dict) -> int:
+    names = behavior_names(p)
+    return BEHAVIORS[names[0]] if names else 0
+
+
 def columns(p: dict, n: int) -> dict:
     """Per-lane request columns of an `n`-lane request of mix `p`."""
     algo = {"token": TOKEN, "leaky": LEAKY}[p["algorithm"]]
-    return dict(algorithm=np.full(n, algo, np.int32), behavior=np.zeros(n, np.int32),
+    return dict(algorithm=np.full(n, algo, np.int32),
+                behavior=np.full(n, behavior_bits(p), np.int32),
                 hits=np.full(n, int(p["hits"]), np.int64),
                 limit=np.full(n, int(p["limit"]), np.int64),
                 duration=np.full(n, int(p["duration_ms"]), np.int64))
